@@ -20,18 +20,10 @@ import dataclasses
 
 import torch
 
-from repro_torch.kernels import bsr_matmul, chain
 from repro_torch.launch import roofline as _roofline
 
 # ties go to the fewest-launch structured path
 _ORDER = {"fused": 0, "bsr": 2, "dense": 3}
-# each structured backend's own kernel batch tile (dense has none)
-_TILE = {"fused": chain.DEFAULT_BT, "bsr": bsr_matmul.DEFAULT_BT}
-
-
-def _tile(backend: str, bt: int | None) -> int | None:
-    return bt if bt is not None else _TILE.get(backend)
-
 
 def _dtype_name(dtype: torch.dtype) -> str:
     return str(dtype).removeprefix("torch.")
@@ -52,7 +44,6 @@ class DispatchReport:
     est_us: dict  # backend -> modeled µs (feasible backends only)
     reason: str
     roofline: str = ""
-    bt: int | None = None  # the kernel batch tile the chosen backend runs at
     weight_bytes: int = 0
 
     def as_row(self) -> dict:
@@ -67,7 +58,6 @@ class DispatchReport:
             "est_us": {k: round(v, 3) for k, v in self.est_us.items()},
             "reason": self.reason,
             "roofline": self.roofline,
-            "bt": self.bt,
             "weight_bytes": self.weight_bytes,
         }
 
@@ -96,7 +86,6 @@ def choose_backend(
     n_factors: int = 1,
     feasible: tuple[str, ...] = ("dense", "bsr", "fused"),
     requested: str = "auto",
-    bt: int | None = None,
     device: str = "",
 ) -> DispatchReport:
     """Pick the cheapest feasible backend under the roofline model (a pure
@@ -142,7 +131,6 @@ def choose_backend(
         est_us=est,
         reason=reason,
         roofline=source,
-        bt=_tile(backend, bt),
         weight_bytes=w_stream,
     )
 
@@ -153,7 +141,6 @@ def dispatch(
     dtype: torch.dtype,
     requested: str = "auto",
     *,
-    bt: int | None = None,
     device: str = "",
     record: bool = True,
 ) -> DispatchReport:
@@ -170,14 +157,12 @@ def dispatch(
         n_factors=op.n_factors,
         feasible=op.feasible_backends(),
         requested=requested,
-        bt=bt,
         device=device,
     )
     if requested != "auto":
         report = dataclasses.replace(
             report,
             backend=requested,
-            bt=_tile(requested, bt),
             reason=f"forced by caller (cost model would pick {report.backend}: {report.reason})",
         )
     return _record(report) if record else report

@@ -162,7 +162,6 @@ class FaustOp:
         backend: str = "auto",
         *,
         use_kernel: bool | None = None,
-        bt: int | None = None,
         device=None,
     ) -> torch.Tensor:
         """``y = x @ todense()`` for ``x (..., shape[0])`` on ``device``
@@ -192,12 +191,10 @@ class FaustOp:
                 f"backend {backend!r} is not feasible for this operator "
                 f"(feasible: {self.feasible_backends()})"
             )
-        report = _dispatch.dispatch(
-            self, batch_of(x), x.dtype, requested=backend, bt=bt, device=str(dev)
-        )
-        return self._run_backend(x, report.backend, use_kernel, report.bt)
+        report = _dispatch.dispatch(self, batch_of(x), x.dtype, requested=backend, device=str(dev))
+        return self._run_backend(x, report.backend, use_kernel)
 
-    def _run_backend(self, x, backend, use_kernel, bt) -> torch.Tensor:
+    def _run_backend(self, x, backend, use_kernel) -> torch.Tensor:
         from repro_torch.kernels.ops import blockfaust_apply, blockfaust_apply_t, packed_chain_apply
 
         rep = self.rep
@@ -213,11 +210,11 @@ class FaustOp:
                     y = y @ s.to(x.dtype)
             return rep.lam.to(y.dtype) * y
         if backend == "fused":
-            return packed_chain_apply(x, self._packed, use_kernel=use_kernel, bt=bt)
+            return packed_chain_apply(x, self._packed, use_kernel=use_kernel)
         bf = unpack_chain(rep) if isinstance(rep, PackedChain) else rep
         if self.adjoint:
             return blockfaust_apply_t(x, bf)
-        return blockfaust_apply(x, bf, use_kernel=use_kernel, bt=bt)
+        return blockfaust_apply(x, bf, use_kernel=use_kernel)
 
     @functools.cached_property
     def _packed(self) -> PackedChain:
@@ -233,13 +230,13 @@ class FaustOp:
             return ("dense", "bsr", "fused")
         return ("dense", "bsr")
 
-    def dispatch_for(self, batch: int, dtype=torch.float32, *, bt: int | None = None):
+    def dispatch_for(self, batch: int, dtype=torch.float32):
         """The decision ``apply(backend="auto")`` would make at ``batch``,
         without applying and without touching ``last_report``."""
         from repro_torch.api import dispatch as _dispatch
 
         return _dispatch.dispatch(
-            self, batch, dtype, requested="auto", bt=bt, device=str(self.device), record=False
+            self, batch, dtype, requested="auto", device=str(self.device), record=False
         )
 
     # -- conversions -------------------------------------------------------------

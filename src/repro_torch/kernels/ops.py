@@ -23,9 +23,7 @@ import torch
 
 from repro_torch.core.compress import BlockFaust, BlockSparseFactor, ChainPlan, PackedChain
 from repro_torch.kernels import ref as _ref
-from repro_torch.kernels.bsr_matmul import DEFAULT_BT as BSR_BT
 from repro_torch.kernels.bsr_matmul import bsr_matmul
-from repro_torch.kernels.chain import DEFAULT_BT as CHAIN_BT
 from repro_torch.kernels.chain import META_COLS, chain_matmul
 
 
@@ -60,16 +58,16 @@ class _BsrKernel(torch.autograd.Function):
     gather einsums (``repro/kernels/ops.py`` ``_bsr_pallas_bwd``)."""
 
     @staticmethod
-    def forward(ctx, x, values, in_idx, bt):
+    def forward(ctx, x, values, in_idx):
         ctx.save_for_backward(x, values, in_idx)
-        return bsr_matmul(x, values, in_idx, bt=bt)
+        return bsr_matmul(x, values, in_idx)
 
     @staticmethod
     def backward(ctx, dy):
         x, values, in_idx = ctx.saved_tensors
         dx = _ref.bsr_matmul_dx(dy, values, in_idx, x.shape[-1]).to(x.dtype)
         dvalues = _ref.bsr_matmul_dvalues(x, dy, in_idx, tuple(values.shape[-2:])).to(values.dtype)
-        return dx, dvalues, None, None
+        return dx, dvalues, None
 
 
 def bsr_apply(
@@ -77,7 +75,6 @@ def bsr_apply(
     factor: BlockSparseFactor,
     *,
     use_kernel: bool | None = None,
-    bt: int = BSR_BT,
 ) -> torch.Tensor:
     """``y = x @ F`` for any leading batch dims; pads and slices features."""
     kernel = _want_kernel(x, use_kernel)
@@ -89,7 +86,7 @@ def bsr_apply(
     else:
         batch_shape = x.shape[:-1]
         x2 = x.reshape(-1, in_pad).contiguous()
-        y2 = _BsrKernel.apply(x2, values.contiguous(), factor.in_idx, bt)
+        y2 = _BsrKernel.apply(x2, values.contiguous(), factor.in_idx)
         y = y2.reshape(*batch_shape, -1)
     if y.shape[-1] != factor.out_features:
         y = y[..., : factor.out_features]
@@ -140,7 +137,6 @@ def packed_chain_apply(
     chain: PackedChain,
     *,
     use_kernel: bool | None = None,
-    bt: int = CHAIN_BT,
 ) -> torch.Tensor:
     """The whole chain in one launch on a flat-packed chain; any leading
     batch dims, features padded and sliced, λ applied.  The plain path
@@ -161,9 +157,7 @@ def packed_chain_apply(
             )
         batch_shape = x.shape[:-1]
         x2 = x.reshape(-1, in_pad).contiguous()
-        y2 = chain_matmul(
-            x2, values.contiguous(), chain_meta(plan, chain.in_idx), plan=plan, bt=bt
-        )
+        y2 = chain_matmul(x2, values.contiguous(), chain_meta(plan, chain.in_idx), plan=plan)
         y = y2.reshape(*batch_shape, -1)
     if y.shape[-1] != plan.out_features:
         y = y[..., : plan.out_features]
@@ -180,12 +174,11 @@ def blockfaust_apply(
     bfaust: BlockFaust,
     *,
     use_kernel: bool | None = None,
-    bt: int = BSR_BT,
 ) -> torch.Tensor:
     """``y = lam · x @ F_1 ··· F_J``, one single-factor apply per factor."""
     y = x
     for f in bfaust.factors:
-        y = bsr_apply(y, f, use_kernel=use_kernel, bt=bt)
+        y = bsr_apply(y, f, use_kernel=use_kernel)
     return bfaust.lam.to(y.dtype) * y
 
 

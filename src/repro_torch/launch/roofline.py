@@ -8,10 +8,10 @@ Counterpart of ``load_roofline``/``roofline_constants`` in
   bf16 peak.
 * ``t_launch_us``: per-launch overhead, measured by ``chip_smoke.py``:
   CUDA events over 1000 back-to-back launches of an empty kernel through
-  the same ctypes path the kernel wrappers use.  Two runs on an NVIDIA
-  H100 80GB HBM3 at a 700 W power limit gave 29.83 and 19.52 µs; the
-  constant is their mean.  It is host-bound (Python and ctypes call
-  time), not the card's own launch latency.
+  the same ctypes path the kernel wrappers use.  Four runs on an NVIDIA
+  H100 80GB HBM3 at a 700 W power limit read 29.83, 19.52, 13.20 and
+  11.20 µs; the constant is their median.  The spread (2.7×) is host
+  time (Python and ctypes calls), not the card's own launch latency.
 """
 from __future__ import annotations
 
@@ -19,7 +19,7 @@ _BUILTIN = {
     "peak_flops": 989e12,
     "hbm_bw": 3.35e12,
     "link_bw": 450e9,
-    "t_launch_us": 24.68,
+    "t_launch_us": 16.36,
 }
 _SOURCE = "builtin:h100-sxm-datasheet;t_launch_us=chip_smoke.py"
 

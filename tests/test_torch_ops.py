@@ -111,7 +111,7 @@ def test_bsr_grad_matches_reference_autodiff(route):
     vt = torch.tensor(values, requires_grad=True)
     it = torch.as_tensor(idx)
     if route == "function":
-        y = ops._BsrKernel.apply(xt, vt, it, 32)
+        y = ops._BsrKernel.apply(xt, vt, it)
     else:
         from repro_torch.core.compress import BlockSparseFactor
 
