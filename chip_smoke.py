@@ -11,17 +11,32 @@ Phases, each fatal on failure (non-zero exit):
 2. every CUDA kernel against its plain PyTorch version on the card: the
    fused chain (K1) on ragged chains with J ∈ {1,2,3,4}, block 16 and 128,
    and a batch that is no multiple of the tile; the single factor (K6)
-   with bk ≠ bn; f32 within 1e-5·max|y|, bf16 within 3e-2·max|y|;
+   with bk ≠ bn; the quantized chain (K4) on the same chains for int8,
+   fp8 e4m3 and fp8 e5m2 codes with per-block and per-row scales, every
+   batch tile, f32 and bf16 activations; f32 within 1e-5·max|y|, bf16
+   within 3e-2·max|y|;
 3. the main path at full width: gemma-2b's MLP up-projection
    ``W (2048, 16384)`` (d_model 2048, d_ff 16384) from a seed, factorized on
    the card into J = 3 block-sparse factors (block 128, k 4), then
    ``apply("auto" | "fused" | "bsr")`` at B = 128 and 4096, each checked
    against the plain version and against ``x @ op.todense()``; the kernel
    launch counters are zeroed before and read after, and must have risen;
-4. times (CUDA events, warm-up, then 20 launches) of each kernel, its
+4. the quantized path: that chain through ``quantize_chain`` (int8
+   per-block and per-row, fp8 e4m3, fp8 e5m2), ``weight_bytes`` against
+   the f32 chain's, ΔRE = RE(quantized) − RE(f32) against W within the
+   reference's thresholds, and ``apply("fused" | "bsr" | "dense" |
+   "auto")`` at B = 128 and 4096 in f32 and bf16, each checked against the
+   plain version and ``x @ op.todense()``; counters zeroed before, read
+   after;
+5. measured dispatch: a fresh table under ``build/``, filled by
+   ``apply(autotune=True)`` for the f32 and the int8 operator at both
+   batches; ``auto`` must then report ``source == "measured"``, pick the
+   fastest measured backend and run the fused tile the table holds;
+6. times (CUDA events, warm-up, then 20 launches) of each kernel, its
    plain version and one PyTorch call computing the same function
    (``torch.matmul`` on the materialized matrix), beside the card's bound,
-   and the cost of an empty launch.
+   the cost of an empty launch, and ``apply("auto")`` with the model
+   alone and with the table beside the forced backend it picks.
 
 Prints one JSON object per line; the last three lines are the kernels
 summary, the card's ``name, power.limit`` and ``{"ok": true, ...}``.
@@ -36,10 +51,17 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
+TABLE = ROOT / "build" / "chip_smoke_autotune.json"  # this run's own measured table
 HBM_BW = 3.35e12  # B/s, H100 SXM data sheet
 PEAK = {"float32": 67e12, "bfloat16": 989e12}  # FLOP/s: FFMA f32, dense bf16 tensor cores
 TOL = {"float32": 1e-5, "bfloat16": 3e-2}  # max|kernel − plain| / max|plain|
 DENSE_TOL = 1e-4  # vs x @ todense(): another association order of the same f32 products
+# ΔRE = RE(quantized) − RE(f32) bounds: the reference's thresholds
+# (benchmarks/quantized_re.py THRESHOLDS)
+DRE_MAX = {"int8": 8e-3, "fp8_e4m3": 1e-1, "fp8_e5m2": 1.5e-1}
+QUANTS = (("int8", "per_block"), ("int8", "per_row"), ("fp8_e4m3", "per_block"),
+          ("fp8_e5m2", "per_block"))
+AUTO_SLACK = 1.10  # a table-steered auto apply within 10 % of its forced backend
 ITERS = 20
 
 
@@ -184,6 +206,48 @@ def check_kernels(dev) -> list[dict]:
     return rows
 
 
+def check_quantized_kernel(dev) -> list[dict]:
+    """Phase 2, K4: the quantized chain kernel against its plain version on
+    the chains K1 is checked on, for every code type and scale scheme."""
+    import torch
+
+    from repro_torch.core.compress import expand_scales, pack_chain, quantize_chain
+    from repro_torch.kernels.chain import SUPPORTED_BT, chain_matmul, chain_matmul_q_plain
+    from repro_torch.kernels.ops import chain_meta
+
+    rows = []
+    dims_by_blk = {16: (40, 72, 56, 90, 33), 128: (200, 300, 260, 330, 150)}
+    for blk, dims in dims_by_blk.items():
+        for n_factors in (1, 2, 3, 4):
+            bf, g = _random_chain(dims[: n_factors + 1], blk, 3, 7 * n_factors + blk, dev)
+            pc = pack_chain(bf)
+            plan = pc.plan
+            x0 = torch.randn((37, dims[0]), generator=g)
+            x0 = torch.nn.functional.pad(x0, (0, plan.in_blocks[0] * blk - dims[0]))
+            meta = chain_meta(plan, pc.in_idx)
+            for qdtype, scheme in [(d, s) for d in DRE_MAX for s in ("per_block", "per_row")]:
+                q = quantize_chain(pc, qdtype, scheme)
+                scales = expand_scales(q.scales, blk).contiguous()
+                for dtype in (torch.float32, torch.bfloat16):
+                    dname = str(dtype).removeprefix("torch.")
+                    x = x0.to(dev, dtype)
+                    yp = chain_matmul_q_plain(x, q.values, scales, meta, plan=plan)
+                    for bt in (SUPPORTED_BT if n_factors == 3 else (16,)):
+                        yk = chain_matmul(x, q.values, meta, plan=plan, bt=bt, scales=scales)
+                        if dev.type == "cuda":
+                            torch.cuda.synchronize()
+                        err, rel = rel_err(yk, yp)
+                        row = {"phase": "kernel_check", "kernel": "chain_matmul_q", "dtype": dname,
+                               "quant": q.qscheme, "J": n_factors, "block": blk,
+                               "dims": list(dims[: n_factors + 1]), "batch": 37, "bt": bt,
+                               "max_abs_err": err, "rel_err": rel, "tol": TOL[dname]}
+                        log(row)
+                        require(yk.dtype == dtype and rel <= TOL[dname],
+                                f"chain_matmul_q disagrees with its plain version: {row}")
+                        rows.append(row)
+    return rows
+
+
 def main_path(dev, in_f: int = 2048, out_f: int = 16384, batches=(128, 4096)):
     """Phase 3: factorize → pack → apply through the user entry points."""
     import numpy as np
@@ -194,8 +258,7 @@ def main_path(dev, in_f: int = 2048, out_f: int = 16384, batches=(128, 4096)):
     from repro_torch.kernels.chain import chain_matmul
 
     w = np.random.default_rng(0).standard_normal((in_f, out_f), dtype=np.float32) / np.sqrt(in_f)
-    chain_matmul.launches = 0
-    bsr_matmul.launches = 0
+    chain_matmul.launches = chain_matmul.q_launches = bsr_matmul.launches = 0
     t0 = time.perf_counter()
     op, info = factorize(
         w, FactorizeSpec(strategy="hierarchical", n_factors=3, block=128, k_first=4, k_mid=4),
@@ -235,7 +298,108 @@ def main_path(dev, in_f: int = 2048, out_f: int = 16384, batches=(128, 4096)):
     log({"phase": "launches", **launches})
     if dev.type == "cuda":
         require(all(n > 0 for n in launches.values()), f"a kernel of the path never ran: {launches}")
-    return op, launches
+    return op, launches, w_dev
+
+
+def quantized_path(op, w_dev, batches=(128, 4096)) -> tuple[dict, dict]:
+    """Phase 4: the main path's chain quantized, served through every
+    backend; returns ({qscheme: op}, launch counts of this phase)."""
+    import torch
+
+    from repro_torch.api import FaustOp, last_report
+    from repro_torch.core.compress import quantize_chain
+    from repro_torch.kernels.bsr_matmul import bsr_matmul
+    from repro_torch.kernels.chain import chain_matmul
+
+    dev = op.device
+    m, n = op.shape
+    f32_bytes = op._packed.weight_bytes
+    re_f32 = float(op.rel_error_fro(w_dev))
+    chain_matmul.launches = chain_matmul.q_launches = bsr_matmul.launches = 0
+    qops = {}
+    g = torch.Generator().manual_seed(2)
+    xs = {b: torch.randn((b, m), generator=g).to(dev) for b in batches}
+    for qdtype, scheme in QUANTS:
+        qop = FaustOp.from_packed(quantize_chain(op._packed, qdtype, scheme), device=dev)
+        qops[qop.rep.qscheme] = qop
+        dense = qop.todense()
+        dre = float(qop.rel_error_fro(w_dev)) - re_f32
+        row = {"phase": "quantize", "qscheme": qop.rep.qscheme, "weight_bytes": qop.rep.weight_bytes,
+               "f32_weight_bytes": f32_bytes, "bytes_ratio": qop.rep.weight_bytes / f32_bytes,
+               "rel_error_fro": re_f32 + dre, "delta_re": dre, "delta_re_max": DRE_MAX[qdtype]}
+        log(row)
+        require(row["bytes_ratio"] <= 0.26, f"quantized chain is not ~4x smaller: {row}")
+        require(abs(dre) <= DRE_MAX[qdtype], f"quantization error over the threshold: {row}")
+        for b, x32 in xs.items():
+            for dtype in (torch.float32, torch.bfloat16):
+                dname = str(dtype).removeprefix("torch.")
+                x = x32.to(dtype)
+                y_dense = x.float() @ dense
+                for backend in ("fused", "bsr", "dense", "auto"):
+                    y = qop.apply(x, backend, device=dev)
+                    report = last_report()
+                    y_plain = qop.apply(x, report.backend, use_kernel=False, device=dev)
+                    err_p, rel_p = rel_err(y, y_plain)
+                    err_d, rel_d = rel_err(y, y_dense)
+                    row = {"phase": "apply_quantized", "qscheme": qop.rep.qscheme, "dtype": dname,
+                           "batch": b, "requested": backend, "report": report.as_row(),
+                           "max_abs_err_plain": err_p, "rel_err_plain": rel_p,
+                           "max_abs_err_dense": err_d, "rel_err_dense": rel_d,
+                           "finite": bool(torch.isfinite(y).all()), "shape": list(y.shape)}
+                    log(row)
+                    require(row["finite"] and tuple(y.shape) == (b, n) and y.dtype == dtype,
+                            f"bad output: {row}")
+                    require(rel_p <= TOL[dname], f"{backend} quantized apply disagrees with the plain version")
+                    require(rel_d <= (DENSE_TOL if dtype == torch.float32 else TOL[dname]),
+                            f"{backend} quantized apply disagrees with x @ todense()")
+    launches = {"chain_matmul": chain_matmul.launches, "chain_matmul_q": chain_matmul.q_launches,
+                "bsr_matmul": bsr_matmul.launches}
+    log({"phase": "launches_quantized", **launches})
+    if dev.type == "cuda":
+        require(launches["chain_matmul_q"] > 0 and launches["bsr_matmul"] > 0,
+                f"a kernel of the quantized path never ran: {launches}")
+    return qops, launches
+
+
+def measured_dispatch(ops: dict, batches=(128, 4096)) -> dict:
+    """Phase 5: fill a fresh table through ``apply(autotune=True)``; then
+    ``auto`` must follow it.  Returns {(name, batch): table entry}."""
+    import os
+
+    import torch
+
+    from repro_torch.api import autotune, dispatch, last_report
+    from repro_torch.kernels.chain import DEFAULT_BT, chain_matmul
+
+    TABLE.unlink(missing_ok=True)
+    os.environ["REPRO_TORCH_AUTOTUNE_TABLE"] = str(TABLE)
+    os.environ.pop("REPRO_AUTOTUNE", None)  # read-only: only autotune=True measures
+    autotune.reload()
+    entries = {}
+    g = torch.Generator().manual_seed(3)
+    for name, op in ops.items():
+        for b in batches:
+            x = torch.randn((b, op.shape[0]), generator=g).to(op.device)
+            op.apply(x, autotune=True, device=op.device)
+            entry = autotune.lookup(autotune.key_for_op(op, batch=b, dtype=x.dtype))
+            require(entry is not None, f"{name} B={b}: no table entry after apply(autotune=True)")
+            before = (chain_matmul.launches, chain_matmul.q_launches)
+            y = op.apply(x, device=op.device)
+            report = last_report()
+            fastest = min(entry["us"], key=lambda k: (entry["us"][k], dispatch._ORDER[k]))
+            row = {"phase": "measured_dispatch", "op": name, "batch": b, "key":
+                   autotune.key_for_op(op, batch=b, dtype=x.dtype), "entry": entry,
+                   "report": report.as_row(), "finite": bool(torch.isfinite(y).all())}
+            log(row)
+            require(report.source == "measured", f"auto did not read the table: {row}")
+            require(report.backend == fastest, f"auto did not pick the fastest measured backend: {row}")
+            # the card's entries always carry the tile sweep's winner
+            require(report.bt == entry.get("bt", DEFAULT_BT), f"auto did not take the table's fused tile: {row}")
+            if report.backend == "fused" and op.device.type == "cuda":
+                require((chain_matmul.launches, chain_matmul.q_launches) != before,
+                        f"auto picked fused but launched no chain kernel: {row}")
+            entries[(name, b)] = entry
+    return entries
 
 
 def measure(op, card_line: str) -> tuple[list[dict], float]:
@@ -319,6 +483,99 @@ def measure(op, card_line: str) -> tuple[list[dict], float]:
     return rows, t_launch_us
 
 
+def measure_quantized(qops: dict, ops: dict, card_line: str, batches=(128, 4096)) -> list[dict]:
+    """Phase 6, slice 2: K4 per code type at both batches beside its bound,
+    its plain version and ``torch.matmul`` on the dequantized dense
+    matrix; then ``apply("auto")`` on the model alone and on the table,
+    beside the forced backend the table picks."""
+    import os
+
+    import torch
+
+    from repro_torch.api import last_report
+    from repro_torch.core.compress import expand_scales
+    from repro_torch.kernels.chain import chain_matmul, chain_matmul_q_plain
+    from repro_torch.kernels.ops import chain_meta
+
+    rows = []
+    for qscheme in ("int8:per_block", "fp8_e4m3:per_block", "fp8_e5m2:per_block"):
+        qop = qops[qscheme]
+        q = qop.rep
+        dev, (m, n) = qop.device, qop.shape
+        plan, s_tot = q.plan, q.values.numel()
+        scales = expand_scales(q.scales, plan.block).contiguous()
+        meta = chain_meta(plan, q.in_idx)
+        dense = qop.todense()
+        for dtype in (torch.float32, torch.bfloat16):
+            dname = str(dtype).removeprefix("torch.")
+            elt = torch.empty((), dtype=dtype).element_size()
+            a_dense = dense.to(dtype)
+            for b in batches:
+                x = torch.randn((b, m), device=dev).to(dtype)
+                kern = lambda: chain_matmul(x, q.values, meta, plan=plan, scales=scales)  # noqa: E731
+                plain = lambda: chain_matmul_q_plain(x, q.values, scales, meta, plan=plan)  # noqa: E731
+                err, rel = rel_err(kern(), plain())
+                require(rel <= TOL[dname], f"chain_matmul_q {qscheme} {dname} B={b} disagrees with its plain version")
+                flops = 2.0 * b * s_tot
+                byts = q.values.element_size() * s_tot + 4 * scales.numel() + elt * b * (m + n)
+                t_ops, t_bytes = flops / PEAK[dname], byts / HBM_BW
+                row = {"phase": "time", "card": card_line, "kernel": "chain_matmul_q", "quant": qscheme,
+                       "dtype": dname, "batch": b, "launches_per_apply": 1, "max_abs_err": err,
+                       "rel_err": rel, "ms": time_ms(kern), "plain_ms": time_ms(plain),
+                       "library_ms": time_ms(lambda: torch.matmul(x, a_dense)),
+                       "bound_ms": max(t_ops, t_bytes) * 1e3,
+                       "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+                       "flops": flops, "bytes": byts}
+                log(row)
+                rows.append(row)
+
+    # auto: the model alone (table off) and the table, beside the forced
+    # backend the table picks (at the table's tile), in alternation
+    for name, op in ops.items():
+        for b in batches:
+            x = torch.randn((b, op.shape[0]), device=op.device)
+            os.environ["REPRO_AUTOTUNE"] = "off"
+            op.apply(x, device=op.device)
+            model = last_report()
+            model_ms = time_ms(lambda: op.apply(x, device=op.device))
+            del os.environ["REPRO_AUTOTUNE"]
+            op.apply(x, device=op.device)
+            tuned = last_report()
+            t0 = time.perf_counter()
+            for _ in range(1000):
+                op.dispatch_for(b)
+            dispatch_us = (time.perf_counter() - t0) * 1e3  # µs per table-hit decision, host
+            forced, auto = [], []
+            for _ in range(3):
+                forced.append(time_ms(lambda: op.apply(x, tuned.backend, bt=tuned.bt, device=op.device)))
+                auto.append(time_ms(lambda: op.apply(x, device=op.device)))
+            row = {"phase": "auto_time", "card": card_line, "op": name, "batch": b,
+                   "model_picks": model.backend, "model_source": model.source, "auto_model_ms": model_ms,
+                   "table_picks": tuned.backend, "table_source": tuned.source, "table_bt": tuned.bt,
+                   "auto_table_ms": sorted(auto)[1], "forced_ms": sorted(forced)[1],
+                   "auto_table_runs_ms": auto, "forced_runs_ms": forced, "dispatch_us": dispatch_us}
+            row["auto_over_forced"] = row["auto_table_ms"] / row["forced_ms"]
+            log(row)
+            require(model.source == "model" and tuned.source == "measured", f"wrong sources: {row}")
+            require(row["auto_over_forced"] <= AUTO_SLACK, f"auto is slower than its forced backend: {row}")
+            rows.append(row)
+    return rows
+
+
+def _kernel_entry(name, source, replaces, launches, cases, checks, card_line, head) -> dict:
+    first = next(r for r in cases if all(r.get(k) == v for k, v in head.items()))
+    keys = ("quant", "dtype", "batch", "launches_per_apply", "max_abs_err", "ms", "plain_ms",
+            "bound_ms", "bound_by", "library_ms")
+    return {
+        "name": name, "route": "cuda", "source": source, "replaces": replaces, "card": card_line,
+        "launches": launches, "max_abs_err": first["max_abs_err"], "ms": first["ms"],
+        "plain_ms": first["plain_ms"], "bound_ms": first["bound_ms"], "bound_by": first["bound_by"],
+        "library_ms": first["library_ms"], "headline": head,
+        "check_max_rel_err": max(c["rel_err"] for c in checks if c["kernel"] == name),
+        "cases": [{k: r[k] for k in keys if k in r} for r in cases],
+    }
+
+
 def main() -> int:
     try:
         import torch
@@ -334,32 +591,28 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     dev = torch.device("cuda", 0)
     info = setup()
-    checks = check_kernels(dev)
-    op, launches = main_path(dev)
+    checks = check_kernels(dev) + check_quantized_kernel(dev)
+    op, launches, w_dev = main_path(dev)
+    qops, qlaunches = quantized_path(op, w_dev)
+    ops = {"float32": op, "int8:per_block": qops["int8:per_block"]}
+    measured_dispatch(ops)
     rows, _ = measure(op, info["card"])
+    rows += measure_quantized(qops, ops, info["card"])
 
-    sources = {
-        "chain_matmul": ("src/repro_torch/kernels/csrc/chain_matmul.cu",
-                         "src/repro/kernels/chain.py:125"),
-        "bsr_matmul": ("src/repro_torch/kernels/csrc/bsr_matmul.cu",
-                       "src/repro/kernels/bsr_matmul.py:63"),
-    }
-    kernels = []
-    for name, (source, replaces) in sources.items():
-        cases = [r for r in rows if r["kernel"] == name]
-        head = next(r for r in cases if r["dtype"] == "float32" and r["batch"] == 128)
-        kernels.append({
-            "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "card": info["card"],
-            "launches": launches[name], "max_abs_err": head["max_abs_err"],
-            "ms": head["ms"], "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
-            "bound_by": head["bound_by"], "library_ms": head["library_ms"],
-            "headline": {"dtype": "float32", "batch": 128},
-            "check_max_rel_err": max(c["rel_err"] for c in checks if c["kernel"] == name),
-            "cases": [{k: r[k] for k in ("dtype", "batch", "launches_per_apply", "max_abs_err",
-                                         "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
-                      for r in cases],
-        })
+    src = "src/repro_torch/kernels/csrc/"
+    f32_b128 = {"dtype": "float32", "batch": 128}
+    kernels = [
+        _kernel_entry("chain_matmul", src + "chain_matmul.cu", "src/repro/kernels/chain.py:125",
+                      launches["chain_matmul"], [r for r in rows if r.get("kernel") == "chain_matmul"],
+                      checks, info["card"], f32_b128),
+        _kernel_entry("bsr_matmul", src + "bsr_matmul.cu", "src/repro/kernels/bsr_matmul.py:63",
+                      launches["bsr_matmul"], [r for r in rows if r.get("kernel") == "bsr_matmul"],
+                      checks, info["card"], f32_b128),
+        _kernel_entry("chain_matmul_q", src + "chain_matmul.cu",
+                      "src/repro/kernels/chain.py:125", qlaunches["chain_matmul_q"],
+                      [r for r in rows if r.get("kernel") == "chain_matmul_q"], checks, info["card"],
+                      {"quant": "int8:per_block", **f32_b128}),
+    ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(info["card"], flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,0 +1,283 @@
+"""Measured-timings table over the roofline dispatch model.
+Counterpart of :mod:`repro.api.autotune` (forward keys).
+
+The roofline model assumes every kernel reaches its bound; on the card the
+first fused kernel does not, and the model's pick can be the slowest
+backend.  Where the table holds real timings for a dispatch key
+
+    (shape, n_factors, s_tot, batch bucket, dtype, fwd, mesh, device[, vq])
+
+an ``auto`` apply takes the measured-fastest feasible backend
+(:func:`repro_torch.api.dispatch.dispatch`) and, for ``fused``, the batch
+tile that won the sweep over ``kernels/chain.py`` ``SUPPORTED_BT``.
+
+Modes (``REPRO_AUTOTUNE``, as the reference):
+
+* ``off`` / ``0`` — the table is never read; dispatch is the model alone;
+* unset (default) — read only: table hits steer ``auto``, nothing is
+  measured;
+* ``1`` / ``on`` / ``measure`` — an ``auto`` apply whose key is missing
+  measures every feasible backend first and records the entry
+  (``FaustOp.apply(autotune=True)`` does so whatever the mode).
+
+The table is the port's own JSON file: ``build/autotune.json`` at the
+repository root, or the path in ``REPRO_TORCH_AUTOTUNE_TABLE``.  The key's
+device is the card's name, so timings never cross cards.  A missing,
+corrupt or stale-version file reads as no table.  Measurement lets every
+error propagate: a kernel that fails to launch is never hidden behind
+another backend.
+"""
+from __future__ import annotations
+
+import functools
+import json
+import os
+import statistics
+import tempfile
+import time
+from pathlib import Path
+
+import torch
+
+TABLE_VERSION = 1
+DEFAULT_TABLE = Path(__file__).resolve().parents[3] / "build" / "autotune.json"
+N_WARMUP, N_ITER = 2, 10  # timing: warm-up calls, then the median of N_ITER
+# Seconds between checks of the file's mtime: a table written by another
+# process shows up within this time.  Every auto apply reads the table, and
+# a stat per apply is a syscall on the serving path.
+RECHECK_S = 1.0
+
+# re-entrance guard: measurement drives FaustOp.apply with forced backends
+_MEASURING = False
+# in-memory copy of the table, keyed by (path, mtime_ns); when the file was
+# last checked; and a generation that counts the copies read
+_STATE: dict = {"stamp": None, "table": None, "checked": float("-inf"), "gen": 0}
+
+
+def autotune_mode() -> str:
+    """``"off"`` | ``"readonly"`` | ``"measure"`` from ``REPRO_AUTOTUNE``."""
+    v = os.environ.get("REPRO_AUTOTUNE", "").strip().lower()
+    if v in ("0", "off", "false", "no"):
+        return "off"
+    if v in ("1", "on", "true", "yes", "measure"):
+        return "measure"
+    return "readonly"
+
+
+def table_path() -> str:
+    """Where the table lives: ``REPRO_TORCH_AUTOTUNE_TABLE`` or
+    ``build/autotune.json`` at the repository root."""
+    return os.environ.get("REPRO_TORCH_AUTOTUNE_TABLE") or str(DEFAULT_TABLE)
+
+
+def _stamp() -> tuple:
+    path = table_path()
+    try:
+        return (path, os.stat(path).st_mtime_ns)
+    except OSError:
+        return (path, None)
+
+
+def load_table() -> dict | None:
+    """The validated table ``{"version", "entries"}``, or None when the
+    file is absent, unreadable, corrupt or of another version.  The file's
+    mtime is checked at most every ``RECHECK_S`` seconds; this process's
+    own writes and :func:`reload` are seen at once."""
+    now = time.monotonic()
+    if (
+        _STATE["stamp"] is not None
+        and _STATE["stamp"][0] == table_path()
+        and now - _STATE["checked"] < RECHECK_S
+    ):
+        return _STATE["table"]
+    _STATE["checked"] = now
+    stamp = _stamp()
+    if _STATE["stamp"] == stamp:
+        return _STATE["table"]
+    table = None
+    if stamp[1] is not None:
+        try:
+            with open(stamp[0], encoding="utf-8") as f:
+                data = json.load(f)
+            if (
+                isinstance(data, dict)
+                and data.get("version") == TABLE_VERSION
+                and isinstance(data.get("entries"), dict)
+            ):
+                table = data
+        except (OSError, ValueError):
+            table = None
+    _STATE["stamp"], _STATE["table"] = stamp, table
+    _STATE["gen"] += 1
+    return table
+
+
+def table_generation() -> int:
+    """A number that changes whenever the table in use does (after
+    :func:`load_table`'s checks): dispatch reuses decisions while it holds."""
+    load_table()
+    return _STATE["gen"]
+
+
+def reload() -> dict | None:
+    """Drop the in-memory copy and read the file now."""
+    _STATE["stamp"] = None
+    return load_table()
+
+
+def bucket_batch(b: int) -> int:
+    """Next power of two ≥ b (min 1): the batch axis of the key."""
+    return 1 << max(0, int(b) - 1).bit_length() if b > 1 else 1
+
+
+def key_of(
+    *,
+    shape: tuple[int, int],
+    n_factors: int,
+    s_tot: int,
+    batch: int,
+    dtype: str,
+    grad: bool,
+    mesh_shape: tuple | None,
+    device: str,
+    vq: str | None = None,
+) -> str:
+    """The key a timing is filed under — the reference's spelling.  ``vq``
+    (a quantized leaf's scheme, e.g. ``"int8:per_block"``) appends
+    ``|vq:...`` so quantized and f32 operators never share timings."""
+    mesh = "x".join(f"{a}{s}" for a, s in mesh_shape) if mesh_shape else "-"
+    kind = "grad" if grad else "fwd"
+    base = (
+        f"{shape[0]}x{shape[1]}|J{n_factors}|s{s_tot}"
+        f"|b{bucket_batch(batch)}|{dtype}|{kind}|mesh:{mesh}|{device}"
+    )
+    return f"{base}|vq:{vq}" if vq else base
+
+
+@functools.lru_cache(maxsize=None)
+def _device_name(device: torch.device) -> str:
+    return torch.cuda.get_device_name(device) if device.type == "cuda" else device.type
+
+
+def key_for_op(op, *, batch: int, dtype: torch.dtype) -> str:
+    """:func:`key_of` for a forward apply of ``op`` — the one spelling
+    dispatch and measurement share."""
+    return key_of(
+        shape=op.shape,
+        n_factors=op.n_factors,
+        s_tot=op.s_tot,
+        batch=batch,
+        dtype=str(dtype).removeprefix("torch."),
+        grad=False,
+        mesh_shape=None,
+        device=_device_name(op.device),
+        vq=getattr(op.rep, "qscheme", None),
+    )
+
+
+def lookup(key: str) -> dict | None:
+    """The entry for ``key`` (``{"best", "us", "bt", ...}``), or None on a
+    miss; ``off`` never hits."""
+    if autotune_mode() == "off":
+        return None
+    table = load_table()
+    if table is None:
+        return None
+    ent = table["entries"].get(key)
+    if not isinstance(ent, dict) or not isinstance(ent.get("us"), dict):
+        return None
+    return ent
+
+
+def record(key: str, entry: dict, path: str | None = None) -> None:
+    """Merge one entry into the table file (read, modify, atomic rename)."""
+    table = load_table() or {"version": TABLE_VERSION, "entries": {}}
+    table["entries"][key] = entry
+    _write_table(table, path or table_path())
+
+
+def _write_table(table: dict, path: str) -> None:
+    folder = os.path.dirname(os.path.abspath(path))
+    os.makedirs(folder, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(dir=folder, suffix=".tmp")
+    try:
+        with os.fdopen(fd, "w", encoding="utf-8") as f:
+            json.dump(table, f, indent=2)
+            f.write("\n")
+        os.replace(tmp, path)
+    except OSError:
+        Path(tmp).unlink(missing_ok=True)
+        raise
+    finally:
+        _STATE["stamp"] = None  # the next load_table() reads the file
+
+
+def _timeit_us(fn, device: torch.device) -> float:
+    """Median µs of one call of ``fn``, each call between two device
+    synchronizations (host work included), after ``N_WARMUP`` calls."""
+    sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
+    for _ in range(N_WARMUP):
+        fn()
+    sync()
+    times = []
+    for _ in range(N_ITER):
+        t0 = time.perf_counter()
+        fn()
+        sync()
+        times.append(time.perf_counter() - t0)
+    return statistics.median(times) * 1e6
+
+
+def measure(op, x: torch.Tensor, *, use_kernel: bool) -> dict:
+    """Time every feasible backend of ``op`` on ``x`` (forward, no grad)
+    and return the table entry, not yet recorded.  With the kernels on, the
+    fused backend sweeps every supported batch tile; the winner is the
+    entry's ``bt``.  Errors propagate."""
+    from repro_torch.kernels.chain import DEFAULT_BT, SUPPORTED_BT
+
+    global _MEASURING
+    us: dict[str, float] = {}
+    entry: dict = {}
+    x = x.detach()
+    _MEASURING = True
+    try:
+        with torch.no_grad():
+            for backend in op.feasible_backends():
+                tiles = SUPPORTED_BT if backend == "fused" and use_kernel else (DEFAULT_BT,)
+                per_tile = {
+                    bt: _timeit_us(
+                        lambda b=backend, t=bt: op.apply(
+                            x, b, use_kernel=use_kernel, bt=t, device=x.device, autotune=False
+                        ),
+                        x.device,
+                    )
+                    for bt in tiles
+                }
+                win = min(per_tile, key=per_tile.get)
+                us[backend] = per_tile[win]
+                if len(tiles) > 1:
+                    entry["bt"] = win
+                    entry["bt_us"] = {str(t): round(v, 3) for t, v in per_tile.items()}
+    finally:
+        _MEASURING = False
+    return {
+        "best": min(us, key=us.get),
+        "us": {k: round(v, 3) for k, v in us.items()},
+        "measured_at": time.strftime("%Y-%m-%dT%H:%M:%S"),
+        "ctx": {"use_kernel": bool(use_kernel), "device": _device_name(x.device)},
+        **entry,
+    }
+
+
+def ensure_measured(op, x: torch.Tensor, *, batch: int, dtype: torch.dtype, use_kernel: bool) -> dict | None:
+    """Measure and record the key of this apply if the table lacks it.
+    Returns the entry, or None re-entrantly from a measurement apply."""
+    if _MEASURING:
+        return None
+    key = key_for_op(op, batch=batch, dtype=dtype)
+    table = load_table()
+    if table is not None and isinstance(table["entries"].get(key), dict):
+        return table["entries"][key]
+    entry = measure(op, x, use_kernel=use_kernel)
+    record(key, entry)
+    return entry

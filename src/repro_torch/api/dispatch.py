@@ -5,25 +5,41 @@ Counterpart of :mod:`repro.api.dispatch` (forward pricing).
 
 * ``dense``: build the matrix (≈ 2·s_tot·min(m,n) flops, m·n stored and
   re-read) then one ``2·b·m·n`` matmul;
-* ``bsr``:   flops 2·b·s_tot; bytes s_tot + b·(m+n) + 2·b·Σ d_inner (every
+* ``bsr``:   flops 2·b·s_tot; bytes w + b·(m+n) + 2·b·Σ d_inner (every
   factor boundary round-trips its activation); J launches;
-* ``fused``: flops 2·b·s_tot; bytes s_tot + b·(m+n); 1 launch.
+* ``fused``: flops 2·b·s_tot; bytes w + b·(m+n); 1 launch;
+
+where ``w`` is the weight stream: ``elt·s_tot``, or for a quantized chain
+the stored itemsize times s_tot plus the scale bytes.
 
 Constants come from :func:`repro_torch.launch.roofline.roofline_constants`
-(H100 data sheet).  Every decision is a :class:`DispatchReport`, the latest
-one retrievable with :func:`last_report`.  Gradient-aware pricing, sharded
-pricing and the measured autotune table come with later slices.
+(H100 data sheet).  Above the model sits the measured table
+(:mod:`repro_torch.api.autotune`): unless ``REPRO_AUTOTUNE=off``, an
+``auto`` request whose key the table holds takes the measured-fastest
+feasible backend, ``source`` is ``"measured"`` and ``est_us`` holds the
+measured µs.  Every decision is a :class:`DispatchReport`, the latest one
+retrievable with :func:`last_report`.  Gradient-aware and sharded pricing
+come with later slices.
 """
 from __future__ import annotations
 
 import dataclasses
+import types
+import weakref
 
 import torch
 
+from repro_torch.kernels.chain import DEFAULT_BT
 from repro_torch.launch import roofline as _roofline
 
 # ties go to the fewest-launch structured path
 _ORDER = {"fused": 0, "bsr": 2, "dense": 3}
+# Decisions already made, reused while nothing they depend on changed:
+# (id(op), batch, dtype, requested, device, bt, table generation, roofline)
+# -> (weakref to op, report).  A decision costs ~50 µs of host time on the
+# H100's host (PERF.md §5), a large share of a serving-batch apply.
+_MEMO: dict = {}
+_MEMO_MAX = 1024
 
 def _dtype_name(dtype: torch.dtype) -> str:
     return str(dtype).removeprefix("torch.")
@@ -41,10 +57,15 @@ class DispatchReport:
     device: str
     s_tot: int
     feasible: tuple[str, ...]
-    est_us: dict  # backend -> modeled µs (feasible backends only)
+    est_us: dict  # backend -> µs (modeled, or measured when source == "measured"); read only
     reason: str
     roofline: str = ""
-    weight_bytes: int = 0
+    # "model" (roofline) or "measured" (a hit in the autotune table)
+    source: str = "model"
+    # the fused chain kernel's batch tile: caller > table winner > DEFAULT_BT
+    bt: int = DEFAULT_BT
+    weight_bytes: int = 0  # weight stream priced: values (stored itemsize) + scales
+    values_dtype: str = ""  # stored values' dtype (int8/float8_* when quantized)
 
     def as_row(self) -> dict:
         return {
@@ -58,7 +79,10 @@ class DispatchReport:
             "est_us": {k: round(v, 3) for k, v in self.est_us.items()},
             "reason": self.reason,
             "roofline": self.roofline,
+            "source": self.source,
+            "bt": self.bt,
             "weight_bytes": self.weight_bytes,
+            "values_dtype": self.values_dtype,
         }
 
 
@@ -87,21 +111,29 @@ def choose_backend(
     feasible: tuple[str, ...] = ("dense", "bsr", "fused"),
     requested: str = "auto",
     device: str = "",
+    bt: int = DEFAULT_BT,
+    values_dtype: str | None = None,
+    scales_bytes: int = 0,
 ) -> DispatchReport:
     """Pick the cheapest feasible backend under the roofline model (a pure
-    function of its arguments; ``device`` is recorded, not consulted)."""
+    function of its arguments; ``device`` and ``bt`` are recorded, not
+    consulted).  ``values_dtype``/``scales_bytes`` describe a quantized
+    chain: its weight stream is priced at the stored itemsize plus the
+    scale bytes; unquantized pricing is unchanged."""
     consts, source = _roofline.roofline_constants()
     peak_flops, hbm_bw, launch_us = consts["peak_flops"], consts["hbm_bw"], consts["t_launch_us"]
     m, n = shape
     b = batch
-    elt = torch.empty((), dtype=dtype).element_size()
+    elt = dtype.itemsize
 
     def roofline_us(flops: float, byts: float, launches: int) -> float:
         return max(flops / peak_flops, byts / hbm_bw) * 1e6 + launches * launch_us
 
     edge = b * (m + n)
     inner = 2 * b * sum(inner_dims)
-    w_stream = elt * s_tot
+    quant = values_dtype is not None
+    w_elt = getattr(torch, values_dtype).itemsize if quant else elt
+    w_stream = w_elt * s_tot + scales_bytes
     build_flops = 2.0 * s_tot * min(m, n)
     est = {
         "dense": roofline_us(2.0 * b * m * n + build_flops, elt * (2 * m * n + edge), n_factors),
@@ -128,10 +160,12 @@ def choose_backend(
         device=device,
         s_tot=s_tot,
         feasible=tuple(est),
-        est_us=est,
+        est_us=types.MappingProxyType(est),  # reports are shared: see dispatch()
         reason=reason,
         roofline=source,
-        weight_bytes=w_stream,
+        bt=bt,
+        weight_bytes=int(w_stream),
+        values_dtype=values_dtype if quant else _dtype_name(dtype),
     )
 
 
@@ -142,12 +176,46 @@ def dispatch(
     requested: str = "auto",
     *,
     device: str = "",
+    bt: int | None = None,
     record: bool = True,
 ) -> DispatchReport:
     """Decide (or, for a forced ``requested``, record) the backend of one
     leaf operator.  A forced report keeps the model's estimates and says
-    what it would have picked.  ``record=False`` leaves
-    :func:`last_report` untouched (an advisory query)."""
+    what it would have picked.  An ``auto`` request consults the measured
+    table first (unless ``REPRO_AUTOTUNE=off``); on a hit the backend is
+    the measured-fastest feasible one and measured µs are never mixed with
+    modeled ones.  ``bt`` is the caller's batch tile for the fused kernel;
+    ``None`` takes the table's winner, else ``DEFAULT_BT``.
+    ``record=False`` leaves :func:`last_report` untouched (an advisory
+    query).  A decision is made once per operator and arguments, and made
+    again when the table or the roofline constants change; the report is
+    shared, so treat it as read only."""
+    from repro_torch.api import autotune as _autotune
+
+    consult = requested == "auto" and _autotune.autotune_mode() != "off"
+    consts, source = _roofline.roofline_constants()
+    key = (id(op), batch, dtype, requested, device, bt,
+           _autotune.table_generation() if consult else None, source, tuple(consts.items()))
+    hit = _MEMO.get(key)
+    if hit is not None and hit[0]() is op:
+        report = hit[1]
+    else:
+        report = _decide(op, batch, dtype, requested, device, bt, consult)
+        if len(_MEMO) >= _MEMO_MAX:
+            _MEMO.clear()
+        _MEMO[key] = (weakref.ref(op), report)
+    return _record(report) if record else report
+
+
+def _decide(op, batch, dtype, requested, device, bt, consult) -> DispatchReport:
+    from repro_torch.api import autotune as _autotune
+
+    entry = None
+    if consult:
+        entry = _autotune.lookup(_autotune.key_for_op(op, batch=batch, dtype=dtype))
+    if bt is None:
+        bt = int(entry["bt"]) if entry is not None and entry.get("bt") else DEFAULT_BT
+    values_dtype, scales_bytes = op.quant_info()
     report = choose_backend(
         batch=batch,
         shape=op.shape,
@@ -158,11 +226,35 @@ def dispatch(
         feasible=op.feasible_backends(),
         requested=requested,
         device=device,
+        bt=bt,
+        values_dtype=values_dtype,
+        scales_bytes=scales_bytes,
     )
+    if entry is not None:
+        measured = {
+            k: float(v) for k, v in entry["us"].items()
+            if k in report.feasible and isinstance(v, (int, float))
+        }
+        if measured:
+            rank = lambda k: (measured[k], _ORDER[k])  # noqa: E731
+            backend = min(measured, key=rank)
+            runner = min((k for k in measured if k != backend), key=rank, default=None)
+            vs = f" vs {runner} {measured[runner]:.2f}us" if runner else ""
+            report = dataclasses.replace(
+                report,
+                backend=backend,
+                est_us=types.MappingProxyType(measured),
+                feasible=tuple(measured),
+                source="measured",
+                reason=(
+                    f"measured table hit: {backend} {measured[backend]:.2f}us{vs} "
+                    f"(model would pick {report.backend}; weight_bytes={report.weight_bytes})"
+                ),
+            )
     if requested != "auto":
         report = dataclasses.replace(
             report,
             backend=requested,
             reason=f"forced by caller (cost model would pick {report.backend}: {report.reason})",
         )
-    return _record(report) if record else report
+    return report

@@ -7,8 +7,10 @@ A :class:`FaustOp` wraps a :class:`~repro_torch.core.faust.Faust`,
 
 * ``op.apply(x)`` computes ``x @ op.todense()`` for ``x (..., shape[0])``
   on the backend ``"dense"``, ``"bsr"`` (per-factor chain), ``"fused"``
-  (whole chain in one launch) or ``"auto"`` (cost model,
-  :mod:`repro_torch.api.dispatch`);
+  (whole chain in one launch) or ``"auto"`` (measured table, else cost
+  model: :mod:`repro_torch.api.autotune`, :mod:`repro_torch.api.dispatch`);
+* a quantized :class:`PackedChain` runs ``fused`` on its codes (K4) and
+  ``dense``/``bsr`` on its exact f32 dequantized values;
 * ``op.T`` / ``op.H`` — the adjoint, applied by the scatter form;
 * ``op.to("faust" | "block" | "packed")`` — conversions;
 * ``op.s_tot`` / ``op.rcg`` — the paper's complexity accounting.
@@ -151,7 +153,7 @@ class FaustOp:
         return self.T
 
     def todense(self) -> torch.Tensor:
-        rep = unpack_chain(self.rep) if isinstance(self.rep, PackedChain) else self.rep
+        rep = self._unpacked if isinstance(self.rep, PackedChain) else self.rep
         d = rep.todense()
         return d.T if self.adjoint else d
 
@@ -163,13 +165,23 @@ class FaustOp:
         *,
         use_kernel: bool | None = None,
         device=None,
+        bt: int | None = None,
+        autotune: bool | None = None,
     ) -> torch.Tensor:
         """``y = x @ todense()`` for ``x (..., shape[0])`` on ``device``
         (default: the CUDA card).  ``x`` and the operator must already lie
         there.  ``use_kernel=None`` runs the CUDA kernels on a CUDA device
         and the plain versions on the CPU; ``use_kernel=False`` forces the
         plain versions (for comparisons); ``use_kernel=True`` on the CPU
-        raises."""
+        raises.
+
+        ``bt`` is the fused kernel's batch tile; ``None`` takes the
+        measured table's winner, else ``DEFAULT_BT``.  ``autotune=None``
+        follows ``REPRO_AUTOTUNE`` (``1``: an ``auto`` apply measures a
+        key the table lacks); ``True`` measures, ``False`` does not;
+        table hits steer ``auto`` either way unless ``REPRO_AUTOTUNE=off``
+        (:mod:`repro_torch.api.autotune`)."""
+        from repro_torch.api import autotune as _autotune
         from repro_torch.api import dispatch as _dispatch
 
         if backend not in BACKENDS:
@@ -191,10 +203,16 @@ class FaustOp:
                 f"backend {backend!r} is not feasible for this operator "
                 f"(feasible: {self.feasible_backends()})"
             )
-        report = _dispatch.dispatch(self, batch_of(x), x.dtype, requested=backend, device=str(dev))
-        return self._run_backend(x, report.backend, use_kernel)
+        if autotune is None:
+            autotune = _autotune.autotune_mode() == "measure"
+        if autotune and backend == "auto":
+            _autotune.ensure_measured(self, x, batch=batch_of(x), dtype=x.dtype, use_kernel=use_kernel)
+        report = _dispatch.dispatch(
+            self, batch_of(x), x.dtype, requested=backend, device=str(dev), bt=bt
+        )
+        return self._run_backend(x, report.backend, use_kernel, report.bt)
 
-    def _run_backend(self, x, backend, use_kernel) -> torch.Tensor:
+    def _run_backend(self, x, backend, use_kernel, bt) -> torch.Tensor:
         from repro_torch.kernels.ops import blockfaust_apply, blockfaust_apply_t, packed_chain_apply
 
         rep = self.rep
@@ -210,8 +228,8 @@ class FaustOp:
                     y = y @ s.to(x.dtype)
             return rep.lam.to(y.dtype) * y
         if backend == "fused":
-            return packed_chain_apply(x, self._packed, use_kernel=use_kernel)
-        bf = unpack_chain(rep) if isinstance(rep, PackedChain) else rep
+            return packed_chain_apply(x, self._packed, use_kernel=use_kernel, bt=bt)
+        bf = self._unpacked if isinstance(rep, PackedChain) else rep
         if self.adjoint:
             return blockfaust_apply_t(x, bf)
         return blockfaust_apply(x, bf, use_kernel=use_kernel)
@@ -220,6 +238,20 @@ class FaustOp:
     def _packed(self) -> PackedChain:
         """The fused layout, packed once per operator."""
         return self.rep if isinstance(self.rep, PackedChain) else pack_chain(self.rep)
+
+    @functools.cached_property
+    def _unpacked(self) -> BlockFaust:
+        """A packed leaf's per-factor form, unpacked once per operator: for
+        a quantized chain the exact f32 values, dequantized once."""
+        return unpack_chain(self.rep)
+
+    def quant_info(self) -> tuple[str | None, int]:
+        """``(values_dtype, scales_bytes)`` of a quantized packed leaf for
+        the dispatch byte model; ``(None, 0)`` otherwise."""
+        rep = self.rep
+        if isinstance(rep, PackedChain) and rep.quantized:
+            return rep.values_dtype, rep.scales.numel() * 4
+        return None, 0
 
     def feasible_backends(self) -> tuple[str, ...]:
         """Backends this operator can run: adjoints and Faust leaves have no
@@ -241,7 +273,7 @@ class FaustOp:
 
     # -- conversions -------------------------------------------------------------
     def _as_faust(self) -> Faust:
-        rep = unpack_chain(self.rep) if isinstance(self.rep, PackedChain) else self.rep
+        rep = self._unpacked if isinstance(self.rep, PackedChain) else self.rep
         if isinstance(rep, BlockFaust):
             # todense = lam·F_1···F_J = lam·S_J···S_1 with S_i = F_{J+1-i}
             rep = Faust(tuple(f.todense() for f in reversed(rep.factors)), rep.lam)
@@ -262,7 +294,7 @@ class FaustOp:
         )
         if not self.adjoint and own_block is not None and block in (None, own_block):
             if fmt == "block":
-                return self if isinstance(rep, BlockFaust) else FaustOp(unpack_chain(rep))
+                return self if isinstance(rep, BlockFaust) else FaustOp(self._unpacked)
             if isinstance(rep, PackedChain):
                 return self
             if _fusable(rep):

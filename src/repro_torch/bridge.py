@@ -7,10 +7,13 @@ compute on the same arrays:
 * Faust:        ``{"factors": [ndarray, ...], "lam": float}``
 * BlockFaust:   ``{"factors": [{"values", "in_idx", "in_features",
                 "out_features"}, ...], "lam": float}``
-* PackedChain:  ``{"values", "in_idx", "lam", "plan": {ChainPlan fields}}``
+* PackedChain:  ``{"values", "in_idx", "lam", "plan": {ChainPlan fields}}``,
+                plus ``"scales"`` and ``"qscheme"`` for a quantized chain
 
 bf16 values cross as ``uint16`` bit views with ``"dtype": "bfloat16"``
-beside them (``torch.from_numpy`` has no bfloat16).  The ``*_from_numpy``
+beside them (``torch.from_numpy`` has no bfloat16); fp8 codes likewise as
+``uint8`` bit views with ``"dtype": "float8_e4m3fn"`` or ``"float8_e5m2"``.
+int8 codes cross as they are.  The ``*_from_numpy``
 converters run on ``device`` (default: the CUDA card; raises without
 one) and check index ranges, so a malformed table never reaches a kernel.
 """
@@ -19,27 +22,46 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.core.compress import BlockFaust, BlockSparseFactor, ChainPlan, PackedChain
+from repro_torch.core.compress import (
+    QUANT_DTYPES,
+    QUANT_SCHEMES,
+    BlockFaust,
+    BlockSparseFactor,
+    ChainPlan,
+    PackedChain,
+)
 from repro_torch.core.faust import Faust
 from repro_torch.device import resolve_device
 
 _PLAN_FIELDS = ("block", "in_blocks", "out_blocks", "k_blocks", "offsets", "in_feats", "out_feats")
+# dtypes numpy lacks: name -> (torch dtype, numpy dtype of the bit view)
+_BIT_VIEWS = {
+    "bfloat16": (torch.bfloat16, np.uint16),
+    "float8_e4m3fn": (torch.float8_e4m3fn, np.uint8),
+    "float8_e5m2": (torch.float8_e5m2, np.uint8),
+}
 
 
 def _tensor(a, device: torch.device, dtype_name: str | None = None) -> torch.Tensor:
     a = np.array(a)  # a private, writable, contiguous copy
-    if dtype_name == "bfloat16":
-        if a.dtype != np.uint16:
-            raise TypeError(f"bfloat16 values cross as uint16 bit views; got {a.dtype}")
-        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16).to(device)
+    if dtype_name in _BIT_VIEWS:
+        tdt, bits = _BIT_VIEWS[dtype_name]
+        if a.dtype != bits:
+            raise TypeError(f"{dtype_name} values cross as {np.dtype(bits).name} bit views; got {a.dtype}")
+        if bits == np.uint16:  # torch has no uint16 view source: go through int16
+            return torch.from_numpy(a.view(np.int16)).view(tdt).to(device)
+        return torch.from_numpy(a).view(tdt).to(device)
     return torch.from_numpy(a).to(device)
 
 
 def _array(t: torch.Tensor) -> tuple[np.ndarray, str]:
     t = t.detach().cpu().contiguous()
-    if t.dtype == torch.bfloat16:
-        return t.view(torch.int16).numpy().view(np.uint16), "bfloat16"
-    return t.numpy(), str(t.dtype).removeprefix("torch.")
+    name = str(t.dtype).removeprefix("torch.")
+    if name in _BIT_VIEWS:
+        bits = _BIT_VIEWS[name][1]
+        view = torch.int16 if bits == np.uint16 else torch.uint8
+        return t.view(view).numpy().view(bits), name
+    return t.numpy(), name
 
 
 def _lam(lam, device) -> torch.Tensor:
@@ -86,12 +108,21 @@ def packed_from_numpy(d: dict, device=None) -> PackedChain:
     idx = np.asarray(d["in_idx"])
     for j in range(plan.n_factors):
         _check_idx(idx[plan.offsets[j]:plan.offsets[j + 1]], plan.in_blocks[j])
-    return PackedChain(
-        _tensor(d["values"], dev, d.get("dtype")),
-        _tensor(idx.astype(np.int32), dev),
-        _lam(d["lam"], dev),
-        plan,
-    )
+    values = _tensor(d["values"], dev, d.get("dtype"))
+    qscheme = d.get("qscheme")
+    scales = None
+    if qscheme is not None:
+        qdtype, _, scheme = qscheme.partition(":")
+        if qdtype not in QUANT_DTYPES or scheme not in QUANT_SCHEMES:
+            raise ValueError(f"unknown qscheme {qscheme!r}")
+        if values.dtype != QUANT_DTYPES[qdtype][0]:
+            raise TypeError(f"qscheme {qscheme!r} needs {QUANT_DTYPES[qdtype][0]} codes; got {values.dtype}")
+        scales = _tensor(np.asarray(d["scales"], np.float32), dev)
+        want = (plan.n_steps,) if scheme == "per_block" else (plan.n_steps, plan.block)
+        if tuple(scales.shape) != want:
+            raise ValueError(f"{scheme} scales must be {want}; got {tuple(scales.shape)}")
+    return PackedChain(values, _tensor(idx.astype(np.int32), dev), _lam(d["lam"], dev), plan,
+                       scales, qscheme)
 
 
 def to_numpy(obj) -> dict:
@@ -112,11 +143,15 @@ def to_numpy(obj) -> dict:
         return {"factors": factors, "lam": float(obj.lam), "dtype": dtype_name}
     if isinstance(obj, PackedChain):
         values, dtype_name = _array(obj.values)
-        return {
+        d = {
             "values": values,
             "in_idx": _array(obj.in_idx)[0],
             "lam": float(obj.lam),
             "plan": {k: getattr(obj.plan, k) for k in _PLAN_FIELDS},
             "dtype": dtype_name,
         }
+        if obj.quantized:
+            d["scales"], _ = _array(obj.scales)
+            d["qscheme"] = obj.qscheme
+        return d
     raise TypeError(f"to_numpy expects Faust | BlockFaust | PackedChain, got {type(obj).__name__}")

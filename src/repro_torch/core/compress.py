@@ -184,25 +184,119 @@ class ChainPlan:
 @dataclasses.dataclass(frozen=True)
 class PackedChain:
     """Flat-packed chain: ``values (S, block, block)`` and ``in_idx (S,)``
-    int32 in the :class:`ChainPlan` step order, plus λ.  Quantized
-    payloads come with a later slice."""
+    int32 in the :class:`ChainPlan` step order, plus λ.
+
+    A quantized chain (``qscheme`` set, e.g. ``"int8:per_block"``) holds
+    int8/fp8 codes in ``values`` and f32 scales in ``scales``: ``(S,)`` for
+    scheme ``per_block``, ``(S, block)`` for ``per_row`` (one scale per
+    block row, i.e. per input feature of the block)."""
 
     values: torch.Tensor
     in_idx: torch.Tensor
     lam: torch.Tensor
     plan: ChainPlan
+    scales: torch.Tensor | None = None
+    qscheme: str | None = None
 
     @property
     def device(self) -> torch.device:
         return self.values.device
 
+    @property
+    def quantized(self) -> bool:
+        return self.qscheme is not None
+
+    @property
+    def values_dtype(self) -> str:
+        return str(self.values.dtype).removeprefix("torch.")
+
+    @property
+    def weight_bytes(self) -> int:
+        """Bytes of one full weight stream: values plus scales."""
+        b = self.values.numel() * self.values.element_size()
+        if self.scales is not None:
+            b += self.scales.numel() * self.scales.element_size()
+        return b
+
     def to(self, device=None, dtype=None) -> "PackedChain":
+        """Move (and, unquantized, cast) the chain.  A quantized chain
+        moves only: casting its codes would drop the scales' meaning."""
+        if self.quantized and dtype is not None:
+            raise TypeError(
+                f"a quantized chain ({self.qscheme}) cannot be cast to {dtype}; "
+                "dequantize_chain() it first"
+            )
         return dataclasses.replace(
             self,
             values=self.values.to(device=device, dtype=dtype),
             in_idx=self.in_idx.to(device=device),
             lam=self.lam.to(device=device),
+            scales=None if self.scales is None else self.scales.to(device=device),
         )
+
+
+# Quantization schemes for PackedChain values: name -> (torch dtype, qmax),
+# qmax the largest magnitude each group's absmax maps onto (int8 symmetric:
+# 127; fp8: the format's finite max).
+QUANT_DTYPES = {
+    "int8": (torch.int8, 127.0),
+    "fp8_e4m3": (torch.float8_e4m3fn, 448.0),
+    "fp8_e5m2": (torch.float8_e5m2, 57344.0),
+}
+QUANT_SCHEMES = ("per_block", "per_row")
+
+
+def _scale_broadcast(scales: torch.Tensor) -> torch.Tensor:
+    """Scales broadcastable against ``(S, blk, blk)`` values."""
+    if scales.ndim == 1:  # per_block (S,)
+        return scales[:, None, None]
+    return scales[:, :, None]  # per_row (S, blk)
+
+
+def expand_scales(scales: torch.Tensor, blk: int) -> torch.Tensor:
+    """Scales in the ``(S, blk)`` per-row layout the kernels stream
+    (per_block ``(S,)`` scales broadcast exactly)."""
+    sc = scales.to(torch.float32)
+    if sc.ndim == 1:
+        sc = sc[:, None].expand(sc.shape[0], blk)
+    return sc
+
+
+def quantize_chain(chain: PackedChain, dtype: str = "int8", scheme: str = "per_block") -> PackedChain:
+    """Quantize a chain's block values to ``dtype`` with per-block (or
+    per-block-row) f32 scales, giving the reference's codes bit for bit.
+
+    Symmetric absmax: ``scale = absmax / qmax`` per group (1.0 for an
+    all-zero group), then ``q = round(v / scale)`` (half to even) clipped
+    to ±127 for int8, or the round-to-nearest-even cast for fp8.  λ,
+    ``in_idx`` and the plan are untouched.  ``quantize_chain(
+    dequantize_chain(q)) == q`` bit for bit."""
+    if chain.quantized:
+        raise ValueError(f"chain is already quantized ({chain.qscheme})")
+    if dtype not in QUANT_DTYPES:
+        raise ValueError(f"unknown quant dtype {dtype!r}; want one of {list(QUANT_DTYPES)}")
+    if scheme not in QUANT_SCHEMES:
+        raise ValueError(f"unknown quant scheme {scheme!r}; want one of {QUANT_SCHEMES}")
+    qdt, qmax = QUANT_DTYPES[dtype]
+    v = chain.values.to(torch.float32)
+    axes = (1, 2) if scheme == "per_block" else (2,)
+    amax = v.abs().amax(dim=axes)
+    scales = torch.where(amax > 0, amax / qmax, torch.ones((), dtype=torch.float32, device=v.device))
+    scaled = v / _scale_broadcast(scales)
+    if dtype == "int8":
+        q = torch.clamp(torch.round(scaled), -qmax, qmax).to(qdt)
+    else:
+        q = scaled.to(qdt)  # round to nearest even into the fp8 grid
+    return dataclasses.replace(chain, values=q, scales=scales, qscheme=f"{dtype}:{scheme}")
+
+
+def dequantize_chain(chain: PackedChain) -> PackedChain:
+    """The exact f32 chain ``q · scale`` of a quantized chain; an
+    unquantized chain comes back as it is."""
+    if not chain.quantized:
+        return chain
+    v = chain.values.to(torch.float32) * _scale_broadcast(chain.scales)
+    return PackedChain(v, chain.in_idx, chain.lam, chain.plan)
 
 
 def pack_chain(bfaust: BlockFaust) -> PackedChain:
@@ -239,7 +333,9 @@ def pack_chain(bfaust: BlockFaust) -> PackedChain:
 
 
 def unpack_chain(chain: PackedChain) -> BlockFaust:
-    """Inverse of :func:`pack_chain` (views sliced by the plan's offsets)."""
+    """Inverse of :func:`pack_chain` (views sliced by the plan's offsets).
+    A quantized chain unpacks to its exact f32 values."""
+    chain = dequantize_chain(chain)
     plan, blk = chain.plan, chain.plan.block
     factors = []
     for j in range(plan.n_factors):

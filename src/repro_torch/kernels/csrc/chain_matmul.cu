@@ -1,13 +1,18 @@
 // K1: the whole FAuST chain y = x @ F_1 @ ... @ F_J in one launch, on
-// Hopper (sm_90a).
+// Hopper (sm_90a), and K4: the same walk over a quantized chain.
 //
-// Replaces the TPU kernel repro/kernels/chain.py:125 chain_matmul (body
-// _chain_kernel; grid (batch tiles, S steps) running in order and carrying
+// K1 replaces the TPU kernel repro/kernels/chain.py:125 chain_matmul (body
+// _chain_kernel at :79; grid (batch tiles, S steps) running in order and carrying
 // a (2, max_blocks, bt, blk) VMEM ping-pong activation buffer and an f32
-// accumulator from step to step).
+// accumulator from step to step).  K4 replaces the same function called
+// with scales= (dequant in _chain_kernel at chain.py:103-104, the (1, blk)
+// scale row streamed beside each value block at chain.py:166-169).
 //
 //   x       (B, IB_1*blk)      f32 or bf16
-//   values  (S, blk, blk)      same dtype, flat chain in (factor, out block, slot) order
+//   values  (S, blk, blk)      K1: x's dtype; K4: int8, fp8 e4m3 or fp8 e5m2 codes,
+//                              flat chain in (factor, out block, slot) order
+//   scales  (S, blk)           K4 only: f32 scale of each block row (per_block
+//                              scales arrive broadcast); value = code * scale
 //   meta    (S, 7)             int32 step table (repro_torch/kernels/ops.py chain_meta):
 //                              in_blk, out_blk, parity, is_k0, is_kend, is_last, ncols
 //   ws      (2, B, ws_w)       workspace for the intermediate activations (J > 1)
@@ -33,24 +38,30 @@
 // Numerics as the reference: f32 accumulation, intermediates stored in
 // x.dtype (bf16 rounds between factors), tail columns >= ncols zeroed at
 // each flush.  lambda and the feature/batch slicing stay in the caller.
+// K4 dequantizes each code to f32 as the value tile is staged (tile.cuh),
+// also for bf16 activations: the values are never rounded to bf16.
 //
 // Bound on this card: the chain moves s_tot weights once per batch tile
 // (from L2 after the first tile) and does 2*B*s_tot FLOPs.  One CTA per
 // batch tile leaves most of the 132 SMs idle at serving batches (B = 128
 // at bt = 32 is 4 CTAs); splitting a factor's output blocks across CTAs
 // or a cluster is the next design step.  This first version is FFMA from
-// shared memory, with no tensor cores, TMA or pipelining.
+// shared memory, with no tensor cores, TMA or pipelining.  K4 moves 1 byte
+// per value instead of 4 (plus 4*S*blk scale bytes), which does not show
+// while the walk is latency-bound; fp8/int8 tensor cores belong to the
+// redesign.
 #include "tile.cuh"
 
 namespace faust {
 
 constexpr int kMetaCols = 7;
 
-template <typename T, int TM>
+template <typename T, typename V, int TM>
 __global__ void __launch_bounds__(kThreads)
-    chain_matmul_kernel(const T* __restrict__ x, const T* __restrict__ values,
-                        const int* __restrict__ meta, T* ws, T* __restrict__ out, int B, int S,
-                        int blk, int in_w, int ws_w, int out_w, int n0_steps) {
+    chain_matmul_kernel(const T* __restrict__ x, const V* __restrict__ values,
+                        const float* __restrict__ scales, const int* __restrict__ meta, T* ws,
+                        T* __restrict__ out, int B, int S, int blk, int in_w, int ws_w, int out_w,
+                        int n0_steps) {
   __shared__ Smem<TM> sm;
   const int b0 = blockIdx.x * TM;
   const int rows = min(TM, B - b0);
@@ -71,7 +82,8 @@ __global__ void __launch_bounds__(kThreads)
       src = ws + par * buf + (long long)b0 * ws_w + (long long)i_blk * blk;
       lda = ws_w;
     }
-    tile_mma<T, TM>(acc, sm, src, lda, rows, values + (long long)s * blk * blk, blk, blk, blk);
+    tile_mma<T, TM>(acc, sm, src, lda, rows, values + (long long)s * blk * blk, blk, blk, blk,
+                    scales == nullptr ? nullptr : scales + (long long)s * blk);
     if (is_kend) {
       if (is_last) {
         store_tile<T, TM>(acc, out + (long long)b0 * out_w + (long long)o_blk * blk, out_w, rows,
@@ -85,28 +97,29 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <typename T>
-int launch(const void* x, const void* values, const void* meta, void* ws, void* out, int B, int S,
-           int blk, int in_w, int ws_w, int out_w, int n0_steps, int bt, void* stream) {
+template <typename T, typename V>
+int launch(const void* x, const void* values, const float* scales, const void* meta, void* ws,
+           void* out, int B, int S, int blk, int in_w, int ws_w, int out_w, int n0_steps, int bt,
+           void* stream) {
   const dim3 grid((B + bt - 1) / bt);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const T* xp = static_cast<const T*>(x);
-  const T* vp = static_cast<const T*>(values);
+  const V* vp = static_cast<const V*>(values);
   const int* mp = static_cast<const int*>(meta);
   T* wp = static_cast<T*>(ws);
   T* op = static_cast<T*>(out);
   switch (bt) {
     case 16:
-      chain_matmul_kernel<T, 16><<<grid, kThreads, 0, st>>>(xp, vp, mp, wp, op, B, S, blk, in_w,
-                                                            ws_w, out_w, n0_steps);
+      chain_matmul_kernel<T, V, 16><<<grid, kThreads, 0, st>>>(xp, vp, scales, mp, wp, op, B, S,
+                                                               blk, in_w, ws_w, out_w, n0_steps);
       break;
     case 32:
-      chain_matmul_kernel<T, 32><<<grid, kThreads, 0, st>>>(xp, vp, mp, wp, op, B, S, blk, in_w,
-                                                            ws_w, out_w, n0_steps);
+      chain_matmul_kernel<T, V, 32><<<grid, kThreads, 0, st>>>(xp, vp, scales, mp, wp, op, B, S,
+                                                               blk, in_w, ws_w, out_w, n0_steps);
       break;
     case 64:
-      chain_matmul_kernel<T, 64><<<grid, kThreads, 0, st>>>(xp, vp, mp, wp, op, B, S, blk, in_w,
-                                                            ws_w, out_w, n0_steps);
+      chain_matmul_kernel<T, V, 64><<<grid, kThreads, 0, st>>>(xp, vp, scales, mp, wp, op, B, S,
+                                                               blk, in_w, ws_w, out_w, n0_steps);
       break;
     default:
       return (int)cudaErrorInvalidValue;
@@ -118,18 +131,32 @@ int launch(const void* x, const void* values, const void* meta, void* ws, void* 
 
 extern "C" {
 
-int chain_matmul_f32(const void* x, const void* values, const void* meta, void* ws, void* out,
-                     int B, int S, int blk, int in_w, int ws_w, int out_w, int n0_steps, int bt,
-                     void* stream) {
-  return faust::launch<float>(x, values, meta, ws, out, B, S, blk, in_w, ws_w, out_w, n0_steps, bt,
-                              stream);
-}
+// K1: values in x's dtype.
+#define FAUST_CHAIN_K1(suffix, T)                                                              \
+  int chain_matmul_##suffix(const void* x, const void* values, const void* meta, void* ws,     \
+                            void* out, int B, int S, int blk, int in_w, int ws_w, int out_w,    \
+                            int n0_steps, int bt, void* stream) {                               \
+    return faust::launch<T, T>(x, values, nullptr, meta, ws, out, B, S, blk, in_w, ws_w, out_w, \
+                               n0_steps, bt, stream);                                           \
+  }
 
-int chain_matmul_bf16(const void* x, const void* values, const void* meta, void* ws, void* out,
-                      int B, int S, int blk, int in_w, int ws_w, int out_w, int n0_steps, int bt,
-                      void* stream) {
-  return faust::launch<__nv_bfloat16>(x, values, meta, ws, out, B, S, blk, in_w, ws_w, out_w,
-                                      n0_steps, bt, stream);
-}
+// K4: int8 / fp8 codes with (S, blk) f32 row scales.
+#define FAUST_CHAIN_K4(suffix, T, V)                                                           \
+  int chain_matmul_q_##suffix(const void* x, const void* values, const void* scales,           \
+                              const void* meta, void* ws, void* out, int B, int S, int blk,     \
+                              int in_w, int ws_w, int out_w, int n0_steps, int bt,              \
+                              void* stream) {                                                   \
+    return faust::launch<T, V>(x, values, static_cast<const float*>(scales), meta, ws, out, B,  \
+                               S, blk, in_w, ws_w, out_w, n0_steps, bt, stream);                \
+  }
+
+FAUST_CHAIN_K1(f32, float)
+FAUST_CHAIN_K1(bf16, __nv_bfloat16)
+FAUST_CHAIN_K4(f32_int8, float, int8_t)
+FAUST_CHAIN_K4(f32_e4m3, float, __nv_fp8_e4m3)
+FAUST_CHAIN_K4(f32_e5m2, float, __nv_fp8_e5m2)
+FAUST_CHAIN_K4(bf16_int8, __nv_bfloat16, int8_t)
+FAUST_CHAIN_K4(bf16_e4m3, __nv_bfloat16, __nv_fp8_e4m3)
+FAUST_CHAIN_K4(bf16_e5m2, __nv_bfloat16, __nv_fp8_e5m2)
 
 }  // extern "C"

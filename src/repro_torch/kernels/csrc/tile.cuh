@@ -11,10 +11,19 @@
 // activation tile and a kKC x kTN value tile in shared memory, converted to
 // f32, then does plain FFMA.  No TF32: the f32 path keeps full f32
 // products, so it matches the plain PyTorch version to f32 rounding.
+//
+// Quantized values (int8 / fp8 codes, stored type V other than the
+// activation type T) are dequantized where the value tile is staged: one
+// f32 multiply of the code by its block row's scale, the same product as
+// the plain version's q.float() * scale[:, None].
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
+
+#include <cstdint>
+#include <type_traits>
 
 namespace faust {
 
@@ -24,6 +33,9 @@ constexpr int kTN = 128;
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float to_f32(int8_t v) { return static_cast<float>(v); }
+__device__ __forceinline__ float to_f32(__nv_fp8_e4m3 v) { return static_cast<float>(v); }
+__device__ __forceinline__ float to_f32(__nv_fp8_e5m2 v) { return static_cast<float>(v); }
 
 template <typename T>
 __device__ __forceinline__ T from_f32(float v);
@@ -53,11 +65,13 @@ __device__ __forceinline__ void zero_acc(float (&acc)[TM / 16][kTN / 16]) {
 // read as 0).  Every thread of the CTA must call it (it synchronizes).
 // `a` is not __restrict__: the chain kernel reads activations that the same
 // CTA wrote earlier, which the non-coherent read-only path may not serve.
-template <typename T, int TM>
+// When V is a code type (V != T), row r of B is b[r] * b_row_scale[r].
+template <typename T, int TM, typename V>
 __device__ __forceinline__ void tile_mma(float (&acc)[TM / 16][kTN / 16], Smem<TM>& sm,
                                          const T* a, long long lda, int a_rows,
-                                         const T* __restrict__ b, long long ldb, int b_cols,
-                                         int kdim) {
+                                         const V* __restrict__ b, long long ldb, int b_cols,
+                                         int kdim, const float* __restrict__ b_row_scale = nullptr) {
+  constexpr bool kDequant = !std::is_same<V, T>::value;
   const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
   for (int k0 = 0; k0 < kdim; k0 += kKC) {
     for (int e = tid; e < TM * kKC; e += kThreads) {
@@ -66,7 +80,12 @@ __device__ __forceinline__ void tile_mma(float (&acc)[TM / 16][kTN / 16], Smem<T
     }
     for (int e = tid; e < kKC * kTN; e += kThreads) {
       const int r = e / kTN, c = e % kTN;
-      sm.b[r][c] = (k0 + r < kdim && c < b_cols) ? to_f32(b[(k0 + r) * ldb + c]) : 0.f;
+      float v = 0.f;
+      if (k0 + r < kdim && c < b_cols) {
+        v = to_f32(b[(k0 + r) * ldb + c]);
+        if constexpr (kDequant) v *= b_row_scale[k0 + r];
+      }
+      sm.b[r][c] = v;
     }
     __syncthreads();
 #pragma unroll 4

@@ -5,14 +5,16 @@ Counterpart of :mod:`repro.kernels.ops`.
 ``blockfaust_apply``   the chain ``y = lam · x@F_1@...@F_J``, one launch per
                        factor.
 ``packed_chain_apply`` the whole chain in one launch on a
-                       :class:`~repro_torch.core.compress.PackedChain`.
+                       :class:`~repro_torch.core.compress.PackedChain`,
+                       quantized or not.
 
 ``use_kernel=None`` follows the tensor: a CUDA tensor runs the kernels, a
 CPU tensor the plain versions; ``use_kernel=True`` on a CPU tensor raises.
 The single-factor kernel path is differentiable (its backward is the plain
 ``bsr_matmul_dx``/``_dvalues``, as the reference's custom VJP); the fused
-path is forward only until its backward kernels (K2 ``chain_dgrad``, K3
-``chain_wgrad``) are ported.
+path, kernel and plain version alike, is forward only until its backward
+kernels (K2 ``chain_dgrad``, K3 ``chain_wgrad``, K5 for quantized chains)
+are ported.
 """
 from __future__ import annotations
 
@@ -21,10 +23,16 @@ import functools
 import numpy as np
 import torch
 
-from repro_torch.core.compress import BlockFaust, BlockSparseFactor, ChainPlan, PackedChain
+from repro_torch.core.compress import (
+    BlockFaust,
+    BlockSparseFactor,
+    ChainPlan,
+    PackedChain,
+    expand_scales,
+)
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels.bsr_matmul import bsr_matmul
-from repro_torch.kernels.chain import META_COLS, chain_matmul
+from repro_torch.kernels.chain import DEFAULT_BT, META_COLS, SUPPORTED_BT, chain_matmul
 
 
 def _want_kernel(x: torch.Tensor, use_kernel: bool | None) -> bool:
@@ -137,27 +145,44 @@ def packed_chain_apply(
     chain: PackedChain,
     *,
     use_kernel: bool | None = None,
+    bt: int = DEFAULT_BT,
 ) -> torch.Tensor:
     """The whole chain in one launch on a flat-packed chain; any leading
-    batch dims, features padded and sliced, λ applied.  The plain path
-    (``ref.packed_chain_ref``) runs on the same packed arrays."""
+    batch dims, features padded and sliced, λ applied, batch tile ``bt``.
+    The plain path (``ref.packed_chain_ref``) runs on the same packed
+    arrays.  A quantized chain runs K4 (or ``ref.packed_chain_q_ref``) on
+    its codes and ``(S, blk)`` row scales: values stay f32 after
+    dequantization whatever ``x.dtype``."""
+    if bt not in SUPPORTED_BT:
+        raise ValueError(f"bt must be one of {SUPPORTED_BT}; got {bt}")
     kernel = _want_kernel(x, use_kernel)
     plan = chain.plan
     in_pad = plan.in_blocks[0] * plan.block
     x = _pad_features(x, in_pad)
-    values = _as_dtype(chain.values, x.dtype)
-    if not kernel:
-        y = _ref.packed_chain_ref(x, values, chain.in_idx, plan)
+    if chain.quantized:  # codes must never be cast to the activation dtype
+        values, scales = chain.values, expand_scales(chain.scales, plan.block)
     else:
-        if torch.is_grad_enabled() and (x.requires_grad or values.requires_grad):
-            raise NotImplementedError(
-                "the fused chain kernel is forward only: its backward kernels "
-                "(K2 chain_dgrad, K3 chain_wgrad) come with the training slice; "
-                "train through backend='bsr' until then"
-            )
+        values, scales = _as_dtype(chain.values, x.dtype), None
+    # forward only on every device, so the plain path never trains what
+    # the kernel cannot
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in (x, values, scales)):
+        raise NotImplementedError(
+            "the fused chain kernel is forward only: its backward kernels "
+            "(K2 chain_dgrad, K3 chain_wgrad, and K5 for quantized chains) come "
+            "with the training slice; train through backend='bsr' until then"
+        )
+    if not kernel:
+        if scales is None:
+            y = _ref.packed_chain_ref(x, values, chain.in_idx, plan)
+        else:
+            y = _ref.packed_chain_q_ref(x, values, chain.in_idx, plan, scales)
+    else:
         batch_shape = x.shape[:-1]
         x2 = x.reshape(-1, in_pad).contiguous()
-        y2 = chain_matmul(x2, values.contiguous(), chain_meta(plan, chain.in_idx), plan=plan)
+        y2 = chain_matmul(
+            x2, values.contiguous(), chain_meta(plan, chain.in_idx), plan=plan, bt=bt,
+            scales=None if scales is None else scales.contiguous(),
+        )
         y = y2.reshape(*batch_shape, -1)
     if y.shape[-1] != plan.out_features:
         y = y[..., : plan.out_features]

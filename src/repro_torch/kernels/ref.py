@@ -79,6 +79,21 @@ def packed_chain_ref(x: torch.Tensor, values: torch.Tensor, in_idx: torch.Tensor
     return y
 
 
+def dequant_values(values: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
+    """``v[s] = q[s]·scales[s][:, None]`` in f32: the dequantization the
+    quantized chain kernel does per value as it stages a block (``scales``
+    in the ``(S, blk)`` per-row layout of ``compress.expand_scales``)."""
+    return values.to(torch.float32) * scales[:, :, None]
+
+
+def packed_chain_q_ref(
+    x: torch.Tensor, values: torch.Tensor, in_idx: torch.Tensor, plan, scales: torch.Tensor
+) -> torch.Tensor:
+    """The quantized chain kernel's step semantics: f32 dequantized blocks
+    (also for bf16 ``x``), then the walk of :func:`packed_chain_ref`."""
+    return packed_chain_ref(x, dequant_values(values, scales), in_idx, plan)
+
+
 def blockfaust_apply_ref(x: torch.Tensor, factors, lam: torch.Tensor) -> torch.Tensor:
     """``y = lam · (((x @ F_1) @ F_2) ...)`` with padding and slicing at the
     factor boundaries."""

@@ -8,18 +8,30 @@ skips without one.  Run on a machine with a card:
 
 Tolerances: f32 ≤ 1e-5 of max|y| (FFMA in another summation order); bf16
 ≤ 3e-2 of max|y| (activations round to bf16 between factors on both
-sides, and a one-ulp difference propagates).
+sides, and a one-ulp difference propagates).  The quantized kernel (K4)
+dequantizes with the plain version's f32 product, so the same bounds hold.
 """
 import math
 
 import pytest
 import torch
 
-from repro_torch.api import FactorizeSpec, factorize
-from repro_torch.core.compress import BlockFaust, pack_chain, random_block_factor
+from repro_torch.api import FactorizeSpec, FaustOp, autotune, factorize, last_report
+from repro_torch.core.compress import (
+    BlockFaust,
+    expand_scales,
+    pack_chain,
+    quantize_chain,
+    random_block_factor,
+)
 from repro_torch.kernels import ops
 from repro_torch.kernels.bsr_matmul import bsr_matmul, bsr_matmul_plain
-from repro_torch.kernels.chain import chain_matmul, chain_matmul_plain
+from repro_torch.kernels.chain import (
+    SUPPORTED_BT,
+    chain_matmul,
+    chain_matmul_plain,
+    chain_matmul_q_plain,
+)
 
 pytestmark = pytest.mark.gpu
 TOL = {torch.float32: 1e-5, torch.bfloat16: 3e-2}  # relative to max|y|; reasons in the module docstring
@@ -83,6 +95,63 @@ def test_operator_backends_run_the_kernels(dev):
         assert counter.launches > before
         assert _rel(y, op.apply(x, backend, use_kernel=False)) <= 1e-5  # f32 FFMA vs plain: summation order
         assert _rel(y, dense) <= 1e-4  # x @ todense() associates the chain differently
+
+
+@pytest.mark.parametrize("xdtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("scheme", ["per_block", "per_row"])
+@pytest.mark.parametrize("qdtype", ["int8", "fp8_e4m3", "fp8_e5m2"])
+def test_quantized_chain_kernel_matches_plain(dev, qdtype, scheme, xdtype):
+    n_factors = 1 + ["int8", "fp8_e4m3", "fp8_e5m2"].index(qdtype) + (scheme == "per_row")
+    blk = 16 if n_factors % 2 else 128
+    dims = (200, 300, 260, 330, 150)[: n_factors + 1]
+    g = torch.Generator().manual_seed(10 + n_factors)
+    bf = BlockFaust(tuple(
+        random_block_factor(dims[j], dims[j + 1], blk, blk, 3, generator=g, device=dev)
+        for j in range(n_factors)
+    ), torch.ones((), device=dev))
+    q = quantize_chain(pack_chain(bf), qdtype, scheme)
+    scales = expand_scales(q.scales, blk).contiguous()
+    x = torch.randn((45, q.plan.in_blocks[0] * blk), generator=g).to(dev, xdtype)
+    meta = ops.chain_meta(q.plan, q.in_idx)
+    ref = chain_matmul_q_plain(x, q.values, scales, meta, plan=q.plan)
+    for bt in SUPPORTED_BT:
+        before = chain_matmul.q_launches
+        y = chain_matmul(x, q.values, meta, plan=q.plan, bt=bt, scales=scales)
+        torch.cuda.synchronize()
+        assert chain_matmul.q_launches == before + 1 and y.dtype == xdtype
+        assert _rel(y, ref) <= TOL[xdtype]
+
+
+def test_quantized_operator_runs_k4(dev):
+    w = torch.randn((256, 512), generator=torch.Generator().manual_seed(2))
+    op, _ = factorize(w, FactorizeSpec(n_factors=3, block=64, k_first=2, k_mid=2), device=dev)
+    q = FaustOp.from_packed(quantize_chain(op.to("packed").rep, "int8"))
+    x = torch.randn((70, 256), device=dev)
+    before = chain_matmul.q_launches
+    y = q.apply(x, "fused")
+    torch.cuda.synchronize()
+    assert chain_matmul.q_launches == before + 1
+    assert _rel(y, q.apply(x, "fused", use_kernel=False)) <= 1e-5  # f32 FFMA vs plain: summation order
+    assert _rel(y, x @ q.todense()) <= 1e-4  # x @ todense() associates the chain differently
+    assert _rel(q.apply(x, "bsr"), y) <= 1e-4  # bsr runs K6 on the dequantized f32 factors
+
+
+def test_measured_dispatch_on_card(dev, tmp_path, monkeypatch):
+    monkeypatch.setenv("REPRO_TORCH_AUTOTUNE_TABLE", str(tmp_path / "autotune.json"))
+    monkeypatch.delenv("REPRO_AUTOTUNE", raising=False)  # read-only: the table steers auto
+    autotune.reload()
+    w = torch.randn((256, 512), generator=torch.Generator().manual_seed(3))
+    op, _ = factorize(w, FactorizeSpec(n_factors=3, block=64, k_first=2, k_mid=2), device=dev)
+    x = torch.randn((40, 256), device=dev)
+    op.apply(x, autotune=True)
+    rep = last_report()
+    entry = autotune.lookup(autotune.key_for_op(op, batch=40, dtype=torch.float32))
+    assert rep.source == "measured" and entry["ctx"]["device"] == torch.cuda.get_device_name(dev)
+    assert set(entry["us"]) == {"dense", "bsr", "fused"}
+    assert rep.backend == min(entry["us"], key=entry["us"].get)
+    assert entry["bt"] in SUPPORTED_BT and set(entry["bt_us"]) == {str(t) for t in SUPPORTED_BT}
+    assert rep.bt == entry["bt"]
+    autotune.reload()
 
 
 def test_fused_kernel_refuses_to_train(dev):

@@ -31,10 +31,13 @@ def jax_chain(dims, blk, k, seed=0, lam=0.75, dtype=np.float32):
 
 
 def array(a) -> tuple[np.ndarray, str | None]:
-    """numpy view of a JAX array; bf16 as uint16 bits plus its dtype name."""
+    """numpy view of a JAX array; bf16 as uint16 bits and fp8 as uint8
+    bits, each with its dtype name."""
     a = np.asarray(a)
     if a.dtype.name == "bfloat16":
         return a.view(np.uint16), "bfloat16"
+    if a.dtype.name in ("float8_e4m3fn", "float8_e5m2"):
+        return a.view(np.uint8), a.dtype.name
     return a, None
 
 
@@ -57,13 +60,16 @@ def blockfaust_dict(bf) -> dict:
 
 def packed_dict(pc) -> dict:
     values, dtype = array(pc.values)
-    return {
+    d = {
         "values": values,
         "in_idx": np.asarray(pc.in_idx),
         "lam": float(pc.lam),
         "plan": dataclasses.asdict(pc.plan),
         "dtype": dtype,
     }
+    if pc.qscheme is not None:
+        d["scales"], d["qscheme"] = np.asarray(pc.scales), pc.qscheme
+    return d
 
 
 def to_np(t) -> np.ndarray:
