@@ -13,8 +13,9 @@ Phases, each fatal on failure (non-zero exit):
    and a batch that is no multiple of the tile; the single factor (K6)
    with bk ≠ bn; the quantized chain (K4) on the same chains for int8,
    fp8 e4m3 and fp8 e5m2 codes with per-block and per-row scales, every
-   batch tile, f32 and bf16 activations; f32 within 1e-5·max|y|, bf16
-   within 3e-2·max|y|;
+   batch tile, f32 and bf16 activations; the chain backward (K2 dgrad, K3
+   wgrad, K5 both on codes: dx, dvalues, dscales) on the same grid; f32
+   within 1e-5·max|y|, bf16 within 3e-2·max|y|;
 3. the main path at full width: gemma-2b's MLP up-projection
    ``W (2048, 16384)`` (d_model 2048, d_ff 16384) from a seed, factorized on
    the card into J = 3 block-sparse factors (block 128, k 4), then
@@ -32,11 +33,25 @@ Phases, each fatal on failure (non-zero exit):
    ``apply(autotune=True)`` for the f32 and the int8 operator at both
    batches; ``auto`` must then report ``source == "measured"``, pick the
    fastest measured backend and run the fused tile the table holds;
-6. times (CUDA events, warm-up, then 20 launches) of each kernel, its
-   plain version and one PyTorch call computing the same function
-   (``torch.matmul`` on the materialized matrix), beside the card's bound,
-   the cost of an empty launch, and ``apply("auto")`` with the model
-   alone and with the table beside the forced backend it picks.
+6. training applies at full width (slice 3): the f32 operator (gradient
+   wrt x and the values) and the int8 one (wrt x and the scales), f32 and
+   bf16, B = 128 and 4096, fwd+bwd through ``fused`` (K1+K2+K3,
+   K4+K5), ``bsr`` and ``dense``, held against the plain versions and
+   autograd of ``x @ op.todense()``, with fwd and fwd+bwd times and
+   ``apply("auto")``'s report under grad; counters zeroed before, read
+   after, K2/K3/K5 required;
+7. the trainer: ``repro_torch.launch.train --arch gemma_2b --faust
+   --steps 3 --batch 8 --seq 128`` (full width and depth, bf16, remat,
+   FAµST unembedding) on a fresh autotune table; loss, step time and
+   tokens/s per step, peak memory, the captured FAµST dispatch; finite
+   losses and K2/K3 launches required;
+8. times (CUDA events, warm-up, then 20 launches; 5 for the backward) of
+   each kernel, its plain version and one PyTorch call computing the same
+   function (``torch.matmul`` on the materialized matrix; none for the
+   wgrad), beside the card's bound, the cost of an empty launch, and
+   ``apply("auto")`` with the model alone and with the table beside the
+   forced backend it picks; K1, K2 and K3 also at the trainer's shapes
+   (the FAµST unembedding, bf16, B = 1024).
 
 Prints one JSON object per line; the last three lines are the kernels
 summary, the card's ``name, power.limit`` and ``{"ok": true, ...}``.
@@ -248,6 +263,66 @@ def check_quantized_kernel(dev) -> list[dict]:
     return rows
 
 
+def check_backward_kernels(dev) -> list[dict]:
+    """Phase 2, slice 3: K2 (chain_dgrad), K3 (chain_wgrad) and K5 (both on
+    codes) against their plain versions on the chains K1 is checked on:
+    dx, dvalues and, for codes, dscales = Σ_c q·dv."""
+    import torch
+
+    from repro_torch.core.compress import expand_scales, pack_chain, quantize_chain
+    from repro_torch.kernels.chain import SUPPORTED_BT
+    from repro_torch.kernels.chain_bwd import (
+        chain_dgrad,
+        chain_dgrad_plain,
+        chain_wgrad,
+        chain_wgrad_plain,
+        dgrad_meta,
+        wgrad_meta,
+    )
+
+    rows = []
+    dims_by_blk = {16: (40, 72, 56, 90, 33), 128: (200, 300, 260, 330, 150)}
+    forms = [(None, None)] + [(d, s) for d in DRE_MAX for s in ("per_block", "per_row")]
+    for blk, dims in dims_by_blk.items():
+        for n_factors in (1, 2, 3, 4):
+            bf, g = _random_chain(dims[: n_factors + 1], blk, 3, 7 * n_factors + blk, dev)
+            pc = pack_chain(bf)
+            plan = pc.plan
+            x0 = torch.randn((37, dims[0]), generator=g)
+            x0 = torch.nn.functional.pad(x0, (0, plan.in_blocks[0] * blk - dims[0]))
+            dy0 = torch.randn((37, plan.out_blocks[-1] * blk), generator=g)
+            dmeta, wmeta = dgrad_meta(plan, pc.in_idx), wgrad_meta(plan, pc.in_idx)
+            for qdtype, scheme in forms:
+                q = pc if qdtype is None else quantize_chain(pc, qdtype, scheme)
+                scales = None if qdtype is None else expand_scales(q.scales, blk).contiguous()
+                for dtype in (torch.float32, torch.bfloat16):
+                    dname = str(dtype).removeprefix("torch.")
+                    x, dy = x0.to(dev, dtype), dy0.to(dev, dtype)
+                    values = q.values if qdtype is not None else q.values.to(dtype)
+                    dx_p = chain_dgrad_plain(dy, values, dmeta, plan=plan, scales=scales)
+                    dv_p = chain_wgrad_plain(x, dy, values, wmeta, plan=plan, scales=scales)
+                    for bt in (SUPPORTED_BT if n_factors == 3 else (16,)):
+                        dx = chain_dgrad(dy, values, dmeta, plan=plan, bt=bt, scales=scales)
+                        dv = chain_wgrad(x, dy, values, wmeta, plan=plan, bt=bt, scales=scales)
+                        if dev.type == "cuda":
+                            torch.cuda.synchronize()
+                        outs = {"dx": (dx, dx_p), "dvalues": (dv, dv_p)}
+                        if scales is not None:
+                            outs["dscales"] = tuple(torch.sum(values.float() * d, dim=2) for d in (dv, dv_p))
+                        for what, (got, want) in outs.items():
+                            err, rel = rel_err(got, want)
+                            kernel = ("chain_dgrad" if what == "dx" else "chain_wgrad") + ("_q" if scales is not None else "")
+                            row = {"phase": "kernel_check", "kernel": kernel, "output": what, "dtype": dname,
+                                   "quant": q.qscheme, "J": n_factors, "block": blk,
+                                   "dims": list(dims[: n_factors + 1]), "batch": 37, "bt": bt,
+                                   "max_abs_err": err, "rel_err": rel, "tol": TOL[dname]}
+                            log(row)
+                            require(bool(torch.isfinite(got).all()) and rel <= TOL[dname],
+                                    f"{kernel} disagrees with its plain version: {row}")
+                            rows.append(row)
+    return rows
+
+
 def main_path(dev, in_f: int = 2048, out_f: int = 16384, batches=(128, 4096)):
     """Phase 3: factorize → pack → apply through the user entry points."""
     import numpy as np
@@ -403,7 +478,7 @@ def measured_dispatch(ops: dict, batches=(128, 4096)) -> dict:
 
 
 def measure(op, card_line: str) -> tuple[list[dict], float]:
-    """Phase 4: kernel, plain and library times at the main path's shapes;
+    """Phase 8: kernel, plain and library times at the main path's shapes;
     every row names the card and its power limit."""
     import torch
 
@@ -484,7 +559,7 @@ def measure(op, card_line: str) -> tuple[list[dict], float]:
 
 
 def measure_quantized(qops: dict, ops: dict, card_line: str, batches=(128, 4096)) -> list[dict]:
-    """Phase 6, slice 2: K4 per code type at both batches beside its bound,
+    """Phase 8, slice 2: K4 per code type at both batches beside its bound,
     its plain version and ``torch.matmul`` on the dequantized dense
     matrix; then ``apply("auto")`` on the model alone and on the table,
     beside the forced backend the table picks."""
@@ -562,9 +637,307 @@ def measure_quantized(qops: dict, ops: dict, card_line: str, batches=(128, 4096)
     return rows
 
 
+def _bwd_counts() -> dict:
+    from repro_torch.kernels.bsr_matmul import bsr_matmul
+    from repro_torch.kernels.chain import chain_matmul
+    from repro_torch.kernels.chain_bwd import chain_dgrad, chain_wgrad
+
+    return {"chain_matmul": chain_matmul.launches, "chain_matmul_q": chain_matmul.q_launches,
+            "bsr_matmul": bsr_matmul.launches, "chain_dgrad": chain_dgrad.launches,
+            "chain_wgrad": chain_wgrad.launches, "chain_dgrad_q": chain_dgrad.q_launches,
+            "chain_wgrad_q": chain_wgrad.q_launches}
+
+
+def _zero_counts() -> None:
+    from repro_torch.kernels.bsr_matmul import bsr_matmul
+    from repro_torch.kernels.chain import chain_matmul
+    from repro_torch.kernels.chain_bwd import chain_dgrad, chain_wgrad
+
+    chain_matmul.launches = chain_matmul.q_launches = bsr_matmul.launches = 0
+    chain_dgrad.launches = chain_dgrad.q_launches = chain_wgrad.launches = chain_wgrad.q_launches = 0
+
+
+def _trainable(op):
+    """A copy of ``op`` whose trained tensor (the values of an f32 chain,
+    the scales of a quantized one) is a fresh leaf that requires grad."""
+    import dataclasses
+
+    from repro_torch.api import FaustOp
+
+    pc = op._packed
+    name = "scales" if pc.quantized else "values"
+    leaf = getattr(pc, name).detach().clone().requires_grad_(True)
+    return FaustOp(dataclasses.replace(pc, **{name: leaf})), leaf
+
+
+def training_path(ops: dict, card_line: str, batches=(128, 4096)) -> tuple[list[dict], dict]:
+    """Phase 6, slice 3: FaustOp-level training applies at full width.  For
+    the f32 chain (gradient wrt x and the values) and its int8 per-block
+    form (wrt x and the scales), f32 and bf16 x, both batches: fwd+bwd
+    through ``fused`` (K1+K2+K3, K4+K5), ``bsr`` and ``dense``, each held
+    against the plain versions and against autograd of x @ op.todense();
+    fwd and fwd+bwd times; ``apply("auto")``'s report under grad.  Counts
+    zeroed before, read after."""
+    import torch
+
+    from repro_torch.api import last_report
+
+    _zero_counts()
+    rows = []
+    g = torch.Generator().manual_seed(4)
+    for name, op in ops.items():
+        m, n = op.shape
+        dev = op.device
+        for b in batches:
+            x32 = torch.randn((b, m), generator=g).to(dev)
+            w = torch.randn((b, n), generator=g).to(dev)
+            for dtype in (torch.float32, torch.bfloat16):
+                dname = str(dtype).removeprefix("torch.")
+                top, leaf = _trainable(op)
+
+                def grads(backend, use_kernel=None, dense=False):
+                    x = x32.to(dtype, copy=True).requires_grad_(True)
+                    leaf.grad = None
+                    if dense:
+                        y = x.float() @ top.todense()
+                    else:
+                        y = top.apply(x, backend, use_kernel=use_kernel, device=dev)
+                    (y.float() * w).sum().backward()
+                    return y.detach(), x.grad.detach().clone(), leaf.grad.detach().clone()
+
+                _, dx_d, dl_d = grads(None, dense=True)
+                for backend in ("fused", "bsr", "dense"):
+                    y, dx, dl = grads(backend)
+                    report = last_report()
+                    _, dx_p, dl_p = grads(backend, use_kernel=False)
+                    if dev.type == "cuda":
+                        torch.cuda.synchronize()
+                    errs = {"dx_plain": rel_err(dx, dx_p), "dleaf_plain": rel_err(dl, dl_p),
+                            "dx_dense": rel_err(dx, dx_d), "dleaf_dense": rel_err(dl, dl_d)}
+                    x = x32.to(dtype, copy=True).requires_grad_(True)
+                    with torch.no_grad():
+                        fwd_ms = time_ms(lambda: top.apply(x, backend, device=dev), iters=5)
+                    fwdbwd_ms = time_ms(lambda: top.apply(x, backend, device=dev).backward(w.to(dtype)), iters=5)
+                    row = {"phase": "train_apply", "card": card_line, "op": name, "dtype": dname, "batch": b,
+                           "backend": backend, "grad_wrt": "scales" if op._packed.quantized else "values",
+                           "report": report.as_row(), "fwd_ms": fwd_ms, "fwd_bwd_ms": fwdbwd_ms,
+                           **{f"rel_err_{k}": v[1] for k, v in errs.items()},
+                           "finite": bool(torch.isfinite(dx).all() and torch.isfinite(dl).all())}
+                    log(row)
+                    tol_dense = DENSE_TOL if dtype == torch.float32 else TOL[dname]
+                    require(row["finite"] and report.grad, f"bad training apply: {row}")
+                    require(errs["dx_plain"][1] <= TOL[dname] and errs["dleaf_plain"][1] <= TOL[dname],
+                            f"{backend} gradients disagree with the plain versions: {row}")
+                    require(errs["dx_dense"][1] <= tol_dense and errs["dleaf_dense"][1] <= tol_dense,
+                            f"{backend} gradients disagree with autograd of x @ todense(): {row}")
+                    rows.append(row)
+                x = x32.to(dtype, copy=True).requires_grad_(True)
+                top.apply(x, device=dev)
+                auto = last_report()
+                log({"phase": "train_auto", "op": name, "dtype": dname, "batch": b, "report": auto.as_row()})
+                require(auto.grad, f"auto under autograd was not priced for training: {auto.as_row()}")
+    counts = _bwd_counts()
+    log({"phase": "launches_train_apply", **counts})
+    if any(op.device.type == "cuda" for op in ops.values()):
+        require(all(counts[k] > 0 for k in ("chain_dgrad", "chain_wgrad", "chain_dgrad_q", "chain_wgrad_q")),
+                f"a backward kernel of the training apply never ran: {counts}")
+    return rows, counts
+
+
+def train_lm(card_line: str, argv=None) -> dict:
+    """Phase 7, slice 3: ``repro_torch.launch.train``'s own path at
+    gemma-2b's full width and depth with a FAµST unembedding (the reference
+    CLI's defaults: bf16, remat, block 16, k 4, 2 factors, untied), on a
+    fresh autotune table so ``auto`` is the model's choice.  Per step: loss,
+    step time, tokens/s; peak memory; the captured FAµST dispatch; the
+    kernel counts of the phase, which must include K2 and K3."""
+    import os
+
+    import torch
+
+    from repro_torch.api import autotune
+    from repro_torch.launch import train
+
+    table = ROOT / "build" / "chip_smoke_train_autotune.json"
+    table.unlink(missing_ok=True)
+    saved = {k: os.environ.get(k) for k in ("REPRO_TORCH_AUTOTUNE_TABLE", "REPRO_AUTOTUNE")}
+    os.environ["REPRO_TORCH_AUTOTUNE_TABLE"] = str(table)
+    os.environ.pop("REPRO_AUTOTUNE", None)
+    autotune.reload()
+    argv = argv or ["--arch", "gemma_2b", "--faust", "--steps", "3", "--batch", "8", "--seq", "128"]
+    args = train.parse_args(argv)
+    try:
+        trainer = train.build(args)
+        if trainer.device.type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        _zero_counts()
+        t0 = time.perf_counter()
+        out = trainer.run()
+        wall_s = time.perf_counter() - t0
+        counts = _bwd_counts()
+    finally:  # the later phases read phase 5's table again
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        autotune.reload()
+    n_params = sum(p.numel() for p in out["model"].parameters())
+    tokens = args.batch * args.seq
+    for h in out["history"]:
+        log({"phase": "train_step", "card": card_line, "step": h["step"], "loss": h["loss"],
+             "step_time_s": h["step_time_s"], "tokens_per_s": tokens / h["step_time_s"],
+             "grad_norm": h.get("grad_norm"), "lr": h.get("lr"), "skipped": h["skipped"]})
+    rep = trainer.faust_dispatch
+    row = {"phase": "train_lm", "card": card_line, "argv": argv, "n_layers": trainer.cfg.n_layers,
+           "d_model": trainer.cfg.d_model, "vocab": trainer.cfg.vocab, "dtype": trainer.cfg.dtype,
+           "remat": trainer.cfg.remat, "faust_unembed": str(trainer.cfg.faust_unembed), "params": n_params,
+           "wall_s": wall_s,
+           "max_memory_allocated_gb": (torch.cuda.max_memory_allocated() / 1e9
+                                       if trainer.device.type == "cuda" else None),
+           "faust_dispatch": None if rep is None else rep.as_row(), "launches": counts}
+    log(row)
+    losses = [h["loss"] for h in out["history"]]
+    require(len(losses) == args.steps and all(math.isfinite(v) for v in losses), f"bad losses: {losses}")
+    require(rep is not None and rep.grad, f"no FAµST dispatch priced for training was captured: {row}")
+    if trainer.device.type == "cuda":
+        require(counts["chain_dgrad"] > 0 and counts["chain_wgrad"] > 0,
+                f"the trainer never ran K2/K3: {counts}")
+    del out
+    return row
+
+
+def measure_backward(op, qop, card_line: str, batches=(128, 4096)) -> list[dict]:
+    """Phase 8, slice 3: K2, K3 and K5 (its dgrad and wgrad halves on int8
+    codes) at the main path's shapes beside their bound, their plain
+    versions and, for the dgrads, one PyTorch call computing the same
+    function (``dy @ A_denseᵀ``)."""
+    import torch
+
+    from repro_torch.core.compress import expand_scales
+    from repro_torch.kernels.chain_bwd import (
+        chain_dgrad,
+        chain_dgrad_plain,
+        chain_wgrad,
+        chain_wgrad_plain,
+        dgrad_meta,
+        wgrad_meta,
+    )
+
+    rows = []
+    m, n = op.shape
+    dev = op.device
+    q = qop._packed
+    qscales = expand_scales(q.scales, q.plan.block).contiguous()
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).removeprefix("torch.")
+        elt = torch.empty((), dtype=dtype).element_size()
+        pc = op._packed.to(dtype=dtype)
+        plan = pc.plan
+        sizes = [plan.offsets[j + 1] - plan.offsets[j] for j in range(plan.n_factors)]
+        s_tot = pc.values.numel()
+        s_j = [sz * plan.block * plan.block for sz in sizes]
+        dm, wm = dgrad_meta(plan, pc.in_idx), wgrad_meta(plan, pc.in_idx)
+        a_dense, aq_dense = op.todense().to(dtype), qop.todense().to(dtype)
+        q_bytes = s_tot + 4 * qscales.numel()  # int8 codes and f32 row scales
+        for b in batches:
+            x = torch.randn((b, m), device=dev).to(dtype)
+            dy = torch.randn((b, n), device=dev).to(dtype)
+            w_flops = 2.0 * b * (sum(s_j[:-1]) + s_tot + sum(s_j[1:]))
+            cases = {
+                "chain_dgrad": (lambda: chain_dgrad(dy, pc.values, dm, plan=plan),
+                                lambda: chain_dgrad_plain(dy, pc.values, dm, plan=plan),
+                                lambda: torch.matmul(dy, a_dense.T), 2.0 * b * s_tot,
+                                elt * (s_tot + b * (m + n))),
+                "chain_wgrad": (lambda: chain_wgrad(x, dy, pc.values, wm, plan=plan),
+                                lambda: chain_wgrad_plain(x, dy, pc.values, wm, plan=plan),
+                                None, w_flops, elt * (s_tot + b * (m + n)) + 4 * s_tot),
+                "chain_dgrad_q": (lambda: chain_dgrad(dy, q.values, dm, plan=plan, scales=qscales),
+                                  lambda: chain_dgrad_plain(dy, q.values, dm, plan=plan, scales=qscales),
+                                  lambda: torch.matmul(dy, aq_dense.T), 2.0 * b * s_tot,
+                                  q_bytes + elt * b * (m + n)),
+                "chain_wgrad_q": (lambda: chain_wgrad(x, dy, q.values, wm, plan=plan, scales=qscales),
+                                  lambda: chain_wgrad_plain(x, dy, q.values, wm, plan=plan, scales=qscales),
+                                  None, w_flops, q_bytes + elt * b * (m + n) + 4 * s_tot),
+            }
+            for name, (kern, plain, lib, flops, byts) in cases.items():
+                err, rel = rel_err(kern(), plain())
+                require(rel <= TOL[dname], f"{name} {dname} B={b} disagrees with its plain version")
+                t_ops, t_bytes = flops / PEAK[dname], byts / HBM_BW
+                row = {"phase": "time", "card": card_line, "kernel": name, "dtype": dname, "batch": b,
+                       "quant": q.qscheme if name.endswith("_q") else None, "launches_per_apply": 1,
+                       "max_abs_err": err, "rel_err": rel, "ms": time_ms(kern, iters=5),
+                       "plain_ms": time_ms(plain, iters=5),
+                       "library_ms": None if lib is None else time_ms(lib, iters=5),
+                       "bound_ms": max(t_ops, t_bytes) * 1e3,
+                       "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+                       "flops": flops, "bytes": byts}
+                log(row)
+                rows.append(row)
+    return rows
+
+
+def measure_unembed(card_line: str, dev, b: int = 1024, dims=(2048, 2048, 256000)) -> list[dict]:
+    """Phase 8, slice 3: K1, K2 and K3 at the shapes the trainer gives them:
+    the ``--faust`` unembedding (2048 → 2048 → 256000, block 16, k 4, bf16)
+    at B = 8·128 tokens, on random values of that layout, beside their
+    bound, plain versions and, for K1/K2, one ``torch.matmul`` on the
+    dense matrix."""
+    import torch
+
+    from repro_torch.core.compress import pack_chain
+    from repro_torch.kernels.chain import chain_matmul, chain_matmul_plain
+    from repro_torch.kernels.chain_bwd import (
+        chain_dgrad,
+        chain_dgrad_plain,
+        chain_wgrad,
+        chain_wgrad_plain,
+        dgrad_meta,
+        wgrad_meta,
+    )
+    from repro_torch.kernels.ops import chain_meta
+
+    blk = 16
+    bf, g = _random_chain(dims, blk, 4, 5, dev)
+    pc = pack_chain(bf).to(dtype=torch.bfloat16)
+    plan, s_tot = pc.plan, pc.values.numel()
+    m, n = dims[0], dims[-1]
+    s_j = [(plan.offsets[j + 1] - plan.offsets[j]) * blk * blk for j in range(plan.n_factors)]
+    x = torch.randn((b, m), generator=g).to(dev, torch.bfloat16)
+    dy = torch.randn((b, n), generator=g).to(dev, torch.bfloat16)
+    fm, dm, wm = chain_meta(plan, pc.in_idx), dgrad_meta(plan, pc.in_idx), wgrad_meta(plan, pc.in_idx)
+    a_dense = bf.todense().to(torch.bfloat16)
+    edge = 2 * (s_tot + b * (m + n))
+    cases = {
+        "chain_matmul": (lambda: chain_matmul(x, pc.values, fm, plan=plan),
+                         lambda: chain_matmul_plain(x, pc.values, fm, plan=plan),
+                         lambda: torch.matmul(x, a_dense), 2.0 * b * s_tot, edge),
+        "chain_dgrad": (lambda: chain_dgrad(dy, pc.values, dm, plan=plan),
+                        lambda: chain_dgrad_plain(dy, pc.values, dm, plan=plan),
+                        lambda: torch.matmul(dy, a_dense.T), 2.0 * b * s_tot, edge),
+        "chain_wgrad": (lambda: chain_wgrad(x, dy, pc.values, wm, plan=plan),
+                        lambda: chain_wgrad_plain(x, dy, pc.values, wm, plan=plan), None,
+                        2.0 * b * (sum(s_j[:-1]) + s_tot + sum(s_j[1:])), edge + 4 * s_tot),
+    }
+    rows = []
+    for name, (kern, plain, lib, flops, byts) in cases.items():
+        err, rel = rel_err(kern(), plain())
+        require(rel <= TOL["bfloat16"], f"{name} at the unembedding's shape disagrees with its plain version")
+        t_ops, t_bytes = flops / PEAK["bfloat16"], byts / HBM_BW
+        row = {"phase": "time", "card": card_line, "kernel": name, "chain": f"unembedding {m}x{n} block 16 k 4",
+               "dtype": "bfloat16", "batch": b, "launches_per_apply": 1, "max_abs_err": err, "rel_err": rel,
+               "ms": time_ms(kern, iters=3), "plain_ms": time_ms(plain, iters=3),
+               "library_ms": None if lib is None else time_ms(lib, iters=3),
+               "bound_ms": max(t_ops, t_bytes) * 1e3,
+               "bound_by": "operations" if t_ops >= t_bytes else "bytes", "flops": flops, "bytes": byts}
+        log(row)
+        rows.append(row)
+    return rows
+
+
 def _kernel_entry(name, source, replaces, launches, cases, checks, card_line, head) -> dict:
     first = next(r for r in cases if all(r.get(k) == v for k, v in head.items()))
-    keys = ("quant", "dtype", "batch", "launches_per_apply", "max_abs_err", "ms", "plain_ms",
+    keys = ("chain", "quant", "dtype", "batch", "launches_per_apply", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
     return {
         "name": name, "route": "cuda", "source": source, "replaces": replaces, "card": card_line,
@@ -591,13 +964,17 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     dev = torch.device("cuda", 0)
     info = setup()
-    checks = check_kernels(dev) + check_quantized_kernel(dev)
+    checks = check_kernels(dev) + check_quantized_kernel(dev) + check_backward_kernels(dev)
     op, launches, w_dev = main_path(dev)
     qops, qlaunches = quantized_path(op, w_dev)
     ops = {"float32": op, "int8:per_block": qops["int8:per_block"]}
     measured_dispatch(ops)
+    _, train_counts = training_path(ops, info["card"])
+    lm = train_lm(info["card"])
     rows, _ = measure(op, info["card"])
     rows += measure_quantized(qops, ops, info["card"])
+    rows += measure_backward(op, qops["int8:per_block"], info["card"])
+    rows += measure_unembed(info["card"], dev)
 
     src = "src/repro_torch/kernels/csrc/"
     f32_b128 = {"dtype": "float32", "batch": 128}
@@ -612,6 +989,21 @@ def main() -> int:
                       "src/repro/kernels/chain.py:125", qlaunches["chain_matmul_q"],
                       [r for r in rows if r.get("kernel") == "chain_matmul_q"], checks, info["card"],
                       {"quant": "int8:per_block", **f32_b128}),
+        # K2 and K3: launches in the trainer's run (phase 7); K5, the two
+        # of them on codes: in the training applies (phase 6), the path
+        # that trains a quantized chain
+        _kernel_entry("chain_dgrad", src + "chain_dgrad.cu", "src/repro/kernels/chain_bwd.py:283",
+                      lm["launches"]["chain_dgrad"], [r for r in rows if r.get("kernel") == "chain_dgrad"],
+                      checks, info["card"], f32_b128),
+        _kernel_entry("chain_wgrad", src + "chain_wgrad.cu", "src/repro/kernels/chain_bwd.py:433",
+                      lm["launches"]["chain_wgrad"], [r for r in rows if r.get("kernel") == "chain_wgrad"],
+                      checks, info["card"], f32_b128),
+        _kernel_entry("chain_dgrad_q", src + "chain_dgrad.cu", "src/repro/kernels/chain_bwd.py:283",
+                      train_counts["chain_dgrad_q"], [r for r in rows if r.get("kernel") == "chain_dgrad_q"],
+                      checks, info["card"], {"quant": "int8:per_block", **f32_b128}),
+        _kernel_entry("chain_wgrad_q", src + "chain_wgrad.cu", "src/repro/kernels/chain_bwd.py:433",
+                      train_counts["chain_wgrad_q"], [r for r in rows if r.get("kernel") == "chain_wgrad_q"],
+                      checks, info["card"], {"quant": "int8:per_block", **f32_b128}),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(info["card"], flush=True)

@@ -1,7 +1,8 @@
 """FAµST on PyTorch and CUDA — the port of :mod:`repro` to one NVIDIA H100.
 
 The package mirrors the JAX package's layout (``core/``, ``kernels/``,
-``api/``, ``launch/``) so each module's counterpart is easy to find, and
+``api/``, ``launch/``, ``layers/``, ``models/``, ``optim/``, ``data/``,
+``runtime/``, ``configs/``) so each module's counterpart is easy to find, and
 imports neither JAX nor anything of ``repro``.  Arrays cross between the
 two packages as numpy (:mod:`repro_torch.bridge`).
 

@@ -1,5 +1,6 @@
 """Measured-timings table over the roofline dispatch model.
-Counterpart of :mod:`repro.api.autotune` (forward keys).
+Counterpart of :mod:`repro.api.autotune` (forward measurement; ``grad``
+keys are read, not yet measured).
 
 The roofline model assumes every kernel reaches its bound; on the card the
 first fused kernel does not, and the model's pick can be the slowest
@@ -159,16 +160,16 @@ def _device_name(device: torch.device) -> str:
     return torch.cuda.get_device_name(device) if device.type == "cuda" else device.type
 
 
-def key_for_op(op, *, batch: int, dtype: torch.dtype) -> str:
-    """:func:`key_of` for a forward apply of ``op`` — the one spelling
-    dispatch and measurement share."""
+def key_for_op(op, *, batch: int, dtype: torch.dtype, grad: bool = False) -> str:
+    """:func:`key_of` for an apply of ``op`` (``grad``: a training apply)
+    — the one spelling dispatch and measurement share."""
     return key_of(
         shape=op.shape,
         n_factors=op.n_factors,
         s_tot=op.s_tot,
         batch=batch,
         dtype=str(dtype).removeprefix("torch."),
-        grad=False,
+        grad=grad,
         mesh_shape=None,
         device=_device_name(op.device),
         vq=getattr(op.rep, "qscheme", None),

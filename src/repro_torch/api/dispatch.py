@@ -1,5 +1,6 @@
 """Cost-model backend dispatch for :class:`repro_torch.api.operator.FaustOp`.
-Counterpart of :mod:`repro.api.dispatch` (forward pricing).
+Counterpart of :mod:`repro.api.dispatch` (forward and joint training
+pricing).
 
     t(backend) ≈ max(flops / PEAK_FLOPS, bytes / HBM_BW) + launches·t_launch
 
@@ -12,14 +13,27 @@ Counterpart of :mod:`repro.api.dispatch` (forward pricing).
 where ``w`` is the weight stream: ``elt·s_tot``, or for a quantized chain
 the stored itemsize times s_tot plus the scale bytes.
 
+``grad=True`` (a training apply; ``FaustOp.apply`` detects autograd)
+prices forward and backward together with the reference's formulas: three
+passes per backend, the structured paths streaming the weights three
+times and writing the weight cotangent once; ``bsr`` pays the boundary
+activations in every pass and 3·J launches; ``fused`` runs the chain
+backward kernels (dgrad, and wgrad's recompute and walk: five flop passes
+in all).  The one term that prices the port's own kernel is the wgrad
+workspace (:func:`_wgrad_workspace_bytes`), where the reference priced
+its per-batch-tile partial slabs; and the wgrad kernel is two launches
+where the chain has intermediates (walk and emission), so ``fused``
+counts four launches for J > 1, three for J = 1.
+
 Constants come from :func:`repro_torch.launch.roofline.roofline_constants`
 (H100 data sheet).  Above the model sits the measured table
 (:mod:`repro_torch.api.autotune`): unless ``REPRO_AUTOTUNE=off``, an
 ``auto`` request whose key the table holds takes the measured-fastest
 feasible backend, ``source`` is ``"measured"`` and ``est_us`` holds the
-measured µs.  Every decision is a :class:`DispatchReport`, the latest one
-retrievable with :func:`last_report`.  Gradient-aware and sharded pricing
-come with later slices.
+measured µs; a ``grad=True`` key is looked up as well, and a miss takes
+the model (only forward keys are measured so far).  Every decision is a
+:class:`DispatchReport`, the latest one retrievable with
+:func:`last_report`.  Sharded pricing comes with a later slice.
 """
 from __future__ import annotations
 
@@ -45,6 +59,15 @@ def _dtype_name(dtype: torch.dtype) -> str:
     return str(dtype).removeprefix("torch.")
 
 
+def _wgrad_workspace_bytes(b: int, inner_dims: tuple[int, ...]) -> float:
+    """Device-memory bytes of the wgrad kernel's f32 workspaces
+    (``kernels/chain_bwd.py``): the walk writes every intermediate
+    activation and cotangent, ``2·b·Σ d_inner`` floats, and the emission
+    reads them back.  Where the reference priced one ``s_tot`` f32 partial
+    slab per extra batch tile, the port's kernel has none."""
+    return 16.0 * b * sum(inner_dims)
+
+
 @dataclasses.dataclass(frozen=True)
 class DispatchReport:
     """One backend decision, with its evidence."""
@@ -66,6 +89,7 @@ class DispatchReport:
     bt: int = DEFAULT_BT
     weight_bytes: int = 0  # weight stream priced: values (stored itemsize) + scales
     values_dtype: str = ""  # stored values' dtype (int8/float8_* when quantized)
+    grad: bool = False  # est_us are joint forward+backward costs
 
     def as_row(self) -> dict:
         return {
@@ -83,6 +107,7 @@ class DispatchReport:
             "bt": self.bt,
             "weight_bytes": self.weight_bytes,
             "values_dtype": self.values_dtype,
+            "grad": self.grad,
         }
 
 
@@ -114,12 +139,14 @@ def choose_backend(
     bt: int = DEFAULT_BT,
     values_dtype: str | None = None,
     scales_bytes: int = 0,
+    grad: bool = False,
 ) -> DispatchReport:
     """Pick the cheapest feasible backend under the roofline model (a pure
     function of its arguments; ``device`` and ``bt`` are recorded, not
     consulted).  ``values_dtype``/``scales_bytes`` describe a quantized
     chain: its weight stream is priced at the stored itemsize plus the
-    scale bytes; unquantized pricing is unchanged."""
+    scale bytes; unquantized pricing is unchanged.  ``grad=True`` prices
+    forward and backward together (module docstring)."""
     consts, source = _roofline.roofline_constants()
     peak_flops, hbm_bw, launch_us = consts["peak_flops"], consts["hbm_bw"], consts["t_launch_us"]
     m, n = shape
@@ -135,11 +162,28 @@ def choose_backend(
     w_elt = getattr(torch, values_dtype).itemsize if quant else elt
     w_stream = w_elt * s_tot + scales_bytes
     build_flops = 2.0 * s_tot * min(m, n)
-    est = {
-        "dense": roofline_us(2.0 * b * m * n + build_flops, elt * (2 * m * n + edge), n_factors),
-        "bsr": roofline_us(2.0 * b * s_tot, w_stream + elt * (edge + inner), n_factors),
-        "fused": roofline_us(2.0 * b * s_tot, w_stream + elt * edge, 1),
-    }
+    if not grad:
+        est = {
+            "dense": roofline_us(2.0 * b * m * n + build_flops, elt * (2 * m * n + edge), n_factors),
+            "bsr": roofline_us(2.0 * b * s_tot, w_stream + elt * (edge + inner), n_factors),
+            "fused": roofline_us(2.0 * b * s_tot, w_stream + elt * edge, 1),
+        }
+    else:
+        # the weight cotangent: f32 for codes (wrt the dequantized values)
+        dv_bytes = 4.0 * s_tot if quant else elt * s_tot
+        est = {
+            "dense": roofline_us(
+                3 * 2.0 * b * m * n + 3.0 * build_flops, elt * (4 * m * n + 3 * edge), 3 * n_factors
+            ),
+            "bsr": roofline_us(
+                3 * 2.0 * b * s_tot, 3 * w_stream + dv_bytes + elt * (3 * edge + 3 * inner), 3 * n_factors
+            ),
+            "fused": roofline_us(
+                5 * 2.0 * b * s_tot,
+                3 * w_stream + dv_bytes + elt * 3 * edge + _wgrad_workspace_bytes(b, inner_dims),
+                4 if inner_dims else 3,
+            ),
+        }
     est = {k: v for k, v in est.items() if k in feasible}
     rank = lambda k: (est[k], _ORDER[k])  # noqa: E731
     backend = min(est, key=rank)
@@ -148,7 +192,8 @@ def choose_backend(
         reason = f"only feasible backend ({backend}); weight_bytes={w_stream}"
     else:
         reason = (
-            f"{backend} modeled {est[backend]:.2f}us vs {runner_up} {est[runner_up]:.2f}us "
+            f"{backend} modeled {est[backend]:.2f}us{' fwd+bwd' if grad else ''} vs "
+            f"{runner_up} {est[runner_up]:.2f}us "
             f"(batch={b}, s_tot={s_tot}, dense_nnz={m * n}, weight_bytes={w_stream})"
         )
     return DispatchReport(
@@ -166,6 +211,7 @@ def choose_backend(
         bt=bt,
         weight_bytes=int(w_stream),
         values_dtype=values_dtype if quant else _dtype_name(dtype),
+        grad=grad,
     )
 
 
@@ -178,13 +224,14 @@ def dispatch(
     device: str = "",
     bt: int | None = None,
     record: bool = True,
+    grad: bool = False,
 ) -> DispatchReport:
     """Decide (or, for a forced ``requested``, record) the backend of one
-    leaf operator.  A forced report keeps the model's estimates and says
-    what it would have picked.  An ``auto`` request consults the measured
-    table first (unless ``REPRO_AUTOTUNE=off``); on a hit the backend is
-    the measured-fastest feasible one and measured µs are never mixed with
-    modeled ones.  ``bt`` is the caller's batch tile for the fused kernel;
+    leaf operator (``grad``: of a training apply).  A forced report keeps
+    the model's estimates and says what it would have picked.  An ``auto``
+    request consults the measured table first (unless
+    ``REPRO_AUTOTUNE=off``); on a hit the backend is the measured-fastest
+    feasible one and measured µs are never mixed with modeled ones.  ``bt`` is the caller's batch tile for the fused kernel;
     ``None`` takes the table's winner, else ``DEFAULT_BT``.
     ``record=False`` leaves :func:`last_report` untouched (an advisory
     query).  A decision is made once per operator and arguments, and made
@@ -194,25 +241,25 @@ def dispatch(
 
     consult = requested == "auto" and _autotune.autotune_mode() != "off"
     consts, source = _roofline.roofline_constants()
-    key = (id(op), batch, dtype, requested, device, bt,
+    key = (id(op), batch, dtype, requested, device, bt, grad,
            _autotune.table_generation() if consult else None, source, tuple(consts.items()))
     hit = _MEMO.get(key)
     if hit is not None and hit[0]() is op:
         report = hit[1]
     else:
-        report = _decide(op, batch, dtype, requested, device, bt, consult)
+        report = _decide(op, batch, dtype, requested, device, bt, consult, grad)
         if len(_MEMO) >= _MEMO_MAX:
             _MEMO.clear()
         _MEMO[key] = (weakref.ref(op), report)
     return _record(report) if record else report
 
 
-def _decide(op, batch, dtype, requested, device, bt, consult) -> DispatchReport:
+def _decide(op, batch, dtype, requested, device, bt, consult, grad) -> DispatchReport:
     from repro_torch.api import autotune as _autotune
 
     entry = None
     if consult:
-        entry = _autotune.lookup(_autotune.key_for_op(op, batch=batch, dtype=dtype))
+        entry = _autotune.lookup(_autotune.key_for_op(op, batch=batch, dtype=dtype, grad=grad))
     if bt is None:
         bt = int(entry["bt"]) if entry is not None and entry.get("bt") else DEFAULT_BT
     values_dtype, scales_bytes = op.quant_info()
@@ -229,6 +276,7 @@ def _decide(op, batch, dtype, requested, device, bt, consult) -> DispatchReport:
         bt=bt,
         values_dtype=values_dtype,
         scales_bytes=scales_bytes,
+        grad=grad,
     )
     if entry is not None:
         measured = {

@@ -11,6 +11,10 @@ A :class:`FaustOp` wraps a :class:`~repro_torch.core.faust.Faust`,
   model: :mod:`repro_torch.api.autotune`, :mod:`repro_torch.api.dispatch`);
 * a quantized :class:`PackedChain` runs ``fused`` on its codes (K4) and
   ``dense``/``bsr`` on its exact f32 dequantized values;
+* every backend is differentiable: under autograd ``apply`` prices
+  forward and backward together (``grad``) and packs or unpacks from the
+  live tensors on every call, so gradients reach them and an operator
+  held across optimizer steps never applies stale values;
 * ``op.T`` / ``op.H`` — the adjoint, applied by the scatter form;
 * ``op.to("faust" | "block" | "packed")`` — conversions;
 * ``op.s_tot`` / ``op.rcg`` — the paper's complexity accounting.
@@ -23,7 +27,6 @@ Composition, stacking and sharding come with later slices.
 from __future__ import annotations
 
 import dataclasses
-import functools
 import math
 
 import torch
@@ -153,7 +156,7 @@ class FaustOp:
         return self.T
 
     def todense(self) -> torch.Tensor:
-        rep = self._unpacked if isinstance(self.rep, PackedChain) else self.rep
+        rep = self._unpacked_for(self._live_grad()) if isinstance(self.rep, PackedChain) else self.rep
         d = rep.todense()
         return d.T if self.adjoint else d
 
@@ -167,6 +170,7 @@ class FaustOp:
         device=None,
         bt: int | None = None,
         autotune: bool | None = None,
+        grad: bool | None = None,
     ) -> torch.Tensor:
         """``y = x @ todense()`` for ``x (..., shape[0])`` on ``device``
         (default: the CUDA card).  ``x`` and the operator must already lie
@@ -180,7 +184,12 @@ class FaustOp:
         follows ``REPRO_AUTOTUNE`` (``1``: an ``auto`` apply measures a
         key the table lacks); ``True`` measures, ``False`` does not;
         table hits steer ``auto`` either way unless ``REPRO_AUTOTUNE=off``
-        (:mod:`repro_torch.api.autotune`)."""
+        (:mod:`repro_torch.api.autotune`).
+
+        ``grad=None`` detects a training apply: grad mode on and ``x`` or a
+        tensor of the operator requiring grad.  Dispatch then prices
+        forward and backward together and keys the table by ``grad``; only
+        forward keys are measured."""
         from repro_torch.api import autotune as _autotune
         from repro_torch.api import dispatch as _dispatch
 
@@ -203,21 +212,73 @@ class FaustOp:
                 f"backend {backend!r} is not feasible for this operator "
                 f"(feasible: {self.feasible_backends()})"
             )
+        if grad is None:
+            grad = torch.is_grad_enabled() and (x.requires_grad or self._live_grad())
         if autotune is None:
             autotune = _autotune.autotune_mode() == "measure"
-        if autotune and backend == "auto":
+        if autotune and backend == "auto" and not grad:
             _autotune.ensure_measured(self, x, batch=batch_of(x), dtype=x.dtype, use_kernel=use_kernel)
         report = _dispatch.dispatch(
-            self, batch_of(x), x.dtype, requested=backend, device=str(dev), bt=bt
+            self, batch_of(x), x.dtype, requested=backend, device=str(dev), bt=bt, grad=grad
         )
         return self._run_backend(x, report.backend, use_kernel, report.bt)
+
+    def _tensors(self) -> tuple[torch.Tensor, ...]:
+        """Every tensor of the representation (values, scales, λ, indices)."""
+        rep = self.rep
+        if isinstance(rep, Faust):
+            return (*rep.factors, rep.lam)
+        if isinstance(rep, BlockFaust):
+            return (*(t for f in rep.factors for t in (f.values, f.in_idx)), rep.lam)
+        return tuple(t for t in (rep.values, rep.in_idx, rep.scales, rep.lam) if t is not None)
+
+    def _live_grad(self) -> bool:
+        """Whether autograd would record an apply: grad mode is on and a
+        tensor of the operator requires grad."""
+        return torch.is_grad_enabled() and any(t.requires_grad for t in self._tensors())
+
+    def _cached(self, name: str, build, live: bool):
+        """``build()`` once per state of the operator's tensors: the cache
+        is keyed by their version counters, so an in-place update (an
+        optimizer step) rebuilds it.  Under autograd (``live``) it builds
+        anew from the live tensors, so the result is in the graph."""
+        if live:
+            return build()
+        stamp = tuple((id(t), t._version) for t in self._tensors())
+        hit = self.__dict__.get(name)
+        if hit is None or hit[0] != stamp:
+            with torch.no_grad():
+                hit = (stamp, build())
+            self.__dict__[name] = hit  # a frozen dataclass still owns its __dict__
+        return hit[1]
+
+    def _packed_for(self, live: bool) -> PackedChain:
+        """The fused layout of the operator."""
+        if isinstance(self.rep, PackedChain):
+            return self.rep
+        return self._cached("_pack_cache", lambda: pack_chain(self.rep), live)
+
+    def _unpacked_for(self, live: bool) -> BlockFaust:
+        """A packed leaf's per-factor form: for a quantized chain the exact
+        f32 values, dequantized once per state of the codes and scales."""
+        return self._cached("_unpack_cache", lambda: unpack_chain(self.rep), live)
+
+    @property
+    def _packed(self) -> PackedChain:
+        return self._packed_for(self._live_grad())
+
+    @property
+    def _unpacked(self) -> BlockFaust:
+        return self._unpacked_for(self._live_grad())
 
     def _run_backend(self, x, backend, use_kernel, bt) -> torch.Tensor:
         from repro_torch.kernels.ops import blockfaust_apply, blockfaust_apply_t, packed_chain_apply
 
         rep = self.rep
+        live = self._live_grad()
         if backend == "dense":
-            return x @ self.todense().to(x.dtype)
+            dense = (self._unpacked_for(live) if isinstance(rep, PackedChain) else rep).todense()
+            return x @ (dense.T if self.adjoint else dense).to(x.dtype)
         if isinstance(rep, Faust):  # "bsr" = the per-factor chain
             y = x
             if self.adjoint:  # x @ Aᵀ = x @ S_1ᵀ @ … @ S_Jᵀ
@@ -228,22 +289,11 @@ class FaustOp:
                     y = y @ s.to(x.dtype)
             return rep.lam.to(y.dtype) * y
         if backend == "fused":
-            return packed_chain_apply(x, self._packed, use_kernel=use_kernel, bt=bt)
-        bf = self._unpacked if isinstance(rep, PackedChain) else rep
+            return packed_chain_apply(x, self._packed_for(live), use_kernel=use_kernel, bt=bt)
+        bf = self._unpacked_for(live) if isinstance(rep, PackedChain) else rep
         if self.adjoint:
             return blockfaust_apply_t(x, bf)
         return blockfaust_apply(x, bf, use_kernel=use_kernel)
-
-    @functools.cached_property
-    def _packed(self) -> PackedChain:
-        """The fused layout, packed once per operator."""
-        return self.rep if isinstance(self.rep, PackedChain) else pack_chain(self.rep)
-
-    @functools.cached_property
-    def _unpacked(self) -> BlockFaust:
-        """A packed leaf's per-factor form, unpacked once per operator: for
-        a quantized chain the exact f32 values, dequantized once."""
-        return unpack_chain(self.rep)
 
     def quant_info(self) -> tuple[str | None, int]:
         """``(values_dtype, scales_bytes)`` of a quantized packed leaf for
@@ -262,13 +312,14 @@ class FaustOp:
             return ("dense", "bsr", "fused")
         return ("dense", "bsr")
 
-    def dispatch_for(self, batch: int, dtype=torch.float32):
-        """The decision ``apply(backend="auto")`` would make at ``batch``,
-        without applying and without touching ``last_report``."""
+    def dispatch_for(self, batch: int, dtype=torch.float32, grad: bool = False):
+        """The decision ``apply(backend="auto")`` would make at ``batch``
+        (``grad``: for a training apply), without applying and without
+        touching ``last_report``."""
         from repro_torch.api import dispatch as _dispatch
 
         return _dispatch.dispatch(
-            self, batch, dtype, requested="auto", device=str(self.device), record=False
+            self, batch, dtype, requested="auto", device=str(self.device), record=False, grad=grad
         )
 
     # -- conversions -------------------------------------------------------------

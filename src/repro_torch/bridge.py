@@ -9,6 +9,12 @@ compute on the same arrays:
                 "out_features"}, ...], "lam": float}``
 * PackedChain:  ``{"values", "in_idx", "lam", "plan": {ChainPlan fields}}``,
                 plus ``"scales"`` and ``"qscheme"`` for a quantized chain
+* LM params:    the reference's parameter tree (``repro.models.lm``
+                ``init_model``: nested dicts and lists, each stage's layers
+                stacked on a leading axis) with numpy leaves, mapped to and
+                from the port's :class:`~repro_torch.models.lm.LM` state
+                dict (layers unstacked: ``stages/0/0/attn/wq[l]`` is
+                ``layers.{l}.attn.wq``)
 
 bf16 values cross as ``uint16`` bit views with ``"dtype": "bfloat16"``
 beside them (``torch.from_numpy`` has no bfloat16); fp8 codes likewise as
@@ -155,3 +161,83 @@ def to_numpy(obj) -> dict:
             d["qscheme"] = obj.qscheme
         return d
     raise TypeError(f"to_numpy expects Faust | BlockFaust | PackedChain, got {type(obj).__name__}")
+
+
+def flatten_tree(tree, prefix: str = "", pick=None) -> dict[str, np.ndarray]:
+    """A nested dict/list tree of arrays as ``{dotted path: array}`` (the
+    state dict keys of the matching module); ``pick`` indexes every leaf."""
+    out: dict[str, np.ndarray] = {}
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            out.update(flatten_tree(v, f"{prefix}{k}.", pick))
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            out.update(flatten_tree(v, f"{prefix}{i}.", pick))
+    else:
+        out[prefix[:-1]] = np.asarray(tree) if pick is None else np.asarray(tree)[pick]
+    return out
+
+
+def flatten_lm_tree(tree: dict, cfg) -> dict[str, np.ndarray]:
+    """The reference's LM tree as ``{state dict key: array}``: paths joined
+    with dots, each stage's stacked layers split into ``layers.{l}``."""
+    out = flatten_tree({k: v for k, v in tree.items() if k != "stages"})
+    layer = 0
+    for si, (repeat, unit) in enumerate(cfg.stages):
+        for r in range(repeat):
+            for pos in range(len(unit)):
+                out.update(flatten_tree(tree["stages"][si][pos], f"layers.{layer}.", r))
+                layer += 1
+    return out
+
+
+def lm_state_dict_from_numpy(tree: dict, cfg, *, dtype: str | None = None, device=None) -> dict[str, torch.Tensor]:
+    """The port's LM state dict from the reference's tree; ``dtype`` names
+    the floating leaves' type when they cross as bit views (``bfloat16``)."""
+    dev = resolve_device(device)
+    return {
+        k: _tensor(a, dev, dtype if a.dtype == np.uint16 else None)
+        for k, a in flatten_lm_tree(tree, cfg).items()
+    }
+
+
+def _nest(flat: dict) -> dict:
+    """``{dotted path: array}`` as a nested tree; a dict whose keys are
+    0..n-1 becomes a list."""
+    root: dict = {}
+    for key, a in flat.items():
+        *head, last = key.split(".")
+        node = root
+        for part in head:
+            node = node.setdefault(part, {})
+        node[last] = a
+
+    def lists(node):
+        if not isinstance(node, dict):
+            return node
+        node = {k: lists(v) for k, v in node.items()}
+        if all(k.isdigit() for k in node):
+            return [node[str(i)] for i in range(len(node))]
+        return node
+
+    return lists(root)
+
+
+def lm_state_dict_to_numpy(state_dict: dict, cfg) -> tuple[dict, str | None]:
+    """The reference's tree (layers stacked again) from the port's state
+    dict, with the floating leaves' dtype name (bf16 as ``uint16`` bits)."""
+    flat, dtype = {}, None
+    for key, t in state_dict.items():
+        flat[key], name = _array(t)
+        if name in _BIT_VIEWS:
+            dtype = name
+    where = [(si, pos) for si, (repeat, unit) in enumerate(cfg.stages) for _ in range(repeat)
+             for pos in range(len(unit))]
+    per: dict = {}
+    for key in [k for k in flat if k.startswith("layers.")]:
+        _, layer, rest = key.split(".", 2)
+        si, pos = where[int(layer)]
+        per.setdefault(f"stages.{si}.{pos}.{rest}", {})[int(layer)] = flat.pop(key)
+    for key, rows in per.items():
+        flat[key] = np.stack([rows[layer] for layer in sorted(rows)])
+    return _nest(flat), dtype

@@ -20,7 +20,12 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
-SOURCES = {"bsr_matmul": "bsr_matmul.cu", "chain_matmul": "chain_matmul.cu"}
+SOURCES = {
+    "bsr_matmul": "bsr_matmul.cu",
+    "chain_matmul": "chain_matmul.cu",
+    "chain_dgrad": "chain_dgrad.cu",
+    "chain_wgrad": "chain_wgrad.cu",
+}
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -10,11 +10,13 @@ Counterpart of :mod:`repro.kernels.ops`.
 
 ``use_kernel=None`` follows the tensor: a CUDA tensor runs the kernels, a
 CPU tensor the plain versions; ``use_kernel=True`` on a CPU tensor raises.
-The single-factor kernel path is differentiable (its backward is the plain
-``bsr_matmul_dx``/``_dvalues``, as the reference's custom VJP); the fused
-path, kernel and plain version alike, is forward only until its backward
-kernels (K2 ``chain_dgrad``, K3 ``chain_wgrad``, K5 for quantized chains)
-are ported.
+Every path is differentiable.  The single-factor kernel's backward is the
+plain ``bsr_matmul_dx``/``_dvalues``, as the reference's custom VJP.  The
+fused chain's backward is the fused kernels of
+:mod:`repro_torch.kernels.chain_bwd` (K2 ``chain_dgrad`` + K3
+``chain_wgrad``; K5 on a quantized chain, whose codes are frozen and
+whose scales get ``Σ_c q·dv``), or their plain versions where the forward
+ran plain.  ``in_idx`` gets no gradient.
 """
 from __future__ import annotations
 
@@ -33,6 +35,14 @@ from repro_torch.core.compress import (
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels.bsr_matmul import bsr_matmul
 from repro_torch.kernels.chain import DEFAULT_BT, META_COLS, SUPPORTED_BT, chain_matmul
+from repro_torch.kernels.chain_bwd import (
+    chain_dgrad,
+    chain_dgrad_plain,
+    chain_wgrad,
+    chain_wgrad_plain,
+    dgrad_meta,
+    wgrad_meta,
+)
 
 
 def _want_kernel(x: torch.Tensor, use_kernel: bool | None) -> bool:
@@ -140,6 +150,78 @@ def chain_meta(plan: ChainPlan, in_idx: torch.Tensor) -> torch.Tensor:
     return torch.cat([in_idx.reshape(-1, 1).to(torch.int32), static], dim=1)
 
 
+def _chain_bwd(ctx, dy, x, in_idx, values, scales, want_dx, want_dv):
+    """``(dx, dv)`` of one fused apply: K2/K3 (K5 with ``scales``) where the
+    forward ran the kernel, their plain versions where it ran plain; each
+    only where it is wanted.  ``dv`` is f32."""
+    plan, bt = ctx.plan, ctx.bt
+    dy = dy.contiguous()
+    dx = dv = None
+    if want_dx:
+        meta = dgrad_meta(plan, in_idx)
+        if ctx.kernel:
+            dx = chain_dgrad(dy, values, meta, plan=plan, bt=bt, scales=scales)
+        else:
+            dx = chain_dgrad_plain(dy, values, meta, plan=plan, scales=scales)
+        dx = dx.to(x.dtype)
+    if want_dv:
+        meta = wgrad_meta(plan, in_idx)
+        if ctx.kernel:
+            dv = chain_wgrad(x, dy, values, meta, plan=plan, bt=bt, scales=scales)
+        else:
+            dv = chain_wgrad_plain(x, dy, values, meta, plan=plan, scales=scales)
+    return dx, dv
+
+
+def _save(ctx, x, in_idx, plan, bt, kernel, *tensors):
+    ctx.save_for_backward(x, in_idx, *tensors)
+    ctx.plan, ctx.bt, ctx.kernel = plan, bt, kernel
+
+
+class _ChainFn(torch.autograd.Function):
+    """The fused chain on ``x (B, IB_1·blk)``: forward K1, backward K2 + K3
+    (``repro/kernels/ops.py`` ``_chain_pallas`` and its VJP)."""
+
+    @staticmethod
+    def forward(ctx, x, values, in_idx, plan, bt, kernel):
+        _save(ctx, x, in_idx, plan, bt, kernel, values)
+        if kernel:
+            return chain_matmul(x, values, chain_meta(plan, in_idx), plan=plan, bt=bt)
+        return _ref.packed_chain_ref(x, values, in_idx, plan)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, in_idx, values = ctx.saved_tensors
+        want = ctx.needs_input_grad
+        dx, dv = _chain_bwd(ctx, dy, x, in_idx, values, None, want[0], want[1])
+        return dx, None if dv is None else dv.to(values.dtype), None, None, None, None
+
+
+class _ChainQFn(torch.autograd.Function):
+    """The fused chain on codes ``values`` with ``(S, blk)`` f32 row
+    ``scales``: forward K4, backward K5 (``_chain_pallas_q`` and its VJP).
+    The codes are frozen; the scales get ``dL/ds[s, r] = Σ_c q·dv``
+    (``_dq_cotangent``), taken from K3's gradient wrt the dequantized
+    values.  A per-block scheme's broadcast to rows is reduced back by
+    autograd (:func:`~repro_torch.core.compress.expand_scales`)."""
+
+    @staticmethod
+    def forward(ctx, x, values, scales, in_idx, plan, bt, kernel):
+        scales = scales.contiguous()
+        _save(ctx, x, in_idx, plan, bt, kernel, values, scales)
+        if kernel:
+            return chain_matmul(x, values, chain_meta(plan, in_idx), plan=plan, bt=bt, scales=scales)
+        return _ref.packed_chain_q_ref(x, values, in_idx, plan, scales)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, in_idx, values, scales = ctx.saved_tensors
+        want = ctx.needs_input_grad
+        dx, dv = _chain_bwd(ctx, dy, x, in_idx, values, scales, want[0], want[2])
+        dscales = None if dv is None else torch.sum(values.float() * dv, dim=2)
+        return dx, None, dscales, None, None, None, None
+
+
 def packed_chain_apply(
     x: torch.Tensor,
     chain: PackedChain,
@@ -152,38 +234,23 @@ def packed_chain_apply(
     The plain path (``ref.packed_chain_ref``) runs on the same packed
     arrays.  A quantized chain runs K4 (or ``ref.packed_chain_q_ref``) on
     its codes and ``(S, blk)`` row scales: values stay f32 after
-    dequantization whatever ``x.dtype``."""
+    dequantization whatever ``x.dtype``.  Differentiable in ``x``, the
+    values (the scales of a quantized chain) and λ."""
     if bt not in SUPPORTED_BT:
         raise ValueError(f"bt must be one of {SUPPORTED_BT}; got {bt}")
     kernel = _want_kernel(x, use_kernel)
     plan = chain.plan
     in_pad = plan.in_blocks[0] * plan.block
     x = _pad_features(x, in_pad)
+    batch_shape = x.shape[:-1]
+    x2 = x.reshape(-1, in_pad).contiguous()
     if chain.quantized:  # codes must never be cast to the activation dtype
-        values, scales = chain.values, expand_scales(chain.scales, plan.block)
+        scales = expand_scales(chain.scales, plan.block)
+        y2 = _ChainQFn.apply(x2, chain.values.contiguous(), scales, chain.in_idx, plan, bt, kernel)
     else:
-        values, scales = _as_dtype(chain.values, x.dtype), None
-    # forward only on every device, so the plain path never trains what
-    # the kernel cannot
-    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in (x, values, scales)):
-        raise NotImplementedError(
-            "the fused chain kernel is forward only: its backward kernels "
-            "(K2 chain_dgrad, K3 chain_wgrad, and K5 for quantized chains) come "
-            "with the training slice; train through backend='bsr' until then"
-        )
-    if not kernel:
-        if scales is None:
-            y = _ref.packed_chain_ref(x, values, chain.in_idx, plan)
-        else:
-            y = _ref.packed_chain_q_ref(x, values, chain.in_idx, plan, scales)
-    else:
-        batch_shape = x.shape[:-1]
-        x2 = x.reshape(-1, in_pad).contiguous()
-        y2 = chain_matmul(
-            x2, values.contiguous(), chain_meta(plan, chain.in_idx), plan=plan, bt=bt,
-            scales=None if scales is None else scales.contiguous(),
-        )
-        y = y2.reshape(*batch_shape, -1)
+        values = _as_dtype(chain.values, x.dtype).contiguous()
+        y2 = _ChainFn.apply(x2, values, chain.in_idx, plan, bt, kernel)
+    y = y2.reshape(*batch_shape, -1)
     if y.shape[-1] != plan.out_features:
         y = y[..., : plan.out_features]
     return chain.lam.to(y.dtype) * y

@@ -1,0 +1,104 @@
+"""FaustLinear: the paper's technique as a trainable linear layer.
+Counterpart of :mod:`repro.layers.faust_linear`.
+
+The weight ``W (in, out)`` is a FAµST chain of J block-sparse factors with
+prescribed random block supports (the paper's fixed-support constraint
+set): per factor the block ``values`` are an ``nn.Parameter`` and the
+support ``in_idx`` a buffer (indices get no gradient and no optimizer
+state), and λ is a parameter.  Every forward builds the operator afresh
+from the live parameters and applies it through
+:meth:`repro_torch.api.FaustOp.apply`, as the reference builds a
+``FaustOp`` from its params on every apply: ``auto`` dispatch prices the
+training apply, the fused backend packs the live values (its backward runs
+the chain backward kernels), and an optimizer step is seen by the next
+forward.  Sharded placement (the reference's ``FaustSpec.shard``) comes
+with the multi-GPU slice.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+from torch import nn
+
+from repro_torch.core.compress import BlockFaust, BlockSparseFactor, random_block_factor
+from repro_torch.device import resolve_device
+
+
+@dataclasses.dataclass(frozen=True)
+class FaustSpec:
+    """Static layout of a FAµST projection: ``n_factors`` J, square
+    ``block`` side, ``k`` kept blocks per output block-column per factor."""
+
+    n_factors: int = 2
+    block: int = 128
+    k: int = 4
+
+    def chain_dims(self, in_dim: int, out_dim: int) -> list[int]:
+        inner = min(in_dim, out_dim)
+        inner = -(-inner // self.block) * self.block  # round up to a block
+        return [in_dim] + [inner] * (self.n_factors - 1) + [out_dim]
+
+    def s_tot(self, in_dim: int, out_dim: int) -> int:
+        dims = self.chain_dims(in_dim, out_dim)
+        tot = 0
+        for i in range(self.n_factors):
+            ob = -(-dims[i + 1] // self.block)
+            k = min(self.k, -(-dims[i] // self.block))
+            tot += ob * k * self.block * self.block
+        return tot
+
+    def rcg(self, in_dim: int, out_dim: int) -> float:
+        return in_dim * out_dim / self.s_tot(in_dim, out_dim)
+
+
+class _Factor(nn.Module):
+    def __init__(self, f: BlockSparseFactor):
+        super().__init__()
+        self.values = nn.Parameter(f.values)
+        self.register_buffer("in_idx", f.in_idx)
+        self.in_features, self.out_features = f.in_features, f.out_features
+
+
+class FaustLinear(nn.Module):
+    """``y = x @ (λ · F_1 ⋯ F_J)`` for ``x (..., in_dim)``.  State dict keys
+    mirror the reference's param tree: ``factors.{i}.values``,
+    ``factors.{i}.in_idx``, ``lam``."""
+
+    def __init__(
+        self,
+        in_dim: int,
+        out_dim: int,
+        spec: FaustSpec,
+        *,
+        generator: torch.Generator,
+        dtype: torch.dtype = torch.float32,
+        device=None,
+        backend: str = "auto",
+    ):
+        super().__init__()
+        dev = resolve_device(device)
+        self.in_dim, self.out_dim, self.spec, self.backend = in_dim, out_dim, spec, backend
+        dims = spec.chain_dims(in_dim, out_dim)
+        if generator.device.type != "cpu":  # the supports are drawn on the CPU
+            seed = torch.randint(2**62, (1,), generator=generator, device=generator.device)
+            generator = torch.Generator().manual_seed(int(seed))
+        self.factors = nn.ModuleList(
+            _Factor(random_block_factor(dims[i], dims[i + 1], spec.block, spec.block, spec.k,
+                                        generator=generator, dtype=dtype, device=dev))
+            for i in range(spec.n_factors)
+        )
+        self.lam = nn.Parameter(torch.ones((), dtype=dtype, device=dev))
+
+    def blockfaust(self) -> BlockFaust:
+        """The chain on the live parameters (no copy)."""
+        return BlockFaust(
+            tuple(BlockSparseFactor(f.values, f.in_idx, f.in_features, f.out_features) for f in self.factors),
+            self.lam,
+        )
+
+    def forward(self, x: torch.Tensor, backend: str | None = None) -> torch.Tensor:
+        from repro_torch.api.operator import FaustOp
+
+        op = FaustOp(self.blockfaust())
+        return op.apply(x, backend or self.backend, device=x.device)

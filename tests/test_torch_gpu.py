@@ -10,7 +10,10 @@ Tolerances: f32 ≤ 1e-5 of max|y| (FFMA in another summation order); bf16
 ≤ 3e-2 of max|y| (activations round to bf16 between factors on both
 sides, and a one-ulp difference propagates).  The quantized kernel (K4)
 dequantizes with the plain version's f32 product, so the same bounds hold.
+The backward kernels (K2, K3, K5) keep f32 inside as their plain versions
+do, so bf16 differs only by the rounding of the inputs and of dx.
 """
+import dataclasses
 import math
 
 import pytest
@@ -31,6 +34,14 @@ from repro_torch.kernels.chain import (
     chain_matmul,
     chain_matmul_plain,
     chain_matmul_q_plain,
+)
+from repro_torch.kernels.chain_bwd import (
+    chain_dgrad,
+    chain_dgrad_plain,
+    chain_wgrad,
+    chain_wgrad_plain,
+    dgrad_meta,
+    wgrad_meta,
 )
 
 pytestmark = pytest.mark.gpu
@@ -155,10 +166,94 @@ def test_measured_dispatch_on_card(dev, tmp_path, monkeypatch):
 
 
 def test_fused_kernel_refuses_to_train(dev):
+    """The fused path no longer refuses to train: its backward launches K2
+    and K3 and gives the bsr kernel path's input gradient."""
     w = torch.randn((128, 128), generator=torch.Generator().manual_seed(1))
     op, _ = factorize(w, FactorizeSpec(n_factors=2, block=64, k_first=1, k_mid=1), device=dev)
-    x = torch.randn((4, 128), device=dev, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="K2"):
-        op.apply(x, "fused")
-    op.apply(x, "bsr").sum().backward()  # the bsr kernel path trains
-    assert x.grad is not None and torch.isfinite(x.grad).all()
+    grads = {}
+    for backend in ("fused", "bsr"):
+        x = torch.randn((4, 128), generator=torch.Generator().manual_seed(2)).to(dev).requires_grad_(True)
+        before = (chain_dgrad.launches, chain_wgrad.launches)
+        op.apply(x, backend).sum().backward()
+        torch.cuda.synchronize()
+        if backend == "fused":  # x requires grad, the values do not: dgrad only
+            assert (chain_dgrad.launches, chain_wgrad.launches) == (before[0] + 1, before[1])
+        assert torch.isfinite(x.grad).all()
+        grads[backend] = x.grad
+    assert _rel(grads["fused"], grads["bsr"]) <= 1e-5  # f32 FFMA: summation order
+
+
+def _bwd_chain(dev, n_factors, blk, seed):
+    dims = (200, 300, 260, 330, 150)[: n_factors + 1] if blk == 128 else (40, 72, 56, 90, 33)[: n_factors + 1]
+    g = torch.Generator().manual_seed(seed)
+    bf = BlockFaust(tuple(
+        random_block_factor(dims[j], dims[j + 1], blk, blk, 3, generator=g, device=dev)
+        for j in range(n_factors)
+    ), torch.ones((), device=dev))
+    pc = pack_chain(bf)
+    x = torch.randn((45, pc.plan.in_blocks[0] * blk), generator=g).to(dev)
+    dy = torch.randn((45, pc.plan.out_blocks[-1] * blk), generator=g).to(dev)
+    return pc, x, dy
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n_factors,blk,bt", [(1, 16, 32), (3, 128, 16), (4, 128, 64), (2, 16, 32)])
+def test_chain_backward_kernels_match_plain(dev, dtype, n_factors, blk, bt):
+    """K2 (dx) and K3 (dvalues, f32) against their plain versions."""
+    pc, x, dy = _bwd_chain(dev, n_factors, blk, 20 + n_factors)
+    values, x, dy = pc.values.to(dtype), x.to(dtype), dy.to(dtype)
+    dm, wm = dgrad_meta(pc.plan, pc.in_idx), wgrad_meta(pc.plan, pc.in_idx)
+    before = (chain_dgrad.launches, chain_wgrad.launches)
+    dx = chain_dgrad(dy, values, dm, plan=pc.plan, bt=bt)
+    dv = chain_wgrad(x, dy, values, wm, plan=pc.plan, bt=bt)
+    torch.cuda.synchronize()
+    assert (chain_dgrad.launches, chain_wgrad.launches) == (before[0] + 1, before[1] + 1)
+    assert dx.dtype == dtype and dv.dtype == torch.float32
+    assert _rel(dx, chain_dgrad_plain(dy, values, dm, plan=pc.plan)) <= TOL[dtype]
+    assert _rel(dv, chain_wgrad_plain(x, dy, values, wm, plan=pc.plan)) <= TOL[dtype]
+
+
+@pytest.mark.parametrize("xdtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("scheme", ["per_block", "per_row"])
+@pytest.mark.parametrize("qdtype", ["int8", "fp8_e4m3", "fp8_e5m2"])
+def test_quantized_backward_kernels_match_plain(dev, qdtype, scheme, xdtype):
+    """K5: K2 and K3 on codes, and dscales = Σ_c q·dv."""
+    n_factors = 1 + ["int8", "fp8_e4m3", "fp8_e5m2"].index(qdtype) + (scheme == "per_row")
+    pc, x, dy = _bwd_chain(dev, n_factors, 16 if n_factors % 2 else 128, 30 + n_factors)
+    q = quantize_chain(pc, qdtype, scheme)
+    scales = expand_scales(q.scales, q.plan.block).contiguous()
+    x, dy = x.to(xdtype), dy.to(xdtype)
+    dm, wm = dgrad_meta(q.plan, q.in_idx), wgrad_meta(q.plan, q.in_idx)
+    for bt in SUPPORTED_BT:
+        before = (chain_dgrad.q_launches, chain_wgrad.q_launches)
+        dx = chain_dgrad(dy, q.values, dm, plan=q.plan, bt=bt, scales=scales)
+        dv = chain_wgrad(x, dy, q.values, wm, plan=q.plan, bt=bt, scales=scales)
+        torch.cuda.synchronize()
+        assert (chain_dgrad.q_launches, chain_wgrad.q_launches) == (before[0] + 1, before[1] + 1)
+        dv_p = chain_wgrad_plain(x, dy, q.values, wm, plan=q.plan, scales=scales)
+        assert _rel(dx, chain_dgrad_plain(dy, q.values, dm, plan=q.plan, scales=scales)) <= TOL[xdtype]
+        assert _rel(dv, dv_p) <= TOL[xdtype]
+        ds, ds_p = (torch.sum(q.values.float() * d, dim=2) for d in (dv, dv_p))
+        assert _rel(ds, ds_p) <= TOL[xdtype]
+
+
+def test_training_applies_run_the_backward_kernels(dev):
+    """A FaustOp training apply through fused launches K1+K2+K3 (K4+K5 on a
+    quantized chain) and matches autograd of x @ op.todense()."""
+    w = torch.randn((256, 512), generator=torch.Generator().manual_seed(4))
+    op, _ = factorize(w, FactorizeSpec(n_factors=3, block=64, k_first=2, k_mid=2), device=dev)
+    pc = op.to("packed").rep
+    for chain, name in ((pc, "values"), (quantize_chain(pc, "int8"), "scales")):
+        leaf = getattr(chain, name).clone().requires_grad_(True)
+        top = FaustOp.from_packed(dataclasses.replace(chain, **{name: leaf}))
+        x = torch.randn((70, 256), device=dev, requires_grad=True)
+        before = (chain_dgrad.launches + chain_dgrad.q_launches, chain_wgrad.launches + chain_wgrad.q_launches)
+        top.apply(x, "fused").square().sum().backward()
+        torch.cuda.synchronize()
+        assert last_report().grad
+        assert (chain_dgrad.launches + chain_dgrad.q_launches,
+                chain_wgrad.launches + chain_wgrad.q_launches) == (before[0] + 1, before[1] + 1)
+        got = (x.grad.clone(), leaf.grad.clone())
+        x.grad = leaf.grad = None
+        (x @ top.todense()).square().sum().backward()
+        assert _rel(got[0], x.grad) <= 1e-4 and _rel(got[1], leaf.grad) <= 1e-4  # the dense product re-associates

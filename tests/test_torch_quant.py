@@ -10,6 +10,8 @@ bound: the same f32 products summed in another order); bf16 applies
 factors).  Dispatch estimates are closed-form arithmetic on the same
 constants: equal to 1e-9 relative.
 """
+import dataclasses
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -193,13 +195,21 @@ def test_quantized_chain_moves_but_never_casts(jchain):
 
 @pytest.mark.parametrize("quantized", [False, True])
 def test_fused_path_refuses_to_train(jchain, quantized):
+    """The fused path no longer refuses to train: its backward (K2/K3, K5
+    on a quantized chain; their plain versions here) gives the per-factor
+    path's gradients, for x and for the values (the scales of codes)."""
     pc = _port(jchain)
-    op = FaustOp.from_packed(quantize_chain(pc) if quantized else pc, device=CPU)
-    x = torch.as_tensor(_x(4, DIMS[0])).requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="K5" if quantized else "K2"):
-        op.apply(x, "fused", device=CPU)
-    op.apply(x, "bsr", device=CPU).sum().backward()  # the per-factor path trains
-    assert x.grad is not None and torch.isfinite(x.grad).all()
+    pc = quantize_chain(pc) if quantized else pc
+    grads = {}
+    for backend in ("fused", "bsr"):
+        leaf = (pc.scales if quantized else pc.values).clone().requires_grad_(True)
+        rep = dataclasses.replace(pc, **{"scales" if quantized else "values": leaf})
+        x = torch.as_tensor(_x(4, DIMS[0])).requires_grad_(True)
+        FaustOp.from_packed(rep, device=CPU).apply(x, backend, device=CPU).sum().backward()
+        assert torch.isfinite(x.grad).all() and torch.isfinite(leaf.grad).all()
+        grads[backend] = (x.grad, leaf.grad)
+    for got, want in zip(grads["fused"], grads["bsr"]):
+        assert rel_max_err(to_np(got), to_np(want)) <= F32_TOL
 
 
 def test_quantized_slice_matches_reference():
