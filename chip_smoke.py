@@ -7,10 +7,15 @@ Phases, each fatal on failure (non-zero exit):
 
 1. setup: card name and power limit, torch/CUDA versions, TF32 off, the
    kernels built from ``src/repro_torch/kernels/csrc`` (one ``nvcc`` per
-   source, in parallel) with their ``-Xptxas -v`` lines;
+   source, in parallel) with their ``-Xptxas -v`` lines and K1/K4's SASS
+   counts of HMMA (bf16 tensor cores), FFMA and LDGSTS (cp.async), then K1/K4's
+   launch at the main path's and the trainer's shapes: resident CTAs,
+   grid, dynamic shared memory and work items per factor;
 2. every CUDA kernel against its plain PyTorch version on the card: the
    fused chain (K1) on ragged chains with J ∈ {1,2,3,4}, block 16 and 128,
-   and a batch that is no multiple of the tile; the single factor (K6)
+   and a batch that is no multiple of the tile, then on a grid of blocks
+   8 to 128 (24: no power of two; 100: no multiple of the MMA depth), J up
+   to 6 and B ∈ {1, 37, 4096}, with K4 on the same grid; the single factor (K6)
    with bk ≠ bn; the quantized chain (K4) on the same chains for int8,
    fp8 e4m3 and fp8 e5m2 codes with per-block and per-row scales, every
    batch tile, f32 and bf16 activations; the chain backward (K2 dgrad, K3
@@ -44,14 +49,19 @@ Phases, each fatal on failure (non-zero exit):
    --steps 3 --batch 8 --seq 128`` (full width and depth, bf16, remat,
    FAµST unembedding) on a fresh autotune table; loss, step time and
    tokens/s per step, peak memory, the captured FAµST dispatch; finite
-   losses and K2/K3 launches required;
+   losses and K2/K3 launches required; then one more step under
+   ``torch.profiler``: device busy time and idle share, device time by
+   kernel family (K1/K4, K2, K3, dense matmul, elementwise, other);
 8. times (CUDA events, warm-up, then 20 launches; 5 for the backward) of
    each kernel, its plain version and one PyTorch call computing the same
    function (``torch.matmul`` on the materialized matrix; none for the
    wgrad), beside the card's bound, the cost of an empty launch, and
    ``apply("auto")`` with the model alone and with the table beside the
-   forced backend it picks; K1, K2 and K3 also at the trainer's shapes
-   (the FAµST unembedding, bf16, B = 1024).
+   forced backend it picks; K1 and K4 (int8 per-block and per-row, fp8
+   e4m3 and e5m2) also with a cold L2 (a 256 MB buffer written between
+   launches); the batch-tile sweep of K1 and K6 in f32 and bf16; K1, K2
+   and K3 also at the trainer's shapes (the FAµST unembedding, bf16,
+   B = 1024).
 
 Prints one JSON object per line; the last three lines are the kernels
 summary, the card's ``name, power.limit`` and ``{"ok": true, ...}``.
@@ -118,6 +128,85 @@ def time_ms(fn, iters: int = ITERS) -> float:
     return start.elapsed_time(end) / iters
 
 
+def time_ms_cold(fn, iters: int = 10) -> float:
+    """Mean time of ``fn`` with the 50 MB L2 flushed before each launch:
+    a 256 MB buffer is written between launches, outside the timed span."""
+    import torch
+
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    fn()
+    torch.cuda.synchronize()
+    spans = []
+    for _ in range(iters):
+        flush.zero_()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        spans.append((start, end))
+    torch.cuda.synchronize()
+    return sum(s.elapsed_time(e) for s, e in spans) / iters
+
+
+def _plan(dims, blk, k):
+    """The ChainPlan of a chain over ``dims`` at block ``blk`` with ``k``
+    input blocks per output block (an int, or one per factor)."""
+    from repro_torch.core.compress import ChainPlan
+
+    ib = tuple(-(-d // blk) for d in dims[:-1])
+    ob = tuple(-(-d // blk) for d in dims[1:])
+    kb = tuple(min(k, i) for i in ib) if isinstance(k, int) else tuple(k)
+    offs = [0]
+    for o, kk in zip(ob, kb):
+        offs.append(offs[-1] + o * kk)
+    return ChainPlan(blk, ib, ob, kb, tuple(offs), tuple(dims[:-1]), tuple(dims[1:]))
+
+
+# the gemma-2b up-projection as factorized on the card (F_1 16x6, F_2 16x4,
+# F_3 128x4 out blocks x slots) and the trainer's FAµST unembedding
+UP_PROJ = ((2048, 2048, 2048, 16384), 128, (6, 4, 4))
+UNEMBED = ((2048, 2048, 256000), 16, 4)
+
+
+def launch_configs(card_line: str) -> list[dict]:
+    """K1/K4's launch at the main path's and the trainer's shapes, at their
+    default tile: resident CTAs, grid, shared memory, items per factor."""
+    import torch
+
+    from repro_torch.kernels.chain import FORWARD_BT, chain_schedule, launch_config
+
+    rows = []
+    cases = [("up-projection", UP_PROJ, b, dt, q) for b in (128, 4096)
+             for dt in (torch.float32, torch.bfloat16) for q in (None, torch.int8)]
+    cases.append(("unembedding", UNEMBED, 1024, torch.bfloat16, None))
+    for name, layout, b, dtype, qdtype in cases:
+        plan = _plan(*layout)
+        sched = chain_schedule(plan, b, FORWARD_BT)
+        cfg = launch_config(dtype, plan.block, FORWARD_BT, qdtype)
+        row = {"phase": "launch_config", "card": card_line, "chain": name,
+               "kernel": "chain_matmul" if qdtype is None else "chain_matmul_q",
+               "dtype": str(dtype).removeprefix("torch."), "batch": b, "bt": FORWARD_BT,
+               "block": plan.block, "blkp": sched.blkp, "group": sched.group, "ctas": cfg["ctas"],
+               "grid": min(cfg["ctas"], max(sched.items)), "smem_bytes": cfg["smem_bytes"],
+               "items_per_factor": list(sched.items), "barriers": plan.n_factors - 1}
+        log(row)
+        rows.append(row)
+    return rows
+
+
+def sass_counts(lib) -> dict | None:
+    """Tensor-core (HMMA), FFMA and cp.async (LDGSTS) instructions in a
+    built kernel library's SASS, by ``cuobjdump -sass``; None without the
+    tool."""
+    import shutil
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not Path(tool).exists():
+        return None
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True, check=True, timeout=300).stdout
+    return {op: sass.count(op) for op in ("HMMA", "FFMA", "LDGSTS")}
+
+
 def setup() -> dict:
     import torch
 
@@ -135,6 +224,7 @@ def setup() -> dict:
     }
     info = {
         "phase": "setup",
+        "sass": sass_counts(build.library_path("chain_matmul")),
         "card": card(),
         "device_name": torch.cuda.get_device_name(0),
         "torch": torch.__version__,
@@ -259,6 +349,67 @@ def check_quantized_kernel(dev) -> list[dict]:
                         log(row)
                         require(yk.dtype == dtype and rel <= TOL[dname],
                                 f"chain_matmul_q disagrees with its plain version: {row}")
+                        rows.append(row)
+    return rows
+
+
+# (block, J) of the grid check: blocks 8 to 128, 24 (no power of two) and 100
+# (no multiple of the MMA depth 16); J up to 6, so each ping-pong buffer of the
+# workspace is written again after the grid barrier of a later factor
+GRID = ((8, 6), (16, 5), (24, 6), (64, 4), (100, 3), (128, 6))
+
+
+def check_chain_grid(dev, batches=(1, 37, 4096)) -> list[dict]:
+    """Phase 2, K1 and K4 on the persistent schedule: the GRID of blocks and
+    depths at batches below, at and far above one tile, every tile at
+    B = 37; f32 and bf16; K4 for int8, e4m3 and e5m2, per-block and per-row."""
+    import torch
+
+    from repro_torch.core.compress import expand_scales, pack_chain, quantize_chain
+    from repro_torch.kernels.chain import (
+        SUPPORTED_BT,
+        chain_matmul,
+        chain_matmul_plain,
+        chain_matmul_q_plain,
+    )
+    from repro_torch.kernels.ops import chain_meta
+
+    rows = []
+    forms = [(None, None)] + [(d, sch) for d in DRE_MAX for sch in ("per_block", "per_row")]
+    for blk, n_factors in GRID:
+        base = (40, 72, 56, 90, 33, 61, 47) if blk <= 24 else (200, 300, 260, 330, 150, 210, 190)
+        dims = base[: n_factors + 1]
+        bf, g = _random_chain(dims, blk, 3, 100 * blk + n_factors, dev)
+        pc = pack_chain(bf)
+        plan = pc.plan
+        meta = chain_meta(plan, pc.in_idx)
+        for b in batches:
+            x0 = torch.randn((b, dims[0]), generator=g)
+            x0 = torch.nn.functional.pad(x0, (0, plan.in_blocks[0] * blk - dims[0]))
+            for qdtype, scheme in forms:
+                q = None if qdtype is None else quantize_chain(pc, qdtype, scheme)
+                scales = None if q is None else expand_scales(q.scales, blk).contiguous()
+                for dtype in (torch.float32, torch.bfloat16):
+                    dname = str(dtype).removeprefix("torch.")
+                    x = x0.to(dev, dtype)
+                    if q is None:
+                        values = pc.values.to(dtype)
+                        yp = chain_matmul_plain(x, values, meta, plan=plan)
+                    else:
+                        values = q.values
+                        yp = chain_matmul_q_plain(x, values, scales, meta, plan=plan)
+                    for bt in SUPPORTED_BT if b == 37 else (16, 64):
+                        yk = chain_matmul(x, values, meta, plan=plan, bt=bt, scales=scales)
+                        if dev.type == "cuda":
+                            torch.cuda.synchronize()
+                        err, rel = rel_err(yk, yp)
+                        row = {"phase": "kernel_check", "kernel": "chain_matmul" + ("" if q is None else "_q"),
+                               "dtype": dname, "quant": None if q is None else q.qscheme, "J": n_factors,
+                               "block": blk, "dims": list(dims), "batch": b, "bt": bt,
+                               "max_abs_err": err, "rel_err": rel, "tol": TOL[dname]}
+                        log(row)
+                        require(yk.dtype == dtype and rel <= TOL[dname],
+                                f"{row['kernel']} disagrees with its plain version: {row}")
                         rows.append(row)
     return rows
 
@@ -483,8 +634,9 @@ def measure(op, card_line: str) -> tuple[list[dict], float]:
     import torch
 
     from repro_torch.core.compress import unpack_chain
+    from repro_torch.kernels.bsr_matmul import DEFAULT_BT as BSR_BT
     from repro_torch.kernels.bsr_matmul import bsr_matmul, bsr_matmul_plain, launch_noop
-    from repro_torch.kernels.chain import SUPPORTED_BT, chain_matmul, chain_matmul_plain
+    from repro_torch.kernels.chain import FORWARD_BT, SUPPORTED_BT, chain_matmul, chain_matmul_plain
     from repro_torch.kernels.ops import chain_meta
 
     dev = op.device
@@ -515,6 +667,7 @@ def measure(op, card_line: str) -> tuple[list[dict], float]:
                                  lambda: chain_matmul_plain(x, pc.values, meta, plan=plan), 1),
                 "bsr_matmul": (k6, lambda: k6(bsr_matmul_plain), plan.n_factors),
             }
+            tiles = {"chain_matmul": FORWARD_BT, "bsr_matmul": BSR_BT}
             flops = 2.0 * b * s_tot
             byts = elt * s_tot + elt * b * (m + n)
             t_ops, t_bytes = flops / PEAK[dname], byts / HBM_BW
@@ -522,8 +675,8 @@ def measure(op, card_line: str) -> tuple[list[dict], float]:
                 err, rel = rel_err(kern(), plain())
                 require(rel <= TOL[dname], f"{name} {dname} B={b} disagrees with its plain version")
                 row = {"phase": "time", "card": card_line, "kernel": name, "dtype": dname, "batch": b,
-                       "launches_per_apply": per_call, "max_abs_err": err, "rel_err": rel,
-                       "ms": time_ms(kern), "plain_ms": time_ms(plain),
+                       "bt": tiles[name], "launches_per_apply": per_call, "max_abs_err": err, "rel_err": rel,
+                       "ms": time_ms(kern), "cold_ms": time_ms_cold(kern), "plain_ms": time_ms(plain),
                        "library_ms": time_ms(lambda: torch.matmul(x, a_dense)),
                        "bound_ms": max(t_ops, t_bytes) * 1e3,
                        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
@@ -539,22 +692,24 @@ def measure(op, card_line: str) -> tuple[list[dict], float]:
                 for be in ("fused", "bsr", "dense")},
              "auto_picks": op.dispatch_for(b).backend})
 
-    # batch-tile sweep (f32): the data behind DEFAULT_BT
-    pc = op._packed
-    bf = unpack_chain(pc)
-    meta = chain_meta(pc.plan, pc.in_idx)
-    for b in (128, 4096):
-        x = torch.randn((b, m), device=dev)
-        for bt in SUPPORTED_BT:
-            def k6(bt=bt):
-                y = x
-                for f in bf.factors:
-                    y = bsr_matmul(y, f.values, f.in_idx, bt=bt)
-                return y
+    # batch-tile sweep: the data behind FORWARD_BT (K1) and K6's default
+    for dtype in (torch.float32, torch.bfloat16):
+        pc = op._packed.to(dtype=dtype)
+        bf = unpack_chain(pc)
+        meta = chain_meta(pc.plan, pc.in_idx)
+        for b in (128, 4096):
+            x = torch.randn((b, m), device=dev).to(dtype)
+            for bt in SUPPORTED_BT:
+                def k6(bt=bt):
+                    y = x
+                    for f in bf.factors:
+                        y = bsr_matmul(y, f.values, f.in_idx, bt=bt)
+                    return y
 
-            log({"phase": "bt_sweep", "card": card_line, "dtype": "float32", "batch": b, "bt": bt,
-                 "chain_matmul_ms": time_ms(lambda: chain_matmul(x, pc.values, meta, plan=pc.plan, bt=bt)),
-                 "bsr_matmul_ms": time_ms(k6)})
+                log({"phase": "bt_sweep", "card": card_line, "dtype": str(dtype).removeprefix("torch."),
+                     "batch": b, "bt": bt,
+                     "chain_matmul_ms": time_ms(lambda: chain_matmul(x, pc.values, meta, plan=pc.plan, bt=bt)),
+                     "bsr_matmul_ms": time_ms(k6)})
     return rows, t_launch_us
 
 
@@ -569,11 +724,11 @@ def measure_quantized(qops: dict, ops: dict, card_line: str, batches=(128, 4096)
 
     from repro_torch.api import last_report
     from repro_torch.core.compress import expand_scales
-    from repro_torch.kernels.chain import chain_matmul, chain_matmul_q_plain
+    from repro_torch.kernels.chain import FORWARD_BT, chain_matmul, chain_matmul_q_plain
     from repro_torch.kernels.ops import chain_meta
 
     rows = []
-    for qscheme in ("int8:per_block", "fp8_e4m3:per_block", "fp8_e5m2:per_block"):
+    for qscheme in ("int8:per_block", "int8:per_row", "fp8_e4m3:per_block", "fp8_e5m2:per_block"):
         qop = qops[qscheme]
         q = qop.rep
         dev, (m, n) = qop.device, qop.shape
@@ -595,8 +750,8 @@ def measure_quantized(qops: dict, ops: dict, card_line: str, batches=(128, 4096)
                 byts = q.values.element_size() * s_tot + 4 * scales.numel() + elt * b * (m + n)
                 t_ops, t_bytes = flops / PEAK[dname], byts / HBM_BW
                 row = {"phase": "time", "card": card_line, "kernel": "chain_matmul_q", "quant": qscheme,
-                       "dtype": dname, "batch": b, "launches_per_apply": 1, "max_abs_err": err,
-                       "rel_err": rel, "ms": time_ms(kern), "plain_ms": time_ms(plain),
+                       "dtype": dname, "batch": b, "bt": FORWARD_BT, "launches_per_apply": 1, "max_abs_err": err,
+                       "rel_err": rel, "ms": time_ms(kern), "cold_ms": time_ms_cold(kern), "plain_ms": time_ms(plain),
                        "library_ms": time_ms(lambda: torch.matmul(x, a_dense)),
                        "bound_ms": max(t_ops, t_bytes) * 1e3,
                        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
@@ -775,6 +930,7 @@ def train_lm(card_line: str, argv=None) -> dict:
         out = trainer.run()
         wall_s = time.perf_counter() - t0
         counts = _bwd_counts()
+        profile = profile_step(trainer, out, card_line) if trainer.device.type == "cuda" else None
     finally:  # the later phases read phase 5's table again
         for k, v in saved.items():
             if v is None:
@@ -795,7 +951,7 @@ def train_lm(card_line: str, argv=None) -> dict:
            "wall_s": wall_s,
            "max_memory_allocated_gb": (torch.cuda.max_memory_allocated() / 1e9
                                        if trainer.device.type == "cuda" else None),
-           "faust_dispatch": None if rep is None else rep.as_row(), "launches": counts}
+           "faust_dispatch": None if rep is None else rep.as_row(), "launches": counts, "profile": profile}
     log(row)
     losses = [h["loss"] for h in out["history"]]
     require(len(losses) == args.steps and all(math.isfinite(v) for v in losses), f"bad losses: {losses}")
@@ -805,6 +961,60 @@ def train_lm(card_line: str, argv=None) -> dict:
                 f"the trainer never ran K2/K3: {counts}")
     del out
     return row
+
+
+# kernel families of a trainer step, by the device kernel's name
+FAMILIES = (("K1/K4 chain_matmul", ("chain_fwd_kernel",)), ("K2 chain_dgrad", ("chain_dgrad",)),
+            ("K3 chain_wgrad", ("chain_wgrad",)),
+            ("dense matmul", ("gemm", "cutlass", "xmma", "sm90_", "nvjet")),
+            ("elementwise and reductions", ("elementwise", "reduce_kernel", "Memset", "Memcpy")))
+
+
+def profile_step(trainer, out, card_line: str) -> dict:
+    """Phase 7, one more steady step of the trained model under
+    ``torch.profiler``: the host's step time, the device's busy time (the
+    union of kernel spans) and idle share, and device time by kernel family
+    and by the ten costliest kernels."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    import torch
+
+    from repro_torch.data.pipeline import DataIterator
+    from repro_torch.runtime.trainer import make_train_step
+
+    step_fn = make_train_step(out["model"], trainer.opt_cfg, trainer.tcfg)
+    data = DataIterator(trainer.data_cfg)
+    batches = [{k: torch.from_numpy(v).to(trainer.device) for k, v in next(data).items()} for _ in range(2)]
+    float(step_fn(batches[0], out["opt"])["loss"])  # warm: the step's allocations
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        loss = float(step_fn(batches[1], out["opt"])["loss"])
+        torch.cuda.synchronize()
+        step_s = time.perf_counter() - t0
+    spans = sorted((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
+                   if e.device_type == DeviceType.CUDA)
+    busy_us, end = 0.0, -math.inf
+    for a, b, _ in spans:  # union of the kernel spans
+        if b > end:
+            busy_us += b - max(a, end)
+            end = b
+    by_name: dict[str, float] = {}
+    for a, b, name in spans:
+        by_name[name] = by_name.get(name, 0.0) + (b - a)
+    families = {fam: 0.0 for fam, _ in FAMILIES} | {"other": 0.0}
+    for name, us in by_name.items():
+        fam = next((f for f, keys in FAMILIES if any(k in name for k in keys)), "other")
+        families[fam] += us / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+    row = {"phase": "train_profile", "card": card_line, "loss": loss, "step_s": step_s,
+           "device_busy_ms": busy_us / 1e3, "n_kernels": len(spans),
+           "device_idle_share": (1.0 - busy_us / 1e6 / step_s) if spans else None,
+           "family_ms": families, "top_kernels_ms": [[n[:120], us / 1e3] for n, us in top]}
+    log(row)
+    require(math.isfinite(loss), f"the profiled step's loss is not finite: {row}")
+    return {k: row[k] for k in ("step_s", "device_busy_ms", "device_idle_share", "family_ms")}
 
 
 def measure_backward(op, qop, card_line: str, batches=(128, 4096)) -> list[dict]:
@@ -927,6 +1137,7 @@ def measure_unembed(card_line: str, dev, b: int = 1024, dims=(2048, 2048, 256000
         row = {"phase": "time", "card": card_line, "kernel": name, "chain": f"unembedding {m}x{n} block 16 k 4",
                "dtype": "bfloat16", "batch": b, "launches_per_apply": 1, "max_abs_err": err, "rel_err": rel,
                "ms": time_ms(kern, iters=3), "plain_ms": time_ms(plain, iters=3),
+               "cold_ms": time_ms_cold(kern, iters=3) if name == "chain_matmul" else None,
                "library_ms": None if lib is None else time_ms(lib, iters=3),
                "bound_ms": max(t_ops, t_bytes) * 1e3,
                "bound_by": "operations" if t_ops >= t_bytes else "bytes", "flops": flops, "bytes": byts}
@@ -937,8 +1148,8 @@ def measure_unembed(card_line: str, dev, b: int = 1024, dims=(2048, 2048, 256000
 
 def _kernel_entry(name, source, replaces, launches, cases, checks, card_line, head) -> dict:
     first = next(r for r in cases if all(r.get(k) == v for k, v in head.items()))
-    keys = ("chain", "quant", "dtype", "batch", "launches_per_apply", "max_abs_err", "ms", "plain_ms",
-            "bound_ms", "bound_by", "library_ms")
+    keys = ("chain", "quant", "dtype", "batch", "bt", "launches_per_apply", "max_abs_err", "ms", "cold_ms",
+            "plain_ms", "bound_ms", "bound_by", "library_ms")
     return {
         "name": name, "route": "cuda", "source": source, "replaces": replaces, "card": card_line,
         "launches": launches, "max_abs_err": first["max_abs_err"], "ms": first["ms"],
@@ -964,7 +1175,9 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     dev = torch.device("cuda", 0)
     info = setup()
-    checks = check_kernels(dev) + check_quantized_kernel(dev) + check_backward_kernels(dev)
+    launch_configs(info["card"])
+    checks = check_kernels(dev) + check_quantized_kernel(dev) + check_chain_grid(dev)
+    checks += check_backward_kernels(dev)
     op, launches, w_dev = main_path(dev)
     qops, qlaunches = quantized_path(op, w_dev)
     ops = {"float32": op, "int8:per_block": qops["int8:per_block"]}

@@ -26,6 +26,9 @@ SOURCES = {
     "chain_dgrad": "chain_dgrad.cu",
     "chain_wgrad": "chain_wgrad.cu",
 }
+# No -rdc: chain_matmul.cu's grid-wide barrier (cooperative_groups grid
+# sync, under a cooperative launch) needs no relocatable device code since
+# CUDA 11; it builds and runs without it on the card's CUDA 12.8.
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -9,7 +9,9 @@ skips without one.  Run on a machine with a card:
 Tolerances: f32 ≤ 1e-5 of max|y| (FFMA in another summation order); bf16
 ≤ 3e-2 of max|y| (activations round to bf16 between factors on both
 sides, and a one-ulp difference propagates).  The quantized kernel (K4)
-dequantizes with the plain version's f32 product, so the same bounds hold.
+dequantizes f32 activations with the plain version's f32 product; with
+bf16 activations it rounds x·scale to bf16 once more per term, which the
+bf16 bound covers.
 The backward kernels (K2, K3, K5) keep f32 inside as their plain versions
 do, so bf16 differs only by the rounding of the inputs and of dx.
 """
@@ -77,6 +79,66 @@ def test_chain_kernel_matches_plain(dev, dtype, n_factors, blk, bt):
     torch.cuda.synchronize()
     assert chain_matmul.launches == before + 1
     assert _rel(y, chain_matmul_plain(x, pc.values, meta, plan=pc.plan)) <= TOL[dtype]
+
+
+# (block, J): blocks 8 to 128, one no power of two (24) and one no multiple
+# of the MMA depth 16 (100); J up to 6, so each ping-pong buffer of the
+# workspace is written again after the grid barrier of a later factor
+GRID = [(8, 6), (16, 5), (24, 6), (64, 4), (100, 3), (128, 6)]
+
+
+def _grid_chain(dev, blk, n_factors, batch, seed):
+    base = (40, 72, 56, 90, 33, 61, 47) if blk <= 24 else (200, 300, 260, 330, 150, 210, 190)
+    dims = base[: n_factors + 1]
+    g = torch.Generator().manual_seed(seed)
+    bf = BlockFaust(tuple(
+        random_block_factor(dims[j], dims[j + 1], blk, blk, 3, generator=g, device=dev)
+        for j in range(n_factors)
+    ), torch.ones((), device=dev))
+    pc = pack_chain(bf)
+    x = torch.randn((batch, dims[0]), generator=g)
+    x = torch.nn.functional.pad(x, (0, pc.plan.in_blocks[0] * blk - dims[0]))
+    return pc, x.to(dev)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("batch", [1, 37, 4096])
+@pytest.mark.parametrize("blk,n_factors", GRID)
+def test_chain_kernel_grid_matches_plain(dev, blk, n_factors, batch, dtype):
+    """K1 on the persistent schedule: every tile, batches below, at and far
+    above one tile, ragged features."""
+    pc, x = _grid_chain(dev, blk, n_factors, batch, blk + n_factors)
+    values, x = pc.values.to(dtype), x.to(dtype)
+    meta = ops.chain_meta(pc.plan, pc.in_idx)
+    ref = chain_matmul_plain(x, values, meta, plan=pc.plan)
+    for bt in SUPPORTED_BT:
+        before = chain_matmul.launches
+        y = chain_matmul(x, values, meta, plan=pc.plan, bt=bt)
+        torch.cuda.synchronize()
+        assert chain_matmul.launches == before + 1 and y.dtype == dtype
+        assert _rel(y, ref) <= TOL[dtype]
+
+
+@pytest.mark.parametrize("xdtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("scheme", ["per_block", "per_row"])
+@pytest.mark.parametrize("qdtype", ["int8", "fp8_e4m3", "fp8_e5m2"])
+def test_quantized_chain_kernel_grid_matches_plain(dev, qdtype, scheme, xdtype):
+    """K4 on the same grid of blocks, depths and batches (bf16 x folds the
+    row scale into the staged activation: one more bf16 rounding a term)."""
+    for blk, n_factors in GRID:
+        for batch in (1, 37, 4096):
+            pc, x = _grid_chain(dev, blk, n_factors, batch, 50 + blk + n_factors)
+            q = quantize_chain(pc, qdtype, scheme)
+            scales = expand_scales(q.scales, blk).contiguous()
+            x = x.to(xdtype)
+            meta = ops.chain_meta(q.plan, q.in_idx)
+            ref = chain_matmul_q_plain(x, q.values, scales, meta, plan=q.plan)
+            for bt in SUPPORTED_BT if batch == 37 else (16,):
+                before = chain_matmul.q_launches
+                y = chain_matmul(x, q.values, meta, plan=q.plan, bt=bt, scales=scales)
+                torch.cuda.synchronize()
+                assert chain_matmul.q_launches == before + 1 and y.dtype == xdtype
+                assert _rel(y, ref) <= TOL[xdtype]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -165,9 +227,9 @@ def test_measured_dispatch_on_card(dev, tmp_path, monkeypatch):
     autotune.reload()
 
 
-def test_fused_kernel_refuses_to_train(dev):
-    """The fused path no longer refuses to train: its backward launches K2
-    and K3 and gives the bsr kernel path's input gradient."""
+def test_fused_kernel_trains(dev):
+    """The fused path trains: its backward launches K2 and K3 and gives the
+    bsr kernel path's input gradient."""
     w = torch.randn((128, 128), generator=torch.Generator().manual_seed(1))
     op, _ = factorize(w, FactorizeSpec(n_factors=2, block=64, k_first=1, k_mid=1), device=dev)
     grads = {}

@@ -194,10 +194,10 @@ def test_quantized_chain_moves_but_never_casts(jchain):
 
 
 @pytest.mark.parametrize("quantized", [False, True])
-def test_fused_path_refuses_to_train(jchain, quantized):
-    """The fused path no longer refuses to train: its backward (K2/K3, K5
-    on a quantized chain; their plain versions here) gives the per-factor
-    path's gradients, for x and for the values (the scales of codes)."""
+def test_fused_path_trains(jchain, quantized):
+    """The fused path trains: its backward (K2/K3, K5 on a quantized chain;
+    their plain versions here) gives the per-factor path's gradients, for
+    x and for the values (the scales of codes)."""
     pc = _port(jchain)
     pc = quantize_chain(pc) if quantized else pc
     grads = {}
