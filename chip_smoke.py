@@ -7,10 +7,11 @@ Phases, each fatal on failure (non-zero exit):
 
 1. setup: card name and power limit, torch/CUDA versions, TF32 off, the
    kernels built from ``src/repro_torch/kernels/csrc`` (one ``nvcc`` per
-   source, in parallel) with their ``-Xptxas -v`` lines and K1/K4's SASS
-   counts of HMMA (bf16 tensor cores), FFMA and LDGSTS (cp.async), then K1/K4's
-   launch at the main path's and the trainer's shapes: resident CTAs,
-   grid, dynamic shared memory and work items per factor;
+   source, in parallel) with their ``-Xptxas -v`` lines and K1/K4's and
+   K2/K5-dgrad's SASS counts of HMMA (bf16 tensor cores), FFMA and LDGSTS
+   (cp.async), then K1/K4's and K2/K5-dgrad's launch at the main path's and
+   the trainer's shapes: resident CTAs, grid, dynamic shared memory and work
+   items (and, for the dgrad, reader-list chunks) per factor;
 2. every CUDA kernel against its plain PyTorch version on the card: the
    fused chain (K1) on ragged chains with J ∈ {1,2,3,4}, block 16 and 128,
    and a batch that is no multiple of the tile, then on a grid of blocks
@@ -18,9 +19,12 @@ Phases, each fatal on failure (non-zero exit):
    to 6 and B ∈ {1, 37, 4096}, with K4 on the same grid; the single factor (K6)
    with bk ≠ bn; the quantized chain (K4) on the same chains for int8,
    fp8 e4m3 and fp8 e5m2 codes with per-block and per-row scales, every
-   batch tile, f32 and bf16 activations; the chain backward (K2 dgrad, K3
-   wgrad, K5 both on codes: dx, dvalues, dscales) on the same grid; f32
-   within 1e-5·max|y|, bf16 within 3e-2·max|y|;
+   batch tile, f32 and bf16 activations; the chain dgrad (K2, K5-dgrad on
+   the three code types, per-block and per-row) on K1's grid, every tile at
+   B = 37, on chains with a skewed fan-in and with unread input blocks, and
+   twice on each chain (bitwise-equal dx); the wgrad (K3, K5-wgrad: dvalues,
+   dscales) on ragged chains, blocks 16 and 128, J ≤ 4; f32 within
+   1e-5·max|y|, bf16 within 3e-2·max|y|;
 3. the main path at full width: gemma-2b's MLP up-projection
    ``W (2048, 16384)`` (d_model 2048, d_ff 16384) from a seed, factorized on
    the card into J = 3 block-sparse factors (block 128, k 4), then
@@ -48,20 +52,21 @@ Phases, each fatal on failure (non-zero exit):
 7. the trainer: ``repro_torch.launch.train --arch gemma_2b --faust
    --steps 3 --batch 8 --seq 128`` (full width and depth, bf16, remat,
    FAµST unembedding) on a fresh autotune table; loss, step time and
-   tokens/s per step, peak memory, the captured FAµST dispatch; finite
-   losses and K2/K3 launches required; then one more step under
+   tokens/s per step, peak memory, the captured FAµST dispatch and the batch
+   tile each fused kernel ran at; finite losses and K2/K3 launches required,
+   K2 at ``DGRAD_BT`` and K3 at ``DEFAULT_BT``; then one more step under
    ``torch.profiler``: device busy time and idle share, device time by
    kernel family (K1/K4, K2, K3, dense matmul, elementwise, other);
-8. times (CUDA events, warm-up, then 20 launches; 5 for the backward) of
+8. times (CUDA events, warm-up, then 20 launches; 5 for the wgrads) of
    each kernel, its plain version and one PyTorch call computing the same
    function (``torch.matmul`` on the materialized matrix; none for the
    wgrad), beside the card's bound, the cost of an empty launch, and
    ``apply("auto")`` with the model alone and with the table beside the
-   forced backend it picks; K1 and K4 (int8 per-block and per-row, fp8
-   e4m3 and e5m2) also with a cold L2 (a 256 MB buffer written between
-   launches); the batch-tile sweep of K1 and K6 in f32 and bf16; K1, K2
-   and K3 also at the trainer's shapes (the FAµST unembedding, bf16,
-   B = 1024).
+   forced backend it picks; K1, K4 (int8 per-block and per-row, fp8
+   e4m3 and e5m2), K2 and K5-dgrad also with a cold L2 (a 256 MB buffer
+   written between launches); the batch-tile sweep of K1 and K6, and of K2,
+   in f32 and bf16; K1, K2 and K3 also at the trainer's shapes (the FAµST
+   unembedding, bf16, B = 1024).
 
 Prints one JSON object per line; the last three lines are the kernels
 summary, the card's ``name, power.limit`` and ``{"ok": true, ...}``.
@@ -169,11 +174,13 @@ UNEMBED = ((2048, 2048, 256000), 16, 4)
 
 
 def launch_configs(card_line: str) -> list[dict]:
-    """K1/K4's launch at the main path's and the trainer's shapes, at their
-    default tile: resident CTAs, grid, shared memory, items per factor."""
+    """K1/K4's and K2/K5-dgrad's launch at the main path's and the
+    trainer's shapes, at their default tiles: resident CTAs, grid, shared
+    memory, items (and the dgrad's reader-list chunks) per factor."""
     import torch
 
-    from repro_torch.kernels.chain import FORWARD_BT, chain_schedule, launch_config
+    from repro_torch.kernels import chain_bwd
+    from repro_torch.kernels.chain import DGRAD_BT, FORWARD_BT, chain_schedule, launch_config
 
     rows = []
     cases = [("up-projection", UP_PROJ, b, dt, q) for b in (128, 4096)
@@ -189,6 +196,19 @@ def launch_configs(card_line: str) -> list[dict]:
                "block": plan.block, "blkp": sched.blkp, "group": sched.group, "ctas": cfg["ctas"],
                "grid": min(cfg["ctas"], max(sched.items)), "smem_bytes": cfg["smem_bytes"],
                "items_per_factor": list(sched.items), "barriers": plan.n_factors - 1}
+        log(row)
+        rows.append(row)
+        # the dgrad walks the factors in reverse; a split factor adds a barrier
+        cfg = chain_bwd.launch_config(dtype, plan.block, DGRAD_BT, qdtype)
+        dsched = chain_bwd.dgrad_schedule(plan, b, DGRAD_BT, cfg["ctas"])
+        chunks = [f[3] for f in dsched.factors]
+        row = {"phase": "launch_config", "card": card_line, "chain": name,
+               "kernel": "chain_dgrad" if qdtype is None else "chain_dgrad_q",
+               "dtype": str(dtype).removeprefix("torch."), "batch": b, "bt": DGRAD_BT,
+               "block": plan.block, "blkp": dsched.blkp, "group": dsched.group, "ctas": cfg["ctas"],
+               "grid": min(cfg["ctas"], max(dsched.items)), "smem_bytes": cfg["smem_bytes"],
+               "items_per_factor": list(dsched.items), "chunks_per_factor": chunks,
+               "barriers": plan.n_factors - 1 + sum(c > 1 for c in chunks) + (qdtype is not None)}
         log(row)
         rows.append(row)
     return rows
@@ -225,6 +245,7 @@ def setup() -> dict:
     info = {
         "phase": "setup",
         "sass": sass_counts(build.library_path("chain_matmul")),
+        "sass_dgrad": sass_counts(build.library_path("chain_dgrad")),
         "card": card(),
         "device_name": torch.cuda.get_device_name(0),
         "torch": torch.__version__,
@@ -414,6 +435,71 @@ def check_chain_grid(dev, batches=(1, 37, 4096)) -> list[dict]:
     return rows
 
 
+def check_dgrad_grid(dev, batches=(1, 37, 4096)) -> list[dict]:
+    """Phase 2, K2 and K5-dgrad on their persistent gather schedule: K1's
+    GRID of blocks and depths at batches below, at and far above one tile
+    (small batches split the reader lists into chunks), every tile at
+    B = 37; f32 and bf16; K5 for int8, e4m3 and e5m2, per-block and per-row;
+    then chains whose every output block reads input block 0 (a skewed
+    fan-in) and chains that leave input blocks unread.  Each launch runs
+    twice and must give the same bits (the sum has a fixed order)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.core.compress import expand_scales, pack_chain, quantize_chain
+    from repro_torch.kernels.chain import SUPPORTED_BT
+    from repro_torch.kernels.chain_bwd import chain_dgrad, chain_dgrad_plain, dgrad_meta
+
+    forms = [(None, None)] + [(d, sch) for d in DRE_MAX for sch in ("per_block", "per_row")]
+
+    def check(pc, dims, g, chain, batches):
+        rows, plan, blk = [], pc.plan, pc.plan.block
+        meta = dgrad_meta(plan, pc.in_idx)
+        for b in batches:
+            dy0 = torch.randn((b, plan.out_blocks[-1] * blk), generator=g)
+            for qdtype, scheme in forms:
+                q = None if qdtype is None else quantize_chain(pc, qdtype, scheme)
+                scales = None if q is None else expand_scales(q.scales, blk).contiguous()
+                for dtype in (torch.float32, torch.bfloat16):
+                    dname = str(dtype).removeprefix("torch.")
+                    dy = dy0.to(dev, dtype)
+                    values = pc.values.to(dtype) if q is None else q.values
+                    want = chain_dgrad_plain(dy, values, meta, plan=plan, scales=scales)
+                    for bt in SUPPORTED_BT if b == 37 else (16, 64):
+                        got = chain_dgrad(dy, values, meta, plan=plan, bt=bt, scales=scales)
+                        again = chain_dgrad(dy, values, meta, plan=plan, bt=bt, scales=scales)
+                        if dev.type == "cuda":
+                            torch.cuda.synchronize()
+                        err, rel = rel_err(got, want)
+                        row = {"phase": "kernel_check", "kernel": "chain_dgrad" + ("" if q is None else "_q"),
+                               "output": "dx", "chain": chain, "dtype": dname,
+                               "quant": None if q is None else q.qscheme, "J": plan.n_factors, "block": blk,
+                               "dims": list(dims), "batch": b, "bt": bt, "max_abs_err": err, "rel_err": rel,
+                               "tol": TOL[dname], "bitwise_repeat": bool(torch.equal(got, again))}
+                        log(row)
+                        require(got.dtype == dtype and bool(torch.isfinite(got).all()) and rel <= TOL[dname],
+                                f"{row['kernel']} disagrees with its plain version: {row}")
+                        require(row["bitwise_repeat"], f"{row['kernel']} is not deterministic: {row}")
+                        rows.append(row)
+        return rows
+
+    rows = []
+    for blk, n_factors in GRID:
+        base = (40, 72, 56, 90, 33, 61, 47) if blk <= 24 else (200, 300, 260, 330, 150, 210, 190)
+        dims = base[: n_factors + 1]
+        bf, g = _random_chain(dims, blk, 3, 100 * blk + n_factors, dev)
+        rows += check(pack_chain(bf), dims, g, "grid", batches)
+    for blk, dims in ((16, (40, 72, 56, 90)), (128, (200, 300, 260, 330))):
+        bf, g = _random_chain(dims, blk, 3, 9 * blk, dev)
+        pc = pack_chain(bf)
+        skew = torch.zeros_like(pc.in_idx)  # every slot reads input block 0
+        unread = torch.minimum(pc.in_idx, torch.ones_like(pc.in_idx))  # blocks >= 2 have no reader
+        for chain, idx in (("skewed fan-in", skew), ("unread blocks", unread)):
+            rows += check(dataclasses.replace(pc, in_idx=idx), dims, g, chain, (37, 4096))
+    return rows
+
+
 def check_backward_kernels(dev) -> list[dict]:
     """Phase 2, slice 3: K2 (chain_dgrad), K3 (chain_wgrad) and K5 (both on
     codes) against their plain versions on the chains K1 is checked on:
@@ -595,7 +681,7 @@ def measured_dispatch(ops: dict, batches=(128, 4096)) -> dict:
     import torch
 
     from repro_torch.api import autotune, dispatch, last_report
-    from repro_torch.kernels.chain import DEFAULT_BT, chain_matmul
+    from repro_torch.kernels.chain import FORWARD_BT, chain_matmul
 
     TABLE.unlink(missing_ok=True)
     os.environ["REPRO_TORCH_AUTOTUNE_TABLE"] = str(TABLE)
@@ -620,7 +706,7 @@ def measured_dispatch(ops: dict, batches=(128, 4096)) -> dict:
             require(report.source == "measured", f"auto did not read the table: {row}")
             require(report.backend == fastest, f"auto did not pick the fastest measured backend: {row}")
             # the card's entries always carry the tile sweep's winner
-            require(report.bt == entry.get("bt", DEFAULT_BT), f"auto did not take the table's fused tile: {row}")
+            require(report.bt == entry.get("bt", FORWARD_BT), f"auto did not take the table's fused tile: {row}")
             if report.backend == "fused" and op.device.type == "cuda":
                 require((chain_matmul.launches, chain_matmul.q_launches) != before,
                         f"auto picked fused but launched no chain kernel: {row}")
@@ -911,6 +997,8 @@ def train_lm(card_line: str, argv=None) -> dict:
     import torch
 
     from repro_torch.api import autotune
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.chain import DEFAULT_BT, DGRAD_BT
     from repro_torch.launch import train
 
     table = ROOT / "build" / "chip_smoke_train_autotune.json"
@@ -921,7 +1009,22 @@ def train_lm(card_line: str, argv=None) -> dict:
     autotune.reload()
     argv = argv or ["--arch", "gemma_2b", "--faust", "--steps", "3", "--batch", "8", "--seq", "128"]
     args = train.parse_args(argv)
+    # the batch tile each fused kernel runs at: the wrappers the fused apply
+    # calls, wrapped for this phase
+    tiles: dict[str, list[int]] = {}
+    wrapped = {name: getattr(ops, name) for name in ("chain_matmul", "chain_dgrad", "chain_wgrad")}
+
+    def recorder(name, fn):
+        def call(*a, **k):
+            tiles.setdefault(name, [])
+            if k["bt"] not in tiles[name]:
+                tiles[name].append(k["bt"])
+            return fn(*a, **k)
+        return call
+
     try:
+        for name, fn in wrapped.items():
+            setattr(ops, name, recorder(name, fn))
         trainer = train.build(args)
         if trainer.device.type == "cuda":
             torch.cuda.reset_peak_memory_stats()
@@ -930,8 +1033,12 @@ def train_lm(card_line: str, argv=None) -> dict:
         out = trainer.run()
         wall_s = time.perf_counter() - t0
         counts = _bwd_counts()
+        for name, fn in wrapped.items():
+            setattr(ops, name, fn)
         profile = profile_step(trainer, out, card_line) if trainer.device.type == "cuda" else None
-    finally:  # the later phases read phase 5's table again
+    finally:  # the later phases read phase 5's table again, through the wrappers themselves
+        for name, fn in wrapped.items():
+            setattr(ops, name, fn)
         for k, v in saved.items():
             if v is None:
                 os.environ.pop(k, None)
@@ -951,7 +1058,8 @@ def train_lm(card_line: str, argv=None) -> dict:
            "wall_s": wall_s,
            "max_memory_allocated_gb": (torch.cuda.max_memory_allocated() / 1e9
                                        if trainer.device.type == "cuda" else None),
-           "faust_dispatch": None if rep is None else rep.as_row(), "launches": counts, "profile": profile}
+           "faust_dispatch": None if rep is None else rep.as_row(), "fused_tiles": tiles, "launches": counts,
+           "profile": profile}
     log(row)
     losses = [h["loss"] for h in out["history"]]
     require(len(losses) == args.steps and all(math.isfinite(v) for v in losses), f"bad losses: {losses}")
@@ -959,6 +1067,9 @@ def train_lm(card_line: str, argv=None) -> dict:
     if trainer.device.type == "cuda":
         require(counts["chain_dgrad"] > 0 and counts["chain_wgrad"] > 0,
                 f"the trainer never ran K2/K3: {counts}")
+    if rep.backend == "fused":  # each fused kernel at its own tile: K1 at the dispatch's, K2 and K3 at theirs
+        require(tiles == {"chain_matmul": [rep.bt], "chain_dgrad": [DGRAD_BT], "chain_wgrad": [DEFAULT_BT]},
+                f"the fused apply ran other tiles: {tiles}")
     del out
     return row
 
@@ -1021,10 +1132,12 @@ def measure_backward(op, qop, card_line: str, batches=(128, 4096)) -> list[dict]
     """Phase 8, slice 3: K2, K3 and K5 (its dgrad and wgrad halves on int8
     codes) at the main path's shapes beside their bound, their plain
     versions and, for the dgrads, one PyTorch call computing the same
-    function (``dy @ A_denseᵀ``)."""
+    function (``dy @ A_denseᵀ``) and a cold-L2 time (20 calls; the wgrads
+    5); then K2's batch-tile sweep (the data behind ``DGRAD_BT``)."""
     import torch
 
     from repro_torch.core.compress import expand_scales
+    from repro_torch.kernels.chain import DEFAULT_BT, DGRAD_BT, SUPPORTED_BT
     from repro_torch.kernels.chain_bwd import (
         chain_dgrad,
         chain_dgrad_plain,
@@ -1074,16 +1187,23 @@ def measure_backward(op, qop, card_line: str, batches=(128, 4096)) -> list[dict]
                 err, rel = rel_err(kern(), plain())
                 require(rel <= TOL[dname], f"{name} {dname} B={b} disagrees with its plain version")
                 t_ops, t_bytes = flops / PEAK[dname], byts / HBM_BW
+                dgrad = name.startswith("chain_dgrad")
+                iters = ITERS if dgrad else 5  # the wgrads take tens of ms a call
                 row = {"phase": "time", "card": card_line, "kernel": name, "dtype": dname, "batch": b,
-                       "quant": q.qscheme if name.endswith("_q") else None, "launches_per_apply": 1,
-                       "max_abs_err": err, "rel_err": rel, "ms": time_ms(kern, iters=5),
-                       "plain_ms": time_ms(plain, iters=5),
-                       "library_ms": None if lib is None else time_ms(lib, iters=5),
+                       "quant": q.qscheme if name.endswith("_q") else None,
+                       "bt": DGRAD_BT if dgrad else DEFAULT_BT, "launches_per_apply": 1,
+                       "max_abs_err": err, "rel_err": rel, "ms": time_ms(kern, iters=iters),
+                       "cold_ms": time_ms_cold(kern, iters=10) if dgrad else None,
+                       "plain_ms": time_ms(plain, iters=iters),
+                       "library_ms": None if lib is None else time_ms(lib, iters=iters),
                        "bound_ms": max(t_ops, t_bytes) * 1e3,
                        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
                        "flops": flops, "bytes": byts}
                 log(row)
                 rows.append(row)
+            log({"phase": "dgrad_bt_sweep", "card": card_line, "dtype": dname, "batch": b,
+                 **{f"chain_dgrad_bt{bt}_ms": time_ms(lambda bt=bt: chain_dgrad(dy, pc.values, dm, plan=plan, bt=bt))
+                    for bt in SUPPORTED_BT}})
     return rows
 
 
@@ -1137,7 +1257,7 @@ def measure_unembed(card_line: str, dev, b: int = 1024, dims=(2048, 2048, 256000
         row = {"phase": "time", "card": card_line, "kernel": name, "chain": f"unembedding {m}x{n} block 16 k 4",
                "dtype": "bfloat16", "batch": b, "launches_per_apply": 1, "max_abs_err": err, "rel_err": rel,
                "ms": time_ms(kern, iters=3), "plain_ms": time_ms(plain, iters=3),
-               "cold_ms": time_ms_cold(kern, iters=3) if name == "chain_matmul" else None,
+               "cold_ms": time_ms_cold(kern, iters=3) if name != "chain_wgrad" else None,
                "library_ms": None if lib is None else time_ms(lib, iters=3),
                "bound_ms": max(t_ops, t_bytes) * 1e3,
                "bound_by": "operations" if t_ops >= t_bytes else "bytes", "flops": flops, "bytes": byts}
@@ -1177,7 +1297,7 @@ def main() -> int:
     info = setup()
     launch_configs(info["card"])
     checks = check_kernels(dev) + check_quantized_kernel(dev) + check_chain_grid(dev)
-    checks += check_backward_kernels(dev)
+    checks += check_dgrad_grid(dev) + check_backward_kernels(dev)
     op, launches, w_dev = main_path(dev)
     qops, qlaunches = quantized_path(op, w_dev)
     ops = {"float32": op, "int8:per_block": qops["int8:per_block"]}

@@ -232,9 +232,9 @@ def _timeit_us(fn, device: torch.device) -> float:
 def measure(op, x: torch.Tensor, *, use_kernel: bool) -> dict:
     """Time every feasible backend of ``op`` on ``x`` (forward, no grad)
     and return the table entry, not yet recorded.  With the kernels on, the
-    fused backend sweeps every supported batch tile; the winner is the
-    entry's ``bt``.  Errors propagate."""
-    from repro_torch.kernels.chain import DEFAULT_BT, SUPPORTED_BT
+    fused backend sweeps every supported forward batch tile; the winner is
+    the entry's ``bt``.  Errors propagate."""
+    from repro_torch.kernels.chain import FORWARD_BT, SUPPORTED_BT
 
     global _MEASURING
     us: dict[str, float] = {}
@@ -244,7 +244,7 @@ def measure(op, x: torch.Tensor, *, use_kernel: bool) -> dict:
     try:
         with torch.no_grad():
             for backend in op.feasible_backends():
-                tiles = SUPPORTED_BT if backend == "fused" and use_kernel else (DEFAULT_BT,)
+                tiles = SUPPORTED_BT if backend == "fused" and use_kernel else (FORWARD_BT,)
                 per_tile = {
                     bt: _timeit_us(
                         lambda b=backend, t=bt: op.apply(

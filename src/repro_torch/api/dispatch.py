@@ -43,7 +43,7 @@ import weakref
 
 import torch
 
-from repro_torch.kernels.chain import DEFAULT_BT
+from repro_torch.kernels.chain import FORWARD_BT
 from repro_torch.launch import roofline as _roofline
 
 # ties go to the fewest-launch structured path
@@ -85,8 +85,9 @@ class DispatchReport:
     roofline: str = ""
     # "model" (roofline) or "measured" (a hit in the autotune table)
     source: str = "model"
-    # the fused chain kernel's batch tile: caller > table winner > DEFAULT_BT
-    bt: int = DEFAULT_BT
+    # the fused forward kernel's (K1/K4) batch tile: caller > table winner >
+    # FORWARD_BT; the backward kernels run at their own (kernels/ops.py)
+    bt: int = FORWARD_BT
     weight_bytes: int = 0  # weight stream priced: values (stored itemsize) + scales
     values_dtype: str = ""  # stored values' dtype (int8/float8_* when quantized)
     grad: bool = False  # est_us are joint forward+backward costs
@@ -136,7 +137,7 @@ def choose_backend(
     feasible: tuple[str, ...] = ("dense", "bsr", "fused"),
     requested: str = "auto",
     device: str = "",
-    bt: int = DEFAULT_BT,
+    bt: int = FORWARD_BT,
     values_dtype: str | None = None,
     scales_bytes: int = 0,
     grad: bool = False,
@@ -231,8 +232,8 @@ def dispatch(
     the model's estimates and says what it would have picked.  An ``auto``
     request consults the measured table first (unless
     ``REPRO_AUTOTUNE=off``); on a hit the backend is the measured-fastest
-    feasible one and measured µs are never mixed with modeled ones.  ``bt`` is the caller's batch tile for the fused kernel;
-    ``None`` takes the table's winner, else ``DEFAULT_BT``.
+    feasible one and measured µs are never mixed with modeled ones.  ``bt`` is the caller's batch tile for the fused forward
+    kernel (K1/K4); ``None`` takes the table's winner, else ``FORWARD_BT``.
     ``record=False`` leaves :func:`last_report` untouched (an advisory
     query).  A decision is made once per operator and arguments, and made
     again when the table or the roofline constants change; the report is
@@ -261,7 +262,7 @@ def _decide(op, batch, dtype, requested, device, bt, consult, grad) -> DispatchR
     if consult:
         entry = _autotune.lookup(_autotune.key_for_op(op, batch=batch, dtype=dtype, grad=grad))
     if bt is None:
-        bt = int(entry["bt"]) if entry is not None and entry.get("bt") else DEFAULT_BT
+        bt = int(entry["bt"]) if entry is not None and entry.get("bt") else FORWARD_BT
     values_dtype, scales_bytes = op.quant_info()
     report = choose_backend(
         batch=batch,

@@ -179,8 +179,9 @@ class FaustOp:
         plain versions (for comparisons); ``use_kernel=True`` on the CPU
         raises.
 
-        ``bt`` is the fused kernel's batch tile; ``None`` takes the
-        measured table's winner, else ``DEFAULT_BT``.  ``autotune=None``
+        ``bt`` is the fused forward kernel's (K1/K4) batch tile; ``None``
+        takes the measured table's winner, else ``FORWARD_BT``.  The fused
+        backward kernels run at their own tiles (``kernels/ops.py``).  ``autotune=None``
         follows ``REPRO_AUTOTUNE`` (``1``: an ``auto`` apply measures a
         key the table lacks); ``True`` measures, ``False`` does not;
         table hits steer ``auto`` either way unless ``REPRO_AUTOTUNE=off``

@@ -41,14 +41,17 @@ from repro_torch.kernels import build
 from repro_torch.kernels.ref import packed_chain_q_ref, packed_chain_ref
 
 META_COLS = 7
-# Batch rows per work item of the chain kernels: the default of the fused
-# apply (kernels/ops.py passes one tile to K1/K4 and to K2/K3/K5, and
-# dispatch falls back to it without a measured table).
+# Batch rows per work item of the chain kernels, one default per kernel;
+# the fused apply (kernels/ops.py) runs each kernel at its own, and a tile
+# named by its caller or by the measured table is the forward's.
+# K3/K5-wgrad (chain_wgrad.cu): one CTA per batch tile walking every step.
 DEFAULT_BT = 16
-# K1/K4's own default when called directly: the largest tile reads each
-# value block once per 64 batch rows and was the fastest of the three in
-# every cell of chip_smoke.py's bt sweep (PERF.md).
+# K1/K4: the largest tile reads each value block once per 64 batch rows and
+# was the fastest of the three in every cell of chip_smoke.py's bt sweep
+# (PERF.md); dispatch reports it when no table names a tile.
 FORWARD_BT = 64
+# K2/K5-dgrad (chain_dgrad.cu), from chip_smoke.py's dgrad bt sweep (PERF.md).
+DGRAD_BT = 64
 SUPPORTED_BT = (16, 32, 64)
 MAX_BLOCK = 128  # the kernels' output tile is 128 columns wide
 TILE_W = 128  # columns of one K1/K4 work item

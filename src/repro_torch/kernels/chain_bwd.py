@@ -7,9 +7,12 @@ versions.  Counterpart of :mod:`repro.kernels.chain_bwd`.
 Replaces ``repro/kernels/chain_bwd.py:283 chain_dgrad`` and ``:433
 chain_wgrad`` (Pallas, TPU); K5 those functions called with ``scales=``.
 
-* **dgrad** ``dx = dy @ F_Jᵀ ⋯ F_1ᵀ``: the forward's steps reversed, each
-  value block read transposed from the packed layout, scatter-added into
-  an f32 cotangent ping-pong; ``dy`` is read where it lies.
+* **dgrad** ``dx = dy @ F_Jᵀ ⋯ F_1ᵀ``: a persistent grid walks the factors
+  in reverse, one grid barrier between them.  Within factor j a work item
+  is (batch tile, group of consecutive input blocks) and *gathers* the
+  steps that read its blocks, listed by the transposed step table
+  (:func:`dgrad_gather`); it flushes each block once, so no atomics and
+  no zeroing.  :func:`dgrad_schedule` is the kernel's work split.
 * **wgrad** ``dvalues[s] = a_jᵀ g_j``: a walk (forward recompute of every
   intermediate activation, reversed walk of every intermediate cotangent,
   one CTA per batch tile) and an emission (one CTA per stored block,
@@ -19,6 +22,8 @@ chain_wgrad`` (Pallas, TPU); K5 those functions called with ``scales=``.
 
 The step tables equal the reference's: the static columns from the plan
 (uploaded once per plan and device), the runtime ``in_idx`` in column 0.
+The dgrad table and its transposed form are built once per state of
+``in_idx`` (data pointer and version counter) and reused.
 
 A CUDA tensor launches the kernel, or raises; a CPU tensor runs the plain
 version (``chain_dgrad_plain``/``chain_wgrad_plain``: the reference's
@@ -30,7 +35,9 @@ and its emission).
 """
 from __future__ import annotations
 
+import collections
 import ctypes
+import dataclasses
 import functools
 
 import numpy as np
@@ -39,14 +46,27 @@ import torch
 from repro_torch.core.compress import ChainPlan
 from repro_torch.kernels import build
 from repro_torch.kernels import ref as _ref
-from repro_torch.kernels.chain import DEFAULT_BT, DTYPES, MAX_BLOCK, QDTYPES, SUPPORTED_BT
+from repro_torch.kernels.chain import (
+    DEFAULT_BT,
+    DGRAD_BT,
+    DTYPES,
+    MAX_BLOCK,
+    MAX_FACTORS,
+    QDTYPES,
+    SUPPORTED_BT,
+    TILE_W,
+    _vec,
+    padded_block,
+)
 
 # dgrad table, one row per *reversed* step t (flat step s = S-1-t):
 #   0 dst_blk  input block the step scatter-adds into (runtime in_idx)
 #   1 src_blk  output block of the cotangent this step reads
 #   2 parity   ping-pong buffer holding this factor's cotangent ((J-1-j) % 2)
-#   3 is_j0    first reversed step of a factor: zero the destination
+#   3 is_j0    first reversed step of a factor
 #   4 ncols    valid columns of the source block (the rest are masked)
+# The dgrad kernel reads columns 1 and 4; its walk order comes from the
+# transposed table (dgrad_gather).
 DGRAD_META_COLS = 5
 # wgrad table: S_pre forward-recompute rows (factors 1..J-1), then S
 # reversed rows:
@@ -130,16 +150,70 @@ def _factor_table(plan: ChainPlan) -> np.ndarray:
 
 
 @functools.lru_cache(maxsize=64)
+def _block_base(plan: ChainPlan) -> np.ndarray:
+    """Per flat step: the first entry of its factor in the transposed
+    table's block axis (the input blocks of the earlier factors)."""
+    return np.repeat(_act_offsets(plan)[:-1], np.diff(plan.offsets)).astype(np.int64)
+
+
+@functools.lru_cache(maxsize=64)
 def _static_on(plan: ChainPlan, device: torch.device, kind: str) -> torch.Tensor:
-    table = {"dgrad": _dgrad_meta_static, "wgrad": _wgrad_meta_static, "factors": _factor_table}[kind]
+    table = {"dgrad": _dgrad_meta_static, "wgrad": _wgrad_meta_static, "factors": _factor_table,
+             "block_base": _block_base}[kind]
     return torch.from_numpy(table(plan)).to(device)
+
+
+_MEMO_MAX = 16
+_META_MEMO: collections.OrderedDict = collections.OrderedDict()
+_GATHER_MEMO: collections.OrderedDict = collections.OrderedDict()
+
+
+def _memo(memo: collections.OrderedDict, plan: ChainPlan, t: torch.Tensor, build):
+    """``build()`` once per plan and state of ``t``: keyed by its data
+    pointer, layout and version counter (an in-place update rebuilds); the
+    entry holds ``t``, so its memory is not reused while the entry lives."""
+    key = (plan, t.device, t.data_ptr(), tuple(t.shape), t.stride(), t._version)
+    hit = memo.get(key)
+    if hit is None:
+        hit = memo[key] = (t, build())
+        if len(memo) > _MEMO_MAX:
+            memo.popitem(last=False)
+    else:
+        memo.move_to_end(key)
+    return hit[1]
 
 
 def dgrad_meta(plan: ChainPlan, in_idx: torch.Tensor) -> torch.Tensor:
     """The ``(S, DGRAD_META_COLS)`` reversed step table on ``in_idx``'s
-    device: the reversed ``in_idx`` in column 0, the static columns after."""
-    static = _static_on(plan, in_idx.device, "dgrad")
-    return torch.cat([in_idx.flip(0).reshape(-1, 1).to(torch.int32), static], dim=1)
+    device: the reversed ``in_idx`` in column 0, the static columns after.
+    Built once per state of ``in_idx``."""
+
+    def build():
+        static = _static_on(plan, in_idx.device, "dgrad")
+        return torch.cat([in_idx.flip(0).reshape(-1, 1).to(torch.int32), static], dim=1)
+
+    return _memo(_META_MEMO, plan, in_idx, build)
+
+
+def dgrad_gather(plan: ChainPlan, in_idx: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The transposed step table, ``(ptr, steps)`` int32 on ``in_idx``'s
+    device: the flat steps that read input block ``i`` of factor ``j`` are
+    ``steps[ptr[b] : ptr[b + 1]]``, ascending, with ``b = Σ_{j'<j} IB_j' + i``.
+    A stable sort of the steps by (factor, input block); the offsets count
+    the sorted keys below each block (``searchsorted``, which, unlike a
+    bincount, needs no host sync to size its output)."""
+    key = in_idx.to(torch.int64) + _static_on(plan, in_idx.device, "block_base")
+    sorted_key, order = torch.sort(key, stable=True)
+    blocks = torch.arange(sum(plan.in_blocks) + 1, device=in_idx.device)
+    ptr = torch.searchsorted(sorted_key, blocks, out_int32=True)
+    return ptr, order.to(torch.int32)
+
+
+def _gather_for(plan: ChainPlan, meta: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`dgrad_gather` of the ``in_idx`` a dgrad table carries, once
+    per state of the table (:func:`dgrad_meta` returns one table per state
+    of ``in_idx``, so a training step finds it built)."""
+    return _memo(_GATHER_MEMO, plan, meta, lambda: dgrad_gather(plan, meta[:, 0].flip(0)))
 
 
 def wgrad_meta(plan: ChainPlan, in_idx: torch.Tensor) -> torch.Tensor:
@@ -220,25 +294,145 @@ def chain_wgrad_plain(
 # ---------------------------------------------------------------------------
 
 
+# A factor with at most half as many work items as resident CTAs has its
+# reader lists cut into chunks (partial sums, reduced after a grid barrier),
+# as many as fit the CTAs but no more than keep about this many readers a
+# chunk.  A split adds a barrier and a reduction: splitting a factor whose
+# items nearly fill the CTAs (the unembedding's 256 on 264) lost time on the
+# H100, and 2 readers a chunk beat 8 at the up-projection's B = 128 in f32
+# (PERF.md; dgrad_probe.py measures both).
+CHUNK_READERS = 2
+
+
+@dataclasses.dataclass(frozen=True)
+class DgradSchedule:
+    """K2/K5-dgrad's work split of one plan at one batch and batch tile.
+    The kernel walks the factors in reverse (j = J-1 … 0); within factor
+    j, item i is batch tile ``i % n_tiles`` of input-block group
+    ``(i // n_tiles) % groups``, chunk ``i // (n_tiles · groups)`` of the
+    blocks' reader lists, and CTA c takes items c, c + grid, …"""
+
+    block: int
+    blkp: int  # the block padded to a multiple of the MMA depth
+    group: int  # input blocks per work item: TILE_W // blkp
+    bt: int
+    batch: int
+    # per factor j: (first entry in the transposed table's block axis,
+    # input blocks IB_j, input-block groups, chunks)
+    factors: tuple[tuple[int, int, int, int], ...]
+
+    @property
+    def n_tiles(self) -> int:
+        return -(-self.batch // self.bt)
+
+    @property
+    def items(self) -> tuple[int, ...]:
+        """Work items per factor (indexed by factor j)."""
+        return tuple(self.n_tiles * f[2] * f[3] for f in self.factors)
+
+    def item(self, j: int, i: int, ptr, steps) -> tuple[range, range, int, list[list[int]]]:
+        """Work item ``i`` of factor ``j`` as the kernel decodes it, given
+        the transposed table ``(ptr, steps)``: its batch rows, its input
+        blocks, its chunk and its rounds, round r holding reader
+        ``r0 + r`` of each block (-1 when the block has fewer).  Chunk k of
+        C takes readers ``[k·R, (k+1)·R)``, R = ⌈n / C⌉ for the block's
+        longest list n; an item runs at least one round, so a block no step
+        reads (or an empty chunk) is flushed as zeros."""
+        ptr, steps = np.asarray(ptr), np.asarray(steps)
+        base, n_in, n_groups, n_chunks = self.factors[j]
+        rest, tile = divmod(i, self.n_tiles)
+        chunk, grp = divmod(rest, n_groups)
+        b0, i0 = tile * self.bt, grp * self.group
+        blocks = range(i0, min(i0 + self.group, n_in))
+        readers = [steps[ptr[base + b]:ptr[base + b + 1]].tolist() for b in blocks]
+        longest = max(1, *(len(r) for r in readers))
+        per = -(-longest // n_chunks)
+        r0 = chunk * per
+        n_rounds = max(1, min(per, longest - r0))
+        rounds = [[r[r0 + k] if r0 + k < len(r) else -1 for r in readers] for k in range(n_rounds)]
+        return range(b0, min(b0 + self.bt, self.batch)), blocks, chunk, rounds
+
+
+@functools.lru_cache(maxsize=256)
+def dgrad_schedule(plan: ChainPlan, batch: int, bt: int, ctas: int | None = None) -> DgradSchedule:
+    """The work split at ``batch`` and tile ``bt``; ``ctas`` (the launch's
+    resident CTAs) decides the chunks: a factor with at most half as many
+    items is split into up to ``⌊ctas / items⌋`` chunks, at least
+    ``CHUNK_READERS`` readers a chunk on average.  ``None``: no split.
+    Cached (the wrapper asks at every launch): after changing
+    ``CHUNK_READERS``, call ``dgrad_schedule.cache_clear()``."""
+    blkp = padded_block(plan.block)
+    group = TILE_W // blkp
+    n_tiles = -(-batch // bt)
+    base = _act_offsets(plan)
+    factors = []
+    for j in range(plan.n_factors):
+        n_in = plan.in_blocks[j]
+        n_groups = -(-n_in // group)
+        items = n_tiles * n_groups
+        readers = plan.out_blocks[j] * plan.k_blocks[j] // n_in  # per input block, on average
+        chunks = 1 if ctas is None else max(1, min(ctas // items, readers // CHUNK_READERS))
+        factors.append((base[j], n_in, n_groups, chunks))
+    return DgradSchedule(plan.block, blkp, group, bt, batch, tuple(factors))
+
+
+@functools.lru_cache(maxsize=256)
+def _dgrad_factor_array(factors: tuple[tuple[int, int, int, int], ...]):
+    flat = [v for row in factors for v in row]
+    return (ctypes.c_int * len(flat))(*flat)
+
+
+def _suffix(dtype: torch.dtype, qdtype: torch.dtype | None) -> str:
+    return DTYPES[dtype] if qdtype is None else f"q_{DTYPES[dtype]}_{QDTYPES[qdtype]}"
+
+
 @functools.lru_cache(maxsize=None)
 def _lib(name: str) -> ctypes.CDLL:
+    """The kernel library, its functions' argument types set."""
     lib = build.load(name)
-    n_ptr, n_int = (6, 8) if name == "chain_dgrad" else (8, 11)
-    for suffix in DTYPES.values():
-        fn = getattr(lib, f"{name}_{suffix}")
-        fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        for qsuffix in QDTYPES.values():
-            fn = getattr(lib, f"{name}_q_{suffix}_{qsuffix}")
-            fn.argtypes = [ctypes.c_void_p] * (n_ptr + 1) + [ctypes.c_int] * n_int + [ctypes.c_void_p]
+    n_ptr, n_int = (9, 12) if name == "chain_dgrad" else (8, 11)
+    for dtype in DTYPES:
+        for qdtype in (None, *QDTYPES):
+            suffix = _suffix(dtype, qdtype)
+            fn = getattr(lib, f"{name}_{suffix}")
+            # K5 dgrad also takes the scales and its dequantization workspace; K5 wgrad the scales
+            n_q = 0 if qdtype is None else (2 if name == "chain_dgrad" else 1)
+            fn.argtypes = [ctypes.c_void_p] * (n_ptr + n_q) + [ctypes.c_int] * n_int + [ctypes.c_void_p]
             fn.restype = ctypes.c_int
+            if name == "chain_dgrad":
+                fn = getattr(lib, f"chain_dgrad_ctas_{suffix}")
+                fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+                fn.restype = ctypes.c_int
     return lib
 
 
-def _check(name, edges, values, meta, plan, bt, scales, meta_rows, meta_cols):
-    tensors = (*edges, values, meta) + (() if scales is None else (scales,))
+def launch_config(dtype: torch.dtype, block: int, bt: int, qdtype: torch.dtype | None = None) -> dict:
+    """The resident CTAs (occupancy × SMs) of the current card and one
+    CTA's dynamic shared memory, for K2 (``qdtype=None``) or K5-dgrad at
+    this block and tile; a launch's grid is ``min(ctas, max(items))``."""
+    ctas, smem = _resident(torch.cuda.current_device(), _suffix(dtype, qdtype), padded_block(block), bt)
+    return {"ctas": ctas, "smem_bytes": smem}
+
+
+@functools.lru_cache(maxsize=256)
+def _resident(device: int, suffix: str, blkp: int, bt: int) -> tuple[int, int]:
+    """Cached per device: the wrapper asks at every launch (the chunks follow it)."""
+    smem = ctypes.c_int(0)
+    ctas = getattr(_lib("chain_dgrad"), f"chain_dgrad_ctas_{suffix}")(blkp, bt, ctypes.byref(smem))
+    if ctas <= 0:
+        raise RuntimeError(f"chain_dgrad occupancy query failed: CUDA error {-ctas}")
+    return ctas, smem.value
+
+
+def _check_device(name, tensors) -> None:
     if not all(t.is_cuda for t in tensors) or len({t.device for t in tensors}) != 1:
         raise ValueError(f"{name}: every tensor must lie on one CUDA device")
+
+
+def _check(name, edges, values, meta, plan, bt, scales, meta_rows, meta_cols):
+    """Dtypes, shapes, contiguity and tile of a backward launch; the device
+    is checked apart."""
+    tensors = (*edges, values, meta) + (() if scales is None else (scales,))
     dtype = edges[0].dtype
     if dtype not in DTYPES or any(e.dtype != dtype for e in edges):
         raise TypeError(f"{name} takes f32 or bf16 activations of one dtype; got {[e.dtype for e in edges]}")
@@ -263,10 +457,20 @@ def _check(name, edges, values, meta, plan, bt, scales, meta_rows, meta_cols):
         raise ValueError(f"{name}: bt must be one of {SUPPORTED_BT}; got {bt}")
 
 
+def _check_gather(plan: ChainPlan, ptr: torch.Tensor, steps: torch.Tensor) -> None:
+    """The dgrad kernel's transposed table and factor table (a kernel argument)."""
+    if plan.n_factors > MAX_FACTORS:
+        raise ValueError(f"chain_dgrad: at most {MAX_FACTORS} factors; got {plan.n_factors}")
+    n_ptr, s = sum(plan.in_blocks) + 1, plan.n_steps
+    if ptr.dtype != torch.int32 or steps.dtype != torch.int32 or ptr.shape != (n_ptr,) or steps.shape != (s,):
+        raise ValueError(
+            f"chain_dgrad: the transposed table must be int32 ptr ({n_ptr},) and steps ({s},); "
+            f"got {ptr.dtype} {tuple(ptr.shape)}, {steps.dtype} {tuple(steps.shape)}"
+        )
+
+
 def _fn(name: str, dtype: torch.dtype, values: torch.Tensor, scales):
-    if scales is None:
-        return getattr(_lib(name), f"{name}_{DTYPES[dtype]}")
-    return getattr(_lib(name), f"{name}_q_{DTYPES[dtype]}_{QDTYPES[values.dtype]}")
+    return getattr(_lib(name), f"{name}_{_suffix(dtype, None if scales is None else values.dtype)}")
 
 
 def _edges(plan: ChainPlan, x: torch.Tensor | None, dy: torch.Tensor) -> None:
@@ -286,31 +490,42 @@ def chain_dgrad(
     meta: torch.Tensor,
     *,
     plan: ChainPlan,
-    bt: int = DEFAULT_BT,
+    bt: int = DGRAD_BT,
     scales: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """``dx = dy @ F_Jᵀ ⋯ F_1ᵀ``: ``dy (B, O_J·blk)`` (the cotangent of the
     padded output), ``values (S, blk, blk)``, ``meta`` the
     :func:`dgrad_meta` table.  Returns ``(B, IB_1·blk)`` in dy's dtype.
-    With ``scales (S, blk)`` f32, ``values`` are codes (K5)."""
+    With ``scales (S, blk)`` f32, ``values`` are codes (K5).  One
+    cooperative launch; a grid that cannot be resident raises."""
     if not dy.is_cuda:
         return chain_dgrad_plain(dy, values, meta, plan=plan, scales=scales)
     _edges(plan, None, dy)
+    _check_device("chain_dgrad", (dy, values, meta) + (() if scales is None else (scales,)))
     _check("chain_dgrad", (dy,), values, meta, plan, bt, scales, plan.n_steps, DGRAD_META_COLS)
+    gather = _gather_for(plan, meta)
+    _check_gather(plan, *gather)
     b, blk = dy.shape[0], plan.block
     in_w = plan.in_blocks[0] * blk
     dx = torch.empty((b, in_w), dtype=dy.dtype, device=dy.device)
     if b == 0:
         return dx
     ws_w = max(plan.in_blocks[1:], default=0) * blk
-    ws = torch.empty((2, b, ws_w) if ws_w else (0,), dtype=torch.float32, device=dy.device)
-    dxacc = dx if dy.dtype == torch.float32 else torch.empty((b, in_w), dtype=torch.float32, device=dy.device)
-    ints = (b, plan.n_steps, plan.n_factors, blk, dy.shape[1], ws_w, in_w, bt)
+    ws = torch.empty((2, b, ws_w) if ws_w else (0,), dtype=dy.dtype, device=dy.device)
+    # K5: the codes dequantized once per launch, staged as K2 stages values
+    deq = None if scales is None else torch.empty(values.shape, dtype=dy.dtype, device=dy.device)
+    vec = _vec(blk, (dy, values, ws, dx) + (() if deq is None else (deq,)), scales)
     with torch.cuda.device(dy.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        fn = _fn("chain_dgrad", dy.dtype, values, scales)
-        head = (dy.data_ptr(), values.data_ptr()) + (() if scales is None else (scales.data_ptr(),))
-        rc = fn(*head, meta.data_ptr(), ws.data_ptr(), dxacc.data_ptr(), dx.data_ptr(), *ints, stream)
+        sched = dgrad_schedule(plan, b, bt, launch_config(dy.dtype, blk, bt, None if deq is None else values.dtype)["ctas"])
+        part_n = max((f[3] * b * f[1] * blk for f in sched.factors if f[3] > 1), default=0)
+        part = torch.empty((part_n,), dtype=torch.float32, device=dy.device) if part_n else None
+        ints = (plan.n_factors, b, plan.n_steps, blk, sched.blkp, sched.group, dy.shape[1], ws_w, in_w, vec, bt,
+                max(sched.items))
+        ptrs = (dy.data_ptr(), values.data_ptr()) + (() if scales is None else (scales.data_ptr(),))
+        ptrs += (meta.data_ptr(), gather[0].data_ptr(), gather[1].data_ptr(),
+                 ctypes.addressof(_dgrad_factor_array(sched.factors)), ws.data_ptr(), dx.data_ptr())
+        ptrs += (() if deq is None else (deq.data_ptr(),)) + (0 if part is None else part.data_ptr(),)
+        rc = _fn("chain_dgrad", dy.dtype, values, scales)(*ptrs, *ints, torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"chain_dgrad kernel launch failed: CUDA error {rc}")
     if scales is None:
@@ -339,6 +554,7 @@ def chain_wgrad(
         return chain_wgrad_plain(x, dy, values, meta, plan=plan, scales=scales)
     _edges(plan, x, dy)
     s_pre = plan.offsets[plan.n_factors - 1]
+    _check_device("chain_wgrad", (x, dy, values, meta) + (() if scales is None else (scales,)))
     _check("chain_wgrad", (x, dy), values, meta, plan, bt, scales, s_pre + plan.n_steps, WGRAD_META_COLS)
     b, blk, s = x.shape[0], plan.block, plan.n_steps
     dvalues = torch.empty((s, blk, blk), dtype=torch.float32, device=x.device)

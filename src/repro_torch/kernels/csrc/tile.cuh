@@ -1,5 +1,6 @@
-// Shared tile product for the FAuST block-sparse kernels (bsr_matmul.cu,
-// chain_matmul.cu, chain_dgrad.cu, chain_wgrad.cu).
+// Shared tile product of the one-CTA-per-tile kernels (bsr_matmul.cu,
+// chain_wgrad.cu); its type helpers (to_f32, from_f32, is_code, kThreads)
+// serve every kernel, the persistent ones through pipeline.cuh.
 //
 // One CTA of 256 threads (16 x 16) owns an output tile of TM rows (batch)
 // by kTN = 128 columns (one value block's width) and accumulates it in f32
@@ -17,7 +18,7 @@
 // f32 multiply of the code by its block row's scale, the same product as
 // the plain version's q.float() * scale[:, None].
 //
-// The backward kernels read a value block transposed (g @ F^T): element
+// The wgrad walk reads a value block transposed (g @ F^T): element
 // (k, c) of B is the stored b[c * ldb + k], and its dequantizing scale is
 // that of stored row c.  Rows scaled before the transposed read give the
 // same product as scaling after it, so dequantize-then-multiply is exact

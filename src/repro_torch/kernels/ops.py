@@ -34,7 +34,7 @@ from repro_torch.core.compress import (
 )
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels.bsr_matmul import bsr_matmul
-from repro_torch.kernels.chain import DEFAULT_BT, META_COLS, SUPPORTED_BT, chain_matmul
+from repro_torch.kernels.chain import DEFAULT_BT, DGRAD_BT, FORWARD_BT, META_COLS, SUPPORTED_BT, chain_matmul
 from repro_torch.kernels.chain_bwd import (
     chain_dgrad,
     chain_dgrad_plain,
@@ -151,41 +151,47 @@ def chain_meta(plan: ChainPlan, in_idx: torch.Tensor) -> torch.Tensor:
 
 
 def _chain_bwd(ctx, dy, x, in_idx, values, scales, want_dx, want_dv):
-    """``(dx, dv)`` of one fused apply: K2/K3 (K5 with ``scales``) where the
-    forward ran the kernel, their plain versions where it ran plain; each
-    only where it is wanted.  ``dv`` is f32."""
-    plan, bt = ctx.plan, ctx.bt
+    """``(dx, dv)`` of one fused apply, each only where it is wanted: the
+    wrappers of K2 at ``DGRAD_BT`` and K3 at ``DEFAULT_BT`` (K5 with
+    ``scales``; on a CPU tensor they run their plain versions), or the
+    plain versions where the caller asked for them on a CUDA tensor.
+    ``dv`` is f32."""
+    plan = ctx.plan
     dy = dy.contiguous()
     dx = dv = None
     if want_dx:
         meta = dgrad_meta(plan, in_idx)
-        if ctx.kernel:
-            dx = chain_dgrad(dy, values, meta, plan=plan, bt=bt, scales=scales)
+        if ctx.wrappers:
+            dx = chain_dgrad(dy, values, meta, plan=plan, bt=DGRAD_BT, scales=scales)
         else:
             dx = chain_dgrad_plain(dy, values, meta, plan=plan, scales=scales)
         dx = dx.to(x.dtype)
     if want_dv:
         meta = wgrad_meta(plan, in_idx)
-        if ctx.kernel:
-            dv = chain_wgrad(x, dy, values, meta, plan=plan, bt=bt, scales=scales)
+        if ctx.wrappers:
+            dv = chain_wgrad(x, dy, values, meta, plan=plan, bt=DEFAULT_BT, scales=scales)
         else:
             dv = chain_wgrad_plain(x, dy, values, meta, plan=plan, scales=scales)
     return dx, dv
 
 
-def _save(ctx, x, in_idx, plan, bt, kernel, *tensors):
+def _save(ctx, x, in_idx, plan, kernel, *tensors) -> bool:
+    """Save for the backward; returns whether the apply goes through the
+    kernel wrappers (the kernels on a CUDA tensor, the plain versions on a
+    CPU one) rather than the plain versions the caller asked for."""
     ctx.save_for_backward(x, in_idx, *tensors)
-    ctx.plan, ctx.bt, ctx.kernel = plan, bt, kernel
+    ctx.plan, ctx.wrappers = plan, kernel or not x.is_cuda
+    return ctx.wrappers
 
 
 class _ChainFn(torch.autograd.Function):
-    """The fused chain on ``x (B, IB_1·blk)``: forward K1, backward K2 + K3
-    (``repro/kernels/ops.py`` ``_chain_pallas`` and its VJP)."""
+    """The fused chain on ``x (B, IB_1·blk)``: forward K1 at tile ``bt``,
+    backward K2 + K3 at their own tiles (``repro/kernels/ops.py``
+    ``_chain_pallas`` and its VJP)."""
 
     @staticmethod
     def forward(ctx, x, values, in_idx, plan, bt, kernel):
-        _save(ctx, x, in_idx, plan, bt, kernel, values)
-        if kernel:
+        if _save(ctx, x, in_idx, plan, kernel, values):
             return chain_matmul(x, values, chain_meta(plan, in_idx), plan=plan, bt=bt)
         return _ref.packed_chain_ref(x, values, in_idx, plan)
 
@@ -208,8 +214,7 @@ class _ChainQFn(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, values, scales, in_idx, plan, bt, kernel):
         scales = scales.contiguous()
-        _save(ctx, x, in_idx, plan, bt, kernel, values, scales)
-        if kernel:
+        if _save(ctx, x, in_idx, plan, kernel, values, scales):
             return chain_matmul(x, values, chain_meta(plan, in_idx), plan=plan, bt=bt, scales=scales)
         return _ref.packed_chain_q_ref(x, values, in_idx, plan, scales)
 
@@ -227,10 +232,12 @@ def packed_chain_apply(
     chain: PackedChain,
     *,
     use_kernel: bool | None = None,
-    bt: int = DEFAULT_BT,
+    bt: int = FORWARD_BT,
 ) -> torch.Tensor:
     """The whole chain in one launch on a flat-packed chain; any leading
-    batch dims, features padded and sliced, λ applied, batch tile ``bt``.
+    batch dims, features padded and sliced, λ applied.  ``bt`` is the
+    forward kernel's (K1/K4) batch tile; the backward kernels run at their
+    own (K2/K5-dgrad ``DGRAD_BT``, K3/K5-wgrad ``DEFAULT_BT``).
     The plain path (``ref.packed_chain_ref``) runs on the same packed
     arrays.  A quantized chain runs K4 (or ``ref.packed_chain_q_ref``) on
     its codes and ``(S, blk)`` row scales: values stay f32 after

@@ -17,6 +17,7 @@ from repro_torch import bridge
 from repro_torch.api import FaustOp, autotune, last_report
 from repro_torch.core.compress import quantize_chain
 from repro_torch.kernels import ops
+from repro_torch.kernels.chain import FORWARD_BT
 from torch_parity import jax_chain, packed_dict
 
 CPU = "cpu"
@@ -92,20 +93,22 @@ def _write(op, batch, entry, dtype=torch.float32):
 def test_table_hit_steers_auto_and_its_tile(table, op, monkeypatch):
     x = torch.zeros((5, DIMS[0]))
     model = op.dispatch_for(5)
-    assert model.source == "model" and model.backend == "fused" and model.bt == 16
+    # without a table the report names the tile K1/K4 run at, FORWARD_BT
+    assert model.source == "model" and model.backend == "fused" and model.bt == FORWARD_BT == 64
     _write(op, 5, {"best": "dense", "us": {"dense": 10.0, "bsr": 20.0, "fused": 30.0}, "bt": 32})
     op.apply(x, device=CPU)
     rep = last_report()
     assert (rep.backend, rep.source, rep.bt) == ("dense", "measured", 32)
     assert rep.est_us == {"dense": 10.0, "bsr": 20.0, "fused": 30.0}
     # a fused winner runs at the table's tile, unless the caller forces one
-    _write(op, 5, {"best": "fused", "us": {"dense": 10.0, "bsr": 20.0, "fused": 5.0}, "bt": 64})
+    # (the table's tile differs from FORWARD_BT, so the first apply shows it was read)
+    _write(op, 5, {"best": "fused", "us": {"dense": 10.0, "bsr": 20.0, "fused": 5.0}, "bt": 16})
     seen = []
     real = ops.packed_chain_apply
     monkeypatch.setattr(ops, "packed_chain_apply", lambda *a, **k: seen.append(k["bt"]) or real(*a, **k))
     op.apply(x, device=CPU)
     op.apply(x, device=CPU, bt=32)
-    assert seen == [64, 32] and last_report().bt == 32
+    assert seen == [16, 32] and last_report().bt == 32
     # another batch bucket misses: back to the model
     assert op.dispatch_for(100).source == "model"
     # off never reads the table

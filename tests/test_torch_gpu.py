@@ -12,8 +12,9 @@ sides, and a one-ulp difference propagates).  The quantized kernel (K4)
 dequantizes f32 activations with the plain version's f32 product; with
 bf16 activations it rounds x·scale to bf16 once more per term, which the
 bf16 bound covers.
-The backward kernels (K2, K3, K5) keep f32 inside as their plain versions
-do, so bf16 differs only by the rounding of the inputs and of dx.
+The backward kernels (K2, K3, K5) accumulate in f32 as their plain
+versions do; in bf16, K2/K5-dgrad also store the intermediate cotangents in
+bf16 (the plain version keeps them in f32), which the bf16 bound covers.
 """
 import dataclasses
 import math
@@ -319,3 +320,65 @@ def test_training_applies_run_the_backward_kernels(dev):
         x.grad = leaf.grad = None
         (x @ top.todense()).square().sum().backward()
         assert _rel(got[0], x.grad) <= 1e-4 and _rel(got[1], leaf.grad) <= 1e-4  # the dense product re-associates
+
+
+def _dgrad_cases(dy, values, meta, plan, scales, tiles, launches):
+    """K2/K5-dgrad at each tile against the plain version, and twice per
+    tile with the same bits (the gather sums in a fixed order)."""
+    ref = chain_dgrad_plain(dy, values, meta, plan=plan, scales=scales)
+    for bt in tiles:
+        before = launches()
+        dx = chain_dgrad(dy, values, meta, plan=plan, bt=bt, scales=scales)
+        again = chain_dgrad(dy, values, meta, plan=plan, bt=bt, scales=scales)
+        torch.cuda.synchronize()
+        assert launches() == before + 2 and dx.dtype == dy.dtype
+        assert _rel(dx, ref) <= TOL[dy.dtype]
+        assert torch.equal(dx, again)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("batch", [1, 37, 4096])
+@pytest.mark.parametrize("blk,n_factors", GRID)
+def test_dgrad_kernel_grid_matches_plain(dev, blk, n_factors, batch, dtype):
+    """K2 on its persistent gather schedule, on K1's grid: every tile at
+    B = 37; small batches split the reader lists into chunks."""
+    pc, _ = _grid_chain(dev, blk, n_factors, 1, 70 + blk + n_factors)
+    dy = torch.randn((batch, pc.plan.out_blocks[-1] * blk), generator=torch.Generator().manual_seed(blk))
+    meta = dgrad_meta(pc.plan, pc.in_idx)
+    _dgrad_cases(dy.to(dev, dtype), pc.values.to(dtype), meta, pc.plan, None,
+                 SUPPORTED_BT if batch == 37 else (16, 64), lambda: chain_dgrad.launches)
+
+
+@pytest.mark.parametrize("xdtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("scheme", ["per_block", "per_row"])
+@pytest.mark.parametrize("qdtype", ["int8", "fp8_e4m3", "fp8_e5m2"])
+def test_quantized_dgrad_kernel_grid_matches_plain(dev, qdtype, scheme, xdtype):
+    """K5-dgrad (codes dequantized once per launch) on the same grid."""
+    for blk, n_factors in GRID:
+        pc, _ = _grid_chain(dev, blk, n_factors, 1, 90 + blk + n_factors)
+        q = quantize_chain(pc, qdtype, scheme)
+        scales = expand_scales(q.scales, blk).contiguous()
+        meta = dgrad_meta(q.plan, q.in_idx)
+        for batch in (1, 37, 4096):
+            dy = torch.randn((batch, q.plan.out_blocks[-1] * blk), generator=torch.Generator().manual_seed(batch))
+            _dgrad_cases(dy.to(dev, xdtype), q.values, meta, q.plan, scales,
+                         SUPPORTED_BT if batch == 37 else (16,), lambda: chain_dgrad.q_launches)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("chain", ["skewed fan-in", "unread blocks"])
+@pytest.mark.parametrize("blk", [16, 128])
+def test_dgrad_kernel_skewed_chains(dev, blk, chain, dtype):
+    """Every output block reading input block 0 (one list of every step of
+    a factor), or input blocks no step reads (flushed as zeros)."""
+    pc, _ = _grid_chain(dev, blk, 4, 1, blk)
+    idx = torch.zeros_like(pc.in_idx) if chain == "skewed fan-in" else torch.minimum(pc.in_idx, torch.ones_like(pc.in_idx))
+    pc = dataclasses.replace(pc, in_idx=idx)
+    meta = dgrad_meta(pc.plan, pc.in_idx)
+    for batch in (37, 4096):
+        dy = torch.randn((batch, pc.plan.out_blocks[-1] * blk), generator=torch.Generator().manual_seed(batch))
+        _dgrad_cases(dy.to(dev, dtype), pc.values.to(dtype), meta, pc.plan, None, SUPPORTED_BT,
+                     lambda: chain_dgrad.launches)
+        q = quantize_chain(pc, "int8", "per_row")
+        _dgrad_cases(dy.to(dev, dtype), q.values, meta, q.plan, expand_scales(q.scales, blk).contiguous(),
+                     (16, 64), lambda: chain_dgrad.q_launches)
