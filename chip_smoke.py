@@ -7,11 +7,12 @@ Phases, each fatal on failure (non-zero exit):
 
 1. setup: card name and power limit, torch/CUDA versions, TF32 off, the
    kernels built from ``src/repro_torch/kernels/csrc`` (one ``nvcc`` per
-   source, in parallel) with their ``-Xptxas -v`` lines and K1/K4's and
-   K2/K5-dgrad's SASS counts of HMMA (bf16 tensor cores), FFMA and LDGSTS
-   (cp.async), then K1/K4's and K2/K5-dgrad's launch at the main path's and
-   the trainer's shapes: resident CTAs, grid, dynamic shared memory and work
-   items (and, for the dgrad, reader-list chunks) per factor;
+   source, in parallel) with their ``-Xptxas -v`` lines and each library's
+   SASS counts of HMMA (bf16 tensor cores), FFMA and LDGSTS (cp.async),
+   then each kernel's launch at the main path's and the trainer's shapes:
+   resident CTAs, grid, dynamic shared memory and work items (the dgrad's
+   reader-list chunks; K3's three launches and its emission's batch
+   chunks; K6's grid per factor);
 2. every CUDA kernel against its plain PyTorch version on the card: the
    fused chain (K1) on ragged chains with J ∈ {1,2,3,4}, block 16 and 128,
    and a batch that is no multiple of the tile, then on a grid of blocks
@@ -23,8 +24,11 @@ Phases, each fatal on failure (non-zero exit):
    the three code types, per-block and per-row) on K1's grid, every tile at
    B = 37, on chains with a skewed fan-in and with unread input blocks, and
    twice on each chain (bitwise-equal dx); the wgrad (K3, K5-wgrad: dvalues,
-   dscales) on ragged chains, blocks 16 and 128, J ≤ 4; f32 within
-   1e-5·max|y|, bf16 within 3e-2·max|y|;
+   dscales) on ragged chains, blocks 16 and 128, J ≤ 4, then on K1's grid
+   with the dgrad's skewed and unread chains, every launch twice (bitwise-
+   equal dvalues); K6 on random factors of the up-projection's layout at
+   B = 128 and 4096, every tile; f32 within 1e-5·max|y|, bf16 within
+   3e-2·max|y|;
 3. the main path at full width: gemma-2b's MLP up-projection
    ``W (2048, 16384)`` (d_model 2048, d_ff 16384) from a seed, factorized on
    the card into J = 3 block-sparse factors (block 128, k 4), then
@@ -37,7 +41,10 @@ Phases, each fatal on failure (non-zero exit):
    reference's thresholds, and ``apply("fused" | "bsr" | "dense" |
    "auto")`` at B = 128 and 4096 in f32 and bf16, each checked against the
    plain version and ``x @ op.todense()``; counters zeroed before, read
-   after;
+   after; then K4 with bf16 x on each form against its plain version,
+   beside K1 bf16 and the plain version itself with each factor's slots
+   summed in reverse (K4 within 1.25× the larger of the two), on that
+   chain and on a block-16 chain (2048 → 2048 → 16384, k 4);
 5. measured dispatch: a fresh table under ``build/``, filled by
    ``apply(autotune=True)`` for the f32 and the int8 operator at both
    batches; ``auto`` must then report ``source == "measured"``, pick the
@@ -54,19 +61,19 @@ Phases, each fatal on failure (non-zero exit):
    FAµST unembedding) on a fresh autotune table; loss, step time and
    tokens/s per step, peak memory, the captured FAµST dispatch and the batch
    tile each fused kernel ran at; finite losses and K2/K3 launches required,
-   K2 at ``DGRAD_BT`` and K3 at ``DEFAULT_BT``; then one more step under
+   K2 at ``DGRAD_BT`` and K3 at ``WGRAD_BT``; then one more step under
    ``torch.profiler``: device busy time and idle share, device time by
-   kernel family (K1/K4, K2, K3, dense matmul, elementwise, other);
+   kernel family (K1/K4, K2, K3 and its three launches, dense matmul,
+   elementwise, other);
 8. times (CUDA events, warm-up, then 20 launches; 5 for the wgrads) of
    each kernel, its plain version and one PyTorch call computing the same
    function (``torch.matmul`` on the materialized matrix; none for the
    wgrad), beside the card's bound, the cost of an empty launch, and
    ``apply("auto")`` with the model alone and with the table beside the
-   forced backend it picks; K1, K4 (int8 per-block and per-row, fp8
-   e4m3 and e5m2), K2 and K5-dgrad also with a cold L2 (a 256 MB buffer
-   written between launches); the batch-tile sweep of K1 and K6, and of K2,
-   in f32 and bf16; K1, K2 and K3 also at the trainer's shapes (the FAµST
-   unembedding, bf16, B = 1024).
+   forced backend it picks; every kernel also with a cold L2 (a 256 MB
+   buffer written between launches); the batch-tile sweeps of K1, K6, K2
+   and K3 in f32 and bf16; K1, K2 and K3 also at the trainer's shapes (the
+   FAµST unembedding, bf16, B = 1024).
 
 Prints one JSON object per line; the last three lines are the kernels
 summary, the card's ``name, power.limit`` and ``{"ok": true, ...}``.
@@ -174,13 +181,14 @@ UNEMBED = ((2048, 2048, 256000), 16, 4)
 
 
 def launch_configs(card_line: str) -> list[dict]:
-    """K1/K4's and K2/K5-dgrad's launch at the main path's and the
-    trainer's shapes, at their default tiles: resident CTAs, grid, shared
-    memory, items (and the dgrad's reader-list chunks) per factor."""
+    """Each kernel's launch at the main path's and the trainer's shapes, at
+    its default tile: resident CTAs, grid, shared memory, items (the dgrad's
+    reader-list chunks, the wgrad's three launches and its emission's batch
+    chunks) per factor; K6's grid per factor of the up-projection."""
     import torch
 
-    from repro_torch.kernels import chain_bwd
-    from repro_torch.kernels.chain import DGRAD_BT, FORWARD_BT, chain_schedule, launch_config
+    from repro_torch.kernels import bsr_matmul, chain_bwd
+    from repro_torch.kernels.chain import DGRAD_BT, FORWARD_BT, WGRAD_BT, chain_schedule, launch_config
 
     rows = []
     cases = [("up-projection", UP_PROJ, b, dt, q) for b in (128, 4096)
@@ -211,6 +219,34 @@ def launch_configs(card_line: str) -> list[dict]:
                "barriers": plan.n_factors - 1 + sum(c > 1 for c in chunks) + (qdtype is not None)}
         log(row)
         rows.append(row)
+        # the wgrad: the recompute (factors 1..J-1) and the walk (J..2) are
+        # cooperative, the emission one CTA an item
+        cfg = chain_bwd.wgrad_launch_config(dtype, plan.block, WGRAD_BT, qdtype)
+        ctas = tuple(cfg[k]["ctas"] for k in ("recompute", "walk", "emit"))
+        wsched = chain_bwd.wgrad_schedule(plan, b, WGRAD_BT, chain_bwd.EMIT_ROWS[dtype], ctas)
+        row = {"phase": "launch_config", "card": card_line, "chain": name,
+               "kernel": "chain_wgrad" if qdtype is None else "chain_wgrad_q",
+               "dtype": str(dtype).removeprefix("torch."), "batch": b, "bt": WGRAD_BT, "block": plan.block,
+               "blkp": wsched.blkp, "group": wsched.group, "launches": cfg,
+               "grid": {"recompute": min(ctas[0], max(wsched.fwd_items, default=1)),
+                        "walk": min(ctas[1], wsched.walk_items), "emit": sum(wsched.emit_items)},
+               "recompute_items_per_factor": list(wsched.fwd_items),
+               "walk_items_per_factor": list(wsched.walk.items[1:]),
+               "walk_chunks_per_factor": [f[3] for f in wsched.walk.factors[1:]],
+               "emit_items_per_factor": list(wsched.emit_items), "emit_chunks": wsched.chunks,
+               "emit_chunk_rows": wsched.chunk_rows}
+        log(row)
+        rows.append(row)
+    plan = _plan(*UP_PROJ)
+    for dtype in (torch.float32, torch.bfloat16):
+        cfg = bsr_matmul.launch_config(dtype, bsr_matmul.BSR_BT)
+        for b in (128, 4096):
+            row = {"phase": "launch_config", "card": card_line, "chain": "up-projection", "kernel": "bsr_matmul",
+                   "dtype": str(dtype).removeprefix("torch."), "batch": b, "bt": bsr_matmul.BSR_BT, **cfg,
+                   "grid_per_factor": [[-(-b // bsr_matmul.BSR_BT), o * -(-plan.block // 128)]
+                                       for o in plan.out_blocks]}
+            log(row)
+            rows.append(row)
     return rows
 
 
@@ -246,6 +282,8 @@ def setup() -> dict:
         "phase": "setup",
         "sass": sass_counts(build.library_path("chain_matmul")),
         "sass_dgrad": sass_counts(build.library_path("chain_dgrad")),
+        "sass_wgrad": sass_counts(build.library_path("chain_wgrad")),
+        "sass_bsr": sass_counts(build.library_path("bsr_matmul")),
         "card": card(),
         "device_name": torch.cuda.get_device_name(0),
         "torch": torch.__version__,
@@ -383,7 +421,8 @@ GRID = ((8, 6), (16, 5), (24, 6), (64, 4), (100, 3), (128, 6))
 def check_chain_grid(dev, batches=(1, 37, 4096)) -> list[dict]:
     """Phase 2, K1 and K4 on the persistent schedule: the GRID of blocks and
     depths at batches below, at and far above one tile, every tile at
-    B = 37; f32 and bf16; K4 for int8, e4m3 and e5m2, per-block and per-row."""
+    B = 37; f32 and bf16; K4 for int8, e4m3 and e5m2, per-block (scales as
+    stored, one a block, and as rows) and per-row."""
     import torch
 
     from repro_torch.core.compress import expand_scales, pack_chain, quantize_chain
@@ -396,7 +435,8 @@ def check_chain_grid(dev, batches=(1, 37, 4096)) -> list[dict]:
     from repro_torch.kernels.ops import chain_meta
 
     rows = []
-    forms = [(None, None)] + [(d, sch) for d in DRE_MAX for sch in ("per_block", "per_row")]
+    forms = [(None, None, None)] + [(d, sch, lay) for d in DRE_MAX for sch, lay in
+                                    (("per_block", "block"), ("per_block", "rows"), ("per_row", "rows"))]
     for blk, n_factors in GRID:
         base = (40, 72, 56, 90, 33, 61, 47) if blk <= 24 else (200, 300, 260, 330, 150, 210, 190)
         dims = base[: n_factors + 1]
@@ -407,9 +447,10 @@ def check_chain_grid(dev, batches=(1, 37, 4096)) -> list[dict]:
         for b in batches:
             x0 = torch.randn((b, dims[0]), generator=g)
             x0 = torch.nn.functional.pad(x0, (0, plan.in_blocks[0] * blk - dims[0]))
-            for qdtype, scheme in forms:
+            for qdtype, scheme, layout in forms:
                 q = None if qdtype is None else quantize_chain(pc, qdtype, scheme)
-                scales = None if q is None else expand_scales(q.scales, blk).contiguous()
+                scales = None if q is None else (q.scales if layout == "block" else
+                                                 expand_scales(q.scales, blk).contiguous())
                 for dtype in (torch.float32, torch.bfloat16):
                     dname = str(dtype).removeprefix("torch.")
                     x = x0.to(dev, dtype)
@@ -425,8 +466,8 @@ def check_chain_grid(dev, batches=(1, 37, 4096)) -> list[dict]:
                             torch.cuda.synchronize()
                         err, rel = rel_err(yk, yp)
                         row = {"phase": "kernel_check", "kernel": "chain_matmul" + ("" if q is None else "_q"),
-                               "dtype": dname, "quant": None if q is None else q.qscheme, "J": n_factors,
-                               "block": blk, "dims": list(dims), "batch": b, "bt": bt,
+                               "dtype": dname, "quant": None if q is None else q.qscheme, "scales": layout,
+                               "J": n_factors, "block": blk, "dims": list(dims), "batch": b, "bt": bt,
                                "max_abs_err": err, "rel_err": rel, "tol": TOL[dname]}
                         log(row)
                         require(yk.dtype == dtype and rel <= TOL[dname],
@@ -497,6 +538,183 @@ def check_dgrad_grid(dev, batches=(1, 37, 4096)) -> list[dict]:
         unread = torch.minimum(pc.in_idx, torch.ones_like(pc.in_idx))  # blocks >= 2 have no reader
         for chain, idx in (("skewed fan-in", skew), ("unread blocks", unread)):
             rows += check(dataclasses.replace(pc, in_idx=idx), dims, g, chain, (37, 4096))
+    return rows
+
+
+def check_wgrad_grid(dev, batches=(1, 37, 4096)) -> list[dict]:
+    """Phase 2, K3 and K5-wgrad (recompute on K1's loop, walk on K2's
+    gather schedule, emission): K1's GRID at batches below, at and far
+    above one tile (small chains cut the emission's batch in chunks), every
+    tile at B = 37; f32 and bf16; K5 for int8, e4m3 and e5m2, per-block
+    scales as stored and as rows and per-row; then the dgrad's skewed and
+    unread chains.  Each launch runs twice and must give the same bits."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.core.compress import expand_scales, pack_chain, quantize_chain
+    from repro_torch.kernels.chain import SUPPORTED_BT, WGRAD_BT
+    from repro_torch.kernels.chain_bwd import chain_wgrad, chain_wgrad_plain, wgrad_meta
+
+    forms = [(None, None, None)] + [(d, sch, lay) for d in DRE_MAX for sch, lay in
+                                    (("per_block", "block"), ("per_block", "rows"), ("per_row", "rows"))]
+
+    def check(pc, dims, g, chain, batches):
+        rows, plan, blk = [], pc.plan, pc.plan.block
+        meta = wgrad_meta(plan, pc.in_idx)
+        for b in batches:
+            x0 = torch.randn((b, plan.in_blocks[0] * blk), generator=g)
+            dy0 = torch.randn((b, plan.out_blocks[-1] * blk), generator=g)
+            for qdtype, scheme, layout in forms:
+                q = None if qdtype is None else quantize_chain(pc, qdtype, scheme)
+                scales = None if q is None else (q.scales if layout == "block" else
+                                                 expand_scales(q.scales, blk).contiguous())
+                for dtype in (torch.float32, torch.bfloat16):
+                    dname = str(dtype).removeprefix("torch.")
+                    x, dy = x0.to(dev, dtype), dy0.to(dev, dtype)
+                    values = pc.values.to(dtype) if q is None else q.values
+                    want = chain_wgrad_plain(x, dy, values, meta, plan=plan, scales=scales)
+                    for bt in SUPPORTED_BT if b == 37 else (16, WGRAD_BT):
+                        got = chain_wgrad(x, dy, values, meta, plan=plan, bt=bt, scales=scales)
+                        again = chain_wgrad(x, dy, values, meta, plan=plan, bt=bt, scales=scales)
+                        if dev.type == "cuda":
+                            torch.cuda.synchronize()
+                        err, rel = rel_err(got, want)
+                        row = {"phase": "kernel_check", "kernel": "chain_wgrad" + ("" if q is None else "_q"),
+                               "output": "dvalues", "chain": chain, "dtype": dname,
+                               "quant": None if q is None else q.qscheme, "scales": layout, "J": plan.n_factors,
+                               "block": blk, "dims": list(dims), "batch": b, "bt": bt, "max_abs_err": err,
+                               "rel_err": rel, "tol": TOL[dname], "bitwise_repeat": bool(torch.equal(got, again))}
+                        log(row)
+                        require(got.dtype == torch.float32 and bool(torch.isfinite(got).all())
+                                and rel <= TOL[dname], f"{row['kernel']} disagrees with its plain version: {row}")
+                        require(row["bitwise_repeat"], f"{row['kernel']} is not deterministic: {row}")
+                        rows.append(row)
+        return rows
+
+    rows = []
+    for blk, n_factors in GRID:
+        base = (40, 72, 56, 90, 33, 61, 47) if blk <= 24 else (200, 300, 260, 330, 150, 210, 190)
+        dims = base[: n_factors + 1]
+        bf, g = _random_chain(dims, blk, 3, 200 * blk + n_factors, dev)
+        rows += check(pack_chain(bf), dims, g, "grid", batches)
+    for blk, dims in ((16, (40, 72, 56, 90)), (128, (200, 300, 260, 330))):
+        bf, g = _random_chain(dims, blk, 3, 11 * blk, dev)
+        pc = pack_chain(bf)
+        skew = torch.zeros_like(pc.in_idx)  # every slot reads input block 0
+        unread = torch.minimum(pc.in_idx, torch.ones_like(pc.in_idx))  # blocks >= 2 have no reader
+        for chain, idx in (("skewed fan-in", skew), ("unread blocks", unread)):
+            rows += check(dataclasses.replace(pc, in_idx=idx), dims, g, chain, (37, 4096))
+    return rows
+
+
+def check_bsr_layout(dev, batches=(128, 4096)) -> list[dict]:
+    """Phase 2, K6 on random factors of the up-projection's layout (F_1
+    16x6, F_2 16x4, F_3 128x4 out blocks x slots of 128 x 128) at the main
+    path's batches, every tile, f32 and bf16."""
+    import torch
+
+    from repro_torch.kernels.bsr_matmul import bsr_matmul, bsr_matmul_plain
+    from repro_torch.kernels.chain import SUPPORTED_BT
+
+    from repro_torch.core.compress import random_block_factor
+
+    dims, blk, ks = UP_PROJ
+    g = torch.Generator().manual_seed(17)
+    factors = [random_block_factor(dims[j], dims[j + 1], blk, blk, ks[j], generator=g, device=dev)
+               for j in range(len(ks))]
+    rows = []
+    for b in batches:
+        x0 = torch.randn((b, UP_PROJ[0][0]), generator=g)
+        for dtype in (torch.float32, torch.bfloat16):
+            dname = str(dtype).removeprefix("torch.")
+            x = x0.to(dev, dtype)
+            for j, f in enumerate(factors):
+                values = f.values.to(dtype)
+                want = bsr_matmul_plain(x, values, f.in_idx)
+                for bt in SUPPORTED_BT:
+                    got = bsr_matmul(x, values, f.in_idx, bt=bt)
+                    if dev.type == "cuda":
+                        torch.cuda.synchronize()
+                    err, rel = rel_err(got, want)
+                    row = {"phase": "kernel_check", "kernel": "bsr_matmul", "chain": "up-projection", "factor": j + 1,
+                           "dtype": dname, "values_shape": list(values.shape), "batch": b, "bt": bt,
+                           "max_abs_err": err, "rel_err": rel, "tol": TOL[dname]}
+                    log(row)
+                    require(got.dtype == dtype and rel <= TOL[dname], f"bsr_matmul disagrees with its plain version: {row}")
+                    rows.append(row)
+                x = want
+    return rows
+
+
+def _plain_q_slots_reversed(x, values, scales, meta, plan):
+    """K4's plain version with each factor's slots summed last to first (in
+    f32, the intermediates rounded to x's dtype as the plain version does):
+    the reference's own arithmetic in another summation order."""
+    from repro_torch.kernels import ref
+
+    v = ref.dequant_values(values, scales)
+    y = x
+    for j in range(plan.n_factors):
+        vj, ij = ref.factor_slices(v, meta[:, 0], plan, j)
+        acc = sum(ref.bsr_matmul_ref(y.float(), vj[:, k:k + 1], ij[:, k:k + 1])
+                  for k in reversed(range(plan.k_blocks[j])))
+        y = ref._mask_tail(acc.to(x.dtype), plan.out_feats[j])
+    return y
+
+
+def check_k4_rounding(op, qops: dict, batches=(128, 4096), block16=((2048, 2048, 16384), 1024)) -> list[dict]:
+    """Phase 4, the repaired K4 with bf16 x: on the main path's chain and on
+    a random block-16 chain with the unembedding's block and k (``block16``:
+    dims, batch), each quantized form (per-block scales as stored and as rows)
+    against its plain version (f32 dequantized values, the reference's
+    chain.py:104), beside K1 bf16 on the same chain and batch and the plain
+    version itself with its slots summed in reverse.  Error ‖y − plain‖ /
+    ‖plain‖ (the max of a bf16 output is one rounding flip, whose size steps
+    by 2× with its binade); K4 must stay within 1.25× the larger of the
+    other two."""
+    import torch
+
+    from repro_torch.core.compress import expand_scales, pack_chain, quantize_chain
+    from repro_torch.kernels.chain import chain_matmul, chain_matmul_plain, chain_matmul_q_plain
+    from repro_torch.kernels.ops import chain_meta
+
+    def norm_err(y, ref):
+        return float(torch.linalg.vector_norm(y.float() - ref.float()) / torch.linalg.vector_norm(ref.float()))
+
+    dev = op.device
+    g = torch.Generator().manual_seed(6)
+    cases = [("up-projection", op._packed, {name: qop.rep for name, qop in qops.items()}, b) for b in batches]
+    if block16:
+        dims, b = block16
+        bf, _ = _random_chain(dims, 16, 4, 8, dev)
+        pc = pack_chain(bf)
+        cases.append(("block 16 " + "x".join(map(str, dims)), pc,
+                      {f"{d}:{sch}": quantize_chain(pc, d, sch) for d, sch in QUANTS}, b))
+    rows = []
+    for chain, pc, quants, b in cases:
+        pc = pc.to(dtype=torch.bfloat16)
+        meta = chain_meta(pc.plan, pc.in_idx)
+        x = torch.randn((b, pc.plan.in_blocks[0] * pc.plan.block), generator=g).to(dev, torch.bfloat16)
+        k1 = norm_err(chain_matmul(x, pc.values, meta, plan=pc.plan), chain_matmul_plain(x, pc.values, meta, plan=pc.plan))
+        for qscheme, q in quants.items():
+            layouts = [("rows", expand_scales(q.scales, q.plan.block).contiguous())]
+            if q.scales.ndim == 1:
+                layouts.insert(0, ("block", q.scales))
+            for layout, scales in layouts:
+                ref = chain_matmul_q_plain(x, q.values, scales, meta, plan=q.plan)
+                y = chain_matmul(x, q.values, meta, plan=q.plan, scales=scales)
+                k4 = norm_err(y, ref)
+                floor = norm_err(_plain_q_slots_reversed(x, q.values, scales, meta, q.plan), ref)
+                row = {"phase": "k4_rounding", "chain": chain, "qscheme": qscheme, "scales": layout, "batch": b,
+                       "k4_norm_err": k4, "k1_norm_err": k1, "reversed_slots_norm_err": floor,
+                       "k4_over_k1": k4 / k1 if k1 else None,
+                       "reversed_slots_over_k1": floor / k1 if k1 else None,
+                       "k4_over_bar": k4 / max(k1, floor) if max(k1, floor) else None,
+                       "k4_max_rel_err": rel_err(y, ref)[1]}
+                log(row)
+                require(k4 <= 1.25 * max(k1, floor), f"K4 bf16 rounds more than the reference: {row}")
+                rows.append(row)
     return rows
 
 
@@ -720,8 +938,7 @@ def measure(op, card_line: str) -> tuple[list[dict], float]:
     import torch
 
     from repro_torch.core.compress import unpack_chain
-    from repro_torch.kernels.bsr_matmul import DEFAULT_BT as BSR_BT
-    from repro_torch.kernels.bsr_matmul import bsr_matmul, bsr_matmul_plain, launch_noop
+    from repro_torch.kernels.bsr_matmul import BSR_BT, bsr_matmul, bsr_matmul_plain, launch_noop
     from repro_torch.kernels.chain import FORWARD_BT, SUPPORTED_BT, chain_matmul, chain_matmul_plain
     from repro_torch.kernels.ops import chain_meta
 
@@ -778,38 +995,42 @@ def measure(op, card_line: str) -> tuple[list[dict], float]:
                 for be in ("fused", "bsr", "dense")},
              "auto_picks": op.dispatch_for(b).backend})
 
-    # batch-tile sweep: the data behind FORWARD_BT (K1) and K6's default
+    # batch-tile sweeps: the data behind FORWARD_BT (K1) and BSR_BT (K6,
+    # three launches)
     for dtype in (torch.float32, torch.bfloat16):
         pc = op._packed.to(dtype=dtype)
         bf = unpack_chain(pc)
         meta = chain_meta(pc.plan, pc.in_idx)
         for b in (128, 4096):
             x = torch.randn((b, m), device=dev).to(dtype)
-            for bt in SUPPORTED_BT:
-                def k6(bt=bt):
-                    y = x
-                    for f in bf.factors:
-                        y = bsr_matmul(y, f.values, f.in_idx, bt=bt)
-                    return y
 
-                log({"phase": "bt_sweep", "card": card_line, "dtype": str(dtype).removeprefix("torch."),
-                     "batch": b, "bt": bt,
-                     "chain_matmul_ms": time_ms(lambda: chain_matmul(x, pc.values, meta, plan=pc.plan, bt=bt)),
-                     "bsr_matmul_ms": time_ms(k6)})
+            def k6(bt):
+                y = x
+                for f in bf.factors:
+                    y = bsr_matmul(y, f.values, f.in_idx, bt=bt)
+                return y
+
+            head = {"card": card_line, "dtype": str(dtype).removeprefix("torch."), "batch": b}
+            log({"phase": "bt_sweep", **head, **{
+                f"chain_matmul_bt{bt}_ms": time_ms(lambda bt=bt: chain_matmul(x, pc.values, meta, plan=pc.plan, bt=bt))
+                for bt in SUPPORTED_BT}})
+            log({"phase": "bsr_bt_sweep", **head, **{f"bsr_matmul_bt{bt}_ms": time_ms(lambda bt=bt: k6(bt))
+                                                     for bt in SUPPORTED_BT}})
     return rows, t_launch_us
 
 
 def measure_quantized(qops: dict, ops: dict, card_line: str, batches=(128, 4096)) -> list[dict]:
     """Phase 8, slice 2: K4 per code type at both batches beside its bound,
     its plain version and ``torch.matmul`` on the dequantized dense
-    matrix; then ``apply("auto")`` on the model alone and on the table,
-    beside the forced backend the table picks."""
+    matrix, with the scales as the chain stores them (per block or per
+    row, as the fused apply passes them); then ``apply("auto")`` on the
+    model alone and on the table, beside the forced backend the table
+    picks."""
     import os
 
     import torch
 
     from repro_torch.api import last_report
-    from repro_torch.core.compress import expand_scales
     from repro_torch.kernels.chain import FORWARD_BT, chain_matmul, chain_matmul_q_plain
     from repro_torch.kernels.ops import chain_meta
 
@@ -819,7 +1040,7 @@ def measure_quantized(qops: dict, ops: dict, card_line: str, batches=(128, 4096)
         q = qop.rep
         dev, (m, n) = qop.device, qop.shape
         plan, s_tot = q.plan, q.values.numel()
-        scales = expand_scales(q.scales, plan.block).contiguous()
+        scales = q.scales.contiguous()
         meta = chain_meta(plan, q.in_idx)
         dense = qop.todense()
         for dtype in (torch.float32, torch.bfloat16):
@@ -998,7 +1219,7 @@ def train_lm(card_line: str, argv=None) -> dict:
 
     from repro_torch.api import autotune
     from repro_torch.kernels import ops
-    from repro_torch.kernels.chain import DEFAULT_BT, DGRAD_BT
+    from repro_torch.kernels.chain import DGRAD_BT, WGRAD_BT
     from repro_torch.launch import train
 
     table = ROOT / "build" / "chip_smoke_train_autotune.json"
@@ -1068,15 +1289,17 @@ def train_lm(card_line: str, argv=None) -> dict:
         require(counts["chain_dgrad"] > 0 and counts["chain_wgrad"] > 0,
                 f"the trainer never ran K2/K3: {counts}")
     if rep.backend == "fused":  # each fused kernel at its own tile: K1 at the dispatch's, K2 and K3 at theirs
-        require(tiles == {"chain_matmul": [rep.bt], "chain_dgrad": [DGRAD_BT], "chain_wgrad": [DEFAULT_BT]},
+        require(tiles == {"chain_matmul": [rep.bt], "chain_dgrad": [DGRAD_BT], "chain_wgrad": [WGRAD_BT]},
                 f"the fused apply ran other tiles: {tiles}")
     del out
     return row
 
 
 # kernel families of a trainer step, by the device kernel's name
-FAMILIES = (("K1/K4 chain_matmul", ("chain_fwd_kernel",)), ("K2 chain_dgrad", ("chain_dgrad",)),
-            ("K3 chain_wgrad", ("chain_wgrad",)),
+# (K3's recompute and walk run K1's and K2's kernels in namespaces named
+# wgrad_fwd and wgrad_bwd, its emission is wgrad_emit_kernel: first match wins)
+FAMILIES = (("K3 chain_wgrad", ("wgrad",)), ("K1/K4 chain_matmul", ("chain_fwd_kernel",)),
+            ("K2 chain_dgrad", ("chain_dgrad",)),
             ("dense matmul", ("gemm", "cutlass", "xmma", "sm90_", "nvjet")),
             ("elementwise and reductions", ("elementwise", "reduce_kernel", "Memset", "Memcpy")))
 
@@ -1130,14 +1353,14 @@ def profile_step(trainer, out, card_line: str) -> dict:
 
 def measure_backward(op, qop, card_line: str, batches=(128, 4096)) -> list[dict]:
     """Phase 8, slice 3: K2, K3 and K5 (its dgrad and wgrad halves on int8
-    codes) at the main path's shapes beside their bound, their plain
-    versions and, for the dgrads, one PyTorch call computing the same
-    function (``dy @ A_denseᵀ``) and a cold-L2 time (20 calls; the wgrads
-    5); then K2's batch-tile sweep (the data behind ``DGRAD_BT``)."""
+    codes, scales as the chain stores them) at the main path's shapes
+    beside their bound, their plain versions, a cold-L2 time and, for the
+    dgrads, one PyTorch call computing the same function (``dy @
+    A_denseᵀ``); then K2's and K3's batch-tile sweeps (the data behind
+    ``DGRAD_BT`` and ``WGRAD_BT``)."""
     import torch
 
-    from repro_torch.core.compress import expand_scales
-    from repro_torch.kernels.chain import DEFAULT_BT, DGRAD_BT, SUPPORTED_BT
+    from repro_torch.kernels.chain import DGRAD_BT, SUPPORTED_BT, WGRAD_BT
     from repro_torch.kernels.chain_bwd import (
         chain_dgrad,
         chain_dgrad_plain,
@@ -1151,7 +1374,7 @@ def measure_backward(op, qop, card_line: str, batches=(128, 4096)) -> list[dict]
     m, n = op.shape
     dev = op.device
     q = qop._packed
-    qscales = expand_scales(q.scales, q.plan.block).contiguous()
+    qscales = q.scales.contiguous()
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).removeprefix("torch.")
         elt = torch.empty((), dtype=dtype).element_size()
@@ -1162,7 +1385,7 @@ def measure_backward(op, qop, card_line: str, batches=(128, 4096)) -> list[dict]
         s_j = [sz * plan.block * plan.block for sz in sizes]
         dm, wm = dgrad_meta(plan, pc.in_idx), wgrad_meta(plan, pc.in_idx)
         a_dense, aq_dense = op.todense().to(dtype), qop.todense().to(dtype)
-        q_bytes = s_tot + 4 * qscales.numel()  # int8 codes and f32 row scales
+        q_bytes = s_tot + 4 * qscales.numel()  # int8 codes and f32 scales
         for b in batches:
             x = torch.randn((b, m), device=dev).to(dtype)
             dy = torch.randn((b, n), device=dev).to(dtype)
@@ -1188,14 +1411,13 @@ def measure_backward(op, qop, card_line: str, batches=(128, 4096)) -> list[dict]
                 require(rel <= TOL[dname], f"{name} {dname} B={b} disagrees with its plain version")
                 t_ops, t_bytes = flops / PEAK[dname], byts / HBM_BW
                 dgrad = name.startswith("chain_dgrad")
-                iters = ITERS if dgrad else 5  # the wgrads take tens of ms a call
                 row = {"phase": "time", "card": card_line, "kernel": name, "dtype": dname, "batch": b,
                        "quant": q.qscheme if name.endswith("_q") else None,
-                       "bt": DGRAD_BT if dgrad else DEFAULT_BT, "launches_per_apply": 1,
-                       "max_abs_err": err, "rel_err": rel, "ms": time_ms(kern, iters=iters),
-                       "cold_ms": time_ms_cold(kern, iters=10) if dgrad else None,
-                       "plain_ms": time_ms(plain, iters=iters),
-                       "library_ms": None if lib is None else time_ms(lib, iters=iters),
+                       "bt": DGRAD_BT if dgrad else WGRAD_BT, "launches_per_apply": 1,
+                       "max_abs_err": err, "rel_err": rel, "ms": time_ms(kern),
+                       "cold_ms": time_ms_cold(kern, iters=10),
+                       "plain_ms": time_ms(plain),
+                       "library_ms": None if lib is None else time_ms(lib),
                        "bound_ms": max(t_ops, t_bytes) * 1e3,
                        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
                        "flops": flops, "bytes": byts}
@@ -1203,6 +1425,12 @@ def measure_backward(op, qop, card_line: str, batches=(128, 4096)) -> list[dict]
                 rows.append(row)
             log({"phase": "dgrad_bt_sweep", "card": card_line, "dtype": dname, "batch": b,
                  **{f"chain_dgrad_bt{bt}_ms": time_ms(lambda bt=bt: chain_dgrad(dy, pc.values, dm, plan=plan, bt=bt))
+                    for bt in SUPPORTED_BT}})
+            log({"phase": "wgrad_bt_sweep", "card": card_line, "dtype": dname, "batch": b,
+                 **{f"chain_wgrad_bt{bt}_ms": time_ms(lambda bt=bt: chain_wgrad(x, dy, pc.values, wm, plan=plan, bt=bt))
+                    for bt in SUPPORTED_BT},
+                 **{f"chain_wgrad_q_bt{bt}_ms": time_ms(
+                     lambda bt=bt: chain_wgrad(x, dy, q.values, wm, plan=plan, bt=bt, scales=qscales))
                     for bt in SUPPORTED_BT}})
     return rows
 
@@ -1216,7 +1444,7 @@ def measure_unembed(card_line: str, dev, b: int = 1024, dims=(2048, 2048, 256000
     import torch
 
     from repro_torch.core.compress import pack_chain
-    from repro_torch.kernels.chain import chain_matmul, chain_matmul_plain
+    from repro_torch.kernels.chain import SUPPORTED_BT, chain_matmul, chain_matmul_plain
     from repro_torch.kernels.chain_bwd import (
         chain_dgrad,
         chain_dgrad_plain,
@@ -1257,12 +1485,15 @@ def measure_unembed(card_line: str, dev, b: int = 1024, dims=(2048, 2048, 256000
         row = {"phase": "time", "card": card_line, "kernel": name, "chain": f"unembedding {m}x{n} block 16 k 4",
                "dtype": "bfloat16", "batch": b, "launches_per_apply": 1, "max_abs_err": err, "rel_err": rel,
                "ms": time_ms(kern, iters=3), "plain_ms": time_ms(plain, iters=3),
-               "cold_ms": time_ms_cold(kern, iters=3) if name != "chain_wgrad" else None,
+               "cold_ms": time_ms_cold(kern, iters=3),
                "library_ms": None if lib is None else time_ms(lib, iters=3),
                "bound_ms": max(t_ops, t_bytes) * 1e3,
                "bound_by": "operations" if t_ops >= t_bytes else "bytes", "flops": flops, "bytes": byts}
         log(row)
         rows.append(row)
+    log({"phase": "wgrad_bt_sweep", "card": card_line, "chain": "unembedding", "dtype": "bfloat16", "batch": b,
+         **{f"chain_wgrad_bt{bt}_ms": time_ms(lambda bt=bt: chain_wgrad(x, dy, pc.values, wm, plan=plan, bt=bt), iters=3)
+            for bt in SUPPORTED_BT}})
     return rows
 
 
@@ -1296,10 +1527,11 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     info = setup()
     launch_configs(info["card"])
-    checks = check_kernels(dev) + check_quantized_kernel(dev) + check_chain_grid(dev)
-    checks += check_dgrad_grid(dev) + check_backward_kernels(dev)
+    checks = check_kernels(dev) + check_bsr_layout(dev) + check_quantized_kernel(dev) + check_chain_grid(dev)
+    checks += check_dgrad_grid(dev) + check_wgrad_grid(dev) + check_backward_kernels(dev)
     op, launches, w_dev = main_path(dev)
     qops, qlaunches = quantized_path(op, w_dev)
+    check_k4_rounding(op, qops)
     ops = {"float32": op, "int8:per_block": qops["int8:per_block"]}
     measured_dispatch(ops)
     _, train_counts = training_path(ops, info["card"])

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """A short card run of the chain dgrad (K2, K5-dgrad) alone: the data
-behind its schedule's constants.
+behind its schedule's constants, and the host cost of every wrapper.
 
     python3 dgrad_probe.py         # from the repository root, one card
 
@@ -15,9 +15,10 @@ shapes the main path gives the dgrad:
   K2 and K5-dgrad (int8 per-block) at every tile, with the dgrad's
   reader-list chunks per factor (the ``DGRAD_BT`` sweep);
 * K2 at B = 128 with ``CHUNK_READERS`` 8, 4 and 2 (the split's rule);
-* the host's time to enqueue one call of K1 and of K2 (bf16, B = 128; a
-  host clock over 300 calls, no synchronisation inside): where it nears
-  the kernel's time, back-to-back calls are paced by the host;
+* the host's time to enqueue one call of K1, K2, K3 and K5-wgrad (int8
+  per-block scales) and of K6's three launches (bf16, B = 128; a host
+  clock over 300 calls, no synchronisation inside): where it nears the
+  kernel's time, back-to-back calls are paced by the host;
 * K2 at the trainer's FAµST unembedding (2048 → 2048 → 256000, block 16,
   k 4, bf16, B = 1024) at every tile.
 
@@ -55,10 +56,18 @@ def main() -> int:
         print("dgrad_probe: no CUDA device is available", file=sys.stderr)
         return 2
     sys.path.insert(0, str(cs.ROOT / "src"))
-    from repro_torch.core.compress import BlockFaust, expand_scales, pack_chain, quantize_chain, random_block_factor
+    from repro_torch.core.compress import (
+        BlockFaust,
+        expand_scales,
+        pack_chain,
+        quantize_chain,
+        random_block_factor,
+        unpack_chain,
+    )
     from repro_torch.kernels import chain_bwd
+    from repro_torch.kernels.bsr_matmul import bsr_matmul
     from repro_torch.kernels.chain import FORWARD_BT, SUPPORTED_BT, chain_matmul
-    from repro_torch.kernels.chain_bwd import chain_dgrad, dgrad_meta, dgrad_schedule, launch_config
+    from repro_torch.kernels.chain_bwd import chain_dgrad, chain_wgrad, dgrad_meta, dgrad_schedule, launch_config, wgrad_meta
     from repro_torch.kernels.ops import chain_meta
 
     dev = torch.device("cuda", 0)
@@ -74,7 +83,7 @@ def main() -> int:
         random_block_factor(dims[j], dims[j + 1], 128, 128, ks[j], generator=gen, device=dev) for j in range(3)
     ), torch.ones((), device=dev)))
     plan = pc.plan
-    dm, fm = dgrad_meta(plan, pc.in_idx), chain_meta(plan, pc.in_idx)
+    dm, fm, wm = dgrad_meta(plan, pc.in_idx), chain_meta(plan, pc.in_idx), wgrad_meta(plan, pc.in_idx)
     q = quantize_chain(pc, "int8", "per_block")
     qs = expand_scales(q.scales, 128).contiguous()
     for b in (128, 4096):
@@ -91,8 +100,20 @@ def main() -> int:
                     "chain_dgrad_q_ms": cs.time_ms(lambda: chain_dgrad(dy, q.values, dm, plan=plan, bt=bt, scales=qs)),
                     "chunks": [f[3] for f in dgrad_schedule(plan, b, bt, ctas).factors]}
             if b == 128 and dtype == torch.bfloat16:
+                factors = unpack_chain(pc.to(dtype=dtype)).factors
+
+                def k6():
+                    y = x
+                    for f in factors:
+                        y = bsr_matmul(y, f.values, f.in_idx)
+                    return y
+
                 row["host_us"] = {"chain_matmul": host_us(lambda: chain_matmul(x, v, fm, plan=plan, bt=FORWARD_BT)),
-                                  "chain_dgrad": host_us(lambda: chain_dgrad(dy, v, dm, plan=plan))}
+                                  "chain_dgrad": host_us(lambda: chain_dgrad(dy, v, dm, plan=plan)),
+                                  "chain_wgrad": host_us(lambda: chain_wgrad(x, dy, v, wm, plan=plan)),
+                                  "chain_wgrad_q": host_us(
+                                      lambda: chain_wgrad(x, dy, q.values, wm, plan=plan, scales=q.scales)),
+                                  "bsr_matmul_x3": host_us(k6)}
             cs.log(row)
 
     default = chain_bwd.CHUNK_READERS

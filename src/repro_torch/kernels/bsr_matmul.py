@@ -16,11 +16,9 @@ from repro_torch.kernels import build
 from repro_torch.kernels.chain import DTYPES, SUPPORTED_BT
 from repro_torch.kernels.ref import bsr_matmul_ref
 
-# Batch rows per CTA: the batch-tile sweep of chip_smoke.py (NVIDIA H100
-# 80GB HBM3, 700 W, f32, three launches over the gemma-2b up-projection
-# chain) measured 0.54 / 0.48 / 0.36 ms at B = 128 and 8.17 / 5.48 /
-# 4.07 ms at B = 4096 for bt = 16 / 32 / 64.
-DEFAULT_BT = 64
+# Batch rows per CTA (K6's own tile), from chip_smoke.py's bsr_bt_sweep
+# (PERF.md).
+BSR_BT = 64
 _MAX_GRID_Y = 65535
 
 
@@ -34,11 +32,35 @@ def _lib() -> ctypes.CDLL:
     lib = build.load("bsr_matmul")
     for suffix in DTYPES.values():
         fn = getattr(lib, f"bsr_matmul_{suffix}")
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        fn = getattr(lib, f"bsr_matmul_ctas_{suffix}")
+        fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
         fn.restype = ctypes.c_int
     lib.launch_noop.argtypes = [ctypes.c_void_p]
     lib.launch_noop.restype = ctypes.c_int
     return lib
+
+
+def launch_config(dtype: torch.dtype, bt: int) -> dict:
+    """The resident CTAs (occupancy × SMs) of the current card and one
+    CTA's dynamic shared memory at this tile; a launch's grid is
+    ``(⌈B / bt⌉, O · ⌈bn / 128⌉)``."""
+    smem = ctypes.c_int(0)
+    ctas = getattr(_lib(), f"bsr_matmul_ctas_{DTYPES[dtype]}")(bt, ctypes.byref(smem))
+    if ctas <= 0:
+        raise RuntimeError(f"bsr_matmul occupancy query failed: CUDA error {-ctas}")
+    return {"ctas": ctas, "smem_bytes": smem.value}
+
+
+def _vec(x, values, out) -> int:
+    """1 when every row the kernel stages or stores is a whole number of
+    16-byte chunks on 16-byte-aligned addresses (cp.async and vector
+    stores), else 0 (element loads and stores)."""
+    elt = x.element_size()
+    _, _, bk, bn = values.shape
+    ok = (bk * elt) % 16 == 0 and (bn * elt) % 16 == 0 and (x.shape[1] * elt) % 16 == 0
+    return int(ok and all(t.data_ptr() % 16 == 0 for t in (x, values, out)))
 
 
 def _check(x, values, in_idx, bt):
@@ -62,7 +84,7 @@ def _check(x, values, in_idx, bt):
 
 
 def bsr_matmul(
-    x: torch.Tensor, values: torch.Tensor, in_idx: torch.Tensor, *, bt: int = DEFAULT_BT
+    x: torch.Tensor, values: torch.Tensor, in_idx: torch.Tensor, *, bt: int = BSR_BT
 ) -> torch.Tensor:
     """``y = x @ F`` for ``x (B, IB·bk)``, ``values (O, K, bk, bn)``,
     ``in_idx (O, K)`` int32.  Returns ``(B, O·bn)`` in x.dtype."""
@@ -75,9 +97,9 @@ def bsr_matmul(
     if b == 0:
         return out
     fn = getattr(_lib(), f"bsr_matmul_{DTYPES[x.dtype]}")
-    with torch.cuda.device(x.device):
+    with build.on_device(x.device):
         rc = fn(x.data_ptr(), values.data_ptr(), in_idx.data_ptr(), out.data_ptr(),
-                b, in_w, o, k, bk, bn, bt, torch.cuda.current_stream().cuda_stream)
+                b, in_w, o, k, bk, bn, _vec(x, values, out), bt, build.stream_of(x.device))
     if rc != 0:
         raise RuntimeError(f"bsr_matmul kernel launch failed: CUDA error {rc}")
     bsr_matmul.launches += 1
@@ -89,6 +111,6 @@ bsr_matmul.launches = 0
 
 def launch_noop() -> None:
     """Launch an empty kernel on the current stream (launch-overhead probe)."""
-    rc = _lib().launch_noop(torch.cuda.current_stream().cuda_stream)
+    rc = _lib().launch_noop(build.stream_of(torch.device("cuda", torch.cuda.current_device())))
     if rc != 0:
         raise RuntimeError(f"empty kernel launch failed: CUDA error {rc}")

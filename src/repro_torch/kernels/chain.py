@@ -44,14 +44,15 @@ META_COLS = 7
 # Batch rows per work item of the chain kernels, one default per kernel;
 # the fused apply (kernels/ops.py) runs each kernel at its own, and a tile
 # named by its caller or by the measured table is the forward's.
-# K3/K5-wgrad (chain_wgrad.cu): one CTA per batch tile walking every step.
-DEFAULT_BT = 16
 # K1/K4: the largest tile reads each value block once per 64 batch rows and
 # was the fastest of the three in every cell of chip_smoke.py's bt sweep
 # (PERF.md); dispatch reports it when no table names a tile.
 FORWARD_BT = 64
 # K2/K5-dgrad (chain_dgrad.cu), from chip_smoke.py's dgrad bt sweep (PERF.md).
 DGRAD_BT = 64
+# K3/K5-wgrad (chain_wgrad.cu: its recompute and walk; the emission streams
+# the batch in its own rows), from chip_smoke.py's wgrad bt sweep (PERF.md).
+WGRAD_BT = 64
 SUPPORTED_BT = (16, 32, 64)
 MAX_BLOCK = 128  # the kernels' output tile is 128 columns wide
 TILE_W = 128  # columns of one K1/K4 work item
@@ -144,8 +145,9 @@ def _lib() -> ctypes.CDLL:
         for qdtype in (None, *QDTYPES):
             suffix = _suffix(dtype, qdtype)
             fn = getattr(lib, f"chain_matmul_{suffix}")
-            n_ptr = 6 if qdtype is None else 7
-            fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 11 + [ctypes.c_void_p]
+            # K4 also takes the scales and whether they are per row
+            n_ptr, n_int = (6, 11) if qdtype is None else (7, 12)
+            fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int + [ctypes.c_void_p]
             fn.restype = ctypes.c_int
             fn = getattr(lib, f"chain_matmul_ctas_{suffix}")
             fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
@@ -185,9 +187,10 @@ def _check(x, values, meta, plan, bt, scales):
                 "chain_matmul(scales=) takes f32 or bf16 x, int8/fp8 codes and f32 scales; "
                 f"got {x.dtype}, {values.dtype}, {scales.dtype}"
             )
-        if tuple(scales.shape) != (plan.n_steps, plan.block) or not scales.is_contiguous():
+        if tuple(scales.shape) not in ((plan.n_steps, plan.block), (plan.n_steps,)) or not scales.is_contiguous():
             raise ValueError(
-                f"chain_matmul: scales must be contiguous ({plan.n_steps}, {plan.block}); got {tuple(scales.shape)}"
+                f"chain_matmul: scales must be contiguous ({plan.n_steps}, {plan.block}) or ({plan.n_steps},); "
+                f"got {tuple(scales.shape)}"
             )
     if meta.dtype != torch.int32:
         raise TypeError(f"chain_matmul: meta must be int32; got {meta.dtype}")
@@ -225,7 +228,9 @@ def chain_matmul(
     (S, blk, blk)``, ``meta (S, META_COLS)`` int32.  Returns
     ``(B, O_J·blk)`` with ragged tails zeroed; λ and slicing are the
     caller's.  With ``scales (S, blk)`` f32, ``values`` are int8/fp8 codes
-    and block row r of step s is ``values[s, r]·scales[s, r]`` (K4)."""
+    and block row r of step s is ``values[s, r]·scales[s, r]`` (K4); with
+    ``scales (S,)`` f32, one scale per block (per-block quantization: the
+    kernel scales each block's MMA partial instead of the activations)."""
     if not x.is_cuda:
         if scales is None:
             return chain_matmul_plain(x, values, meta, plan=plan)
@@ -243,13 +248,13 @@ def chain_matmul(
     ws = torch.empty((2, b, ws_w) if ws_w else (0,), dtype=x.dtype, device=x.device)
     sched = chain_schedule(plan, b, bt)
     vec = _vec(blk, (x, values, ws, out), scales)
-    ints = (plan.n_factors, b, blk, sched.blkp, sched.group, x.shape[1], ws_w, out_w, vec, bt,
-            max(sched.items))
+    ints = (plan.n_factors, b, blk, sched.blkp, sched.group, x.shape[1], ws_w, out_w, vec)
+    ints += (() if scales is None else (int(scales.ndim == 2),)) + (bt, max(sched.items))
     ptrs = (x.data_ptr(), values.data_ptr()) + (() if scales is None else (scales.data_ptr(),))
     ptrs += (meta.data_ptr(), ctypes.addressof(_factor_array(plan)), ws.data_ptr(), out.data_ptr())
     fn = getattr(_lib(), f"chain_matmul_{_suffix(x.dtype, None if scales is None else values.dtype)}")
-    with torch.cuda.device(x.device):
-        rc = fn(*ptrs, *ints, torch.cuda.current_stream().cuda_stream)
+    with build.on_device(x.device):
+        rc = fn(*ptrs, *ints, build.stream_of(x.device))
     if rc != 0:
         raise RuntimeError(f"chain_matmul kernel launch failed: CUDA error {rc}")
     if scales is None:

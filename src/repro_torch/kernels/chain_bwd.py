@@ -13,25 +13,29 @@ chain_wgrad`` (Pallas, TPU); K5 those functions called with ``scales=``.
   steps that read its blocks, listed by the transposed step table
   (:func:`dgrad_gather`); it flushes each block once, so no atomics and
   no zeroing.  :func:`dgrad_schedule` is the kernel's work split.
-* **wgrad** ``dvalues[s] = a_jᵀ g_j``: a walk (forward recompute of every
-  intermediate activation, reversed walk of every intermediate cotangent,
-  one CTA per batch tile) and an emission (one CTA per stored block,
-  summing over the whole batch).  No per-batch-tile partial slabs exist:
-  ``csrc/chain_wgrad.cu`` says why.  Output f32; for a quantized chain
-  the gradient is with respect to the dequantized f32 values.
+* **wgrad** ``dvalues[s] = a_jᵀ g_j``: the forward recompute of every
+  intermediate activation (K1's persistent factor loop over factors
+  1..J-1), the reversed walk of every intermediate cotangent (K2's gather
+  schedule over factors J..2), each into its own workspace region, then an
+  emission whose items are (column group of output blocks, slot, chunk of
+  the batch) and sum over the batch.  No per-batch-tile partial slabs
+  exist: ``csrc/chain_wgrad.cu`` says why.  :func:`wgrad_schedule` is its
+  work split.  Output f32; for a quantized chain the gradient is with
+  respect to the dequantized f32 values.
 
 The step tables equal the reference's: the static columns from the plan
 (uploaded once per plan and device), the runtime ``in_idx`` in column 0.
-The dgrad table and its transposed form are built once per state of
-``in_idx`` (data pointer and version counter) and reused.
+The dgrad and wgrad tables and their transposed form are built once per
+state of ``in_idx`` (data pointer and version counter) and reused.
 
 A CUDA tensor launches the kernel, or raises; a CPU tensor runs the plain
 version (``chain_dgrad_plain``/``chain_wgrad_plain``: the reference's
 ``chain_bwd_ref`` walk in f32).  ``chain_dgrad.launches`` /
 ``chain_dgrad.q_launches`` count K2 / K5 dgrad calls,
 ``chain_wgrad.launches`` / ``chain_wgrad.q_launches`` K3 / K5 wgrad calls
-(one count per call; a wgrad call of a chain with J > 1 launches its walk
-and its emission).
+(one count per call; a wgrad call of a chain with J > 1 launches its
+recompute, its walk and its emission, and a fourth kernel where the
+emission's batch is cut into chunks).
 """
 from __future__ import annotations
 
@@ -47,7 +51,6 @@ from repro_torch.core.compress import ChainPlan
 from repro_torch.kernels import build
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels.chain import (
-    DEFAULT_BT,
     DGRAD_BT,
     DTYPES,
     MAX_BLOCK,
@@ -55,6 +58,9 @@ from repro_torch.kernels.chain import (
     QDTYPES,
     SUPPORTED_BT,
     TILE_W,
+    WGRAD_BT,
+    _factor_array,
+    _factor_table,
     _vec,
     padded_block,
 )
@@ -144,12 +150,6 @@ def _wgrad_meta_static(plan: ChainPlan) -> np.ndarray:
 
 
 @functools.lru_cache(maxsize=64)
-def _factor_table(plan: ChainPlan) -> np.ndarray:
-    """The emission's per-factor lookup: step offsets, then act offsets."""
-    return np.asarray(plan.offsets + _act_offsets(plan), dtype=np.int32)
-
-
-@functools.lru_cache(maxsize=64)
 def _block_base(plan: ChainPlan) -> np.ndarray:
     """Per flat step: the first entry of its factor in the transposed
     table's block axis (the input blocks of the earlier factors)."""
@@ -158,13 +158,13 @@ def _block_base(plan: ChainPlan) -> np.ndarray:
 
 @functools.lru_cache(maxsize=64)
 def _static_on(plan: ChainPlan, device: torch.device, kind: str) -> torch.Tensor:
-    table = {"dgrad": _dgrad_meta_static, "wgrad": _wgrad_meta_static, "factors": _factor_table,
-             "block_base": _block_base}[kind]
+    table = {"dgrad": _dgrad_meta_static, "wgrad": _wgrad_meta_static, "block_base": _block_base}[kind]
     return torch.from_numpy(table(plan)).to(device)
 
 
 _MEMO_MAX = 16
 _META_MEMO: collections.OrderedDict = collections.OrderedDict()
+_WMETA_MEMO: collections.OrderedDict = collections.OrderedDict()
 _GATHER_MEMO: collections.OrderedDict = collections.OrderedDict()
 
 
@@ -218,11 +218,23 @@ def _gather_for(plan: ChainPlan, meta: torch.Tensor) -> tuple[torch.Tensor, torc
 
 def wgrad_meta(plan: ChainPlan, in_idx: torch.Tensor) -> torch.Tensor:
     """The ``(S_pre + S, WGRAD_META_COLS)`` two-phase table: the recompute
-    rows carry the forward ``in_idx``, the walk rows the reversed one."""
-    static = _static_on(plan, in_idx.device, "wgrad")
+    rows carry the forward ``in_idx``, the walk rows the reversed one.
+    Built once per state of ``in_idx``."""
+
+    def build():
+        static = _static_on(plan, in_idx.device, "wgrad")
+        s_pre = plan.offsets[plan.n_factors - 1]
+        idx = torch.cat([in_idx[:s_pre], in_idx.flip(0)]).reshape(-1, 1).to(torch.int32)
+        return torch.cat([idx, static], dim=1)
+
+    return _memo(_WMETA_MEMO, plan, in_idx, build)
+
+
+def _wgather_for(plan: ChainPlan, meta: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`dgrad_gather` of the ``in_idx`` a wgrad table's walk rows
+    carry, once per state of the table."""
     s_pre = plan.offsets[plan.n_factors - 1]
-    idx = torch.cat([in_idx[:s_pre], in_idx.flip(0)]).reshape(-1, 1).to(torch.int32)
-    return torch.cat([idx, static], dim=1)
+    return _memo(_GATHER_MEMO, plan, meta, lambda: dgrad_gather(plan, meta[s_pre:, 0].flip(0)))
 
 
 # ---------------------------------------------------------------------------
@@ -259,6 +271,19 @@ def chain_bwd_ref(
     autodiff of ``ref.packed_chain_ref``), in the caller's dtypes; any
     leading batch dims."""
     return _walk(values, in_idx, dy, plan, _recompute(x, values, in_idx, plan))
+
+
+_ROWS_MEMO: collections.OrderedDict = collections.OrderedDict()
+
+
+def _row_scales_for(plan: ChainPlan, scales: torch.Tensor) -> torch.Tensor:
+    """Scales as ``(S, blk)`` rows (one per block broadcast to its rows), as
+    the dgrad kernel takes them; built once per state of ``scales`` (a
+    training step updates them in place, which rebuilds)."""
+    if scales.ndim == 2:
+        return scales
+    return _memo(_ROWS_MEMO, plan, scales,
+                 lambda: scales.detach()[:, None].expand(-1, plan.block).contiguous())
 
 
 def _f32_values(values: torch.Tensor, scales: torch.Tensor | None) -> torch.Tensor:
@@ -390,19 +415,20 @@ def _suffix(dtype: torch.dtype, qdtype: torch.dtype | None) -> str:
 def _lib(name: str) -> ctypes.CDLL:
     """The kernel library, its functions' argument types set."""
     lib = build.load(name)
-    n_ptr, n_int = (9, 12) if name == "chain_dgrad" else (8, 11)
+    dgrad = name == "chain_dgrad"
+    n_ptr, n_int = (9, 12) if dgrad else (14, 13)
     for dtype in DTYPES:
         for qdtype in (None, *QDTYPES):
             suffix = _suffix(dtype, qdtype)
             fn = getattr(lib, f"{name}_{suffix}")
-            # K5 dgrad also takes the scales and its dequantization workspace; K5 wgrad the scales
-            n_q = 0 if qdtype is None else (2 if name == "chain_dgrad" else 1)
-            fn.argtypes = [ctypes.c_void_p] * (n_ptr + n_q) + [ctypes.c_int] * n_int + [ctypes.c_void_p]
+            # K5 also takes the scales and the walk's dequantization workspace; its
+            # wgrad the scales as rows for the walk and whether they are per row
+            n_q, n_qi = (0, 0) if qdtype is None else ((2, 0) if dgrad else (3, 1))
+            fn.argtypes = [ctypes.c_void_p] * (n_ptr + n_q) + [ctypes.c_int] * (n_int + n_qi) + [ctypes.c_void_p]
             fn.restype = ctypes.c_int
-            if name == "chain_dgrad":
-                fn = getattr(lib, f"chain_dgrad_ctas_{suffix}")
-                fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
-                fn.restype = ctypes.c_int
+            fn = getattr(lib, f"{name}_ctas_{suffix}")
+            fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+            fn.restype = ctypes.c_int
     return lib
 
 
@@ -424,6 +450,102 @@ def _resident(device: int, suffix: str, blkp: int, bt: int) -> tuple[int, int]:
     return ctas, smem.value
 
 
+# K3's emission streams the batch through shared memory this many rows a
+# stage (chain_wgrad.cu EmitLayout).
+EMIT_ROWS = {torch.float32: 32, torch.bfloat16: 64}
+
+
+@dataclasses.dataclass(frozen=True)
+class WgradSchedule:
+    """K3/K5-wgrad's work split of one plan at one batch and batch tile:
+    the recompute (K1's items over factors 1..J-1, ``fwd_items``), the
+    walk (``walk``, K2's schedule; factors J..2 run) and the emission.
+    Emission item i of factor j is column group ``(i // chunks) // K_j``
+    (``group`` output blocks), slot ``(i // chunks) % K_j`` and batch chunk
+    ``i % chunks`` of ``chunk_rows`` rows; its blocks are the slot-k steps
+    of the group's output blocks."""
+
+    block: int
+    blkp: int
+    group: int
+    bt: int
+    batch: int
+    fwd_items: tuple[int, ...]
+    walk: DgradSchedule
+    rows: int  # the emission's batch rows per stage
+    chunks: int
+    chunk_rows: int
+    # per factor: (step offset, out blocks O_j, slots K_j, column groups)
+    factors: tuple[tuple[int, int, int, int], ...]
+
+    @property
+    def walk_items(self) -> int:
+        """The most work items of a walked factor (J..2)."""
+        return max(self.walk.items[1:], default=1)
+
+    @property
+    def emit_items(self) -> tuple[int, ...]:
+        """Emission items per factor."""
+        return tuple(f[3] * f[2] * self.chunks for f in self.factors)
+
+    def emit_item(self, j: int, i: int) -> tuple[range, int, list[int], range, int]:
+        """Emission item ``i`` of factor ``j`` as the kernel decodes it:
+        its output blocks, its slot, the flat step of each block, its batch
+        rows and its chunk."""
+        off, n_out, n_k, _ = self.factors[j]
+        rest, chunk = divmod(i, self.chunks)
+        grp, k = divmod(rest, n_k)
+        blocks = range(grp * self.group, min(grp * self.group + self.group, n_out))
+        r0 = chunk * self.chunk_rows
+        rows = range(r0, min(self.batch, r0 + self.chunk_rows))
+        return blocks, k, [off + o * n_k + k for o in blocks], rows, chunk
+
+
+@functools.lru_cache(maxsize=256)
+def wgrad_schedule(plan: ChainPlan, batch: int, bt: int, rows: int,
+                   ctas: tuple[int, int, int] | None = None) -> WgradSchedule:
+    """The work split at ``batch``, tile ``bt`` and ``rows`` emission rows a
+    stage; ``ctas`` (the recompute's, the walk's and the emission's
+    resident CTAs) decides the chunks: the walk's as :func:`dgrad_schedule`
+    does, and the emission's batch is cut into up to ``⌊ctas / items⌋``
+    chunks of whole stages when its items are fewer than its CTAs.
+    ``None``: no split."""
+    blkp = padded_block(plan.block)
+    factors = _factor_table(plan)
+    n_tiles = -(-batch // bt)
+    walk = dgrad_schedule(plan, batch, bt, None if ctas is None else ctas[1])
+    base = sum(f[3] * f[2] for f in factors)
+    chunks = 1 if ctas is None or base >= ctas[2] else max(1, min(ctas[2] // base, -(-batch // rows)))
+    chunk_rows = -(-(-(-batch // chunks)) // rows) * rows
+    chunks = -(-batch // chunk_rows)  # no empty chunk
+    return WgradSchedule(plan.block, blkp, TILE_W // blkp, bt, batch,
+                         tuple(n_tiles * f[3] for f in factors[:-1]), walk, rows, chunks, chunk_rows, factors)
+
+
+def wgrad_launch_config(dtype: torch.dtype, block: int, bt: int, qdtype: torch.dtype | None = None) -> dict:
+    """The resident CTAs of the current card and one CTA's dynamic shared
+    memory for each of K3's launches (``qdtype=None``) or K5-wgrad's at this
+    block and tile: the recompute and the walk are cooperative grids of
+    ``min(ctas, max(items))``, the emission one CTA per item."""
+    cfg = _wgrad_resident(torch.cuda.current_device(), _suffix(dtype, qdtype), padded_block(block), bt)
+    return {name: {"ctas": cfg[i], "smem_bytes": cfg[3 + i]} for i, name in enumerate(("recompute", "walk", "emit"))}
+
+
+@functools.lru_cache(maxsize=256)
+def _wgrad_resident(device: int, suffix: str, blkp: int, bt: int) -> tuple[int, ...]:
+    out = (ctypes.c_int * 6)()
+    rc = getattr(_lib("chain_wgrad"), f"chain_wgrad_ctas_{suffix}")(blkp, bt, out)
+    if rc != 0:
+        raise RuntimeError(f"chain_wgrad occupancy query failed: CUDA error {rc}")
+    return tuple(out)
+
+
+@functools.lru_cache(maxsize=64)
+def _act_offset_array(plan: ChainPlan):
+    offs = _act_offsets(plan)
+    return (ctypes.c_int * len(offs))(*offs)
+
+
 def _check_device(name, tensors) -> None:
     if not all(t.is_cuda for t in tensors) or len({t.device for t in tensors}) != 1:
         raise ValueError(f"{name}: every tensor must lie on one CUDA device")
@@ -442,8 +564,11 @@ def _check(name, edges, values, meta, plan, bt, scales, meta_rows, meta_cols):
     else:
         if values.dtype not in QDTYPES or scales.dtype != torch.float32:
             raise TypeError(f"{name}(scales=) takes int8/fp8 codes and f32 scales; got {values.dtype}, {scales.dtype}")
-        if tuple(scales.shape) != (plan.n_steps, plan.block) or not scales.is_contiguous():
-            raise ValueError(f"{name}: scales must be contiguous ({plan.n_steps}, {plan.block}); got {tuple(scales.shape)}")
+        if tuple(scales.shape) not in ((plan.n_steps, plan.block), (plan.n_steps,)) or not scales.is_contiguous():
+            raise ValueError(
+                f"{name}: scales must be contiguous ({plan.n_steps}, {plan.block}) or ({plan.n_steps},); "
+                f"got {tuple(scales.shape)}"
+            )
     blk, s = plan.block, plan.n_steps
     if blk > MAX_BLOCK:
         raise ValueError(f"{name}: block {blk} exceeds the kernel's {MAX_BLOCK}")
@@ -503,6 +628,8 @@ def chain_dgrad(
     _edges(plan, None, dy)
     _check_device("chain_dgrad", (dy, values, meta) + (() if scales is None else (scales,)))
     _check("chain_dgrad", (dy,), values, meta, plan, bt, scales, plan.n_steps, DGRAD_META_COLS)
+    if scales is not None:
+        scales = _row_scales_for(plan, scales)
     gather = _gather_for(plan, meta)
     _check_gather(plan, *gather)
     b, blk = dy.shape[0], plan.block
@@ -515,7 +642,7 @@ def chain_dgrad(
     # K5: the codes dequantized once per launch, staged as K2 stages values
     deq = None if scales is None else torch.empty(values.shape, dtype=dy.dtype, device=dy.device)
     vec = _vec(blk, (dy, values, ws, dx) + (() if deq is None else (deq,)), scales)
-    with torch.cuda.device(dy.device):
+    with build.on_device(dy.device):
         sched = dgrad_schedule(plan, b, bt, launch_config(dy.dtype, blk, bt, None if deq is None else values.dtype)["ctas"])
         part_n = max((f[3] * b * f[1] * blk for f in sched.factors if f[3] > 1), default=0)
         part = torch.empty((part_n,), dtype=torch.float32, device=dy.device) if part_n else None
@@ -525,7 +652,7 @@ def chain_dgrad(
         ptrs += (meta.data_ptr(), gather[0].data_ptr(), gather[1].data_ptr(),
                  ctypes.addressof(_dgrad_factor_array(sched.factors)), ws.data_ptr(), dx.data_ptr())
         ptrs += (() if deq is None else (deq.data_ptr(),)) + (0 if part is None else part.data_ptr(),)
-        rc = _fn("chain_dgrad", dy.dtype, values, scales)(*ptrs, *ints, torch.cuda.current_stream().cuda_stream)
+        rc = _fn("chain_dgrad", dy.dtype, values, scales)(*ptrs, *ints, build.stream_of(dy.device))
     if rc != 0:
         raise RuntimeError(f"chain_dgrad kernel launch failed: CUDA error {rc}")
     if scales is None:
@@ -542,37 +669,56 @@ def chain_wgrad(
     meta: torch.Tensor,
     *,
     plan: ChainPlan,
-    bt: int = DEFAULT_BT,
+    bt: int = WGRAD_BT,
     scales: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """``dvalues (S, blk, blk)`` f32: ``x (B, IB_1·blk)`` the padded forward
     input, ``dy (B, O_J·blk)`` the cotangent of the padded output,
-    ``meta`` the :func:`wgrad_meta` table.  With ``scales (S, blk)`` f32,
-    ``values`` are codes and the gradient is wrt the dequantized values
-    (K5)."""
+    ``meta`` the :func:`wgrad_meta` table.  With ``scales (S, blk)`` (one
+    per block row) or ``(S,)`` (one per block) f32, ``values`` are codes and
+    the gradient is wrt the dequantized values (K5).  ``bt`` is the
+    recompute's and the walk's batch tile."""
     if not x.is_cuda:
         return chain_wgrad_plain(x, dy, values, meta, plan=plan, scales=scales)
     _edges(plan, x, dy)
     s_pre = plan.offsets[plan.n_factors - 1]
     _check_device("chain_wgrad", (x, dy, values, meta) + (() if scales is None else (scales,)))
     _check("chain_wgrad", (x, dy), values, meta, plan, bt, scales, s_pre + plan.n_steps, WGRAD_META_COLS)
+    if plan.n_factors > MAX_FACTORS:
+        raise ValueError(f"chain_wgrad: at most {MAX_FACTORS} factors; got {plan.n_factors}")
     b, blk, s = x.shape[0], plan.block, plan.n_steps
     dvalues = torch.empty((s, blk, blk), dtype=torch.float32, device=x.device)
     if b == 0:
         return dvalues.zero_()
-    ib0 = plan.in_blocks[0]
-    aw = (sum(plan.in_blocks) - ib0) * blk  # intermediate widths: factors 2..J's inputs
-    act = torch.empty((b, aw) if aw else (0,), dtype=torch.float32, device=x.device)
+    aw = (sum(plan.in_blocks) - plan.in_blocks[0]) * blk  # intermediate widths: factors 2..J's inputs
+    act = torch.empty((b, aw) if aw else (0,), dtype=x.dtype, device=x.device)
     cot = torch.empty_like(act)
-    fac = _static_on(plan, x.device, "factors")
-    n_walk = s - plan.offsets[1]  # the walk stops before factor 1
-    ints = (b, s, s_pre, n_walk, plan.n_factors, blk, x.shape[1], dy.shape[1], aw, ib0, bt)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        fn = _fn("chain_wgrad", x.dtype, values, scales)
-        head = (x.data_ptr(), dy.data_ptr(), values.data_ptr()) + (() if scales is None else (scales.data_ptr(),))
-        rc = fn(*head, meta.data_ptr(), fac.data_ptr(), act.data_ptr(), cot.data_ptr(),
-                dvalues.data_ptr(), *ints, stream)
+    # K5: the walk's codes dequantized once per launch (chain_dgrad.cu note (6))
+    deq = None if scales is None else torch.empty(values.shape, dtype=x.dtype, device=x.device)
+    vec = _vec(blk, (x, dy, values, act, cot) + (() if deq is None else (deq,)), scales)
+    ptr, steps = _wgather_for(plan, meta)
+    with build.on_device(x.device):
+        suffix = _suffix(x.dtype, None if scales is None else values.dtype)
+        rows = None if scales is None else int(scales.ndim == 2)
+        ctas = _wgrad_resident(torch.cuda.current_device(), suffix, padded_block(blk), bt)[:3]
+        sched = wgrad_schedule(plan, b, bt, EMIT_ROWS[x.dtype], ctas)
+        walked = sched.walk.factors[1:]
+        part_n = max((f[3] * b * f[1] * blk for f in walked if f[3] > 1), default=0)
+        part = torch.empty((part_n,), dtype=torch.float32, device=x.device) if part_n else None
+        epart = torch.empty((sched.chunks, s, blk, blk), dtype=torch.float32, device=x.device) \
+            if sched.chunks > 1 else None
+        ptrs = (x.data_ptr(), dy.data_ptr(), values.data_ptr())
+        if scales is not None:  # as given (the recompute), and as rows (the walk)
+            wscales = _row_scales_for(plan, scales)
+            ptrs += (scales.data_ptr(), wscales.data_ptr())
+        ptrs += (meta.data_ptr(), ptr.data_ptr(), steps.data_ptr(), ctypes.addressof(_factor_array(plan)),
+                 ctypes.addressof(_dgrad_factor_array(sched.walk.factors)),
+                 ctypes.addressof(_act_offset_array(plan)), act.data_ptr(), cot.data_ptr())
+        ptrs += (() if deq is None else (deq.data_ptr(),))
+        ptrs += tuple(0 if t is None else t.data_ptr() for t in (part, epart)) + (dvalues.data_ptr(),)
+        ints = (plan.n_factors, b, s, s_pre, blk, sched.blkp, sched.group, aw, vec) + (() if rows is None else (rows,))
+        ints += (bt, sched.walk_items, sched.chunks, sched.chunk_rows)
+        rc = _fn("chain_wgrad", x.dtype, values, scales)(*ptrs, *ints, build.stream_of(x.device))
     if rc != 0:
         raise RuntimeError(f"chain_wgrad kernel launch failed: CUDA error {rc}")
     if scales is None:

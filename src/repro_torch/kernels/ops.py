@@ -30,11 +30,10 @@ from repro_torch.core.compress import (
     BlockSparseFactor,
     ChainPlan,
     PackedChain,
-    expand_scales,
 )
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels.bsr_matmul import bsr_matmul
-from repro_torch.kernels.chain import DEFAULT_BT, DGRAD_BT, FORWARD_BT, META_COLS, SUPPORTED_BT, chain_matmul
+from repro_torch.kernels.chain import DGRAD_BT, FORWARD_BT, META_COLS, SUPPORTED_BT, WGRAD_BT, chain_matmul
 from repro_torch.kernels.chain_bwd import (
     chain_dgrad,
     chain_dgrad_plain,
@@ -152,7 +151,7 @@ def chain_meta(plan: ChainPlan, in_idx: torch.Tensor) -> torch.Tensor:
 
 def _chain_bwd(ctx, dy, x, in_idx, values, scales, want_dx, want_dv):
     """``(dx, dv)`` of one fused apply, each only where it is wanted: the
-    wrappers of K2 at ``DGRAD_BT`` and K3 at ``DEFAULT_BT`` (K5 with
+    wrappers of K2 at ``DGRAD_BT`` and K3 at ``WGRAD_BT`` (K5 with
     ``scales``; on a CPU tensor they run their plain versions), or the
     plain versions where the caller asked for them on a CUDA tensor.
     ``dv`` is f32."""
@@ -169,7 +168,7 @@ def _chain_bwd(ctx, dy, x, in_idx, values, scales, want_dx, want_dv):
     if want_dv:
         meta = wgrad_meta(plan, in_idx)
         if ctx.wrappers:
-            dv = chain_wgrad(x, dy, values, meta, plan=plan, bt=DEFAULT_BT, scales=scales)
+            dv = chain_wgrad(x, dy, values, meta, plan=plan, bt=WGRAD_BT, scales=scales)
         else:
             dv = chain_wgrad_plain(x, dy, values, meta, plan=plan, scales=scales)
     return dx, dv
@@ -204,12 +203,12 @@ class _ChainFn(torch.autograd.Function):
 
 
 class _ChainQFn(torch.autograd.Function):
-    """The fused chain on codes ``values`` with ``(S, blk)`` f32 row
-    ``scales``: forward K4, backward K5 (``_chain_pallas_q`` and its VJP).
-    The codes are frozen; the scales get ``dL/ds[s, r] = Σ_c q·dv``
-    (``_dq_cotangent``), taken from K3's gradient wrt the dequantized
-    values.  A per-block scheme's broadcast to rows is reduced back by
-    autograd (:func:`~repro_torch.core.compress.expand_scales`)."""
+    """The fused chain on codes ``values`` with f32 ``scales``, ``(S, blk)``
+    per block row or ``(S,)`` per block: forward K4, backward K5
+    (``_chain_pallas_q`` and its VJP).  The codes are frozen; the scales
+    get ``dL/ds[s, r] = Σ_c q·dv`` (``_dq_cotangent``; summed over the
+    block's rows for a per-block scale), taken from K3's gradient wrt the
+    dequantized values."""
 
     @staticmethod
     def forward(ctx, x, values, scales, in_idx, plan, bt, kernel):
@@ -223,7 +222,7 @@ class _ChainQFn(torch.autograd.Function):
         x, in_idx, values, scales = ctx.saved_tensors
         want = ctx.needs_input_grad
         dx, dv = _chain_bwd(ctx, dy, x, in_idx, values, scales, want[0], want[2])
-        dscales = None if dv is None else torch.sum(values.float() * dv, dim=2)
+        dscales = None if dv is None else torch.sum(values.float() * dv, dim=2 if scales.ndim == 2 else (1, 2))
         return dx, None, dscales, None, None, None, None
 
 
@@ -237,11 +236,11 @@ def packed_chain_apply(
     """The whole chain in one launch on a flat-packed chain; any leading
     batch dims, features padded and sliced, λ applied.  ``bt`` is the
     forward kernel's (K1/K4) batch tile; the backward kernels run at their
-    own (K2/K5-dgrad ``DGRAD_BT``, K3/K5-wgrad ``DEFAULT_BT``).
+    own (K2/K5-dgrad ``DGRAD_BT``, K3/K5-wgrad ``WGRAD_BT``).
     The plain path (``ref.packed_chain_ref``) runs on the same packed
     arrays.  A quantized chain runs K4 (or ``ref.packed_chain_q_ref``) on
-    its codes and ``(S, blk)`` row scales: values stay f32 after
-    dequantization whatever ``x.dtype``.  Differentiable in ``x``, the
+    its codes and scales (``(S, blk)`` per block row, or ``(S,)`` per
+    block): values stay f32 after dequantization whatever ``x.dtype``.  Differentiable in ``x``, the
     values (the scales of a quantized chain) and λ."""
     if bt not in SUPPORTED_BT:
         raise ValueError(f"bt must be one of {SUPPORTED_BT}; got {bt}")
@@ -252,7 +251,7 @@ def packed_chain_apply(
     batch_shape = x.shape[:-1]
     x2 = x.reshape(-1, in_pad).contiguous()
     if chain.quantized:  # codes must never be cast to the activation dtype
-        scales = expand_scales(chain.scales, plan.block)
+        scales = chain.scales.to(torch.float32)
         y2 = _ChainQFn.apply(x2, chain.values.contiguous(), scales, chain.in_idx, plan, bt, kernel)
     else:
         values = _as_dtype(chain.values, x.dtype).contiguous()

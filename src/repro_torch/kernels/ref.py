@@ -82,8 +82,10 @@ def packed_chain_ref(x: torch.Tensor, values: torch.Tensor, in_idx: torch.Tensor
 def dequant_values(values: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
     """``v[s] = q[s]·scales[s][:, None]`` in f32: the dequantization the
     quantized chain kernel does per value as it stages a block (``scales``
-    in the ``(S, blk)`` per-row layout of ``compress.expand_scales``)."""
-    return values.to(torch.float32) * scales[:, :, None]
+    in the ``(S, blk)`` per-row layout of ``compress.expand_scales``, or
+    ``(S,)``, one per block)."""
+    sc = scales[:, :, None] if scales.ndim == 2 else scales[:, None, None]
+    return values.to(torch.float32) * sc
 
 
 def packed_chain_q_ref(

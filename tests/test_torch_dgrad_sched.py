@@ -27,7 +27,7 @@ from repro_torch import bridge
 from repro_torch.api import FaustOp
 from repro_torch.core.compress import ChainPlan, expand_scales, quantize_chain
 from repro_torch.kernels import chain_bwd, ops
-from repro_torch.kernels.chain import DEFAULT_BT, DGRAD_BT, FORWARD_BT, MAX_FACTORS, SUPPORTED_BT, TILE_W
+from repro_torch.kernels.chain import DGRAD_BT, FORWARD_BT, MAX_FACTORS, SUPPORTED_BT, TILE_W, WGRAD_BT
 from repro_torch.kernels.chain_bwd import (
     DGRAD_META_COLS,
     _check,
@@ -305,7 +305,7 @@ def _record_tiles(monkeypatch):
 @pytest.mark.parametrize("quantized", [False, True])
 def test_fused_apply_runs_each_kernel_at_its_tile(monkeypatch, quantized):
     """Without a tile named, K1/K4 run at FORWARD_BT, K2/K5-dgrad at DGRAD_BT
-    and K3/K5-wgrad at DEFAULT_BT; a caller's tile steers the forward only."""
+    and K3/K5-wgrad at WGRAD_BT; a caller's tile steers the forward only."""
     _, pc = _jax_packed((40, 72, 56), 16, 3)
     if quantized:
         pc = quantize_chain(pc, "int8", "per_row")
@@ -315,10 +315,10 @@ def test_fused_apply_runs_each_kernel_at_its_tile(monkeypatch, quantized):
     chain = dataclasses.replace(pc, **{leaf: t})
     x = torch.randn((5, 40), requires_grad=True)
     ops.packed_chain_apply(x, chain).sum().backward()
-    assert seen == [("chain_matmul", FORWARD_BT), ("chain_dgrad", DGRAD_BT), ("chain_wgrad", DEFAULT_BT)]
+    assert seen == [("chain_matmul", FORWARD_BT), ("chain_dgrad", DGRAD_BT), ("chain_wgrad", WGRAD_BT)]
     seen.clear()
     ops.packed_chain_apply(x, chain, bt=32).sum().backward()
-    assert seen == [("chain_matmul", 32), ("chain_dgrad", DGRAD_BT), ("chain_wgrad", DEFAULT_BT)]
+    assert seen == [("chain_matmul", 32), ("chain_dgrad", DGRAD_BT), ("chain_wgrad", WGRAD_BT)]
     assert x.grad is not None and t.grad is not None
 
 

@@ -10,11 +10,14 @@ Tolerances: f32 ≤ 1e-5 of max|y| (FFMA in another summation order); bf16
 ≤ 3e-2 of max|y| (activations round to bf16 between factors on both
 sides, and a one-ulp difference propagates).  The quantized kernel (K4)
 dequantizes f32 activations with the plain version's f32 product; with
-bf16 activations it rounds x·scale to bf16 once more per term, which the
-bf16 bound covers.
+bf16 activations it adds no rounding to that product (per-block scales
+multiply each block's exact partial, per-row ones split x·scale in three
+bf16 parts), so its error stays within 1.25× the larger of K1 bf16's and
+the plain version's own against itself in another summation order.
 The backward kernels (K2, K3, K5) accumulate in f32 as their plain
-versions do; in bf16, K2/K5-dgrad also store the intermediate cotangents in
-bf16 (the plain version keeps them in f32), which the bf16 bound covers.
+versions do; in bf16 they also store the intermediate activations and
+cotangents in bf16 (the plain versions keep them in f32), which the bf16
+bound covers.
 """
 import dataclasses
 import math
@@ -31,9 +34,11 @@ from repro_torch.core.compress import (
     random_block_factor,
 )
 from repro_torch.kernels import ops
+from repro_torch.kernels import ref as kref
 from repro_torch.kernels.bsr_matmul import bsr_matmul, bsr_matmul_plain
 from repro_torch.kernels.chain import (
     SUPPORTED_BT,
+    WGRAD_BT,
     chain_matmul,
     chain_matmul_plain,
     chain_matmul_q_plain,
@@ -124,8 +129,8 @@ def test_chain_kernel_grid_matches_plain(dev, blk, n_factors, batch, dtype):
 @pytest.mark.parametrize("scheme", ["per_block", "per_row"])
 @pytest.mark.parametrize("qdtype", ["int8", "fp8_e4m3", "fp8_e5m2"])
 def test_quantized_chain_kernel_grid_matches_plain(dev, qdtype, scheme, xdtype):
-    """K4 on the same grid of blocks, depths and batches (bf16 x folds the
-    row scale into the staged activation: one more bf16 rounding a term)."""
+    """K4 on the same grid of blocks, depths and batches; per-block scales
+    also as stored (one a block: the kernel scales each block's partial)."""
     for blk, n_factors in GRID:
         for batch in (1, 37, 4096):
             pc, x = _grid_chain(dev, blk, n_factors, batch, 50 + blk + n_factors)
@@ -133,28 +138,38 @@ def test_quantized_chain_kernel_grid_matches_plain(dev, qdtype, scheme, xdtype):
             scales = expand_scales(q.scales, blk).contiguous()
             x = x.to(xdtype)
             meta = ops.chain_meta(q.plan, q.in_idx)
-            ref = chain_matmul_q_plain(x, q.values, scales, meta, plan=q.plan)
-            for bt in SUPPORTED_BT if batch == 37 else (16,):
-                before = chain_matmul.q_launches
-                y = chain_matmul(x, q.values, meta, plan=q.plan, bt=bt, scales=scales)
-                torch.cuda.synchronize()
-                assert chain_matmul.q_launches == before + 1 and y.dtype == xdtype
-                assert _rel(y, ref) <= TOL[xdtype]
+            # per-block scales both as stored (one a block) and as rows
+            for sc in (scales,) if scheme == "per_row" else (q.scales, scales):
+                ref = chain_matmul_q_plain(x, q.values, sc, meta, plan=q.plan)
+                for bt in SUPPORTED_BT if batch == 37 else (16,):
+                    before = chain_matmul.q_launches
+                    y = chain_matmul(x, q.values, meta, plan=q.plan, bt=bt, scales=sc)
+                    torch.cuda.synchronize()
+                    assert chain_matmul.q_launches == before + 1 and y.dtype == xdtype
+                    assert _rel(y, ref) <= TOL[xdtype]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("o,k,bk,bn,n_in,batch", [(6, 3, 64, 128, 9, 37), (3, 2, 32, 160, 5, 130)])
+@pytest.mark.parametrize("batch", [1, 37, 130, 4096])
+@pytest.mark.parametrize("o,k,bk,bn,n_in", [(6, 3, 64, 128, 9), (3, 2, 32, 160, 5), (4, 2, 128, 96, 3),
+                                            (3, 2, 200, 72, 4), (5, 3, 18, 36, 7)])
 def test_bsr_kernel_matches_plain(dev, dtype, o, k, bk, bn, n_in, batch):
+    """K6 at every tile on rectangular and ragged blocks: bn of 96 and 160
+    (a slice narrower than 128 columns), bk of 32, 64 and 128, bk = 200 (a
+    slot in two pieces, the second not a multiple of 16) and 18 x 36 blocks
+    (rows no whole number of 16 bytes: element loads and stores)."""
     g = torch.Generator().manual_seed(o)
     idx = torch.stack([torch.randperm(n_in, generator=g)[:k] for _ in range(o)])
     idx = torch.sort(idx, 1).values.to(torch.int32).to(dev)
     values = (torch.randn((o, k, bk, bn), generator=g) / math.sqrt(k * bk)).to(dev, dtype)
     x = torch.randn((batch, n_in * bk), generator=g).to(dev, dtype)
-    before = bsr_matmul.launches
-    y = bsr_matmul(x, values, idx)
-    torch.cuda.synchronize()
-    assert bsr_matmul.launches == before + 1
-    assert _rel(y, bsr_matmul_plain(x, values, idx)) <= TOL[dtype]
+    ref = bsr_matmul_plain(x, values, idx)
+    for bt in SUPPORTED_BT:
+        before = bsr_matmul.launches
+        y = bsr_matmul(x, values, idx, bt=bt)
+        torch.cuda.synchronize()
+        assert bsr_matmul.launches == before + 1 and y.dtype == dtype
+        assert _rel(y, ref) <= TOL[dtype]
 
 
 def test_operator_backends_run_the_kernels(dev):
@@ -382,3 +397,122 @@ def test_dgrad_kernel_skewed_chains(dev, blk, chain, dtype):
         q = quantize_chain(pc, "int8", "per_row")
         _dgrad_cases(dy.to(dev, dtype), q.values, meta, q.plan, expand_scales(q.scales, blk).contiguous(),
                      (16, 64), lambda: chain_dgrad.q_launches)
+
+
+def _norm_err(y, ref):
+    return float(torch.linalg.vector_norm(y.float().to(ref.device) - ref.float()) / torch.linalg.vector_norm(ref.float()))
+
+
+@pytest.mark.parametrize("form,rows", [(("int8", "per_block"), False), (("int8", "per_block"), True),
+                                       (("int8", "per_row"), True), (("fp8_e4m3", "per_block"), False),
+                                       (("fp8_e4m3", "per_block"), True), (("fp8_e5m2", "per_block"), False),
+                                       (("fp8_e5m2", "per_block"), True)])
+def test_quantized_bf16_rounds_as_the_reference(dev, form, rows):
+    """K4 with bf16 x adds no rounding to the reference's f32 dequantized
+    product (chain.py:104): its error against the plain version is at most
+    1.25× the larger of K1 bf16's on the same chain and batch and the plain
+    version's own against itself with each factor's slots summed in the
+    other order (the same f32 arithmetic, another summation order; K1's
+    bf16 products are exact in f32, its floor can lie lower).  Per-block
+    scales (``rows`` False) scale each block's exact x·q partial; per-row
+    scales split x·scale into three bf16 parts (one bf16 rounding of
+    x·scale a term fails this by a wide margin).  The
+    error is ‖y − plain‖ / ‖plain‖: every kernel with bf16 outputs differs
+    from its plain version by outputs that land on the other side of a
+    bf16 rounding, which the norm counts; the max is one such output,
+    whose size steps by 2× with its binade."""
+    dims, blk = (512, 512, 512, 1024), 128
+    g = torch.Generator().manual_seed(7)
+    bf = BlockFaust(tuple(
+        random_block_factor(dims[j], dims[j + 1], blk, blk, 4, generator=g, device=dev) for j in range(3)
+    ), torch.ones((), device=dev))
+    pc = pack_chain(bf)
+    q = quantize_chain(pc, *form)
+    scales = expand_scales(q.scales, blk).contiguous() if rows else q.scales
+    meta = ops.chain_meta(pc.plan, pc.in_idx)
+    x = torch.randn((1024, dims[0]), generator=g).to(dev, torch.bfloat16)
+    v16 = pc.values.to(torch.bfloat16)
+    ref = chain_matmul_q_plain(x, q.values, scales, meta, plan=q.plan)
+    k4 = _norm_err(chain_matmul(x, q.values, meta, plan=q.plan, scales=scales), ref)
+    k1 = _norm_err(chain_matmul(x, v16, meta, plan=pc.plan), chain_matmul_plain(x, v16, meta, plan=pc.plan))
+    floor = _norm_err(_plain_q_slots_reversed(x, q.values, scales, meta, q.plan), ref)
+    torch.cuda.synchronize()
+    assert k4 <= 1.25 * max(k1, floor), {"k4": k4, "k1": k1, "floor": floor}
+
+
+def _plain_q_slots_reversed(x, values, scales, meta, plan):
+    """K4's plain version with each factor's slots summed last to first (in
+    f32, the intermediates rounded to x's dtype as the plain version does)."""
+    v = kref.dequant_values(values, scales)
+    y = x
+    for j in range(plan.n_factors):
+        vj, ij = kref.factor_slices(v, meta[:, 0], plan, j)
+        acc = sum(kref.bsr_matmul_ref(y.float(), vj[:, k:k + 1], ij[:, k:k + 1])
+                  for k in reversed(range(plan.k_blocks[j])))
+        y = kref._mask_tail(acc.to(x.dtype), plan.out_feats[j])
+    return y
+
+
+def _wgrad_cases(x, dy, values, meta, plan, scales, tiles, launches):
+    """K3/K5-wgrad at each tile against the plain version, and twice per
+    tile with the same bits (every sum runs in a fixed order)."""
+    ref = chain_wgrad_plain(x, dy, values, meta, plan=plan, scales=scales)
+    for bt in tiles:
+        before = launches()
+        dv = chain_wgrad(x, dy, values, meta, plan=plan, bt=bt, scales=scales)
+        again = chain_wgrad(x, dy, values, meta, plan=plan, bt=bt, scales=scales)
+        torch.cuda.synchronize()
+        assert launches() == before + 2 and dv.dtype == torch.float32
+        assert bool(torch.isfinite(dv).all()) and _rel(dv, ref) <= TOL[x.dtype]
+        assert torch.equal(dv, again)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("batch", [1, 37, 4096])
+@pytest.mark.parametrize("blk,n_factors", GRID)
+def test_wgrad_kernel_grid_matches_plain(dev, blk, n_factors, batch, dtype):
+    """K3 (recompute on K1's loop, walk on K2's gather schedule, emission)
+    on K1's grid: every tile at B = 37; small batches cut the emission's
+    batch into chunks."""
+    pc, x = _grid_chain(dev, blk, n_factors, batch, 110 + blk + n_factors)
+    dy = torch.randn((batch, pc.plan.out_blocks[-1] * blk), generator=torch.Generator().manual_seed(blk + batch))
+    meta = wgrad_meta(pc.plan, pc.in_idx)
+    _wgrad_cases(x.to(dtype), dy.to(dev, dtype), pc.values.to(dtype), meta, pc.plan, None,
+                 SUPPORTED_BT if batch == 37 else (16, WGRAD_BT), lambda: chain_wgrad.launches)
+
+
+@pytest.mark.parametrize("xdtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("scheme", ["per_block", "per_row"])
+@pytest.mark.parametrize("qdtype", ["int8", "fp8_e4m3", "fp8_e5m2"])
+def test_quantized_wgrad_kernel_grid_matches_plain(dev, qdtype, scheme, xdtype):
+    """K5-wgrad (K4's recompute, K5-dgrad's walk) on the same grid, with
+    per-block scales as stored and as rows."""
+    for blk, n_factors in GRID:
+        for batch in (1, 37, 4096):
+            pc, x = _grid_chain(dev, blk, n_factors, batch, 130 + blk + n_factors)
+            q = quantize_chain(pc, qdtype, scheme)
+            scales = expand_scales(q.scales, blk).contiguous()
+            dy = torch.randn((batch, q.plan.out_blocks[-1] * blk), generator=torch.Generator().manual_seed(batch))
+            for sc in (scales,) if scheme == "per_row" else (q.scales, scales):  # as stored, and as rows
+                _wgrad_cases(x.to(xdtype), dy.to(dev, xdtype), q.values, wgrad_meta(q.plan, q.in_idx), q.plan, sc,
+                             SUPPORTED_BT if batch == 37 else (WGRAD_BT,), lambda: chain_wgrad.q_launches)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("chain", ["skewed fan-in", "unread blocks"])
+@pytest.mark.parametrize("blk", [16, 128])
+def test_wgrad_kernel_skewed_chains(dev, blk, chain, dtype):
+    """Every output block reading input block 0, or input blocks no step
+    reads (their cotangents are zeros; no dvalues reads them)."""
+    pc, _ = _grid_chain(dev, blk, 4, 1, blk)
+    idx = torch.zeros_like(pc.in_idx) if chain == "skewed fan-in" else torch.minimum(pc.in_idx, torch.ones_like(pc.in_idx))
+    pc = dataclasses.replace(pc, in_idx=idx)
+    meta = wgrad_meta(pc.plan, pc.in_idx)
+    for batch in (37, 4096):
+        g = torch.Generator().manual_seed(batch)
+        x = torch.randn((batch, pc.plan.in_blocks[0] * blk), generator=g).to(dev, dtype)
+        dy = torch.randn((batch, pc.plan.out_blocks[-1] * blk), generator=g).to(dev, dtype)
+        _wgrad_cases(x, dy, pc.values.to(dtype), meta, pc.plan, None, SUPPORTED_BT, lambda: chain_wgrad.launches)
+        q = quantize_chain(pc, "int8", "per_row")
+        _wgrad_cases(x, dy, q.values, meta, q.plan, expand_scales(q.scales, blk).contiguous(), (16, WGRAD_BT),
+                     lambda: chain_wgrad.q_launches)

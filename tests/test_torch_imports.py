@@ -1,12 +1,13 @@
 """The port stands alone: nothing under ``src/repro_torch`` and nothing in
-``chip_smoke.py`` imports JAX or the JAX package ``repro``."""
+its root scripts ``chip_smoke.py`` and ``dgrad_probe.py`` imports JAX or
+the JAX package ``repro``."""
 import ast
 from pathlib import Path
 
 import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
-FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "dgrad_probe.py"]
 
 
 def _imported(tree: ast.AST):
