@@ -65,7 +65,26 @@ Phases, each fatal on failure (non-zero exit):
    ``torch.profiler``: device busy time and idle share, device time by
    kernel family (K1/K4, K2, K3 and its three launches, dense matmul,
    elementwise, other);
-8. times (CUDA events, warm-up, then 20 launches; 5 for the wgrads) of
+8. the batched factorizer at workload scale: gemma-2b's 18 MLP
+   up-projections as one stack ``(18, 2048, 16384)`` f32 through
+   ``factorize`` (slice 1's spec, one solve per step for the stack):
+   seconds, each matrix's RE, peak memory; matrices 0 and 17 again through
+   the sequential route (RE within 1e-3); each of the 18 operators through
+   ``apply("fused")`` against ``x @ todense()``, 18 K1 launches;
+9. the other strategies: ``"meg"`` on a 204 × 8193 synthetic gain matrix
+   (J = 4, k = 10, s = 816), ``"dictionary"`` on 10,000 8×8 patches of a
+   noisy 512 × 512 image (a 64 × 128 MOD dictionary, J = 4, k = 4), flat
+   ``"palm4msa"`` on an up-projection (also packed and applied fused):
+   RE, seconds, every feasible backend against ``todense()``;
+10. composition: ``hstack``, ``block_diag``, ``vstack`` of two
+   up-projections and ``op.T @ op``, B = 128 and 4096, f32 and bf16,
+   against the dense product; K1 and K6 launches required;
+11. measured dispatch under grad: a fresh table filled by
+   ``apply(autotune=True)`` in training applies (f32 and int8 operators,
+   f32 and bf16 x, both batches); ``auto`` under grad must read it, pick
+   the fastest measured backend and run within 10 % of it forced, at the
+   table's fused tile and at the default one, whichever is faster;
+12. times (CUDA events, warm-up, then 20 launches; 5 for the wgrads) of
    each kernel, its plain version and one PyTorch call computing the same
    function (``torch.matmul`` on the materialized matrix; none for the
    wgrad), beside the card's bound, the cost of an empty launch, and
@@ -82,6 +101,8 @@ from __future__ import annotations
 
 import json
 import math
+import os
+import statistics
 import subprocess
 import sys
 import time
@@ -894,8 +915,6 @@ def quantized_path(op, w_dev, batches=(128, 4096)) -> tuple[dict, dict]:
 def measured_dispatch(ops: dict, batches=(128, 4096)) -> dict:
     """Phase 5: fill a fresh table through ``apply(autotune=True)``; then
     ``auto`` must follow it.  Returns {(name, batch): table entry}."""
-    import os
-
     import torch
 
     from repro_torch.api import autotune, dispatch, last_report
@@ -933,7 +952,7 @@ def measured_dispatch(ops: dict, batches=(128, 4096)) -> dict:
 
 
 def measure(op, card_line: str) -> tuple[list[dict], float]:
-    """Phase 8: kernel, plain and library times at the main path's shapes;
+    """Phase 12: kernel, plain and library times at the main path's shapes;
     every row names the card and its power limit."""
     import torch
 
@@ -1020,14 +1039,12 @@ def measure(op, card_line: str) -> tuple[list[dict], float]:
 
 
 def measure_quantized(qops: dict, ops: dict, card_line: str, batches=(128, 4096)) -> list[dict]:
-    """Phase 8, slice 2: K4 per code type at both batches beside its bound,
+    """Phase 12, slice 2: K4 per code type at both batches beside its bound,
     its plain version and ``torch.matmul`` on the dequantized dense
     matrix, with the scales as the chain stores them (per block or per
     row, as the fused apply passes them); then ``apply("auto")`` on the
     model alone and on the table, beside the forced backend the table
     picks."""
-    import os
-
     import torch
 
     from repro_torch.api import last_report
@@ -1213,8 +1230,6 @@ def train_lm(card_line: str, argv=None) -> dict:
     fresh autotune table so ``auto`` is the model's choice.  Per step: loss,
     step time, tokens/s; peak memory; the captured FAµST dispatch; the
     kernel counts of the phase, which must include K2 and K3."""
-    import os
-
     import torch
 
     from repro_torch.api import autotune
@@ -1352,7 +1367,7 @@ def profile_step(trainer, out, card_line: str) -> dict:
 
 
 def measure_backward(op, qop, card_line: str, batches=(128, 4096)) -> list[dict]:
-    """Phase 8, slice 3: K2, K3 and K5 (its dgrad and wgrad halves on int8
+    """Phase 12, slice 3: K2, K3 and K5 (its dgrad and wgrad halves on int8
     codes, scales as the chain stores them) at the main path's shapes
     beside their bound, their plain versions, a cold-L2 time and, for the
     dgrads, one PyTorch call computing the same function (``dy @
@@ -1436,7 +1451,7 @@ def measure_backward(op, qop, card_line: str, batches=(128, 4096)) -> list[dict]
 
 
 def measure_unembed(card_line: str, dev, b: int = 1024, dims=(2048, 2048, 256000)) -> list[dict]:
-    """Phase 8, slice 3: K1, K2 and K3 at the shapes the trainer gives them:
+    """Phase 12, slice 3: K1, K2 and K3 at the shapes the trainer gives them:
     the ``--faust`` unembedding (2048 → 2048 → 256000, block 16, k 4, bf16)
     at B = 8·128 tokens, on random values of that layout, beside their
     bound, plain versions and, for K1/K2, one ``torch.matmul`` on the
@@ -1497,6 +1512,356 @@ def measure_unembed(card_line: str, dev, b: int = 1024, dims=(2048, 2048, 256000
     return rows
 
 
+# ---------------------------------------------------------------------------
+# Slice 7: the factorizer at workload scale, composition, grad dispatch
+# ---------------------------------------------------------------------------
+
+GEMMA_UP = (18, 2048, 16384)  # gemma-2b: n_layers, d_model, d_ff (src/repro/configs/gemma_2b.py)
+BATCHED_RE_GAP = 1e-3  # batched against sequential RE on the card: bmm and mm sum in other orders
+
+
+def _free() -> None:
+    import gc
+
+    import torch
+
+    gc.collect()
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
+
+
+def factorize_batched(dev, shape=GEMMA_UP, block: int = 128, batch: int = 128, check=(0, -1)) -> dict:
+    """Phase 8: every MLP up-projection of gemma-2b as one stack ``(18,
+    2048, 16384)`` f32 (seed 0, /√2048) through ``factorize(ws, spec)``
+    with slice 1's spec (block 128, k 4, J = 3, 40/40 sweeps): the batched
+    route's seconds, each matrix's RE and the peak memory; the sequential
+    route on the first and last matrix, whose RE must lie within 1e-3 of
+    the batched run's; then each operator through ``apply("fused")`` at
+    B = 128 against ``x @ op.todense()``, K1 launched once per operator."""
+    import torch
+
+    from repro_torch.api import FactorizeSpec, factorize
+    from repro_torch.kernels.chain import chain_matmul
+
+    n, d_in, d_out = shape
+    gen = torch.Generator(device=dev).manual_seed(0)
+    ws = torch.randn(shape, generator=gen, device=dev) / math.sqrt(d_in)
+    spec = FactorizeSpec(strategy="hierarchical", n_factors=3, block=block, k_first=4, k_mid=4)
+    cuda = dev.type == "cuda"
+    _free()
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    op, info = factorize(ws, spec, device=dev)
+    if cuda:
+        torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 1e9 if cuda else None
+    res = [float(o.rel_error_fro(w)) for o, w in zip(info.ops, ws)]
+    row = {"phase": "factorize_batched", "shape": list(shape), "block": block, "seconds": seconds,
+           "seconds_per_matrix": seconds / n, "rel_error_fro": res, "peak_memory_gb": peak,
+           "stack_gb": ws.numel() * 4 / 1e9, "sweeps": info.n_sweeps, "op": repr(op),
+           "s_tot": [o.s_tot for o in info.ops], "cache": vars(info.hierarchical.cache)}
+    log(row)
+    require(info.batched and len(info.ops) == n and op.kind == "block_diag", f"not the batched route: {row}")
+    require(all(math.isfinite(r) and r < 1.0 for r in res), f"a batched factorization failed: {row}")
+    seq = {}
+    for i in check:
+        i = i % n
+        t0 = time.perf_counter()
+        sop, sinfo = factorize(ws[i], spec, device=dev)
+        if cuda:
+            torch.cuda.synchronize()
+        seq[i] = {"seconds": time.perf_counter() - t0, "rel_error_fro": float(sop.rel_error_fro(ws[i])),
+                  "batched_rel_error_fro": res[i]}
+        seq[i]["gap"] = abs(seq[i]["rel_error_fro"] - res[i])
+        del sop, sinfo
+    log({"phase": "factorize_sequential", "matrices": seq, "gap_max": BATCHED_RE_GAP})
+    require(all(v["gap"] <= BATCHED_RE_GAP for v in seq.values()),
+            f"batched and sequential RE differ by more than {BATCHED_RE_GAP}: {seq}")
+    before = chain_matmul.launches
+    g = torch.Generator(device=dev).manual_seed(5)
+    errs = []
+    for o in info.ops:
+        x = torch.randn((batch, d_in), generator=g, device=dev)
+        y = o.apply(x, "fused", device=dev)
+        errs.append(rel_err(y, x @ o.todense())[1])
+    launches = chain_matmul.launches - before
+    row = {"phase": "factorize_batched_apply", "batch": batch, "rel_err_dense": errs, "k1_launches": launches}
+    log(row)
+    require(max(errs) <= DENSE_TOL, f"a batched operator's fused apply disagrees with x @ todense(): {row}")
+    if cuda:
+        require(launches == n, f"K1 did not run once per operator: {row}")
+    del ws
+    _free()
+    return {"ops": info.ops, "seconds": seconds, "rel_error_fro": res, "peak_memory_gb": peak, "sequential": seq}
+
+
+def synthetic_leadfield(m: int, n: int, seed: int = 0):
+    """A MEG-like gain matrix (``benchmarks/common.py``'s stand-in for an
+    MNE leadfield, numpy only): sensors on a spherical cap, dipoles in a
+    shell with random orientations, 1/r² falloff, max |g| = 1."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    phi, theta = rng.uniform(0, 2 * np.pi, m), rng.uniform(0, 0.45 * np.pi, m)
+    sensors = np.stack([np.sin(theta) * np.cos(phi), np.sin(theta) * np.sin(phi), np.cos(theta)], 1)
+    r = rng.uniform(0.5, 0.85, n) ** (1 / 3) * 0.85
+    sp, st = rng.uniform(0, 2 * np.pi, n), np.arccos(rng.uniform(-1, 1, n))
+    sources = r[:, None] * np.stack([np.sin(st) * np.cos(sp), np.sin(st) * np.sin(sp), np.cos(st)], 1)
+    moments = rng.standard_normal((n, 3))
+    moments /= np.linalg.norm(moments, axis=1, keepdims=True)
+    diff = sensors[:, None, :] - sources[None, :, :]
+    gain = np.einsum("mns,ns->mn", diff, moments) / (np.linalg.norm(diff, axis=-1) ** 3 + 1e-3)
+    return (gain / np.abs(gain).max()).astype(np.float32)
+
+
+def noisy_image(size: int = 512, sigma: float = 30.0, seed: int = 0):
+    """A cartoon-and-texture image (``benchmarks/common.py``'s
+    ``piecewise_smooth_image``) plus Gaussian noise of std ``sigma``:
+    (clean, noisy), numpy f32."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    y, x = np.mgrid[0:size, 0:size] / size
+    img = 80 * (x + y)
+    for _ in range(6):
+        cx, cy, rad, amp = rng.uniform(0.1, 0.9), rng.uniform(0.1, 0.9), rng.uniform(0.05, 0.3), rng.uniform(-70, 70)
+        img += amp * ((x - cx) ** 2 + (y - cy) ** 2 < rad**2)
+    img = np.clip(img + 15 * np.sin(14 * np.pi * x) * (y > 0.5), 0, 255).astype(np.float32)
+    return img, (img + sigma * rng.standard_normal(img.shape)).astype(np.float32)
+
+
+def _check_backends(name, op, dev, batches=(128,)) -> list[dict]:
+    """Every feasible backend of a leaf against ``x @ op.todense()``."""
+    import torch
+
+    rows = []
+    dense = op.todense()
+    g = torch.Generator(device=dev).manual_seed(6)
+    for b in batches:
+        x = torch.randn((b, op.shape[0]), generator=g, device=dev)
+        want = x @ dense
+        for backend in op.feasible_backends():
+            y = op.apply(x, backend, device=dev)
+            rows.append({"strategy": name, "backend": backend, "batch": b, "rel_err_dense": rel_err(y, want)[1]})
+            require(rows[-1]["rel_err_dense"] <= DENSE_TOL, f"{name} {backend} disagrees with x @ todense(): {rows[-1]}")
+    return rows
+
+
+def strategies(dev, w, meg=(204, 8193), image=512, n_patches=10_000, sweeps=(40, 40)) -> dict:
+    """Phase 9: the other strategies at the paper's sizes.  ``"meg"`` on a
+    204 × 8193 synthetic gain matrix (§V: J = 4, k = 10, s = 4·204);
+    ``"dictionary"`` (Fig. 11) on 10,000 8×8 patches of a noisy 512 × 512
+    image: a 64 × 128 MOD dictionary factorized with J = 4, k = 4
+    (``benchmarks/denoising.py``'s spec) while its OMP codes are refit;
+    the flat ``"palm4msa"`` on one up-projection ``w`` (block-column
+    constraints as the block route's, 40 sweeps), also packed and applied
+    fused.  For each: RE, seconds, every feasible backend against
+    ``todense()``."""
+    import torch
+
+    from repro_torch.api import FactorizeSpec, factorize
+    from repro_torch.core import dictionary as D
+    from repro_torch.core import projections as P
+    from repro_torch.core.hierarchical import HierarchicalSpec
+
+    cuda = dev.type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    out = {}
+    # "meg"
+    m, n = meg
+    g = torch.as_tensor(synthetic_leadfield(m, n), device=dev)
+    t0 = time.perf_counter()
+    op, info = factorize(g, FactorizeSpec(strategy="meg", n_factors=4, k=10, s=4 * m,
+                                          n_iter_two=sweeps[0], n_iter_global=sweeps[1]), device=dev)
+    sync()
+    row = {"phase": "strategy", "strategy": "meg", "shape": [m, n], "seconds": time.perf_counter() - t0,
+           "rel_error_fro": float(op.rel_error_fro(g)), "rel_error_spec": float(op.rel_error_spec(g)),
+           "s_tot": op.s_tot, "rcg": op.rcg, "sweeps": info.n_sweeps,
+           "applies": _check_backends("meg", op, dev)}
+    log(row)
+    require(math.isfinite(row["rel_error_fro"]) and row["rel_error_fro"] < 1.0, f"meg failed: {row}")
+    out["meg"] = row
+    # "dictionary"
+    patch, atoms = 8, 128
+    _, noisy = noisy_image(image)
+    patches = D.extract_patches(torch.as_tensor(noisy, device=dev), patch)
+    pick = torch.randperm(patches.shape[1], generator=torch.Generator().manual_seed(0))[:n_patches]
+    y = patches[:, pick.to(dev)]
+    y = y - y.mean(dim=0, keepdim=True)
+    t0 = time.perf_counter()
+    init = torch.randperm(y.shape[1], generator=torch.Generator().manual_seed(0))[:atoms]
+    d_ddl, _ = D.learn_dictionary_mod(y, atoms, 5, 10, init)
+    gamma0 = D.omp(y, d_ddl, 5)
+    sync()
+    ddl_s = time.perf_counter() - t0
+    mm = patch * patch
+    hier = HierarchicalSpec(
+        tuple(P.make_proj("col", k=4) for _ in range(3)),
+        tuple(P.make_proj("global", k=max(int(1.4 * mm * mm * 0.5 ** (ell - 1)), 2 * mm)) for ell in range(1, 4)),
+        (mm,) * 3, n_iter_two=30, n_iter_global=30,
+    )
+    t0 = time.perf_counter()
+    op, info = factorize(d_ddl, FactorizeSpec(strategy="dictionary", hier=hier, dict_y=y, dict_gamma0=gamma0,
+                                              dict_sparse_coding=lambda yy, dd: D.omp(yy, dd, 5)), device=dev)
+    sync()
+    fit = lambda d, c: float(torch.linalg.norm(y - d @ c) / torch.linalg.norm(y))  # noqa: E731
+    row = {"phase": "strategy", "strategy": "dictionary", "patches": list(y.shape), "atoms": atoms,
+           "ddl_seconds": ddl_s, "seconds": time.perf_counter() - t0,
+           "rel_error_fro": float(op.rel_error_fro(d_ddl)), "data_fit_ddl": fit(d_ddl, gamma0),
+           "data_fit_faust": fit(op.todense(), info.gamma), "s_tot": op.s_tot, "rcg": op.rcg,
+           "sweeps": info.n_sweeps, "applies": _check_backends("dictionary", op, dev)}
+    log(row)
+    require(math.isfinite(row["data_fit_faust"]) and row["data_fit_faust"] < 1.0, f"dictionary failed: {row}")
+    out["dictionary"] = row
+    # flat "palm4msa" on an up-projection, A = W (d_model ≤ d_ff: blockcol budgets)
+    d_in, d_out = w.shape
+    blk = 128 if d_in % 128 == 0 else 16
+    projs = (P.make_proj("blockcol", bm=blk, bn=blk, k_per_col=4), P.make_proj("blockcol", bm=blk, bn=blk, k_per_col=4),
+             P.make_proj("blockcol", bm=blk, bn=blk, k_per_col=max(d_in // blk // 2, 2)))
+    t0 = time.perf_counter()
+    op, info = factorize(w, FactorizeSpec(strategy="palm4msa", projs=projs, dims=(d_out, d_in, d_in, d_in),
+                                          n_iter=sweeps[1]), device=dev)
+    sync()
+    packed = op.to("packed", block=blk)
+    row = {"phase": "strategy", "strategy": "palm4msa", "shape": [d_in, d_out], "seconds": time.perf_counter() - t0,
+           "rel_error_fro": float(op.rel_error_fro(w)), "s_tot": op.s_tot, "packed_s_tot": packed.s_tot,
+           "sweeps": info.n_sweeps, "applies": _check_backends("palm4msa", op, dev)
+           + _check_backends("palm4msa packed", packed, dev)}
+    log(row)
+    require(math.isfinite(row["rel_error_fro"]) and row["rel_error_fro"] < 1.0, f"palm4msa failed: {row}")
+    out["palm4msa"] = row
+    _free()
+    return out
+
+
+def compose(ops, batches=(128, 4096)) -> dict:
+    """Phase 10: composites of two up-projections from phase 8:
+    ``hstack`` (GeGLU's gate and up pair, 2048 → 32768), ``block_diag``,
+    ``vstack`` and ``op.T @ op``, each at both batches in f32 and bf16
+    through ``auto``, ``bsr`` and (where every leaf is fusable) ``fused``,
+    against the dense product; K1 and K6 launches must rise."""
+    import torch
+
+    from repro_torch.api import block_diag, hstack, vstack
+    from repro_torch.kernels.bsr_matmul import bsr_matmul
+    from repro_torch.kernels.chain import chain_matmul
+
+    a, b = ops[0], ops[1]
+    dev = a.device
+    da, db = a.todense(), b.todense()
+    cases = {
+        "hstack": (hstack([a, b]), lambda x: torch.cat([x @ da, x @ db], -1)),
+        "block_diag": (block_diag([a, b]), lambda x: torch.cat([x[:, :da.shape[0]] @ da, x[:, da.shape[0]:] @ db], -1)),
+        "vstack": (vstack([a, b]), lambda x: x[:, :da.shape[0]] @ da + x[:, da.shape[0]:] @ db),
+        "gram": (a.T @ a, lambda x: (x @ da.T) @ da),
+    }
+    k1, k6 = chain_matmul.launches, bsr_matmul.launches
+    g = torch.Generator(device=dev).manual_seed(7)
+    rows = []
+    for name, (op, dense) in cases.items():
+        backends = ("auto", "bsr") + (("fused",) if all(not leaf.adjoint for leaf in op.leaves()) else ())
+        for bsz in batches:
+            x32 = torch.randn((bsz, op.shape[0]), generator=g, device=dev)
+            want = dense(x32)
+            for dtype in (torch.float32, torch.bfloat16):
+                dname = str(dtype).removeprefix("torch.")
+                for backend in backends:
+                    y = op.apply(x32.to(dtype), backend, device=dev)
+                    err = rel_err(y, want)[1]
+                    row = {"phase": "compose", "op": name, "shape": list(op.shape), "batch": bsz, "dtype": dname,
+                           "requested": backend, "rel_err_dense": err, "dtype_out": str(y.dtype)}
+                    rows.append(row)
+                    require(tuple(y.shape) == (bsz, op.shape[1]) and y.dtype == dtype, f"bad output: {row}")
+                    require(err <= (DENSE_TOL if dtype == torch.float32 else TOL[dname]),
+                            f"{name} {backend} disagrees with the dense product: {row}")
+    launches = {"chain_matmul": chain_matmul.launches - k1, "bsr_matmul": bsr_matmul.launches - k6}
+    log({"phase": "compose", "rows": rows, "launches": launches})
+    if dev.type == "cuda":
+        require(all(v > 0 for v in launches.values()), f"a composite never ran K1 or K6: {launches}")
+    return {"launches": launches, "max_rel_err": max(r["rel_err_dense"] for r in rows)}
+
+
+def grad_dispatch(ops: dict, card_line: str, batches=(128, 4096)) -> list[dict]:
+    """Phase 11: measured dispatch under grad.  A fresh table under
+    ``build/`` filled by ``apply(autotune=True)`` in training applies (x
+    and the values, or the scales, require grad) for the f32 and the int8
+    per-block operator, f32 and bf16 x, both batches; ``auto`` under grad
+    must then read the table, pick the fastest measured backend, and run
+    fwd+bwd within ``AUTO_SLACK`` of that backend forced, at the table's
+    fused tile or at the default tile, whichever is faster: a table whose
+    tile is slower than the default fails.  Times are medians of turns
+    that rotate the three variants (40 turns at B < 1024, 3 above)."""
+    import torch
+
+    from repro_torch.api import autotune, dispatch, last_report
+
+    table = ROOT / "build" / "chip_smoke_grad_autotune.json"
+    table.unlink(missing_ok=True)
+    saved = {k: os.environ.get(k) for k in ("REPRO_TORCH_AUTOTUNE_TABLE", "REPRO_AUTOTUNE")}
+    os.environ["REPRO_TORCH_AUTOTUNE_TABLE"] = str(table)
+    os.environ.pop("REPRO_AUTOTUNE", None)
+    autotune.reload()
+    rows = []
+    g = torch.Generator().manual_seed(8)
+    try:
+        for name, op in ops.items():
+            dev = op.device
+            top, _ = _trainable(op)
+            for bsz in batches:
+                for dtype in (torch.float32, torch.bfloat16):
+                    dname = str(dtype).removeprefix("torch.")
+                    x = torch.randn((bsz, op.shape[0]), generator=g).to(dev, dtype).requires_grad_(True)
+                    w = torch.randn((bsz, op.shape[1]), generator=g).to(dev, dtype)
+                    model = top.dispatch_for(bsz, dtype, grad=True)
+                    top.apply(x, autotune=True, device=dev).backward(w)
+                    key = autotune.key_for_op(top, batch=bsz, dtype=dtype, grad=True)
+                    entry = autotune.lookup(key)
+                    require(entry is not None, f"{name} {dname} B={bsz}: no grad key after apply(autotune=True)")
+                    top.apply(x, device=dev).backward(w)
+                    rep = last_report()
+                    fastest = min(entry["us"], key=lambda k: (entry["us"][k], dispatch._ORDER[k]))
+                    # in turns: auto; its pick forced at the table's tile (what
+                    # auto adds: the decision); and at the default tile (what the
+                    # table's tile buys)
+                    runs = {"auto": lambda: top.apply(x, device=dev),
+                            "forced": lambda: top.apply(x, rep.backend, device=dev, bt=rep.bt),
+                            "forced_default_tile": lambda: top.apply(x, rep.backend, device=dev)}
+                    timing = {k: [] for k in runs}
+                    # a serving-batch step is host-paced and one sample of 20 calls
+                    # reads 0.56-1.24 ms for the same work: many short turns, the
+                    # order rotated each turn, each variant's median compared
+                    names = list(runs)
+                    for turn in range(3 if bsz >= 1024 else 40):
+                        for k in names[turn % 3:] + names[:turn % 3]:
+                            timing[k].append(time_ms(lambda fn=runs[k]: fn().backward(w), iters=20))
+                    med = {k: statistics.median(v) for k, v in timing.items()}
+                    auto_ms = med["auto"]
+                    forced_ms = min(med["forced"], med["forced_default_tile"])
+                    row = {"phase": "grad_dispatch", "card": card_line, "op": name, "dtype": dname, "batch": bsz,
+                           "key": key, "entry": entry, "report": rep.as_row(), "model_pick": model.backend,
+                           "auto_fwd_bwd_ms": auto_ms, "forced_fwd_bwd_ms": med["forced"],
+                           "forced_default_tile_ms": med["forced_default_tile"],
+                           "min_ms": {k: min(v) for k, v in timing.items()},
+                           "auto_over_forced": auto_ms / forced_ms, "times_ms": timing}
+                    log(row)
+                    require(rep.grad and rep.source == "measured", f"auto under grad did not read the table: {row}")
+                    require(rep.backend == fastest, f"auto under grad did not pick the fastest measured backend: {row}")
+                    require(auto_ms <= AUTO_SLACK * forced_ms,
+                            f"auto under grad is slower than its pick forced at the better tile: {row}")
+                    rows.append(row)
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        autotune.reload()
+    return rows
+
+
 def _kernel_entry(name, source, replaces, launches, cases, checks, card_line, head) -> dict:
     first = next(r for r in cases if all(r.get(k) == v for k, v in head.items()))
     keys = ("chain", "quant", "dtype", "batch", "bt", "launches_per_apply", "max_abs_err", "ms", "cold_ms",
@@ -1536,6 +1901,12 @@ def main() -> int:
     measured_dispatch(ops)
     _, train_counts = training_path(ops, info["card"])
     lm = train_lm(info["card"])
+    batched = factorize_batched(dev)
+    strategies(dev, batched["ops"][0].todense())
+    compose(batched["ops"][:2])
+    grad_dispatch(ops, info["card"])
+    del batched
+    _free()
     rows, _ = measure(op, info["card"])
     rows += measure_quantized(qops, ops, info["card"])
     rows += measure_backward(op, qops["int8:per_block"], info["card"])

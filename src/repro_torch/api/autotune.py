@@ -1,6 +1,5 @@
 """Measured-timings table over the roofline dispatch model.
-Counterpart of :mod:`repro.api.autotune` (forward measurement; ``grad``
-keys are read, not yet measured).
+Counterpart of :mod:`repro.api.autotune`.
 
 The roofline model assumes every kernel reaches its bound; on the card the
 first fused kernel does not, and the model's pick can be the slowest
@@ -10,7 +9,10 @@ backend.  Where the table holds real timings for a dispatch key
 
 an ``auto`` apply takes the measured-fastest feasible backend
 (:func:`repro_torch.api.dispatch.dispatch`) and, for ``fused``, the batch
-tile that won the sweep over ``kernels/chain.py`` ``SUPPORTED_BT``.
+tile that won the sweep over ``kernels/chain.py`` ``SUPPORTED_BT``.  A ``grad`` key times
+forward plus backward of a scalar loss wrt x and the operator's trained
+tensors (values, or the scales of a quantized chain), so the fused path's
+K2/K3 (K5) are in its time.
 
 Modes (``REPRO_AUTOTUNE``, as the reference):
 
@@ -26,14 +28,16 @@ repository root, or the path in ``REPRO_TORCH_AUTOTUNE_TABLE``.  The key's
 device is the card's name, so timings never cross cards.  A missing,
 corrupt or stale-version file reads as no table.  Measurement lets every
 error propagate: a kernel that fails to launch is never hidden behind
-another backend.
+another backend (the reference skips a failing tile).  The port has no
+session quarantine: with no degraded ladder, no backend is ever demoted
+from.
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
 import json
 import os
-import statistics
 import tempfile
 import time
 from pathlib import Path
@@ -42,7 +46,12 @@ import torch
 
 TABLE_VERSION = 1
 DEFAULT_TABLE = Path(__file__).resolve().parents[3] / "build" / "autotune.json"
-N_WARMUP, N_ITER = 2, 10  # timing: warm-up calls, then the median of N_ITER
+# timing: warm-up calls, then the least of N_RUNS runs of N_ITER calls
+N_WARMUP, N_ITER, N_RUNS = 2, 10, 3
+# the fused sweep keeps FORWARD_BT unless another tile is faster by more
+# than this share: at B = 128 under grad the tile changes only the forward
+# kernel, and single sweeps picked a tile 7 % slower than the default there
+TILE_MARGIN = 0.05
 # Seconds between checks of the file's mtime: a table written by another
 # process shows up within this time.  Every auto apply reads the table, and
 # a stat per apply is a syscall on the serving path.
@@ -213,72 +222,135 @@ def _write_table(table: dict, path: str) -> None:
         _STATE["stamp"] = None  # the next load_table() reads the file
 
 
-def _timeit_us(fn, device: torch.device) -> float:
-    """Median µs of one call of ``fn``, each call between two device
-    synchronizations (host work included), after ``N_WARMUP`` calls."""
+def op_key_prefix(op) -> str:
+    """The key prefix every entry of one operator signature shares (shape,
+    chain length, stored nonzeros), as the reference spells it."""
+    return f"{op.shape[0]}x{op.shape[1]}|J{op.n_factors}|s{op.s_tot}|"
+
+
+def invalidate(prefix: str, path: str | None = None) -> int:
+    """Drop every entry whose key starts with ``prefix`` from the table
+    (rewritten atomically, as :func:`record` does); returns how many went.
+    A missing or unreadable table drops none."""
+    table = load_table()
+    if table is None:
+        return 0
+    victims = [k for k in table["entries"] if k.startswith(prefix)]
+    if victims:
+        for k in victims:
+            del table["entries"][k]
+        _write_table(table, path or table_path())
+    return len(victims)
+
+
+def _timeit_us(fns: dict, device: torch.device) -> dict:
+    """µs a call of each ``fns[k]``: ``N_ITER`` calls back to back between
+    two device synchronizations, the least of ``N_RUNS`` runs, after
+    ``N_WARMUP`` calls.  Back to back, the host enqueues a call while the
+    device runs the last, as in a serving or training loop.  The runs are
+    interleaved, each round timing every candidate once, so a stretch of
+    host contention slows one run of every candidate rather than every
+    run of one; at serving batch a step is host-paced and its time jumps
+    by a third between stretches on the H100's host (PERF.md §6)."""
     sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
-    for _ in range(N_WARMUP):
-        fn()
+    for fn in fns.values():
+        for _ in range(N_WARMUP):
+            fn()
     sync()
-    times = []
-    for _ in range(N_ITER):
-        t0 = time.perf_counter()
-        fn()
-        sync()
-        times.append(time.perf_counter() - t0)
-    return statistics.median(times) * 1e6
+    best = dict.fromkeys(fns, float("inf"))
+    for _ in range(N_RUNS):
+        for k, fn in fns.items():
+            t0 = time.perf_counter()
+            for _ in range(N_ITER):
+                fn()
+            sync()
+            best[k] = min(best[k], (time.perf_counter() - t0) / N_ITER)
+    return {k: v * 1e6 for k, v in best.items()}
 
 
-def measure(op, x: torch.Tensor, *, use_kernel: bool) -> dict:
-    """Time every feasible backend of ``op`` on ``x`` (forward, no grad)
-    and return the table entry, not yet recorded.  With the kernels on, the
-    fused backend sweeps every supported forward batch tile; the winner is
-    the entry's ``bt``.  Errors propagate."""
+def _trainable(op):
+    """A leaf like ``op`` whose trained tensors are fresh leaves that
+    require grad, sharing ``op``'s storage: the values of a Faust,
+    BlockFaust or f32 PackedChain, the scales of a quantized one."""
+    from repro_torch.api.operator import FaustOp
+    from repro_torch.core.compress import BlockFaust, PackedChain
+
+    leaf = lambda t: t.detach().requires_grad_(True)  # noqa: E731
+    rep = op.rep
+    if isinstance(rep, PackedChain):
+        name = "scales" if rep.quantized else "values"
+        rep = dataclasses.replace(rep, **{name: leaf(getattr(rep, name))})
+    elif isinstance(rep, BlockFaust):
+        rep = BlockFaust(tuple(dataclasses.replace(f, values=leaf(f.values)) for f in rep.factors), rep.lam)
+    else:
+        rep = type(rep)(tuple(leaf(s) for s in rep.factors), rep.lam)
+    return FaustOp(rep, op.adjoint, op.conj)
+
+
+def measure(op, x: torch.Tensor, *, grad: bool = False, use_kernel: bool) -> dict:
+    """Time every feasible backend of the leaf ``op`` on ``x`` and return
+    the table entry, not yet recorded.  ``grad=True`` times forward plus
+    backward of ``sum(op.apply(x))`` wrt x and the operator's trained
+    tensors.  With the kernels on, the fused backend sweeps every supported
+    forward tile; the winner is the entry's ``bt``, the default tile where
+    none beats it by ``TILE_MARGIN``.  Every candidate is timed in the
+    same interleaved rounds (:func:`_timeit_us`).  Errors propagate."""
     from repro_torch.kernels.chain import FORWARD_BT, SUPPORTED_BT
 
     global _MEASURING
     us: dict[str, float] = {}
     entry: dict = {}
     x = x.detach()
+    if grad:
+        top = _trainable(op)
+        params = [t for t in top._tensors() if t.requires_grad]
+        xg = x.requires_grad_(True) if x.is_floating_point() else x
+
+        def run(backend, bt):
+            with torch.enable_grad():
+                y = top.apply(xg, backend, use_kernel=use_kernel, bt=bt, device=x.device,
+                              autotune=False, grad=True)
+                torch.autograd.grad(y.sum(), [xg, *params])
+    else:
+        def run(backend, bt):
+            with torch.no_grad():
+                op.apply(x, backend, use_kernel=use_kernel, bt=bt, device=x.device, autotune=False)
+    cands = [(backend, bt) for backend in op.feasible_backends()
+             for bt in (SUPPORTED_BT if backend == "fused" and use_kernel else (FORWARD_BT,))]
     _MEASURING = True
     try:
-        with torch.no_grad():
-            for backend in op.feasible_backends():
-                tiles = SUPPORTED_BT if backend == "fused" and use_kernel else (FORWARD_BT,)
-                per_tile = {
-                    bt: _timeit_us(
-                        lambda b=backend, t=bt: op.apply(
-                            x, b, use_kernel=use_kernel, bt=t, device=x.device, autotune=False
-                        ),
-                        x.device,
-                    )
-                    for bt in tiles
-                }
-                win = min(per_tile, key=per_tile.get)
-                us[backend] = per_tile[win]
-                if len(tiles) > 1:
-                    entry["bt"] = win
-                    entry["bt_us"] = {str(t): round(v, 3) for t, v in per_tile.items()}
+        times = _timeit_us({c: (lambda c=c: run(*c)) for c in cands}, x.device)
     finally:
         _MEASURING = False
+    for backend in op.feasible_backends():
+        per_tile = {bt: t for (b, bt), t in times.items() if b == backend}
+        win = min(per_tile, key=per_tile.get)
+        if per_tile[win] * (1.0 + TILE_MARGIN) > per_tile[FORWARD_BT]:
+            win = FORWARD_BT  # a tile within the margin of the default is noise
+        us[backend] = per_tile[win]
+        if len(per_tile) > 1:
+            entry["bt"] = win
+            entry["bt_us"] = {str(t): round(v, 3) for t, v in per_tile.items()}
     return {
         "best": min(us, key=us.get),
         "us": {k: round(v, 3) for k, v in us.items()},
         "measured_at": time.strftime("%Y-%m-%dT%H:%M:%S"),
-        "ctx": {"use_kernel": bool(use_kernel), "device": _device_name(x.device)},
+        "ctx": {"use_kernel": bool(use_kernel), "device": _device_name(x.device), "grad": bool(grad)},
         **entry,
     }
 
 
-def ensure_measured(op, x: torch.Tensor, *, batch: int, dtype: torch.dtype, use_kernel: bool) -> dict | None:
-    """Measure and record the key of this apply if the table lacks it.
-    Returns the entry, or None re-entrantly from a measurement apply."""
-    if _MEASURING:
+def ensure_measured(op, x: torch.Tensor, *, batch: int, dtype: torch.dtype, grad: bool = False,
+                    use_kernel: bool) -> dict | None:
+    """Measure and record the key of this apply (``grad``: a training
+    apply) if the table lacks it.  Returns the entry, or None re-entrantly
+    from a measurement apply or for a composite (its leaves measure)."""
+    if _MEASURING or op.kind != "leaf":
         return None
-    key = key_for_op(op, batch=batch, dtype=dtype)
+    key = key_for_op(op, batch=batch, dtype=dtype, grad=grad)
     table = load_table()
     if table is not None and isinstance(table["entries"].get(key), dict):
         return table["entries"][key]
-    entry = measure(op, x, use_kernel=use_kernel)
+    entry = measure(op, x, grad=grad, use_kernel=use_kernel)
     record(key, entry)
     return entry

@@ -23,17 +23,27 @@ in all).  The one term that prices the port's own kernel is the wgrad
 workspace (:func:`_wgrad_workspace_bytes`), where the reference priced
 its per-batch-tile partial slabs; and the wgrad kernel is two launches
 where the chain has intermediates (walk and emission), so ``fused``
-counts four launches for J > 1, three for J = 1.
+counts four launches for J > 1, three for J = 1.  ``bsr`` over
+block-sparse factors is priced as the port runs it: its backward is the
+plain gather and scatter einsums (``kernels/ref.py``), which write and
+read two f32 intermediates of ``b·s_j/bn`` elements per factor
+(:func:`_bsr_bwd_bytes`) and launch ``BSR_BWD_LAUNCHES`` kernels per
+factor beside the forward's one, where the reference priced 3·J launches
+and no intermediates.  Without that, f32 priced at the FFMA peak made the
+model pick ``bsr`` under grad at B = 128, where ``fused`` runs twice as
+fast on the H100 (PERF.md §5).
 
 Constants come from :func:`repro_torch.launch.roofline.roofline_constants`
-(H100 data sheet).  Above the model sits the measured table
-(:mod:`repro_torch.api.autotune`): unless ``REPRO_AUTOTUNE=off``, an
-``auto`` request whose key the table holds takes the measured-fastest
-feasible backend, ``source`` is ``"measured"`` and ``est_us`` holds the
-measured µs; a ``grad=True`` key is looked up as well, and a miss takes
-the model (only forward keys are measured so far).  Every decision is a
-:class:`DispatchReport`, the latest one retrievable with
-:func:`last_report`.  Sharded pricing comes with a later slice.
+(H100 data sheet).  Operations are priced at the peak of the activation
+dtype: ``peak_flops_f32`` (FFMA) for f32, ``peak_flops`` (bf16 tensor
+cores) otherwise; a constants dict without the f32 key prices f32 at
+``peak_flops``, as the reference does.  Above the model sits the measured
+table (:mod:`repro_torch.api.autotune`): unless ``REPRO_AUTOTUNE=off``, an
+``auto`` request whose key (forward or ``grad``) the table holds takes the
+measured-fastest feasible backend, ``source`` is ``"measured"`` and
+``est_us`` holds the measured µs.  Every decision is a :class:`DispatchReport`,
+the latest one retrievable with :func:`last_report`.  Sharded pricing
+comes with a later slice.
 """
 from __future__ import annotations
 
@@ -57,6 +67,20 @@ _MEMO_MAX = 1024
 
 def _dtype_name(dtype: torch.dtype) -> str:
     return str(dtype).removeprefix("torch.")
+
+
+# kernels the bsr backward launches per block-sparse factor
+# (kernels/ref.py bsr_matmul_dx and bsr_matmul_dvalues in f32): two bmm,
+# the zero fill and the scatter-add of dx, the gather of x's blocks, the
+# two index casts and the copy that lays the per-block dx out for the add
+BSR_BWD_LAUNCHES = 8
+
+
+def _bsr_bwd_bytes(b: int, gather: int) -> float:
+    """Device-memory bytes of the bsr backward's f32 intermediates: the
+    gathered x blocks and the per-block dx contributions, ``b·gather``
+    floats each (``gather = Σ_j s_j / bn_j``), each written and read once."""
+    return 16.0 * b * gather
 
 
 def _wgrad_workspace_bytes(b: int, inner_dims: tuple[int, ...]) -> float:
@@ -141,15 +165,20 @@ def choose_backend(
     values_dtype: str | None = None,
     scales_bytes: int = 0,
     grad: bool = False,
+    bsr_gather: int = 0,
 ) -> DispatchReport:
     """Pick the cheapest feasible backend under the roofline model (a pure
     function of its arguments; ``device`` and ``bt`` are recorded, not
     consulted).  ``values_dtype``/``scales_bytes`` describe a quantized
     chain: its weight stream is priced at the stored itemsize plus the
     scale bytes; unquantized pricing is unchanged.  ``grad=True`` prices
-    forward and backward together (module docstring)."""
+    forward and backward together (module docstring); ``bsr_gather`` is
+    ``Σ_j s_j / bn_j`` of block-sparse factors, whose bsr backward is the
+    gather/scatter form, and 0 for dense factors (the reference's pricing)."""
     consts, source = _roofline.roofline_constants()
     peak_flops, hbm_bw, launch_us = consts["peak_flops"], consts["hbm_bw"], consts["t_launch_us"]
+    if dtype == torch.float32:
+        peak_flops = consts.get("peak_flops_f32", peak_flops)
     m, n = shape
     b = batch
     elt = dtype.itemsize
@@ -177,7 +206,9 @@ def choose_backend(
                 3 * 2.0 * b * m * n + 3.0 * build_flops, elt * (4 * m * n + 3 * edge), 3 * n_factors
             ),
             "bsr": roofline_us(
-                3 * 2.0 * b * s_tot, 3 * w_stream + dv_bytes + elt * (3 * edge + 3 * inner), 3 * n_factors
+                3 * 2.0 * b * s_tot,
+                3 * w_stream + dv_bytes + elt * (3 * edge + 3 * inner) + _bsr_bwd_bytes(b, bsr_gather),
+                (1 + BSR_BWD_LAUNCHES) * n_factors if bsr_gather else 3 * n_factors,
             ),
             "fused": roofline_us(
                 5 * 2.0 * b * s_tot,
@@ -278,6 +309,7 @@ def _decide(op, batch, dtype, requested, device, bt, consult, grad) -> DispatchR
         values_dtype=values_dtype,
         scales_bytes=scales_bytes,
         grad=grad,
+        bsr_gather=op.bsr_gather(),
     )
     if entry is not None:
         measured = {

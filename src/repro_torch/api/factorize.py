@@ -1,8 +1,12 @@
 """``factorize(A, spec)`` — the front door to the solvers.  Counterpart of
-:mod:`repro.api.factorize` (sequential solves).
+:mod:`repro.api.factorize`.
 
     op, info = factorize(w, FactorizeSpec(strategy="hierarchical",
                                           n_factors=3, block=128))
+
+``op`` is a :class:`~repro_torch.api.operator.FaustOp` with
+``op.todense() ≈ a``; for a 3-D stack ``(B, m, n)`` it is the
+``block_diag`` of the per-matrix operators, which ``info.ops`` lists.
 
 Strategies:
 
@@ -11,43 +15,55 @@ Strategies:
                     ``k_mid``/``k_resid`` (the deployment route: packed
                     :class:`~repro_torch.core.compress.BlockFaust` chains
                     ready for the kernels).
+``"palm4msa"``      one flat PALM solve (Fig. 4): needs ``spec.projs`` and
+                    ``spec.dims``.
 ``"hadamard"``      §IV-C preset (exact reverse-engineering schedule).
+``"meg"``           §V-A preset (the MEG schedule, ``k``/``s``/``rho``).
+``"dictionary"``    Fig. 11: ``a`` is the initial dictionary; needs
+                    ``spec.hier``, ``dict_y``, ``dict_gamma0`` and
+                    ``dict_sparse_coding``; the learned codes land in
+                    ``info.gamma``.
 
-The solve runs on ``device`` (default: the CUDA card; raises without one).
-Batched stacks, the flat ``palm4msa`` route and the ``meg``/``dictionary``
-presets come with later slices.
+A 3-D input takes the batched route: every solve runs once for the whole
+stack.  ``spec.batched`` only validates (``True`` asserts a stack;
+``False`` on a stack is refused).  The solve runs on ``device`` (default:
+the CUDA card; raises without one).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Sequence
+from typing import Any, Callable, Sequence
 
 import numpy as np
 import torch
 
-from repro_torch.api.operator import FaustOp
+from repro_torch.api.operator import FaustOp, block_diag
 from repro_torch.core.compress import (
     BlockFaust,
     _compress_spec,
     _faust_to_blockfaust,
-    _pad_to_multiple,
 )
-from repro_torch.core.faust import Faust
+from repro_torch.core.faust import Faust, default_init
 from repro_torch.core.hierarchical import (
     HierarchicalInfo,
     HierarchicalSpec,
     hadamard_spec,
+    hierarchical_dictionary,
     hierarchical_factorization,
+    hierarchical_factorization_batched,
+    meg_style_spec,
 )
+from repro_torch.core.palm4msa import palm4msa, palm4msa_batched
 from repro_torch.device import resolve_device
 
-STRATEGIES = ("hierarchical", "hadamard")
+STRATEGIES = ("hierarchical", "palm4msa", "hadamard", "meg", "dictionary")
 
 
 @dataclasses.dataclass(frozen=True)
 class FactorizeSpec:
     """Declarative factorization request; only the chosen route's fields
-    are read."""
+    are read.  ``n_iter`` is the flat ``palm4msa`` route's sweep count and
+    ``keep_best`` its acceptance rule."""
 
     strategy: str = "hierarchical"
     n_factors: int = 2
@@ -56,14 +72,43 @@ class FactorizeSpec:
     k_first: int = 4
     k_mid: int = 4
     k_resid: Sequence[int] | None = None
-    # explicit schedule (wins over the block route)
+    # explicit schedules (win over the block route)
     hier: HierarchicalSpec | None = None
-    # hadamard preset
-    constraints: str = "splincol"
+    projs: tuple | None = None  # palm4msa route: one projection per factor
+    dims: tuple[int, ...] | None = None  # palm4msa route: (a_1, …, a_{J+1})
+    # presets
+    k: int = 8  # meg: per-column sparsity of S_1
+    s: int | None = None  # meg: entries of each middle factor (default 4m)
+    rho: float = 0.8  # meg: residual decay
+    constraints: str = "splincol"  # hadamard: "splincol" | "global"
     init: str = "warm"
     # solver
+    n_iter: int = 40
     n_iter_two: int = 40
     n_iter_global: int = 40
+    keep_best: bool = True
+    batched: bool | None = None  # None: by a.ndim
+    # dictionary route
+    dict_y: Any = None
+    dict_gamma0: Any = None
+    dict_sparse_coding: Callable[[torch.Tensor, torch.Tensor], torch.Tensor] | None = None
+
+
+@dataclasses.dataclass(frozen=True)
+class TargetPrep:
+    """How the target was prepared before the solve: the block route pads
+    W's (in, out) axes to the block grid and may transpose it; the other
+    routes use it as given.  A re-solve against a new target with the same
+    spec applies the same prep."""
+
+    transpose: bool = False
+    pad_in: int = 0
+    pad_out: int = 0
+
+    def apply(self, w: torch.Tensor) -> torch.Tensor:
+        if self.pad_in or self.pad_out:
+            w = torch.nn.functional.pad(w, (0, self.pad_out, 0, self.pad_in))
+        return w.mT if self.transpose else w
 
 
 @dataclasses.dataclass
@@ -71,13 +116,34 @@ class FactorizeInfo:
     """What a ``factorize`` run learned beyond the operator."""
 
     strategy: str
-    ops: list[FaustOp]
+    batched: bool
+    ops: list[FaustOp]  # one per matrix
     fausts: list[Faust]
-    blockfausts: list[BlockFaust] | None = None
+    blockfausts: list[BlockFaust] | None = None  # block route
     hierarchical: HierarchicalInfo | None = None
+    loss_history: torch.Tensor | None = None  # palm4msa route
+    gamma: torch.Tensor | None = None  # dictionary route
     hier_spec: HierarchicalSpec | None = None
-    transpose: bool = False  # block route: solved A = Wᵀ (out < in)
+    prep: TargetPrep = TargetPrep()
     n_sweeps: int = 0
+
+    @property
+    def transpose(self) -> bool:
+        """Block route: whether A = Wᵀ was solved (out < in)."""
+        return self.prep.transpose
+
+
+def _finish(strategy, batched, fausts, *, blockfausts=None, hierarchical=None, loss_history=None,
+            gamma=None, hier_spec=None, prep=None, n_sweeps=None) -> tuple[FaustOp, FactorizeInfo]:
+    ops = [FaustOp(r) for r in (blockfausts if blockfausts is not None else fausts)]
+    if n_sweeps is None:
+        n_sweeps = hierarchical.n_sweeps if hierarchical is not None else 0
+    info = FactorizeInfo(
+        strategy, batched, ops, fausts, blockfausts=blockfausts, hierarchical=hierarchical,
+        loss_history=loss_history, gamma=gamma, hier_spec=hier_spec,
+        prep=prep if prep is not None else TargetPrep(), n_sweeps=n_sweeps,
+    )
+    return (ops[0] if len(ops) == 1 else block_diag(ops)), info
 
 
 def _as_target(a, device: torch.device) -> torch.Tensor:
@@ -88,19 +154,42 @@ def _as_target(a, device: torch.device) -> torch.Tensor:
 
 
 def factorize(a, spec: FactorizeSpec, *, device=None) -> tuple[FaustOp, FactorizeInfo]:
-    """Factorize a 2-D ``a`` (numpy or tensor) into a FAµST operator on
-    ``device``."""
+    """Factorize ``a`` (numpy or tensor; 2-D, or a 3-D stack) into a FAµST
+    operator on ``device``."""
     if spec.strategy not in STRATEGIES:
         raise ValueError(f"strategy must be one of {STRATEGIES}; got {spec.strategy!r}")
     dev = resolve_device(device)
     a = _as_target(a, dev)
-    if a.ndim != 2:
-        raise ValueError(f"expected (m, n); got {tuple(a.shape)}")
+    if a.ndim not in (2, 3):
+        raise ValueError(f"expected (m, n) or (B, m, n); got {tuple(a.shape)}")
+    batched = a.ndim == 3 if spec.batched is None else spec.batched
+    if batched and a.ndim != 3:
+        raise ValueError(f"batched=True expects (B, m, n); got {tuple(a.shape)}")
+    if not batched and a.ndim == 3:
+        raise ValueError(
+            "batched=False cannot solve a 3-D stack in one call; loop factorize over the "
+            f"matrices instead (or drop batched=False: a {tuple(a.shape)} stack batches by itself)"
+        )
 
+    if spec.strategy == "palm4msa":
+        return _route_palm(a, spec, batched)
+    if spec.strategy == "dictionary":
+        if batched:
+            raise ValueError(
+                f"strategy='dictionary' takes one 2-D initial dictionary; got {tuple(a.shape)} "
+                "(the dictionary route has no batched solver)"
+            )
+        return _route_dictionary(a, spec)
     if spec.strategy == "hadamard":
         hier = hadamard_spec(
             a.shape[-1], spec.n_iter_two, spec.n_iter_global,
             constraints=spec.constraints, init=spec.init,
+        )
+    elif spec.strategy == "meg":
+        m, n = a.shape[-2:]
+        hier = meg_style_spec(
+            m, n, spec.n_factors, spec.k, spec.s if spec.s is not None else 4 * m,
+            rho=spec.rho, n_iter_two=spec.n_iter_two, n_iter_global=spec.n_iter_global,
         )
     else:
         hier = spec.hier
@@ -110,32 +199,88 @@ def factorize(a, spec: FactorizeSpec, *, device=None) -> tuple[FaustOp, Factoriz
                     "strategy='hierarchical' needs spec.hier (an explicit "
                     "HierarchicalSpec) or spec.block (the block-granular route)"
                 )
-            return _route_block(a, spec)
-    faust, info = hierarchical_factorization(a, hier)
-    op = FaustOp(faust)
-    return op, FactorizeInfo(
-        spec.strategy, [op], [faust], hierarchical=info, hier_spec=hier, n_sweeps=info.sweeps
-    )
+            return _route_block(a, spec, batched)
+    if batched:
+        fausts, info = hierarchical_factorization_batched(a, hier)
+    else:
+        faust, info = hierarchical_factorization(a, hier)
+        fausts = [faust]
+    return _finish(spec.strategy, batched, fausts, hierarchical=info, hier_spec=hier)
 
 
-def _route_block(w: torch.Tensor, spec: FactorizeSpec) -> tuple[FaustOp, FactorizeInfo]:
-    """Dense ``W (in, out)`` → deployment BlockFaust.  ``out < in``
-    factorizes A := Wᵀ with per-block-row budgets (chain F_i = S_iᵀ), else
-    A := W with per-block-column budgets, so the square residuals sit on
-    the small side (the paper's MEG setting)."""
-    bk = spec.block
-    in_f, out_f = w.shape
-    wp = _pad_to_multiple(w, bk, bk)
-    transpose = wp.shape[1] < wp.shape[0]
-    a = wp.T if transpose else wp
+def _block_target(ws: torch.Tensor, n_factors: int, bk: int, bn: int, k_first: int, k_mid: int,
+                  k_resid: Sequence[int] | None, n_iter_two: int, n_iter_global: int):
+    """The block route's target and schedule for a stack ``ws (B, in, out)``:
+    pad to the block grid; ``out < in`` factorizes A := Wᵀ with per-block-row
+    budgets (chain F_i = S_iᵀ), else A := W with per-block-column budgets, so
+    the square residuals sit on the small side (the paper's MEG setting).
+    Returns (A, spec, prep)."""
+    if bk != bn:
+        raise ValueError("the block route needs square blocks")
+    in_f, out_f = ws.shape[1:]
+    prep = TargetPrep(False, (-in_f) % bk, (-out_f) % bn)
+    wp = prep.apply(ws)
+    prep = dataclasses.replace(prep, transpose=wp.shape[2] < wp.shape[1])
+    a = wp.mT if prep.transpose else wp
     hier = _compress_spec(
-        tuple(a.shape), transpose, spec.n_factors, bk, bk, spec.k_first, spec.k_mid,
-        spec.k_resid, spec.n_iter_two, spec.n_iter_global,
+        tuple(a.shape[1:]), prep.transpose, n_factors, bk, bn, k_first, k_mid, k_resid,
+        n_iter_two, n_iter_global,
     )
-    faust, info = hierarchical_factorization(a, hier)
-    bfaust = _faust_to_blockfaust(faust, transpose, bk, bk, in_f, out_f)
-    op = FaustOp(bfaust)
-    return op, FactorizeInfo(
-        spec.strategy, [op], [faust], blockfausts=[bfaust], hierarchical=info,
-        hier_spec=hier, transpose=transpose, n_sweeps=info.sweeps,
-    )
+    return a, hier, prep
+
+
+def _factorize_block_batched(ws: torch.Tensor, n_factors: int, bk: int, bn: int, k_first: int,
+                             k_mid: int, k_resid: Sequence[int] | None = None, n_iter_two: int = 40,
+                             n_iter_global: int = 40):
+    """The block route over a stack ``ws (B, in, out)``: every (split,
+    refine) step is one solve for the whole stack.  Returns (BlockFausts,
+    Fausts, info, spec, prep)."""
+    a, hier, prep = _block_target(ws, n_factors, bk, bn, k_first, k_mid, k_resid, n_iter_two,
+                                  n_iter_global)
+    fausts, info = hierarchical_factorization_batched(a, hier)
+    in_f, out_f = ws.shape[1:]
+    bfausts = [_faust_to_blockfaust(f, prep.transpose, bk, bn, in_f, out_f) for f in fausts]
+    return bfausts, fausts, info, hier, prep
+
+
+def _route_block(a: torch.Tensor, spec: FactorizeSpec, batched: bool):
+    kw = dict(n_factors=spec.n_factors, bk=spec.block, bn=spec.block, k_first=spec.k_first,
+              k_mid=spec.k_mid, k_resid=spec.k_resid, n_iter_two=spec.n_iter_two,
+              n_iter_global=spec.n_iter_global)
+    if batched:
+        bfs, fausts, info, hier, prep = _factorize_block_batched(a, **kw)
+    else:
+        target, hier, prep = _block_target(a[None], **kw)
+        faust, info = hierarchical_factorization(target[0], hier)
+        fausts = [faust]
+        bfs = [_faust_to_blockfaust(faust, prep.transpose, spec.block, spec.block, *a.shape)]
+    return _finish(spec.strategy, batched, fausts, blockfausts=bfs, hierarchical=info,
+                   hier_spec=hier, prep=prep)
+
+
+def _route_palm(a: torch.Tensor, spec: FactorizeSpec, batched: bool):
+    if spec.projs is None or spec.dims is None:
+        raise ValueError("strategy='palm4msa' needs spec.projs and spec.dims")
+    factors, lam = default_init(spec.dims, dtype=a.dtype, device=a.device)
+    if batched:
+        b = a.shape[0]
+        res = palm4msa_batched(
+            a, tuple(f.expand((b,) + tuple(f.shape)) for f in factors), lam, spec.projs,
+            spec.n_iter, keep_best=spec.keep_best,
+        )
+        fausts = [Faust(tuple(f[i] for f in res.factors), res.lam[i]) for i in range(b)]
+    else:
+        res = palm4msa(a, factors, lam, spec.projs, spec.n_iter, keep_best=spec.keep_best)
+        fausts = [Faust(res.factors, res.lam)]
+    return _finish(spec.strategy, batched, fausts, loss_history=res.loss_history, n_sweeps=spec.n_iter)
+
+
+def _route_dictionary(a: torch.Tensor, spec: FactorizeSpec):
+    if spec.hier is None or spec.dict_y is None or spec.dict_gamma0 is None or spec.dict_sparse_coding is None:
+        raise ValueError(
+            "strategy='dictionary' needs spec.hier, dict_y, dict_gamma0 and dict_sparse_coding"
+        )
+    y = _as_target(spec.dict_y, a.device)
+    gamma0 = _as_target(spec.dict_gamma0, a.device)
+    faust, gamma, info = hierarchical_dictionary(y, a, gamma0, spec.hier, spec.dict_sparse_coding)
+    return _finish(spec.strategy, False, [faust], hierarchical=info, gamma=gamma, hier_spec=spec.hier)

@@ -1,9 +1,11 @@
 """FaustOp — one operator object over the FAµST representations.
-Counterpart of :mod:`repro.api.operator` (leaf operators).
+Counterpart of :mod:`repro.api.operator`.
 
-A :class:`FaustOp` wraps a :class:`~repro_torch.core.faust.Faust`,
+A leaf :class:`FaustOp` wraps a :class:`~repro_torch.core.faust.Faust`,
 :class:`~repro_torch.core.compress.BlockFaust` or
-:class:`~repro_torch.core.compress.PackedChain`:
+:class:`~repro_torch.core.compress.PackedChain`; composites (``"compose"``,
+``"block_diag"``, ``"vstack"``, ``"hstack"``) hold children and
+materialize nothing until applied:
 
 * ``op.apply(x)`` computes ``x @ op.todense()`` for ``x (..., shape[0])``
   on the backend ``"dense"``, ``"bsr"`` (per-factor chain), ``"fused"``
@@ -15,19 +17,29 @@ A :class:`FaustOp` wraps a :class:`~repro_torch.core.faust.Faust`,
   forward and backward together (``grad``) and packs or unpacks from the
   live tensors on every call, so gradients reach them and an operator
   held across optimizer steps never applies stale values;
-* ``op.T`` / ``op.H`` — the adjoint, applied by the scatter form;
+* ``x @ op`` is ``op.apply(x)``; ``op @ x`` is the matrix product
+  ``op.todense() @ x`` for ``x (n,)`` or ``(n, b)``; ``op2 @ op1`` composes;
+* ``op.T`` / ``op.H`` — the (conjugate) adjoint, pushed down to the
+  leaves; an adjoint leaf is applied by the scatter form;
+* ``block_diag`` / ``vstack`` / ``hstack`` — stacked operators; a
+  composite applies each leaf through that leaf's own dispatch, so a
+  fusable leaf runs K1 on the card;
 * ``op.to("faust" | "block" | "packed")`` — conversions;
 * ``op.s_tot`` / ``op.rcg`` — the paper's complexity accounting.
 
 Device rule: ``apply`` runs on ``device`` (default: the CUDA card; raises
-without one).  On a CUDA device the structured backends run the CUDA
-kernels, on the CPU their plain versions.  A kernel that fails raises.
-Composition, stacking and sharding come with later slices.
+without one; ``x @ op`` and ``op @ x`` run where ``x`` lies).  On a CUDA
+device the structured backends run the CUDA kernels, on the CPU their
+plain versions.  A kernel that fails raises, under ``auto`` too: the
+port has no degraded ladder (the reference demotes a raising ``auto``
+apply fused → bsr → dense), so no fallback hides a kernel.  Sharding comes
+with a later slice.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
+from typing import Sequence
 
 import torch
 
@@ -44,6 +56,18 @@ from repro_torch.device import resolve_device
 _LEAF_REPS = (Faust, BlockFaust, PackedChain)
 _FORMATS = ("faust", "block", "packed")
 BACKENDS = ("auto", "dense", "bsr", "fused")
+
+
+def _conj_rep(rep):
+    """``rep`` with every complex tensor conjugated (real ones as they are)."""
+    c = lambda t: t.conj() if t.is_complex() else t  # noqa: E731
+    if isinstance(rep, Faust):
+        return Faust(tuple(c(s) for s in rep.factors), c(rep.lam))
+    if isinstance(rep, BlockFaust):
+        return BlockFaust(
+            tuple(dataclasses.replace(f, values=c(f.values)) for f in rep.factors), c(rep.lam)
+        )
+    return dataclasses.replace(rep, values=c(rep.values), lam=c(rep.lam))
 
 
 def _fusable(bf: BlockFaust) -> bool:
@@ -73,18 +97,33 @@ def batch_of(x: torch.Tensor) -> int:
 
 @dataclasses.dataclass(frozen=True, eq=False)
 class FaustOp:
-    """A leaf linear operator over one FAµST representation; ``adjoint``
-    flips it to its transpose without touching a factor."""
+    """A lazy linear operator.  ``kind`` ``"leaf"`` wraps ``rep``; the
+    composites ``"compose"``, ``"block_diag"``, ``"vstack"`` and
+    ``"hstack"`` wrap ``children`` (``compose`` in application order:
+    ``apply(x)`` folds ``x @ M_1 @ M_2 @ …``).  ``adjoint``/``conj`` live
+    on leaves only: ``.T``/``.H`` push them down, touching no factor.
+    Build composites with ``@``, :func:`block_diag`, :func:`vstack` and
+    :func:`hstack`, which check shapes."""
 
-    rep: Faust | BlockFaust | PackedChain
+    rep: Faust | BlockFaust | PackedChain | None
     adjoint: bool = False
+    conj: bool = False
+    kind: str = "leaf"
+    children: tuple["FaustOp", ...] = ()
+
+    # numpy defers ``ndarray @ op`` to :meth:`__rmatmul__`
+    __array_ufunc__ = None
 
     # -- constructors ------------------------------------------------------
     @classmethod
     def wrap(cls, obj, device=None) -> "FaustOp":
-        """Lift a representation (moved to ``device``) or an op into a FaustOp."""
+        """Lift a representation (moved to ``device``) or a leaf op into a FaustOp."""
         if isinstance(obj, cls):
-            return obj if device is None else cls(obj.rep.to(resolve_device(device)), obj.adjoint)
+            if device is None:
+                return obj
+            if obj.kind != "leaf":
+                raise ValueError("FaustOp.wrap(device=) moves a leaf; move a composite's leaves")
+            return dataclasses.replace(obj, rep=obj.rep.to(resolve_device(device)))
         if isinstance(obj, _LEAF_REPS):
             return cls(obj.to(resolve_device(device)))
         raise TypeError(
@@ -103,21 +142,38 @@ class FaustOp:
     def from_packed(cls, pc: PackedChain, device=None) -> "FaustOp":
         return cls.wrap(pc, device)
 
+    def leaves(self) -> tuple["FaustOp", ...]:
+        """The leaf operators, left to right."""
+        if self.kind == "leaf":
+            return (self,)
+        return tuple(leaf for c in self.children for leaf in c.leaves())
+
     # -- shapes and accounting ----------------------------------------------
     @property
     def shape(self) -> tuple[int, int]:
         """``todense().shape``: ``apply`` maps ``(..., shape[0]) → (..., shape[1])``."""
-        m, n = _rep_shape(self.rep)
-        return (n, m) if self.adjoint else (m, n)
+        if self.kind == "leaf":
+            m, n = _rep_shape(self.rep)
+            return (n, m) if self.adjoint else (m, n)
+        shapes = [c.shape for c in self.children]
+        if self.kind == "compose":
+            return (shapes[0][0], shapes[-1][1])
+        if self.kind == "block_diag":
+            return (sum(s[0] for s in shapes), sum(s[1] for s in shapes))
+        if self.kind == "vstack":
+            return (sum(s[0] for s in shapes), shapes[0][1])
+        return (shapes[0][0], sum(s[1] for s in shapes))  # hstack
 
     @property
     def device(self) -> torch.device:
-        return self.rep.device
+        return self.leaves()[0].rep.device
 
     @property
     def s_tot(self) -> int:
-        """Stored nonzeros: stored block values for packed forms, actual
-        nonzeros for a Faust."""
+        """Stored nonzeros over every leaf: stored block values for packed
+        forms, actual nonzeros for a Faust."""
+        if self.kind != "leaf":
+            return sum(c.s_tot for c in self.children)
         if isinstance(self.rep, PackedChain):
             return self.rep.values.numel()
         return self.rep.s_tot
@@ -130,13 +186,15 @@ class FaustOp:
 
     @property
     def n_factors(self) -> int:
+        if self.kind != "leaf":
+            return sum(c.n_factors for c in self.children)
         if isinstance(self.rep, PackedChain):
             return self.rep.plan.n_factors
         return len(self.rep.factors)
 
     def inner_dims(self) -> tuple[int, ...]:
-        """Intermediate activation widths along the chain."""
-        rep = self.rep
+        """Intermediate activation widths along a leaf's chain."""
+        rep = self._leaf_rep()
         if isinstance(rep, Faust):
             dims = [s.shape[1] for s in rep.factors[1:]]
         elif isinstance(rep, BlockFaust):
@@ -145,20 +203,73 @@ class FaustOp:
             dims = list(rep.plan.out_feats[:-1])
         return tuple(reversed(dims)) if self.adjoint else tuple(dims)
 
+    def _leaf_rep(self):
+        if self.kind != "leaf":
+            raise ValueError(f"a {self.kind!r} operator has no single representation; ask its leaves")
+        return self.rep
+
     # -- algebra -------------------------------------------------------------
+    def _adj(self, conj: bool) -> "FaustOp":
+        if self.kind == "leaf":
+            return FaustOp(self.rep, not self.adjoint, self.conj ^ conj)
+        kids = tuple(c._adj(conj) for c in self.children)
+        if self.kind == "compose":
+            return FaustOp(None, kind="compose", children=tuple(reversed(kids)))
+        kind = {"vstack": "hstack", "hstack": "vstack"}.get(self.kind, self.kind)
+        return FaustOp(None, kind=kind, children=kids)
+
     @property
     def T(self) -> "FaustOp":
-        return FaustOp(self.rep, not self.adjoint)
+        return self._adj(conj=False)
 
     @property
     def H(self) -> "FaustOp":
-        """Conjugate transpose; the port's operators are real, so ``.T``."""
-        return self.T
+        """Conjugate transpose (``.T`` on real operators)."""
+        return self._adj(conj=True)
+
+    def __matmul__(self, other):
+        """``op2 @ op1``: lazy composition (``todense`` is their product);
+        ``op @ x``: ``todense() @ x`` for ``x (n,)`` or ``(n, b)``, on x's
+        device."""
+        if isinstance(other, FaustOp):
+            if self.shape[1] != other.shape[0]:
+                raise ValueError(f"compose shape mismatch: {self.shape} @ {other.shape}")
+            kids = self.children if self.kind == "compose" else (self,)
+            kids += other.children if other.kind == "compose" else (other,)
+            return FaustOp(None, kind="compose", children=kids)
+        x = torch.as_tensor(other)
+        if x.ndim == 1:
+            return self.T.apply(x, device=x.device)
+        if x.ndim == 2:
+            return self.T.apply(x.T, device=x.device).T
+        raise ValueError(
+            f"op @ x expects x of shape (n,) or (n, b); got {tuple(x.shape)} "
+            "(use op.apply(x) for leading-batch row semantics)"
+        )
+
+    def __rmatmul__(self, x):
+        """``x @ op``: :meth:`apply` on x's device."""
+        x = torch.as_tensor(x)
+        return self.apply(x, device=x.device)
 
     def todense(self) -> torch.Tensor:
-        rep = self._unpacked_for(self._live_grad()) if isinstance(self.rep, PackedChain) else self.rep
-        d = rep.todense()
-        return d.T if self.adjoint else d
+        if self.kind == "leaf":
+            rep = self.rep
+            if isinstance(rep, PackedChain):
+                rep = self._unpacked_for(self._live_grad())
+            d = (_conj_rep(rep) if self.conj else rep).todense()
+            return d.T if self.adjoint else d
+        denses = [c.todense() for c in self.children]
+        if self.kind == "compose":
+            out = denses[0]
+            for d in denses[1:]:
+                out = out @ d
+            return out
+        if self.kind == "vstack":
+            return torch.cat(denses, dim=0)
+        if self.kind == "hstack":
+            return torch.cat(denses, dim=1)
+        return torch.block_diag(*denses)
 
     # -- application -----------------------------------------------------------
     def apply(
@@ -177,29 +288,29 @@ class FaustOp:
         there.  ``use_kernel=None`` runs the CUDA kernels on a CUDA device
         and the plain versions on the CPU; ``use_kernel=False`` forces the
         plain versions (for comparisons); ``use_kernel=True`` on the CPU
-        raises.
+        raises.  A composite applies each leaf through the leaf's own
+        dispatch (a forced ``backend`` must suit every leaf).
 
         ``bt`` is the fused forward kernel's (K1/K4) batch tile; ``None``
         takes the measured table's winner, else ``FORWARD_BT``.  The fused
-        backward kernels run at their own tiles (``kernels/ops.py``).  ``autotune=None``
-        follows ``REPRO_AUTOTUNE`` (``1``: an ``auto`` apply measures a
-        key the table lacks); ``True`` measures, ``False`` does not;
-        table hits steer ``auto`` either way unless ``REPRO_AUTOTUNE=off``
-        (:mod:`repro_torch.api.autotune`).
+        backward kernels run at their own tiles (``kernels/ops.py``).
+        ``autotune=None`` follows ``REPRO_AUTOTUNE`` (``1``: an ``auto``
+        apply measures a key the table lacks); ``True`` measures, ``False``
+        does not; table hits steer ``auto`` either way unless
+        ``REPRO_AUTOTUNE=off`` (:mod:`repro_torch.api.autotune`).
 
         ``grad=None`` detects a training apply: grad mode on and ``x`` or a
-        tensor of the operator requiring grad.  Dispatch then prices
-        forward and backward together and keys the table by ``grad``; only
-        forward keys are measured."""
+        tensor of the operator requiring grad.  Dispatch then prices and
+        measures forward and backward together, keyed by ``grad``."""
         from repro_torch.api import autotune as _autotune
-        from repro_torch.api import dispatch as _dispatch
 
         if backend not in BACKENDS:
             raise ValueError(f"backend must be one of {BACKENDS}; got {backend!r}")
         dev = resolve_device(device)
-        if x.device != dev or self.device != dev:
+        where = {leaf.device for leaf in self.leaves()}
+        if x.device != dev or where != {dev}:
             raise ValueError(
-                f"apply on {dev}: x is on {x.device} and the operator on {self.device}; "
+                f"apply on {dev}: x is on {x.device} and the operator on {sorted(map(str, where))}; "
                 "move them with .to() / FaustOp.wrap(..., device=)"
             )
         if use_kernel is None:
@@ -208,24 +319,50 @@ class FaustOp:
             raise ValueError("use_kernel=True needs a CUDA device")
         if x.shape[-1] != self.shape[0]:
             raise ValueError(f"apply expects x (..., {self.shape[0]}); got {tuple(x.shape)}")
+        if grad is None:
+            grad = torch.is_grad_enabled() and (x.requires_grad or self._live_grad())
+        if autotune is None:
+            autotune = _autotune.autotune_mode() == "measure"
+        return self._apply(x, backend, use_kernel, bt, autotune, grad)
+
+    def _apply(self, x, backend, use_kernel, bt, autotune, grad) -> torch.Tensor:
+        if self.kind == "leaf":
+            return self._leaf_apply(x, backend, use_kernel, bt, autotune, grad)
+        args = (backend, use_kernel, bt, autotune, grad)
+        if self.kind == "compose":
+            for c in self.children:
+                x = c._apply(x, *args)
+            return x
+        if self.kind == "hstack":
+            return torch.cat([c._apply(x, *args) for c in self.children], dim=-1)
+        parts = torch.split(x, [c.shape[0] for c in self.children], dim=-1)
+        ys = [c._apply(p, *args) for c, p in zip(self.children, parts)]
+        if self.kind == "vstack":
+            return sum(ys[1:], ys[0])
+        return torch.cat(ys, dim=-1)  # block_diag
+
+    def _leaf_apply(self, x, backend, use_kernel, bt, autotune, grad) -> torch.Tensor:
+        from repro_torch.api import autotune as _autotune
+        from repro_torch.api import dispatch as _dispatch
+
         if backend != "auto" and backend not in self.feasible_backends():
             raise ValueError(
                 f"backend {backend!r} is not feasible for this operator "
                 f"(feasible: {self.feasible_backends()})"
             )
-        if grad is None:
-            grad = torch.is_grad_enabled() and (x.requires_grad or self._live_grad())
-        if autotune is None:
-            autotune = _autotune.autotune_mode() == "measure"
-        if autotune and backend == "auto" and not grad:
-            _autotune.ensure_measured(self, x, batch=batch_of(x), dtype=x.dtype, use_kernel=use_kernel)
+        if autotune and backend == "auto":
+            _autotune.ensure_measured(
+                self, x, batch=batch_of(x), dtype=x.dtype, grad=grad, use_kernel=use_kernel
+            )
         report = _dispatch.dispatch(
-            self, batch_of(x), x.dtype, requested=backend, device=str(dev), bt=bt, grad=grad
+            self, batch_of(x), x.dtype, requested=backend, device=str(x.device), bt=bt, grad=grad
         )
         return self._run_backend(x, report.backend, use_kernel, report.bt)
 
     def _tensors(self) -> tuple[torch.Tensor, ...]:
-        """Every tensor of the representation (values, scales, λ, indices)."""
+        """Every tensor of the leaves' representations (values, scales, λ, indices)."""
+        if self.kind != "leaf":
+            return tuple(t for c in self.children for t in c._tensors())
         rep = self.rep
         if isinstance(rep, Faust):
             return (*rep.factors, rep.lam)
@@ -254,15 +391,16 @@ class FaustOp:
         return hit[1]
 
     def _packed_for(self, live: bool) -> PackedChain:
-        """The fused layout of the operator."""
-        if isinstance(self.rep, PackedChain):
-            return self.rep
-        return self._cached("_pack_cache", lambda: pack_chain(self.rep), live)
+        """The fused layout of a leaf."""
+        rep = self._leaf_rep()
+        if isinstance(rep, PackedChain):
+            return rep
+        return self._cached("_pack_cache", lambda: pack_chain(rep), live)
 
     def _unpacked_for(self, live: bool) -> BlockFaust:
         """A packed leaf's per-factor form: for a quantized chain the exact
         f32 values, dequantized once per state of the codes and scales."""
-        return self._cached("_unpack_cache", lambda: unpack_chain(self.rep), live)
+        return self._cached("_unpack_cache", lambda: unpack_chain(self._leaf_rep()), live)
 
     @property
     def _packed(self) -> PackedChain:
@@ -278,8 +416,9 @@ class FaustOp:
         rep = self.rep
         live = self._live_grad()
         if backend == "dense":
-            dense = (self._unpacked_for(live) if isinstance(rep, PackedChain) else rep).todense()
-            return x @ (dense.T if self.adjoint else dense).to(x.dtype)
+            return x @ self.todense().to(x.dtype)
+        if self.conj:
+            rep = _conj_rep(rep)
         if isinstance(rep, Faust):  # "bsr" = the per-factor chain
             y = x
             if self.adjoint:  # x @ Aᵀ = x @ S_1ᵀ @ … @ S_Jᵀ
@@ -300,51 +439,87 @@ class FaustOp:
         """``(values_dtype, scales_bytes)`` of a quantized packed leaf for
         the dispatch byte model; ``(None, 0)`` otherwise."""
         rep = self.rep
-        if isinstance(rep, PackedChain) and rep.quantized:
+        if self.kind == "leaf" and isinstance(rep, PackedChain) and rep.quantized:
             return rep.values_dtype, rep.scales.numel() * 4
         return None, 0
 
+    def bsr_gather(self) -> int:
+        """Input elements per batch row that the bsr backward gathers,
+        ``Σ_j s_j / bn_j`` over block-sparse factors (the dispatch model's
+        bsr backward intermediates); 0 for a chain of dense factors."""
+        rep = self._leaf_rep()
+        if isinstance(rep, PackedChain):
+            return self.s_tot // rep.plan.block
+        if isinstance(rep, BlockFaust):
+            return sum(f.values[..., 0].numel() for f in rep.factors)
+        return 0
+
     def feasible_backends(self) -> tuple[str, ...]:
-        """Backends this operator can run: adjoints and Faust leaves have no
+        """Backends this leaf can run: adjoints and Faust leaves have no
         fused kernel; a BlockFaust needs a packable chain."""
-        if isinstance(self.rep, Faust) or self.adjoint:
+        rep = self._leaf_rep()
+        if isinstance(rep, Faust) or self.adjoint:
             return ("dense", "bsr")
-        if isinstance(self.rep, PackedChain) or _fusable(self.rep):
+        if isinstance(rep, PackedChain) or _fusable(rep):
             return ("dense", "bsr", "fused")
         return ("dense", "bsr")
 
     def dispatch_for(self, batch: int, dtype=torch.float32, grad: bool = False):
         """The decision ``apply(backend="auto")`` would make at ``batch``
         (``grad``: for a training apply), without applying and without
-        touching ``last_report``."""
+        touching ``last_report``; a composite answers its last leaf's."""
         from repro_torch.api import dispatch as _dispatch
 
+        if self.kind != "leaf":
+            return self.leaves()[-1].dispatch_for(batch, dtype, grad)
         return _dispatch.dispatch(
             self, batch, dtype, requested="auto", device=str(self.device), record=False, grad=grad
         )
 
     # -- conversions -------------------------------------------------------------
     def _as_faust(self) -> Faust:
+        """One optimization-side chain: a leaf, or a composition of leaves
+        (stacked operators have none)."""
+        if self.kind == "compose":
+            fausts = [c._as_faust() for c in self.children]
+            # x @ M_1 @ … @ M_k: the first-applied factor is M_k's first
+            factors = [s for f in reversed(fausts) for s in f.factors]
+            lam = fausts[0].lam
+            for f in fausts[1:]:
+                lam = lam * f.lam
+            return Faust(tuple(factors), lam)
+        if self.kind != "leaf":
+            raise ValueError(
+                f"cannot collapse a {self.kind!r} operator into one chain; convert its children"
+            )
         rep = self._unpacked if isinstance(self.rep, PackedChain) else self.rep
         if isinstance(rep, BlockFaust):
             # todense = lam·F_1···F_J = lam·S_J···S_1 with S_i = F_{J+1-i}
             rep = Faust(tuple(f.todense() for f in reversed(rep.factors)), rep.lam)
+        if self.conj:
+            rep = _conj_rep(rep)
         return rep.T if self.adjoint else rep
+
+    def _own_block(self) -> int | None:
+        for leaf in self.leaves():
+            if isinstance(leaf.rep, BlockFaust):
+                return leaf.rep.factors[0].bk
+            if isinstance(leaf.rep, PackedChain):
+                return leaf.rep.plan.block
+        return None
 
     def to(self, fmt: str, block: int | None = None) -> "FaustOp":
         """Convert to ``fmt`` ∈ {"faust", "block", "packed"}, preserving
         ``todense()``; ``block`` is the square block side of the packed
-        forms (default: the block of a block-structured operator)."""
+        forms (default: the block of a block-structured leaf)."""
         if fmt not in _FORMATS:
             raise ValueError(f"fmt must be one of {_FORMATS}; got {fmt!r}")
         if fmt == "faust":
             return FaustOp(self._as_faust())
+        own_block = self._own_block()
         rep = self.rep
-        own_block = (
-            rep.factors[0].bk if isinstance(rep, BlockFaust)
-            else rep.plan.block if isinstance(rep, PackedChain) else None
-        )
-        if not self.adjoint and own_block is not None and block in (None, own_block):
+        if self.kind == "leaf" and not self.adjoint and not self.conj and own_block is not None \
+                and block in (None, own_block):
             if fmt == "block":
                 return self if isinstance(rep, BlockFaust) else FaustOp(self._unpacked)
             if isinstance(rep, PackedChain):
@@ -362,6 +537,46 @@ class FaustOp:
     def rel_error_fro(self, a: torch.Tensor) -> torch.Tensor:
         return torch.linalg.norm(a - self.todense()) / torch.linalg.norm(a)
 
+    def rel_error_spec(self, a: torch.Tensor) -> torch.Tensor:
+        """Relative operator-norm error (paper eq. (6))."""
+        from repro_torch.core.lipschitz import spectral_norm
+
+        return spectral_norm(a - self.todense()) / (spectral_norm(a) + 1e-30)
+
     def __repr__(self) -> str:
-        tag = "ᵀ" if self.adjoint else ""
+        if self.kind != "leaf":
+            return f"FaustOp<{self.kind}({len(self.children)}) {self.shape} on {self.device}>"
+        tag = ("ᵀ" if self.adjoint else "") + ("*" if self.conj else "")
         return f"FaustOp<{type(self.rep).__name__}{tag} {self.shape} on {self.device}>"
+
+
+def _wrap_all(ops: Sequence) -> tuple[FaustOp, ...]:
+    if not ops:
+        raise ValueError("need at least one operator")
+    return tuple(FaustOp.wrap(o) for o in ops)
+
+
+def block_diag(ops: Sequence) -> FaustOp:
+    """``diag(M_1, …, M_k)``: ``apply`` splits the input's features per
+    child and concatenates the outputs."""
+    return FaustOp(None, kind="block_diag", children=_wrap_all(ops))
+
+
+def vstack(ops: Sequence) -> FaustOp:
+    """``[M_1; …; M_k]`` (rows stacked; equal output dims): ``apply``
+    splits the input and sums the children's outputs."""
+    kids = _wrap_all(ops)
+    outs = {c.shape[1] for c in kids}
+    if len(outs) > 1:
+        raise ValueError(f"vstack needs equal output dims; got {outs}")
+    return FaustOp(None, kind="vstack", children=kids)
+
+
+def hstack(ops: Sequence) -> FaustOp:
+    """``[M_1 … M_k]`` (columns stacked; equal input dims): ``apply`` feeds
+    every child the input and concatenates the outputs."""
+    kids = _wrap_all(ops)
+    ins = {c.shape[0] for c in kids}
+    if len(ins) > 1:
+        raise ValueError(f"hstack needs equal input dims; got {ins}")
+    return FaustOp(None, kind="hstack", children=kids)

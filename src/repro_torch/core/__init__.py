@@ -1,2 +1,4 @@
-"""Optimization-side FAµST: factors, projections, PALM and the hierarchical
-algorithm, plus the packed deployment formats (``compress``)."""
+"""Optimization-side FAµST: factors, projections, PALM (one matrix or a
+stack), the hierarchical algorithm and its dictionary variant, sparse
+coding (``dictionary``), plus the packed deployment formats
+(``compress``)."""

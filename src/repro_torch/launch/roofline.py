@@ -2,10 +2,12 @@
 Counterpart of ``load_roofline``/``roofline_constants`` in
 :mod:`repro.launch.roofline`; the port prices with its own card's numbers.
 
-* ``peak_flops`` 989e12 FLOP/s: dense bf16 tensor-core peak, and
-  ``hbm_bw`` 3.35e12 B/s, ``link_bw`` 450e9 B/s (NVLink, each way): NVIDIA's
-  H100 SXM data sheet.  Like the reference, f32 applies are priced at the
-  bf16 peak.
+* ``peak_flops`` 989e12 FLOP/s: dense bf16 tensor-core peak;
+  ``peak_flops_f32`` 67e12 FLOP/s: f32 outside the tensor cores (FFMA),
+  the rate an f32 apply runs at (TF32 stays off); ``hbm_bw`` 3.35e12 B/s,
+  ``link_bw`` 450e9 B/s (NVLink, each way): NVIDIA's H100 SXM data sheet.
+  The reference prices every dtype at one peak; the port prices f32 at
+  its own.
 * ``t_launch_us``: per-launch overhead, measured by ``chip_smoke.py``:
   CUDA events over 1000 back-to-back launches of an empty kernel through
   the same ctypes path the kernel wrappers use.  Four runs on an NVIDIA
@@ -17,6 +19,7 @@ from __future__ import annotations
 
 _BUILTIN = {
     "peak_flops": 989e12,
+    "peak_flops_f32": 67e12,
     "hbm_bw": 3.35e12,
     "link_bw": 450e9,
     "t_launch_us": 16.36,

@@ -9,6 +9,12 @@ parameter dtype, ``delta = m̂ / (sqrt(v̂) + eps) + wd · p``, and
 ``in_idx`` buffers are not parameters).  Updates are in place, under
 ``no_grad``, so the version counters of the parameters move (a cached
 packed chain sees the step).
+
+Nothing leaves the device: the step count lives on the parameters'
+device, and the schedule and bias corrections are computed there once
+per step.  ``apply_updates(ok=)`` is the NaN guard as the reference writes
+it (``jnp.where``): where ``ok`` is false the parameters, the moments and
+the step count keep their values, with no host sync.
 """
 from __future__ import annotations
 
@@ -35,21 +41,24 @@ class AdamWConfig:
 class AdamWState:
     mu: dict
     nu: dict
-    step: int = 0
+    step: torch.Tensor  # int32, 0-d, on the parameters' device
 
 
 def init_state(params: dict) -> AdamWState:
-    """f32 zero moments for every floating parameter."""
+    """f32 zero moments for every floating parameter, step 0."""
     def z(p):
         return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
 
     floats = {k: p for k, p in params.items() if p.is_floating_point()}
-    return AdamWState({k: z(p) for k, p in floats.items()}, {k: z(p) for k, p in floats.items()}, 0)
+    dev = next(iter(floats.values())).device if floats else torch.device("cpu")
+    step = torch.zeros((), dtype=torch.int32, device=dev)
+    return AdamWState({k: z(p) for k, p in floats.items()}, {k: z(p) for k, p in floats.items()}, step)
 
 
-def schedule(cfg: AdamWConfig, step: int) -> torch.Tensor:
-    """Linear warmup, then cosine decay to ``min_lr_ratio`` (f32)."""
-    s = torch.tensor(step, dtype=torch.float32)
+def schedule(cfg: AdamWConfig, step) -> torch.Tensor:
+    """Linear warmup, then cosine decay to ``min_lr_ratio`` (f32, on
+    ``step``'s device when it is a tensor)."""
+    s = torch.as_tensor(step).to(torch.float32)
     warm = s / max(cfg.warmup_steps, 1)
     prog = torch.clamp((s - cfg.warmup_steps) / max(cfg.decay_steps - cfg.warmup_steps, 1), 0.0, 1.0)
     cos = cfg.min_lr_ratio + (1 - cfg.min_lr_ratio) * 0.5 * (1 + torch.cos(math.pi * prog))
@@ -67,22 +76,35 @@ def clip_by_global_norm(grads: dict, max_norm: float) -> tuple[dict, torch.Tenso
 
 
 @torch.no_grad()
-def apply_updates(cfg: AdamWConfig, params: dict, grads: dict, state: AdamWState) -> dict:
+def apply_updates(cfg: AdamWConfig, params: dict, grads: dict, state: AdamWState, ok=None) -> dict:
     """One step in place on ``params`` and ``state``; returns
     ``{"grad_norm", "lr"}``.  ``grads`` holds a gradient for every key of
-    ``state.mu``."""
+    ``state.mu``.  ``ok`` (a 0-d bool tensor on the parameters' device,
+    default true) applies the step only where it holds: otherwise the
+    moments decay by 1 and take no gradient, the parameters move by 0 and
+    the step count stays, so every tensor keeps its bits."""
     grads, gnorm = clip_by_global_norm({k: grads[k] for k in state.mu}, cfg.grad_clip)
-    state.step += 1
-    step = torch.tensor(state.step, dtype=torch.float32)
-    lr = schedule(cfg, state.step)
-    b1c = 1 - cfg.b1**step
-    b2c = 1 - cfg.b2**step
+    dev = state.step.device
+    ok = torch.ones((), dtype=torch.bool, device=dev) if ok is None else ok
+
+    def pick(on: float, off: float) -> torch.Tensor:  # device constants, no host copy
+        full = lambda v: torch.full((), v, dtype=torch.float32, device=dev)  # noqa: E731
+        return torch.where(ok, full(on), full(off))
+
+    step = state.step + 1
+    lr = schedule(cfg, step)
+    s32 = step.to(torch.float32)
+    b1c = 1 - cfg.b1**s32
+    b2c = 1 - cfg.b2**s32
+    d1, c1, d2, c2 = pick(cfg.b1, 1.0), pick(1 - cfg.b1, 0.0), pick(cfg.b2, 1.0), pick(1 - cfg.b2, 0.0)
+    lr_eff = torch.where(ok, lr, 0.0)
     for k, g in grads.items():
         p, mu, nu = params[k], state.mu[k], state.nu[k]
-        g32 = g.float()
-        mu.mul_(cfg.b1).add_((1 - cfg.b1) * g32)
-        nu.mul_(cfg.b2).add_((1 - cfg.b2) * g32 * g32)
-        delta = (mu / b1c.to(mu.device)) / (torch.sqrt(nu / b2c.to(nu.device)) + cfg.eps)
+        g32 = torch.where(ok, g.float(), 0.0)
+        mu.mul_(d1).add_(c1 * g32)
+        nu.mul_(d2).add_(c2 * g32 * g32)
+        delta = (mu / b1c) / (torch.sqrt(nu / b2c) + cfg.eps)
         delta = delta + cfg.weight_decay * p.float()
-        p.copy_((p.float() - lr.to(p.device) * delta).to(p.dtype))
+        p.copy_((p.float() - lr_eff * delta).to(p.dtype))
+    state.step = torch.where(ok, step, state.step)
     return {"grad_norm": gnorm, "lr": lr}

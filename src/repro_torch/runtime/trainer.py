@@ -3,7 +3,9 @@
 
 Kept from the reference: microbatch gradient accumulation (f32 sums), the
 NaN/Inf guard (a non-finite loss skips the update and leaves the
-optimizer state as it was), the per-step wall-time EWMA that flags
+optimizer state as it was; decided on the device, as the reference's
+``jnp.where``, so the step never waits for the host), the per-step
+wall-time EWMA that flags
 stragglers, the heartbeat file, and ``Trainer.faust_dispatch``: the FAµST
 backend decision the first step made, captured when it was priced for
 training (``DispatchReport.grad``).
@@ -68,7 +70,8 @@ def check_train_config(tcfg: TrainConfig) -> None:
 
 def make_train_step(model: LM, opt_cfg: AdamWConfig, tcfg: TrainConfig):
     """``step(batch, state) -> metrics``: loss and gradients (accumulated
-    in f32 over ``tcfg.microbatches``), the NaN guard, then AdamW in place."""
+    in f32 over ``tcfg.microbatches``), then :func:`guarded_update`.  The
+    metrics are device tensors."""
     params = {k: p for k, p in model.named_parameters()}
 
     def step(batch: dict, state: AdamWState) -> dict:
@@ -97,14 +100,20 @@ def make_train_step(model: LM, opt_cfg: AdamWConfig, tcfg: TrainConfig):
             grads = {k: p.grad for k, p in params.items()}
         for p in params.values():
             p.grad = None
-        metrics = {"loss": loss}
-        ok = bool(torch.isfinite(loss))
-        if ok:
-            metrics.update(adamw.apply_updates(opt_cfg, params, grads, state))
-        metrics["skipped"] = torch.tensor(0.0 if ok else 1.0)
-        return metrics
+        return guarded_update(opt_cfg, params, grads, state, loss)
 
     return step
+
+
+def guarded_update(opt_cfg: AdamWConfig, params: dict, grads: dict, state: AdamWState,
+                   loss: torch.Tensor) -> dict:
+    """AdamW where ``loss`` is finite, nothing where it is not, decided on
+    the device (no host sync).  Returns the metrics as device tensors,
+    ``skipped`` 1.0 for a skipped update."""
+    ok = torch.isfinite(loss)
+    metrics = {"loss": loss, **adamw.apply_updates(opt_cfg, params, grads, state, ok=ok)}
+    metrics["skipped"] = (~ok).to(torch.float32)
+    return metrics
 
 
 class Trainer:

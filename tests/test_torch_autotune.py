@@ -194,3 +194,130 @@ def test_decisions_are_reused_until_their_inputs_change(table, op, monkeypatch):
     slow = op.dispatch_for(11)
     assert slow.source == "model" and slow.est_us["fused"] > 1e6 > first.est_us["fused"]
     assert len(dispatch._MEMO) <= dispatch._MEMO_MAX
+
+
+# ---------------------------------------------------------------------------
+# Signature prefix, invalidation, grad keys and a failing backend
+# ---------------------------------------------------------------------------
+
+
+def test_op_key_prefix_matches_reference(op):
+    from repro.api import FaustOp as JOp
+    from repro.api import hstack as jhstack
+    from repro_torch.api import hstack
+
+    jpc = jc.pack_chain(jax_chain(DIMS, 16, 3, seed=6))
+    jop = JOp.from_packed(jpc)
+    assert autotune.op_key_prefix(op) == jautotune.op_key_prefix(jop) == f"40x90|J3|s{op.s_tot}|"
+    assert autotune.op_key_prefix(op.T) == jautotune.op_key_prefix(jop.T)
+    assert autotune.op_key_prefix(hstack([op, op])) == jautotune.op_key_prefix(jhstack([jop, jop]))
+    assert autotune.key_for_op(op, batch=8, dtype=torch.float32).startswith(autotune.op_key_prefix(op))
+
+
+def test_invalidate_removes_the_same_keys_as_the_reference(table, tmp_path, monkeypatch, op):
+    prefix = autotune.op_key_prefix(op)
+    entry = {"best": "bsr", "us": {"bsr": 1.0}}
+    keys = [autotune.key_for_op(op, batch=b, dtype=torch.float32, grad=g) for b in (1, 8, 300) for g in (False, True)]
+    keys += ["40x90|J2|s5376|b8|float32|fwd|mesh:-|cpu", "40x900|J3|s5376|b8|float32|fwd|mesh:-|cpu"]
+    content = {"version": autotune.TABLE_VERSION, "entries": {k: entry for k in keys}}
+    jpath = str(tmp_path / "reference.json")
+    for path in (table, jpath):
+        with open(path, "w") as f:
+            json.dump(content, f)
+    monkeypatch.setenv("REPRO_AUTOTUNE_TABLE", jpath)
+    jautotune.reload()
+    autotune.reload()
+    assert autotune.invalidate(prefix) == jautotune.invalidate(prefix) == 6
+    assert set(autotune.reload()["entries"]) == set(jautotune.reload()["entries"]) == set(keys[6:])
+    assert autotune.invalidate(prefix) == 0
+    monkeypatch.setenv("REPRO_TORCH_AUTOTUNE_TABLE", str(tmp_path / "missing.json"))
+    autotune.reload()
+    assert autotune.invalidate(prefix) == 0
+
+
+@pytest.mark.parametrize("form", ["packed", "quantized", "block", "faust"])
+def test_measure_under_grad_times_every_feasible_backend(table, op, form):
+    """``grad=True`` times forward + backward wrt x and the operator's
+    trained tensors, for every feasible backend, and leaves the operator's
+    own tensors as they were."""
+    leaf = {"packed": op, "quantized": FaustOp(quantize_chain(op.rep, "int8", "per_block")),
+            "block": op.to("block"), "faust": op.to("faust")}[form]
+    x = torch.randn((6, DIMS[0]), generator=torch.Generator().manual_seed(1))
+    entry = autotune.measure(leaf, x, grad=True, use_kernel=False)
+    assert set(entry["us"]) == set(leaf.feasible_backends()) and entry["ctx"]["grad"] is True
+    assert all(v > 0 for v in entry["us"].values())
+    assert not any(t.requires_grad for t in leaf._tensors()) and not x.requires_grad
+    trained = [t for t in autotune._trainable(leaf)._tensors() if t.requires_grad]
+    want = {"packed": 1, "quantized": 1, "block": 3, "faust": 3}[form]
+    assert len(trained) == want and all(t.is_floating_point() for t in trained)
+
+
+def test_autotuned_apply_under_grad_measures_a_grad_key(table, op):
+    """``apply(autotune=True)`` in a training apply measures its ``grad``
+    key, and ``auto`` then follows the measured table under grad."""
+    x = torch.randn((6, DIMS[0]), generator=torch.Generator().manual_seed(2), requires_grad=True)
+    y = op.apply(x, device=CPU, autotune=True)
+    rep = last_report()
+    key = autotune.key_for_op(op, batch=6, dtype=torch.float32, grad=True)
+    assert key.split("|")[5] == "grad" and autotune.lookup(key) is not None
+    assert autotune.lookup(autotune.key_for_op(op, batch=6, dtype=torch.float32)) is None
+    assert rep.grad and rep.source == "measured" and rep.backend == min(rep.est_us, key=rep.est_us.get)
+    y.sum().backward()
+    assert torch.allclose(x.grad, op.todense().sum(1).expand(6, -1), rtol=1e-4, atol=1e-5)
+
+
+def _break(monkeypatch, failing: str, calls: list):
+    real = FaustOp._run_backend
+
+    def broken(self, x, backend, use_kernel, bt):
+        calls.append(backend)
+        if backend == failing:
+            raise RuntimeError(f"{failing} kernel launch failed")
+        return real(self, x, backend, use_kernel, bt)
+
+    monkeypatch.setattr(FaustOp, "_run_backend", broken)
+
+
+@pytest.mark.parametrize("env", [None, "0", "1"])
+@pytest.mark.parametrize("failing", ["fused", "bsr"])
+def test_auto_apply_raises_by_default(table, op, monkeypatch, env, failing):
+    """No fallback hides a kernel that fails: an ``auto`` apply whose
+    backend raises re-raises, whatever ``REPRO_DEGRADED`` says (the port
+    has no degraded ladder, where the reference demotes), and the next
+    ``auto`` apply runs the same backend again."""
+    if env is None:
+        monkeypatch.delenv("REPRO_DEGRADED", raising=False)
+    else:
+        monkeypatch.setenv("REPRO_DEGRADED", env)
+    us = {"dense": 3.0, "bsr": 2.0, "fused": 1.0} if failing == "fused" else {"dense": 3.0, "bsr": 1.0, "fused": 2.0}
+    _write(op, 8, {"best": failing, "us": us})
+    calls: list = []
+    _break(monkeypatch, failing, calls)
+    x = torch.ones((8, DIMS[0]))
+    for _ in range(2):
+        with pytest.raises(RuntimeError, match=f"{failing} kernel launch failed"):
+            op.apply(x, device=CPU)
+    assert calls == [failing, failing] and last_report().backend == failing
+    assert last_report().source == "measured"
+
+
+@pytest.mark.parametrize("gain,want", [(0.03, 64), (0.10, 16)])
+def test_tile_sweep_keeps_the_default_tile_within_the_margin(table, op, monkeypatch, gain, want):
+    """The fused sweep takes another tile only where it beats the default
+    (``FORWARD_BT``) by more than ``TILE_MARGIN``; every candidate of every
+    backend is timed in one interleaved call."""
+    from repro_torch.kernels.chain import FORWARD_BT, SUPPORTED_BT
+
+    seen = []
+
+    def fake(fns, device):
+        seen.append(sorted(fns))
+        return {c: (100.0 * (1 - gain) if c == ("fused", 16) else 100.0) + {"dense": 50, "bsr": 20}.get(c[0], 0)
+                for c in fns}
+
+    monkeypatch.setattr(autotune, "_timeit_us", fake)
+    entry = autotune.measure(op, torch.ones((8, DIMS[0])), use_kernel=True)
+    assert FORWARD_BT == 64 and autotune.TILE_MARGIN == 0.05
+    assert len(seen) == 1 and {c for c in seen[0] if c[0] == "fused"} == {("fused", t) for t in SUPPORTED_BT}
+    assert entry["bt"] == want and entry["best"] == "fused"
+    assert entry["us"]["fused"] == pytest.approx(100.0 * (1 - gain) if want == 16 else 100.0)

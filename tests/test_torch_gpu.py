@@ -516,3 +516,79 @@ def test_wgrad_kernel_skewed_chains(dev, blk, chain, dtype):
         q = quantize_chain(pc, "int8", "per_row")
         _wgrad_cases(x, dy, q.values, meta, q.plan, expand_scales(q.scales, blk).contiguous(), (16, WGRAD_BT),
                      lambda: chain_wgrad.q_launches)
+
+
+# ---------------------------------------------------------------------------
+# Slice 7: the trainer's update without a host sync, measured grad
+# dispatch, the batched factorizer
+# ---------------------------------------------------------------------------
+
+
+def test_trainer_update_never_syncs_the_host(dev, monkeypatch):
+    """The guarded AdamW update runs under ``set_sync_debug_mode("error")``:
+    a read-back to the host inside it (the old ``bool(isfinite(loss))``)
+    raises."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.models.lm import LM
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import trainer
+
+    real = trainer.guarded_update
+    runs = []
+
+    def strict(*args, **kw):
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = real(*args, **kw)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        runs.append(out)
+        return out
+
+    monkeypatch.setattr(trainer, "guarded_update", strict)
+    model = LM(get_smoke("gemma_2b"), seed=0, device=dev)
+    step = trainer.make_train_step(model, adamw.AdamWConfig(lr=1e-3, warmup_steps=1), trainer.TrainConfig())
+    state = adamw.init_state(dict(model.named_parameters()))
+    tokens = torch.randint(0, model.cfg.vocab, (2, 16), generator=torch.Generator().manual_seed(0)).to(dev)
+    for _ in range(2):
+        metrics = step({"tokens": tokens}, state)
+    assert len(runs) == 2 and all(v.device.type == "cuda" for v in metrics.values())
+    assert float(metrics["skipped"]) == 0.0 and int(state.step) == 2 and torch.isfinite(metrics["loss"])
+
+
+def test_measure_under_grad_records_the_fused_tile(dev, tmp_path, monkeypatch):
+    """``measure(grad=True)`` on the card: fwd+bwd per feasible backend,
+    the fused forward tile swept and its winner recorded: the default tile
+    (64) unless another beat it by ``TILE_MARGIN``."""
+    monkeypatch.setenv("REPRO_TORCH_AUTOTUNE_TABLE", str(tmp_path / "t.json"))
+    autotune.reload()
+    g = torch.Generator().manual_seed(3)
+    bf = BlockFaust(tuple(random_block_factor(a, b, 128, 128, 4, generator=g, device=dev)
+                          for a, b in ((512, 512), (512, 1024))), torch.ones((), device=dev))
+    op = FaustOp.from_blockfaust(bf, device=dev)
+    for dtype in (torch.float32, torch.bfloat16):
+        x = torch.randn((256, 512), generator=g).to(dev, dtype)
+        entry = autotune.measure(op, x, grad=True, use_kernel=True)
+        assert set(entry["us"]) == {"dense", "bsr", "fused"} and entry["ctx"]["grad"]
+        assert entry["bt"] in SUPPORTED_BT and set(entry["bt_us"]) == {str(t) for t in SUPPORTED_BT}
+        bt_us = {int(t): v for t, v in entry["bt_us"].items()}
+        assert entry["bt"] == 64 or bt_us[entry["bt"]] * (1 + autotune.TILE_MARGIN) <= bt_us[64] + 1e-3
+    autotune.reload()
+
+
+def test_batched_factorization_equals_sequential(dev):
+    """A stack of 4 (256 × 1024) through the batched route: each matrix's
+    RE within 1e-5 of its own sequential run (bmm and mm may sum in other
+    orders on the card), every operator applied fused against its dense
+    form."""
+    ws = torch.randn((4, 256, 1024), generator=torch.Generator(device=dev).manual_seed(0), device=dev) / 16
+    spec = FactorizeSpec(strategy="hierarchical", n_factors=3, block=32, k_first=4, k_mid=4,
+                         n_iter_two=10, n_iter_global=10)
+    op, info = factorize(ws, spec, device=dev)
+    assert op.kind == "block_diag" and len(info.ops) == 4
+    x = torch.randn((64, 256), generator=torch.Generator().manual_seed(1)).to(dev)
+    for i, o in enumerate(info.ops):
+        single, _ = factorize(ws[i], spec, device=dev)
+        assert abs(float(o.rel_error_fro(ws[i])) - float(single.rel_error_fro(ws[i]))) <= 1e-5
+        assert _rel(o.apply(x, "fused", device=dev), x @ o.todense()) <= 1e-4

@@ -92,8 +92,20 @@ def same_constants(monkeypatch):
         ((256, 256), 4096, (), 1, ("dense", "bsr", "fused")),
     ],
 )
-def test_choose_backend_matches_reference(same_constants, batch, shape, s_tot, inner, n_factors, feasible):
-    for tdt, jdt in ((torch.float32, jnp.float32), (torch.bfloat16, jnp.bfloat16)):
+def test_choose_backend_matches_reference(same_constants, monkeypatch, batch, shape, s_tot, inner, n_factors,
+                                          feasible):
+    """bf16: the reference's decision and estimates.  f32: the reference's
+    closed form evaluated at the card's f32 peak, which the port prices
+    f32 at (the reference prices every dtype at its one ``peak_flops``):
+    the reference sees that peak as its ``peak_flops``, the port as its
+    ``peak_flops_f32``."""
+    f32_peak = roofline.load_roofline()[0]["peak_flops_f32"]
+    for tdt, jdt in ((torch.bfloat16, jnp.bfloat16), (torch.float32, jnp.float32)):
+        if tdt == torch.float32:
+            monkeypatch.setattr(roofline, "roofline_constants",
+                                lambda: ({**same_constants, "peak_flops_f32": f32_peak}, "test"))
+            monkeypatch.setattr(jdispatch, "roofline_constants",
+                                lambda: ({**same_constants, "peak_flops": f32_peak}, "test"))
         kw = dict(batch=batch, shape=shape, s_tot=s_tot, inner_dims=inner,
                   n_factors=n_factors, feasible=feasible)
         mine = dispatch.choose_backend(dtype=tdt, **kw)
@@ -103,6 +115,94 @@ def test_choose_backend_matches_reference(same_constants, batch, shape, s_tot, i
         for k in ref.est_us:
             assert mine.est_us[k] == pytest.approx(ref.est_us[k], rel=1e-9)  # same closed form, float64
         assert mine.weight_bytes == ref.weight_bytes and mine.dtype == ref.dtype
+
+
+def test_f32_is_priced_at_the_ffma_peak():
+    """The port's own constants: f32 operations at 67e12 FLOP/s (FFMA, the
+    H100 SXM data sheet), bf16 at 989e12; a constants dict without the f32
+    key prices f32 at ``peak_flops``."""
+    consts, _ = roofline.roofline_constants()
+    assert consts["peak_flops_f32"] == 67e12 and consts["peak_flops"] == 989e12
+    kw = dict(batch=4096, shape=(2048, 16384), s_tot=11_010_048, inner_dims=(2048, 2048), n_factors=3)
+    for dtype, peak in ((torch.float32, 67e12), (torch.bfloat16, 989e12)):
+        rep = dispatch.choose_backend(dtype=dtype, **kw)
+        flops = 2.0 * 4096 * 11_010_048
+        byts = dtype.itemsize * 11_010_048 + dtype.itemsize * 4096 * (2048 + 16384)
+        want = max(flops / peak, byts / consts["hbm_bw"]) * 1e6 + consts["t_launch_us"]
+        assert rep.est_us["fused"] == pytest.approx(want, rel=1e-12)
+    f32 = dispatch.choose_backend(dtype=torch.float32, **kw).est_us["fused"]
+    assert f32 > 4096 * 2 * 11_010_048 / 67e12 * 1e6  # compute-bound at the FFMA rate
+
+
+def test_bsr_backward_launch_count_is_the_plain_backwards():
+    """``BSR_BWD_LAUNCHES`` is the number of kernels the bsr backward
+    (``kernels/ref.py`` ``bsr_matmul_dx`` and ``bsr_matmul_dvalues``) runs
+    per factor in f32: every aten call that is not a view."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from repro_torch.kernels import ref
+
+    class Launches(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if not func.is_view and func.__name__ != "_unsafe_view.default":
+                self.n += 1
+            return func(*args, **(kwargs or {}))
+
+    g = torch.Generator().manual_seed(0)
+    values = torch.randn((4, 2, 8, 8), generator=g)
+    in_idx = torch.randint(0, 4, (4, 2), generator=g, dtype=torch.int32)
+    x, dy = torch.randn((16, 32), generator=g), torch.randn((16, 32), generator=g)
+    with Launches() as mode:
+        ref.bsr_matmul_dx(dy, values, in_idx, 32)
+        ref.bsr_matmul_dvalues(x, dy, in_idx, (8, 8))
+    assert mode.n == dispatch.BSR_BWD_LAUNCHES == 8
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("batch", [128, 4096])
+@pytest.mark.parametrize("quant", [None, ("int8", 4 * 672 * 128)])
+def test_grad_pricing_of_the_bsr_backward(dtype, batch, quant):
+    """Under grad, bsr over block-sparse factors pays its backward's two f32
+    intermediates and launches beside the reference's terms, and the model
+    then picks what the H100 measured fastest at the training-apply keys
+    (PERF.md §5: fused, except f32 x at B = 4096).  Pricing f32 at the FFMA
+    peak without them picked bsr at f32 x, B = 128, twice as slow."""
+    consts, _ = roofline.roofline_constants()
+    s_tot, gather = 11_010_048, 11_010_048 // 128
+    kw = dict(batch=batch, shape=(2048, 16384), dtype=dtype, s_tot=s_tot, inner_dims=(2048, 2048),
+              n_factors=3, grad=True)
+    if quant is not None:
+        kw.update(values_dtype=quant[0], scales_bytes=quant[1])
+    ref_form = dispatch.choose_backend(**kw)
+    mine = dispatch.choose_backend(bsr_gather=gather, **kw)
+    peak = consts["peak_flops_f32"] if dtype == torch.float32 else consts["peak_flops"]
+    elt = dtype.itemsize
+    w = (1 if quant else elt) * s_tot + (quant[1] if quant else 0)
+    byts = 3 * w + (4 if quant else elt) * s_tot + elt * 3 * batch * (2048 + 16384 + 2 * 4096)
+    byts += 16.0 * batch * gather  # the gathered x blocks and per-block dx, f32, written and read
+    want = max(6.0 * batch * s_tot / peak, byts / consts["hbm_bw"]) * 1e6
+    want += (1 + dispatch.BSR_BWD_LAUNCHES) * 3 * consts["t_launch_us"]
+    assert mine.est_us["bsr"] == pytest.approx(want, rel=1e-9)
+    assert mine.est_us["fused"] == ref_form.est_us["fused"] and mine.est_us["dense"] == ref_form.est_us["dense"]
+    assert mine.backend == ("bsr" if dtype == torch.float32 and batch == 4096 else "fused")
+    if dtype == torch.float32 and batch == 128:
+        assert ref_form.backend == "bsr"  # what the reference's bsr terms picked at the FFMA peak
+
+
+def test_operator_supplies_the_bsr_gather(ops_pair):
+    """The model's ``bsr_gather`` is ``Σ_j s_j / bn_j``: packed and block
+    leaves count their stored blocks' input rows, a dense-factor chain none."""
+    _, op = ops_pair
+    packed = op.to("packed")
+    assert op.bsr_gather() == packed.bsr_gather() == packed.s_tot // 16
+    assert op.T.bsr_gather() == op.bsr_gather() and op.to("faust").bsr_gather() == 0
+    rep = dispatch.dispatch(packed, 8, torch.float32, device=CPU, record=False, grad=True)
+    want = dispatch.choose_backend(batch=8, shape=packed.shape, dtype=torch.float32, s_tot=packed.s_tot,
+                                   inner_dims=packed.inner_dims(), n_factors=3, grad=True,
+                                   bsr_gather=packed.s_tot // 16)
+    assert dict(rep.est_us) == dict(want.est_us)
 
 
 def test_dispatch_for_and_forced_reports(ops_pair):

@@ -389,3 +389,53 @@ def test_launcher_runs_the_smoke_model_on_the_cpu():
     hist = out["history"]
     assert len(hist) == 2 and all(np.isfinite(h["loss"]) for h in hist)
     assert isinstance(out["model"].unembed.faust, FaustLinear)
+
+
+_SYNCS = ("__bool__", "__float__", "__int__", "__index__", "item", "tolist", "numpy", "cpu")
+
+
+@pytest.mark.parametrize("microbatches", [1, 2])
+def test_train_step_never_syncs_the_host(monkeypatch, microbatches):
+    """The step (forward, backward and the guarded update) reads no value
+    back to the host: every way a tensor reaches Python raises inside it.
+    On the card a read-back is a device synchronization that idles the
+    device until the host enqueues the update."""
+    _, cfg = _cfgs("faust_mlp")
+    model = LM(cfg, seed=3, device=CPU)
+    opt = adamw.AdamWConfig(lr=1e-3, warmup_steps=1)
+    step = trainer.make_train_step(model, opt, trainer.TrainConfig(microbatches=microbatches))
+    state = adamw.init_state(dict(model.named_parameters()))
+    tokens = torch.as_tensor(np.random.default_rng(0).integers(0, 131, (4, 8)))
+    step({"tokens": tokens}, state)  # a first step: caches built, dispatch decided
+
+    def refuse(*a, **k):
+        raise AssertionError("a tensor was read back to the host inside the train step")
+
+    with monkeypatch.context() as m:
+        for name in _SYNCS:
+            m.setattr(torch.Tensor, name, refuse)
+        metrics = step({"tokens": tokens}, state)
+    assert all(isinstance(v, torch.Tensor) for v in metrics.values())
+    assert float(metrics["skipped"]) == 0.0 and int(state.step) == 2
+
+
+def test_skipped_update_keeps_every_bit():
+    """``ok=False`` (a non-finite loss): parameters, moments and the step
+    count keep their bits; the reported lr is the schedule's."""
+    params = {"w": torch.randn(5, 3), "b": torch.randn(3).to(torch.bfloat16)}
+    cfg = adamw.AdamWConfig(lr=1e-2, warmup_steps=2)
+    state = adamw.init_state(params)
+    adamw.apply_updates(cfg, params, {k: torch.ones_like(v) for k, v in params.items()}, state)
+    before = ({k: v.clone() for k, v in params.items()}, {k: v.clone() for k, v in state.mu.items()},
+              {k: v.clone() for k, v in state.nu.items()}, state.step.clone())
+    nan = {k: torch.full_like(v, float("nan")) for k, v in params.items()}
+    m = trainer.guarded_update(cfg, params, nan, state, torch.tensor(float("nan")))
+    assert float(m["skipped"]) == 1.0 and isinstance(m["skipped"], torch.Tensor)
+    assert float(m["lr"]) == pytest.approx(float(adamw.schedule(cfg, 2)))
+    for now, was in zip((params, state.mu, state.nu), before[:3]):
+        assert all(torch.equal(now[k], was[k]) for k in was)
+    assert torch.equal(state.step, before[3]) and int(state.step) == 1
+    m = trainer.guarded_update(cfg, params, {k: torch.ones_like(v) for k, v in params.items()}, state,
+                               torch.tensor(1.5))
+    assert float(m["skipped"]) == 0.0 and int(state.step) == 2
+    assert not torch.equal(params["w"], before[0]["w"])
