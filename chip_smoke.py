@@ -92,13 +92,49 @@ Phases, each fatal on failure (non-zero exit):
    forced backend it picks; every kernel also with a cold L2 (a 256 MB
    buffer written between launches); the batch-tile sweeps of K1, K6, K2
    and K3 in f32 and bf16; K1, K2 and K3 also at the trainer's shapes (the
-   FAµST unembedding, bf16, B = 1024).
+   FAµST unembedding, bf16, B = 1024);
+13. serving and streaming refresh (slice 8) at gemma-2b's full width and
+   depth with the trainer's FAµST unembedding: (a) ``Engine`` +
+   ``LMExecutor`` (8 slots of 1088 tokens, bf16) on 24 requests (prompts
+   uniform over 32–1000 from numpy seed 0, two fixed at 512 and 700;
+   budgets 16–64; 12 at the start, 4 more every 10 steps; one live
+   request evicted at step 20): prefill and decode seconds, tokens/s,
+   TTFT and TPOT at p50/p90, occupancy, ``backend_counts()``, peak memory,
+   K1/K6 counts (zeroed before, must rise), every request ``done`` with
+   no retry, failure, quarantine, timeout or rejection, and the
+   teacher-forced check (``forward_train`` over prompt + generated with
+   every FAµST projection on the dense backend, so no kernel runs on that
+   side: the chosen token within 3e-2·max|logits| of each row's maximum);
+   tokens/s over the run's wall time (decode-only beside it); one steady
+   decode step at B = 8 under ``torch.profiler`` beside the weight-bytes
+   bound; (b) the same engine in f32 (8 requests, prompts ≤ 256, 16
+   tokens; teacher-forced within 1e-4; the f32 head's K1 and K6 against
+   their plain versions at B ∈ {1, 3, 8}); (c) the head at B ∈ {1, 3, 8}: K1
+   and K6 against their plain versions, ``apply`` on every backend and
+   ``auto``, the bound and ``torch.matmul`` on the dense head; the engine
+   with the head forced to fused, bsr and dense (TPOT each, the first
+   decode step's logits against dense within 3e-2); (d) a FAµST MLP
+   (``FaustSpec(3, 128, 4)`` on every projection; 8 requests, prompts ≤
+   256, 32 tokens): teacher-forced check, K1/K6 launches per step, TPOT,
+   layer 0's ``w_up``/``w_gate``/``w_down`` chains through K1 and K6
+   against their plain versions at B = 1, 8 and the trace's longest
+   prompt (its prefill rows);
+   (e) streaming into (a)'s live engine: ``StreamingFaust.track`` of the
+   head's f32 ``todense()`` (2048 × 256000) at 10/10 sweeps (the
+   reference's defaults are 40/40), the tracked chain published, a 1 %
+   Gaussian drift, ``update``, ``hot_swap(guard=0.5)`` of the refresh
+   between two steps while requests are live (accepted), four requests
+   after it (teacher-forced against the swapped model), a regressed chain
+   rejected (``swap_rejects == 1``), and ``quantized_swap`` of the refresh
+   into an int8 chain applied by K4 at B ∈ {1, 8} against its plain
+   version.
 
 Prints one JSON object per line; the last three lines are the kernels
 summary, the card's ``name, power.limit`` and ``{"ok": true, ...}``.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -159,6 +195,36 @@ def time_ms(fn, iters: int = ITERS) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def interleaved_ms(fns: dict, rounds: int) -> dict:
+    """Per-call times (ms) of each of ``fns``, called in turn one call at
+    a time (the order rotated each round), ``rounds`` calls each: one CUDA
+    event between consecutive calls, read after a single synchronize.  A
+    host-paced call varies with the host's load; calls this close in time
+    see the same load, so the variants' medians compare the calls and not
+    the moments they ran in."""
+    import torch
+
+    names = list(fns)
+    for _ in range(3):
+        for k in names:
+            fns[k]()
+    torch.cuda.synchronize()
+    order, events = [], [torch.cuda.Event(enable_timing=True)]
+    events[0].record()
+    for r in range(rounds):
+        for k in names[r % len(names):] + names[:r % len(names)]:
+            fns[k]()
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            order.append(k)
+            events.append(ev)
+    events[-1].synchronize()
+    out = {k: [] for k in names}
+    for k, a, b in zip(order, events, events[1:]):
+        out[k].append(a.elapsed_time(b))
+    return out
 
 
 def time_ms_cold(fn, iters: int = 10) -> float:
@@ -1099,15 +1165,17 @@ def measure_quantized(qops: dict, ops: dict, card_line: str, batches=(128, 4096)
             for _ in range(1000):
                 op.dispatch_for(b)
             dispatch_us = (time.perf_counter() - t0) * 1e3  # µs per table-hit decision, host
-            forced, auto = [], []
-            for _ in range(3):
-                forced.append(time_ms(lambda: op.apply(x, tuned.backend, bt=tuned.bt, device=op.device)))
-                auto.append(time_ms(lambda: op.apply(x, device=op.device)))
+            # at B = 128 a call is host-paced (samples of 20 calls read 0.19-0.36
+            # ms for the same work): medians of single calls that alternate
+            timing = interleaved_ms({"forced": lambda: op.apply(x, tuned.backend, bt=tuned.bt, device=op.device),
+                                     "auto": lambda: op.apply(x, device=op.device)}, 800 if b < 1024 else 60)
             row = {"phase": "auto_time", "card": card_line, "op": name, "batch": b,
                    "model_picks": model.backend, "model_source": model.source, "auto_model_ms": model_ms,
                    "table_picks": tuned.backend, "table_source": tuned.source, "table_bt": tuned.bt,
-                   "auto_table_ms": sorted(auto)[1], "forced_ms": sorted(forced)[1],
-                   "auto_table_runs_ms": auto, "forced_runs_ms": forced, "dispatch_us": dispatch_us}
+                   "auto_table_ms": statistics.median(timing["auto"]),
+                   "forced_ms": statistics.median(timing["forced"]), "calls": len(timing["auto"]),
+                   "quantiles_ms": {k: [_pct(v, q) for q in (0, 0.1, 0.5, 0.9, 1)] for k, v in timing.items()},
+                   "dispatch_us": dispatch_us}
             row["auto_over_forced"] = row["auto_table_ms"] / row["forced_ms"]
             log(row)
             require(model.source == "model" and tuned.source == "measured", f"wrong sources: {row}")
@@ -1314,9 +1382,35 @@ def train_lm(card_line: str, argv=None) -> dict:
 # (K3's recompute and walk run K1's and K2's kernels in namespaces named
 # wgrad_fwd and wgrad_bwd, its emission is wgrad_emit_kernel: first match wins)
 FAMILIES = (("K3 chain_wgrad", ("wgrad",)), ("K1/K4 chain_matmul", ("chain_fwd_kernel",)),
-            ("K2 chain_dgrad", ("chain_dgrad",)),
+            ("K2 chain_dgrad", ("chain_dgrad",)), ("K6 bsr_matmul", ("bsr_matmul_kernel",)),
             ("dense matmul", ("gemm", "cutlass", "xmma", "sm90_", "nvjet")),
             ("elementwise and reductions", ("elementwise", "reduce_kernel", "Memset", "Memcpy")))
+
+
+def device_spans(prof, step_s: float) -> dict:
+    """A ``torch.profiler`` trace of one step of ``step_s`` host seconds:
+    the device's busy time (the union of kernel spans), its idle share,
+    device time by kernel family and the ten costliest kernels."""
+    from torch.autograd import DeviceType
+
+    spans = sorted((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
+                   if e.device_type == DeviceType.CUDA)
+    busy_us, end = 0.0, -math.inf
+    for a, b, _ in spans:  # union of the kernel spans
+        if b > end:
+            busy_us += b - max(a, end)
+            end = b
+    by_name: dict[str, float] = {}
+    for a, b, name in spans:
+        by_name[name] = by_name.get(name, 0.0) + (b - a)
+    families = {fam: 0.0 for fam, _ in FAMILIES} | {"other": 0.0}
+    for name, us in by_name.items():
+        fam = next((f for f, keys in FAMILIES if any(k in name for k in keys)), "other")
+        families[fam] += us / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+    return {"step_s": step_s, "device_busy_ms": busy_us / 1e3, "n_kernels": len(spans),
+            "device_idle_share": (1.0 - busy_us / 1e6 / step_s) if spans else None,
+            "family_ms": families, "top_kernels_ms": [[n[:120], us / 1e3] for n, us in top]}
 
 
 def profile_step(trainer, out, card_line: str) -> dict:
@@ -1324,7 +1418,6 @@ def profile_step(trainer, out, card_line: str) -> dict:
     ``torch.profiler``: the host's step time, the device's busy time (the
     union of kernel spans) and idle share, and device time by kernel family
     and by the ten costliest kernels."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     import torch
@@ -1342,25 +1435,7 @@ def profile_step(trainer, out, card_line: str) -> dict:
         loss = float(step_fn(batches[1], out["opt"])["loss"])
         torch.cuda.synchronize()
         step_s = time.perf_counter() - t0
-    spans = sorted((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
-                   if e.device_type == DeviceType.CUDA)
-    busy_us, end = 0.0, -math.inf
-    for a, b, _ in spans:  # union of the kernel spans
-        if b > end:
-            busy_us += b - max(a, end)
-            end = b
-    by_name: dict[str, float] = {}
-    for a, b, name in spans:
-        by_name[name] = by_name.get(name, 0.0) + (b - a)
-    families = {fam: 0.0 for fam, _ in FAMILIES} | {"other": 0.0}
-    for name, us in by_name.items():
-        fam = next((f for f, keys in FAMILIES if any(k in name for k in keys)), "other")
-        families[fam] += us / 1e3
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
-    row = {"phase": "train_profile", "card": card_line, "loss": loss, "step_s": step_s,
-           "device_busy_ms": busy_us / 1e3, "n_kernels": len(spans),
-           "device_idle_share": (1.0 - busy_us / 1e6 / step_s) if spans else None,
-           "family_ms": families, "top_kernels_ms": [[n[:120], us / 1e3] for n, us in top]}
+    row = {"phase": "train_profile", "card": card_line, "loss": loss, **device_spans(prof, step_s)}
     log(row)
     require(math.isfinite(loss), f"the profiled step's loss is not finite: {row}")
     return {k: row[k] for k in ("step_s", "device_busy_ms", "device_idle_share", "family_ms")}
@@ -1792,8 +1867,9 @@ def grad_dispatch(ops: dict, card_line: str, batches=(128, 4096)) -> list[dict]:
     must then read the table, pick the fastest measured backend, and run
     fwd+bwd within ``AUTO_SLACK`` of that backend forced, at the table's
     fused tile or at the default tile, whichever is faster: a table whose
-    tile is slower than the default fails.  Times are medians of turns
-    that rotate the three variants (40 turns at B < 1024, 3 above)."""
+    tile is slower than the default fails.  Times are medians of single
+    calls that alternate the three variants (800 calls each at B < 1024,
+    60 above)."""
     import torch
 
     from repro_torch.api import autotune, dispatch, last_report
@@ -1826,17 +1902,15 @@ def grad_dispatch(ops: dict, card_line: str, batches=(128, 4096)) -> list[dict]:
                     # in turns: auto; its pick forced at the table's tile (what
                     # auto adds: the decision); and at the default tile (what the
                     # table's tile buys)
-                    runs = {"auto": lambda: top.apply(x, device=dev),
-                            "forced": lambda: top.apply(x, rep.backend, device=dev, bt=rep.bt),
-                            "forced_default_tile": lambda: top.apply(x, rep.backend, device=dev)}
-                    timing = {k: [] for k in runs}
-                    # a serving-batch step is host-paced and one sample of 20 calls
-                    # reads 0.56-1.24 ms for the same work: many short turns, the
-                    # order rotated each turn, each variant's median compared
-                    names = list(runs)
-                    for turn in range(3 if bsz >= 1024 else 40):
-                        for k in names[turn % 3:] + names[:turn % 3]:
-                            timing[k].append(time_ms(lambda fn=runs[k]: fn().backward(w), iters=20))
+                    runs = {"auto": lambda: top.apply(x, device=dev).backward(w),
+                            "forced": lambda: top.apply(x, rep.backend, device=dev, bt=rep.bt).backward(w),
+                            "forced_default_tile": lambda: top.apply(x, rep.backend, device=dev).backward(w)}
+                    # a bf16 step at B = 128 is host-paced, and a sample of 20
+                    # consecutive calls read 0.48-1.8 ms for the same work as the
+                    # host's load moved: the variants alternate call by call
+                    # and each one's median over 800 (B < 1024) or 60 calls is
+                    # compared
+                    timing = interleaved_ms(runs, 800 if bsz < 1024 else 60)
                     med = {k: statistics.median(v) for k, v in timing.items()}
                     auto_ms = med["auto"]
                     forced_ms = min(med["forced"], med["forced_default_tile"])
@@ -1844,8 +1918,10 @@ def grad_dispatch(ops: dict, card_line: str, batches=(128, 4096)) -> list[dict]:
                            "key": key, "entry": entry, "report": rep.as_row(), "model_pick": model.backend,
                            "auto_fwd_bwd_ms": auto_ms, "forced_fwd_bwd_ms": med["forced"],
                            "forced_default_tile_ms": med["forced_default_tile"],
-                           "min_ms": {k: min(v) for k, v in timing.items()},
-                           "auto_over_forced": auto_ms / forced_ms, "times_ms": timing}
+                           "calls": len(timing["auto"]),
+                           "quantiles_ms": {k: [_pct(v, q) for q in (0, 0.1, 0.5, 0.9, 1)]
+                                            for k, v in timing.items()},
+                           "auto_over_forced": auto_ms / forced_ms}
                     log(row)
                     require(rep.grad and rep.source == "measured", f"auto under grad did not read the table: {row}")
                     require(rep.backend == fastest, f"auto under grad did not pick the fastest measured backend: {row}")
@@ -1860,6 +1936,522 @@ def grad_dispatch(ops: dict, card_line: str, batches=(128, 4096)) -> list[dict]:
                 os.environ[k] = v
         autotune.reload()
     return rows
+
+
+# ---------------------------------------------------------------------------
+# Slice 8: serving and streaming refresh (phase 13)
+# ---------------------------------------------------------------------------
+
+SERVE_TOL = {"bfloat16": 3e-2, "float32": 1e-4}  # teacher-forced: chosen logit within tol·max|logits| of the max
+SERVE_SLOTS, SERVE_MAX_LEN = 8, 1088  # prompts ≤ 1000 plus ≤ 64 new tokens
+STREAM_SWEEPS = 10  # n_iter_two = n_iter_global: the reference's defaults are 40/40
+STREAM_DRIFT = 1e-2  # ‖εG‖ / ‖W0‖
+
+
+def serve_config(**kw):
+    """gemma-2b at full width and depth with the trainer's FAµST
+    unembedding (2048 → 2048 → 256000, block 16, k 4), untied, bf16."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.layers.faust_linear import FaustSpec
+
+    return dataclasses.replace(get_config("gemma_2b"), faust_unembed=FaustSpec(2, 16, 4), tie_embeddings=False, **kw)
+
+
+def _serve_counts() -> dict:
+    from repro_torch.kernels.bsr_matmul import bsr_matmul
+    from repro_torch.kernels.chain import chain_matmul
+
+    return {"chain_matmul": chain_matmul.launches, "bsr_matmul": bsr_matmul.launches,
+            "chain_matmul_q": chain_matmul.q_launches}
+
+
+def _pct(values, q: float) -> float | None:
+    vals = sorted(values)
+    if not vals:
+        return None
+    pos = (len(vals) - 1) * q
+    lo, hi = math.floor(pos), math.ceil(pos)
+    return vals[lo] + (vals[hi] - vals[lo]) * (pos - lo)
+
+
+def _trace(n_req: int, seed: int, lengths: tuple, budgets: tuple, fixed: tuple, vocab: int):
+    """Prompts (numpy seed ``seed``, lengths uniform over ``lengths`` with
+    the first ``len(fixed)`` set to ``fixed``) and budgets."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(lengths[0], lengths[1] + 1, size=n_req)
+    lens[:len(fixed)] = fixed
+    budget = rng.integers(budgets[0], budgets[1] + 1, size=n_req)
+    prompts = [rng.integers(0, vocab, size=int(n)).astype(np.int32) for n in lens]
+    return prompts, [int(b) for b in budget]
+
+
+def drive(engine, prompts, budgets, first: int, every: tuple[int, int] | None = None,
+          evict_step: int | None = None) -> tuple[list[str], int]:
+    """Submit ``first`` requests, then ``every[1]`` more every ``every[0]``
+    engine steps; evict the lowest-slot live request at ``evict_step`` (or
+    the first step after it with one live); step until every request is
+    submitted and finished.  Returns the rids and the steps taken."""
+    rids = [engine.submit(p, b) for p, b in zip(prompts[:first], budgets[:first])]
+    step, evicted = 0, False
+    while engine.n_pending or len(rids) < len(prompts):
+        if every and step and step % every[0] == 0 and len(rids) < len(prompts):
+            n = len(rids)
+            rids += [engine.submit(p, b) for p, b in zip(prompts[n:n + every[1]], budgets[n:n + every[1]])]
+        if evict_step is not None and step >= evict_step and not evicted and engine.running:
+            victim = min(engine.running.values(), key=lambda r: r.slot)
+            require(engine.evict(victim.rid), f"eviction of {victim.rid} refused")
+            evicted = True
+        engine.step()
+        step += 1
+        require(step < 100_000, "the engine did not drain")
+    return rids, step
+
+
+@contextlib.contextmanager
+def faust_backend(model, backend: str, head_only: bool = False):
+    """Every ``FaustLinear`` of ``model`` (or only its unembedding) forced
+    to ``backend``; restored on exit."""
+    from repro_torch.layers.faust_linear import FaustLinear
+
+    mods = [model.unembed.faust] if head_only else [m for m in model.modules() if isinstance(m, FaustLinear)]
+    saved = [m.backend for m in mods]
+    for m in mods:
+        m.backend = backend
+    try:
+        yield
+    finally:
+        for m, b in zip(mods, saved):
+            m.backend = b
+
+
+def teacher_forced(model, engine, rids, prompts, tol: float) -> dict:
+    """For each request, ``forward_train`` under ``no_grad`` over prompt +
+    generated, with every FAµST projection on the dense backend (``x @
+    todense()``, no K1 or K6), so the served tokens are held against a path
+    that runs none of the kernels: at every generated position the chosen
+    token's logit must lie within ``tol·max|logits|`` of that row's
+    maximum.  Counts the positions where it was the exact argmax."""
+    import numpy as np
+    import torch
+
+    dev = model.embed.table.device
+    n, exact, worst = 0, 0, 0.0
+    for rid, prompt in zip(rids, prompts):
+        gen = engine.result(rid)
+        full = np.concatenate([prompt, gen]).astype(np.int64)
+        with torch.no_grad(), faust_backend(model, "dense"):
+            logits = model.forward_train(torch.as_tensor(full, device=dev)[None], chunk=len(full))[0]
+        p = len(prompt)
+        rows = logits[p - 1:p - 1 + len(gen)]
+        chosen = torch.as_tensor(gen, device=dev, dtype=torch.int64)
+        gap = rows.amax(dim=-1) - rows.gather(1, chosen[:, None])[:, 0]
+        rel = (gap / rows.abs().amax(dim=-1).clamp_min(1e-30)).max()
+        worst = max(worst, float(rel))
+        exact += int((rows.argmax(dim=-1) == chosen).sum())
+        n += len(gen)
+        del logits
+    out = {"positions": n, "exact_argmax": exact, "worst_gap_rel": worst, "tol": tol, "reference": "dense"}
+    require(worst <= tol, f"teacher-forced check failed: {out}")
+    return out
+
+
+def weight_bound(model, batch: int) -> dict:
+    """The decode step's weight bytes (every parameter read once but the
+    embedding table, of which the step reads ``batch`` rows) over the
+    card's memory rate."""
+    table = model.embed.table
+    byts = sum(p.numel() * p.element_size() for n, p in model.named_parameters() if n != "embed.table")
+    byts += sum(b.numel() * b.element_size() for b in model.buffers())
+    byts += batch * table.shape[1] * table.element_size()
+    return {"weight_bytes": byts, "weight_bound_ms": byts / HBM_BW * 1e3}
+
+
+def engine_report(name: str, card_line: str, engine, steps: int, counts: dict, wall_s: float) -> dict:
+    import torch
+
+    es = engine.stats
+    states = {}
+    for r in engine.done.values():
+        states[r.state] = states.get(r.state, 0) + 1
+    ttft, tpot = list(es.ttft_s.values()), list(es.tpot_s.values())
+    row = {"phase": name, "card": card_line, "requests": len(engine.done), "states": states,
+           "prefill_s": es.prefill_s, "decode_s": es.decode_s, "wall_s": wall_s,
+           "tokens_decoded": es.tokens_decoded,
+           # end to end: every token the run delivered over its wall time;
+           # decode_tokens_per_s is the decode layer's rate (decode_s only)
+           "tokens_per_s": es.tokens_decoded / wall_s, "decode_tokens_per_s": es.tokens_per_s,
+           "ttft_p50_s": _pct(ttft, 0.5), "ttft_p90_s": _pct(ttft, 0.9),
+           "tpot_p50_s": _pct(tpot, 0.5), "tpot_p90_s": _pct(tpot, 0.9),
+           "steps": es.steps, "drive_steps": steps, "occupancy": dict(sorted(es.occupancy.items())),
+           "admitted": es.admitted, "completed": es.completed, "evicted": es.evicted, "swaps": es.swaps,
+           "swap_rejects": es.swap_rejects, "retries": es.retries, "failed": es.failed,
+           "quarantined": es.quarantined, "timed_out": es.timed_out, "rejected": es.rejected,
+           "demotions": es.demotions, "backend_counts": es.backend_counts(),
+           "faust_dispatch": None if es.faust_dispatch is None else es.faust_dispatch.as_row(),
+           "launches": counts, "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9}
+    require(states == {"done": len(engine.done)}, f"{name}: not every request is done: {row}")
+    bad = {k: row[k] for k in ("retries", "failed", "quarantined", "timed_out", "rejected") if row[k]}
+    require(not bad, f"{name}: the supervision fired in a zero-fault run: {bad}")
+    return row
+
+
+def serve_run(name: str, card_line: str, model, n_req: int, lengths: tuple, budgets: tuple, fixed: tuple = (),
+              first: int | None = None, every=None, evict_step=None, seed: int = 0, check: bool = True,
+              kernels: bool = True) -> dict:
+    """One engine over ``model`` (``SERVE_SLOTS`` slots of ``SERVE_MAX_LEN``
+    tokens): the trace of :func:`_trace` through :func:`drive`, K1/K6
+    counters zeroed before and read after, the report, and (``check``) the
+    teacher-forced check of every request."""
+    import torch
+
+    from repro_torch.runtime.engine import Engine, LMExecutor
+
+    prompts, budget = _trace(n_req, seed, lengths, budgets, fixed, model.cfg.vocab)
+    torch.cuda.reset_peak_memory_stats()
+    engine = Engine(LMExecutor(model, SERVE_MAX_LEN, SERVE_SLOTS))
+    _zero_counts()
+    t0 = time.perf_counter()
+    rids, steps = drive(engine, prompts, budget, first or n_req, every, evict_step)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    counts = _serve_counts()
+    row = engine_report(name, card_line, engine, steps, counts, wall_s)
+    row["prompt_lengths"] = [len(p) for p in prompts]
+    if evict_step is not None:
+        require(engine.stats.evicted == 1, f"{name}: {engine.stats.evicted} evictions, want 1")
+    if kernels:
+        require(counts["chain_matmul"] + counts["bsr_matmul"] > 0, f"{name}: serving launched neither K1 nor K6: {row}")
+    if check:
+        row["teacher_forced"] = teacher_forced(model, engine, rids, prompts, SERVE_TOL[model.cfg.dtype])
+    log(row)
+    return {"row": row, "engine": engine, "rids": rids, "prompts": prompts}
+
+
+def profile_decode(card_line: str, model, batch: int = SERVE_SLOTS, prompt_len: int = 256) -> dict:
+    """One steady decode step at ``batch`` live rows under
+    ``torch.profiler``: host time, device busy time and idle share, device
+    time by kernel family, beside the weight-bytes bound."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.runtime.engine import LMExecutor
+
+    ex = LMExecutor(model, SERVE_MAX_LEN, batch)
+    rng = np.random.default_rng(3)
+    for slot in range(batch):
+        ex.prefill_forward(slot, rng.integers(0, model.cfg.vocab, size=prompt_len).astype(np.int32), {})
+    slots, toks = list(range(batch)), rng.integers(0, model.cfg.vocab, size=(batch, 1))
+    for _ in range(2):
+        ex.decode_forward(slots, toks)
+    _zero_counts()
+    t0 = time.perf_counter()
+    ex.decode_forward(slots, toks)
+    step_s = time.perf_counter() - t0
+    counts = _serve_counts()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        ex.decode_forward(slots, toks)
+        torch.cuda.synchronize()
+        prof_s = time.perf_counter() - t0
+    row = {"phase": "serve_profile", "card": card_line, "dtype": model.cfg.dtype, "batch": batch,
+           "prompt_len": prompt_len, "unprofiled_step_s": step_s, "launches_per_step": counts,
+           **device_spans(prof, prof_s), **weight_bound(model, batch)}
+    log(row)
+    return row
+
+
+def _factor_walk(fn, x, bf):
+    """``x`` through every factor of ``bf`` by ``fn`` (K6 or its plain
+    version), λ left out."""
+    for f in bf.factors:
+        x = fn(x, f.values, f.in_idx)
+    return x
+
+
+def check_chains(card_line: str, dev, phase: str, chains: dict, batches) -> list[dict]:
+    """K1 and K6 on the serving model's chains (name → ``BlockFaust``, in
+    the model's dtype) at the batches its path gives them, each against its
+    plain version on the same card tensors: K1 at the tile ``auto``
+    reports, K6 factor by factor on the kernel's own input.  One K1 launch
+    and one K6 launch a factor per check, counted."""
+    import torch
+
+    from repro_torch.api import FaustOp
+    from repro_torch.core.compress import pack_chain
+    from repro_torch.kernels.bsr_matmul import bsr_matmul, bsr_matmul_plain
+    from repro_torch.kernels.chain import chain_matmul, chain_matmul_plain
+    from repro_torch.kernels.ops import chain_meta
+
+    g = torch.Generator().manual_seed(13)
+    rows = []
+    for name, bf in chains.items():
+        with torch.no_grad():
+            pc = pack_chain(bf)
+            meta = chain_meta(pc.plan, pc.in_idx)
+            op = FaustOp(bf)
+            dtype = pc.values.dtype
+            dname = str(dtype).removeprefix("torch.")
+            for b in batches:
+                x = torch.randn((b, op.shape[0]), generator=g).to(dev, dtype)
+                bt = op.dispatch_for(b, dtype).bt
+                _zero_counts()
+                k1_err, k1_rel = rel_err(chain_matmul(x, pc.values, meta, plan=pc.plan, bt=bt),
+                                         chain_matmul_plain(x, pc.values, meta, plan=pc.plan))
+                h, k6_rel = x, 0.0
+                for f in bf.factors:
+                    hk = bsr_matmul(h, f.values, f.in_idx)
+                    k6_rel = max(k6_rel, rel_err(hk, bsr_matmul_plain(h, f.values, f.in_idx))[1])
+                    h = hk
+                torch.cuda.synchronize()
+                counts = _serve_counts()
+                row = {"phase": phase, "card": card_line, "chain": name, "dtype": dname, "batch": b, "bt": bt,
+                       "k1_max_abs_err": k1_err, "k1_rel_err": k1_rel, "k6_rel_err": k6_rel, "tol": TOL[dname],
+                       "launches": counts}
+                log(row)
+                require(counts["chain_matmul"] == 1 and counts["bsr_matmul"] == len(bf.factors),
+                        f"{name} at B = {b}: launches {counts}")
+                require(k1_rel <= TOL[dname] and k6_rel <= TOL[dname],
+                        f"{name} {dname} at B = {b}: K1 {k1_rel}, K6 {k6_rel} against their plain versions")
+                rows.append(row)
+    return rows
+
+
+def serve_head(card_line: str, dev, model) -> list[dict]:
+    """Phase 13c: the model's unembedding chain in bf16 at decode batches:
+    K1 and K6 against their plain versions (:func:`check_chains`),
+    ``apply`` on every backend and ``auto``, beside the bound and
+    ``torch.matmul`` on the dense head."""
+    import torch
+
+    from repro_torch.api import FaustOp
+    from repro_torch.core.compress import pack_chain
+    from repro_torch.kernels.bsr_matmul import bsr_matmul, bsr_matmul_plain
+    from repro_torch.kernels.chain import chain_matmul, chain_matmul_plain
+    from repro_torch.kernels.ops import chain_meta
+    from repro_torch.runtime.engine import unembed_blockfaust
+
+    bf = unembed_blockfaust(model)
+    require(bf.factors[0].values.dtype == torch.bfloat16, "serve_head times the bf16 head")
+    checks = check_chains(card_line, dev, "serve_head_check", {"unembed": bf}, (1, 3, 8))
+    op = FaustOp(bf)
+    pc = pack_chain(bf)
+    meta = chain_meta(pc.plan, pc.in_idx)
+    s_tot = pc.values.numel()
+    m, n = op.shape
+    with torch.no_grad():
+        a_dense = bf.todense().to(torch.bfloat16)
+    g = torch.Generator().manual_seed(13)
+    rows = []
+    for b, chk in zip((1, 3, 8), checks):
+        x = torch.randn((b, m), generator=g).to(dev, torch.bfloat16)
+        flops, byts = 2.0 * b * s_tot, 2.0 * (s_tot + b * (m + n))
+        t_ops, t_bytes = flops / PEAK["bfloat16"], byts / HBM_BW
+        with torch.no_grad():
+            row = {"phase": "serve_head", "card": card_line, "batch": b, "dtype": "bfloat16", "s_tot": s_tot,
+                   **{k: chk[k] for k in ("k1_max_abs_err", "k1_rel_err", "k6_rel_err")},
+                   "k1_ms": time_ms(lambda: chain_matmul(x, pc.values, meta, plan=pc.plan)),
+                   "k1_plain_ms": time_ms(lambda: chain_matmul_plain(x, pc.values, meta, plan=pc.plan)),
+                   "k6_ms": time_ms(lambda: _factor_walk(bsr_matmul, x, bf)),
+                   "k6_plain_ms": time_ms(lambda: _factor_walk(bsr_matmul_plain, x, bf)),
+                   **{f"apply_{bk}_ms": time_ms(lambda bk=bk: op.apply(x, bk, device=dev))
+                      for bk in ("fused", "bsr", "dense", "auto")},
+                   "auto_pick": op.dispatch_for(b, torch.bfloat16).backend,
+                   "library_ms": time_ms(lambda: torch.matmul(x, a_dense)),
+                   "bound_ms": max(t_ops, t_bytes) * 1e3, "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+                   "dense_head_bytes": a_dense.numel() * 2}
+        log(row)
+        rows.append(row)
+    del a_dense
+    return rows
+
+
+def serve_forced(card_line: str, model) -> dict:
+    """Phase 13c: the engine with the head's backend forced to fused, bsr
+    and dense in turn (8 requests, prompts ≤ 256, 16 tokens): TPOT each;
+    the first decode step's logits of fused and bsr against dense."""
+    import numpy as np
+    import torch
+
+    from repro_torch.runtime.engine import LMExecutor
+
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(0, model.cfg.vocab, size=n).astype(np.int32) for n in (100, 37)]
+    out, logits = {}, {}
+    for backend in ("fused", "bsr", "dense"):
+        with faust_backend(model, backend, head_only=True):
+            res = serve_run(f"serve_forced_{backend}", card_line, model, 8, (32, 256), (16, 16), seed=2, check=False,
+                            kernels=backend != "dense")
+            out[backend] = {k: res["row"][k] for k in ("tpot_p50_s", "tpot_p90_s", "tokens_per_s", "launches")}
+            ex = LMExecutor(model, 64, 2)
+            for slot, p in enumerate(prompts):
+                ex.prefill_forward(slot, p, {})
+            logits[backend] = ex.decode_forward([0, 1], [[11], [12]]).float()
+    require(out["bsr"]["launches"]["bsr_matmul"] > 0, f"the forced-bsr engine launched no K6: {out}")
+    require(out["fused"]["launches"]["chain_matmul"] > 0, f"the forced-fused engine launched no K1: {out}")
+    errs = {b: rel_err(logits[b], logits["dense"])[1] for b in ("fused", "bsr")}
+    row = {"phase": "serve_forced", "card": card_line, "backends": out, "first_step_rel_err_vs_dense": errs}
+    log(row)
+    require(all(e <= TOL["bfloat16"] for e in errs.values()), f"forced heads disagree with dense: {row}")
+    return row
+
+
+def serve_stream(card_line: str, dev, model, engine) -> dict:
+    """Phase 13e: streaming refresh of the head into the live engine of
+    (a).  Cold-track ``W0`` (the head's f32 ``todense()``) at
+    ``STREAM_SWEEPS`` sweeps, publish the tracked chain (a staged re-pack),
+    drift ``W1 = W0 + εG``, ``update``, guarded ``hot_swap`` of the refresh
+    between two steps while requests are live, four more requests after it
+    (teacher-forced against the swapped model), a regressed chain rejected,
+    and the refresh through ``quantized_swap`` applied by K4."""
+    from dataclasses import asdict
+
+    import numpy as np
+    import torch
+
+    from repro_torch.api import FaustOp
+    from repro_torch.core.compress import pack_chain, quantize_chain
+    from repro_torch.kernels.chain import chain_matmul, chain_matmul_q_plain
+    from repro_torch.kernels.ops import chain_meta
+    from repro_torch.layers.faust_linear import factorize_spec
+    from repro_torch.runtime import faults
+    from repro_torch.streaming import StreamingConfig, StreamingFaust, hot_swap
+    from repro_torch.streaming.swap import quantized_swap, refreshed_chain, sketched_swap_err
+
+    ex = engine.executor
+    head0 = ex.unembed_blockfaust()
+    with torch.no_grad():
+        w0 = head0.to(dtype=torch.float32).todense()
+    spec = factorize_spec(model.cfg.faust_unembed, STREAM_SWEEPS, STREAM_SWEEPS)
+    # the cold fit's own RE exceeds the default full_above (0.5): a drift
+    # estimate includes it, so 2.0 keeps a 1 % drift on the warm path
+    scfg = StreamingConfig(full_above=2.0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sf = StreamingFaust.track(w0, spec, scfg, device=dev)
+    torch.cuda.synchronize()
+    cold_s = time.perf_counter() - t0
+    with torch.no_grad():
+        re_cold = float(sf.op.rel_error_fro(w0))
+    cold = refreshed_chain(sf, like=head0)
+    cold_vs_head = sketched_swap_err(head0, cold)
+    g = torch.Generator(device=dev).manual_seed(1)
+    noise = torch.randn(w0.shape, generator=g, device=dev)
+    eps = STREAM_DRIFT * float(torch.linalg.norm(w0)) / float(torch.linalg.norm(noise))
+    w1 = w0 + eps * noise
+    del noise
+    rng = np.random.default_rng(7)
+    prompts = [rng.integers(0, model.cfg.vocab, size=int(n)).astype(np.int32) for n in rng.integers(32, 257, size=8)]
+    budgets = [32] * 4 + [16] * 4
+    before = [engine.submit(p, b) for p, b in zip(prompts[:4], budgets[:4])]
+    engine.step()
+    publish = hot_swap(engine, cold)  # the serving head is what the tracker published
+    engine.step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rec = sf.update(w1)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    with torch.no_grad():
+        re_w1, re_w0 = float(sf.op.rel_error_fro(w1)), float(sf.op.rel_error_fro(w0))
+    chain = refreshed_chain(sf, like=ex.unembed_blockfaust())
+    old = ex.unembed_blockfaust()
+    live = len(engine.running)
+    swap = hot_swap(engine, chain, guard=0.5)
+    after = [engine.submit(p, b) for p, b in zip(prompts[4:], budgets[4:])]
+    rejected = hot_swap(engine, faults.regressed_chain(chain), guard=0.5)
+    engine.run()
+    tf = teacher_forced(model, engine, after, prompts[4:], SERVE_TOL[model.cfg.dtype])
+    # the refresh into an int8 serving chain, applied by K4
+    old_q = quantize_chain(pack_chain(old), "int8", "per_block")
+    new_q, qswap = quantized_swap(old_q, chain)
+    qop = FaustOp(new_q)
+    meta = chain_meta(new_q.plan, new_q.in_idx)
+    k4 = []
+    _zero_counts()
+    gx = torch.Generator().manual_seed(17)
+    for b in (1, 8):
+        x = torch.randn((b, qop.shape[0]), generator=gx).to(dev, torch.bfloat16)
+        y = qop.apply(x, "fused", device=dev)
+        yk = chain_matmul(x, new_q.values, meta, plan=new_q.plan, scales=new_q.scales)
+        plain = chain_matmul_q_plain(x, new_q.values, new_q.scales, meta, plan=new_q.plan)
+        k4.append({"batch": b, "rel_err": rel_err(yk, plain)[1], "apply_rel_err": rel_err(y, new_q.lam * plain)[1],
+                   "ms": time_ms(lambda: qop.apply(x, "fused", device=dev))})
+    torch.cuda.synchronize()
+    k4_launches = _serve_counts()["chain_matmul_q"]
+    es = engine.stats
+    row = {"phase": "serve_stream", "card": card_line, "target": list(w0.shape), "sweeps_cold": sf.cold_sweeps,
+           "n_iter_two": STREAM_SWEEPS, "n_iter_global": STREAM_SWEEPS, "cold_s": cold_s, "re_cold_w0": re_cold,
+           "cold_vs_head_sketched_re": cold_vs_head, "publish": asdict(publish),
+           "drift_eps": eps, "update": asdict(rec), "warm_s": warm_s, "re_w1": re_w1, "re_w0": re_w0,
+           "live_at_swap": live, "swap": asdict(swap), "rejected_swap": asdict(rejected),
+           "swaps": es.swaps, "swap_rejects": es.swap_rejects, "teacher_forced_after_swap": tf,
+           "quantized_swap": asdict(qswap), "k4": k4, "k4_launches": k4_launches,
+           "requests": {r: engine.done[r].state for r in before + after}}
+    log(row)
+    require(publish.accepted and swap.accepted, f"a refresh was not published: {row}")
+    require(live > 0, "the refresh was published with no request live")
+    require(not rejected.accepted and math.isfinite(rejected.rel_err), f"the regressed chain was not rejected: {row}")
+    require(es.swap_rejects == 1, f"swap_rejects {es.swap_rejects}, want 1")
+    require(all(engine.done[r].state == "done" for r in before + after), f"a request did not finish: {row}")
+    require(k4_launches > 0 and all(c["rel_err"] <= TOL["bfloat16"] and c["apply_rel_err"] <= TOL["bfloat16"]
+                                    for c in k4), f"K4 on the quantized refresh: {k4}")
+    del w0, w1
+    return row
+
+
+def serve(card_line: str, dev) -> dict:
+    """Phase 13: serving and streaming refresh at gemma-2b's full width and
+    depth (a–e, module docstring)."""
+    from repro_torch.layers.faust_linear import FaustSpec
+    from repro_torch.models.lm import LM
+    from repro_torch.runtime.engine import unembed_blockfaust
+
+    _free()
+    out = {}
+    cfg = serve_config()
+    model = LM(cfg, seed=0, device=dev)
+    a = serve_run("serve_engine", card_line, model, 24, (32, 1000), (16, 64), fixed=(512, 700), first=12,
+                  every=(10, 4), evict_step=20)
+    out["engine"] = a["row"]
+    out["profile"] = profile_decode(card_line, model)
+    out["head"] = serve_head(card_line, dev, model)
+    out["forced"] = serve_forced(card_line, model)
+    out["stream"] = serve_stream(card_line, dev, model, a["engine"])
+    # (d)'s trace on this model: the dense MLP beside the FAµST one
+    out["dense_mlp_short"] = serve_run("serve_engine_dense_mlp_short", card_line, model, 8, (32, 256), (32, 32),
+                                       seed=4, check=False)["row"]
+    del model, a
+    _free()
+    model = LM(serve_config(dtype="float32"), seed=0, device=dev)
+    out["engine_f32"] = serve_run("serve_engine_f32", card_line, model, 8, (32, 256), (16, 16), seed=1)["row"]
+    # the f32 head's K1 and K6 at the decode batches (b) ran
+    out["head_f32"] = check_chains(card_line, dev, "serve_chain_check", {"unembed": unembed_blockfaust(model)},
+                                   (1, 3, 8))
+    del model
+    _free()
+    model = LM(serve_config(faust_mlp=FaustSpec(3, 128, 4)), seed=0, device=dev)
+    d = serve_run("serve_engine_faust_mlp", card_line, model, 8, (32, 256), (32, 32), seed=4)["row"]
+    # one layer's MLP chains at decode batches 1 and 8 and at the longest
+    # prefill of the trace (one request's prompt rows)
+    mlp = model.layers[0].mlp
+    d["chains"] = check_chains(card_line, dev, "serve_chain_check",
+                               {f"layers.0.mlp.{w}": getattr(mlp, w).blockfaust() for w in ("w_up", "w_gate", "w_down")},
+                               (1, 8, max(d["prompt_lengths"])))
+    d["profile"] = profile_decode(card_line, model)
+    log({"phase": "serve_faust_mlp", "card": card_line, "tpot_p50_s": d["tpot_p50_s"],
+         "engine_tpot_p50_s": out["engine"]["tpot_p50_s"],
+         "dense_mlp_same_trace_tpot_p50_s": out["dense_mlp_short"]["tpot_p50_s"],
+         "backend_counts": d["backend_counts"], "launches_per_step": d["profile"]["launches_per_step"],
+         "step_s": d["profile"]["step_s"], "dense_mlp_step_s": out["profile"]["step_s"]})
+    out["faust_mlp"] = d
+    del model
+    _free()
+    return out
 
 
 def _kernel_entry(name, source, replaces, launches, cases, checks, card_line, head) -> dict:
@@ -1911,6 +2503,8 @@ def main() -> int:
     rows += measure_quantized(qops, ops, info["card"])
     rows += measure_backward(op, qops["int8:per_block"], info["card"])
     rows += measure_unembed(info["card"], dev)
+    srv = serve(info["card"], dev)
+    serve_launches = {**srv["engine"]["launches"], "chain_matmul_q": srv["stream"]["k4_launches"]}
 
     src = "src/repro_torch/kernels/csrc/"
     f32_b128 = {"dtype": "float32", "batch": 128}
@@ -1941,6 +2535,9 @@ def main() -> int:
                       train_counts["chain_wgrad_q"], [r for r in rows if r.get("kernel") == "chain_wgrad_q"],
                       checks, info["card"], {"quant": "int8:per_block", **f32_b128}),
     ]
+    for k in kernels:  # slice 8: the serving engine's counts (K4: the quantized refresh's applies)
+        if k["name"] in serve_launches:
+            k["serve_launches"] = serve_launches[k["name"]]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(info["card"], flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -9,6 +9,12 @@ compute on the same arrays:
                 "out_features"}, ...], "lam": float}``
 * PackedChain:  ``{"values", "in_idx", "lam", "plan": {ChainPlan fields}}``,
                 plus ``"scales"`` and ``"qscheme"`` for a quantized chain
+* KV caches:    the reference's cache tree (``repro.models.lm``
+                ``make_caches``: per stage, per unit position, a
+                ``{"k", "v", "pos"}`` dict stacked over the stage's repeat
+                on axis 0, slots on axis 1), mapped to and from the port's
+                per-layer :class:`~repro_torch.layers.attention.KVCache`
+                list (slots on axis 0)
 * LM params:    the reference's parameter tree (``repro.models.lm``
                 ``init_model``: nested dicts and lists, each stage's layers
                 stacked on a leading axis) with numpy leaves, mapped to and
@@ -38,6 +44,7 @@ from repro_torch.core.compress import (
 )
 from repro_torch.core.faust import Faust
 from repro_torch.device import resolve_device
+from repro_torch.layers.attention import KVCache
 
 _PLAN_FIELDS = ("block", "in_blocks", "out_blocks", "k_blocks", "offsets", "in_feats", "out_feats")
 # dtypes numpy lacks: name -> (torch dtype, numpy dtype of the bit view)
@@ -241,3 +248,40 @@ def lm_state_dict_to_numpy(state_dict: dict, cfg) -> tuple[dict, str | None]:
     for key, rows in per.items():
         flat[key] = np.stack([rows[layer] for layer in sorted(rows)])
     return _nest(flat), dtype
+
+
+def kv_caches_from_numpy(tree: list, cfg, *, dtype: str | None = None, device=None) -> list[KVCache]:
+    """The port's per-layer cache list from the reference's cache tree
+    with numpy leaves; ``dtype`` names the k/v leaves' type when they
+    cross as bit views (``bfloat16``)."""
+    dev = resolve_device(device)
+    out = []
+    for si, (repeat, unit) in enumerate(cfg.stages):
+        for r in range(repeat):
+            for pos in range(len(unit)):
+                c = tree[si][pos]
+                kv = [_tensor(np.asarray(c[n])[r], dev, dtype if np.asarray(c[n]).dtype == np.uint16 else None)
+                      for n in ("k", "v")]
+                out.append(KVCache(*kv, _tensor(np.asarray(c["pos"])[r].astype(np.int32), dev)))
+    return out
+
+
+def kv_caches_to_numpy(caches: list[KVCache], cfg) -> tuple[list, str | None]:
+    """The reference's cache tree (layers stacked per stage again) from
+    the port's cache list, with the k/v leaves' dtype name (bf16 as
+    ``uint16`` bits)."""
+    tree, layer, dtype = [], 0, None
+    for repeat, unit in cfg.stages:
+        stage = []
+        for pos in range(len(unit)):
+            rows = [caches[layer + r * len(unit) + pos] for r in range(repeat)]
+            leaf = {}
+            for n in ("k", "v", "pos"):
+                arrs = [_array(getattr(c, n)) for c in rows]
+                leaf[n] = np.stack([a for a, _ in arrs])
+                if n != "pos" and arrs[0][1] in _BIT_VIEWS:
+                    dtype = arrs[0][1]
+            stage.append(leaf)
+        tree.append(stage)
+        layer += repeat * len(unit)
+    return tree, dtype

@@ -1,10 +1,10 @@
 """Architecture registry of the port: ``get_config(name)`` /
 ``get_smoke(name)``.  Counterpart of :mod:`repro.configs`.
 
-The port runs the dense ``"attn"`` layer kind in train mode so far, so
+The port trains and serves the dense ``"attn"`` layer kind so far, so
 gemma-2b is the one architecture it holds; the others need layer kinds
-(sliding-window, MoE, mamba), modality front ends or serving paths that
-come with later slices, and asking for one raises, naming that slice.
+(sliding-window, MoE, mamba) or modality front ends that come with later
+slices, and asking for one raises, naming that slice.
 """
 from __future__ import annotations
 

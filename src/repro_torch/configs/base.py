@@ -82,6 +82,6 @@ def check_supported(cfg: ArchConfig) -> None:
         needs.append("partial rotary")
     if needs:
         raise NotImplementedError(
-            f"{cfg.name}: the port runs dense {SUPPORTED_KINDS} layers in train mode; "
+            f"{cfg.name}: the port trains and serves dense {SUPPORTED_KINDS} layers; "
             f"this config needs {', '.join(needs)}, which come with later slices"
         )

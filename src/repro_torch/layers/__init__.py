@@ -1,2 +1,2 @@
-"""Layers of the port's LM: FAµST linear, norms, rotary, attention, MLP,
-embedding.  Counterpart of :mod:`repro.layers` (train mode)."""
+"""Layers of the port's LM: FAµST linear, norms, rotary, attention with KV
+caches, MLP, embedding.  Counterpart of :mod:`repro.layers`."""

@@ -1,16 +1,27 @@
-"""Attention in train mode: MQA/GQA projections, rotary, and chunked
-online-softmax attention in f32.  Counterpart of the train path of
+"""Attention: MQA/GQA projections, rotary, chunked online-softmax
+attention in f32, and decode over per-row KV caches.  Counterpart of
 :mod:`repro.layers.attention` (``attn_init``, ``_mask_bias``,
-``_gqa_scores``, ``flash_attention_ref``, ``attn_qkv``, ``attn_train``).
+``_gqa_scores``, ``flash_attention_ref``, ``decode_attention``,
+``KVCache`` and its functions, ``attn_qkv``, ``attn_train``,
+``attn_prefill``, ``attn_decode``).
 
 Plain PyTorch: the reference computes attention outside any Pallas
 kernel.  The softmax runs over chunks of ``chunk`` keys with a running
 max and sum, so the logits held at once are ``(B, KH, G, S, chunk)``.
-Sliding windows, KV caches and decode come with later slices.
+
+A :class:`KVCache` holds ``(B, KH, capacity, D)`` keys and values (the
+dot-native layout: decode reads it without a transpose) and a per-row
+``pos (B,)``, the tokens each row has seen, so the serving engine's pool
+rows decode at independent positions.  A capacity below the sequence is a
+ring buffer (token ``p`` in slot ``p % capacity``).  The cache functions
+return new caches and leave their inputs as they were, as the reference's.
+The banded sliding-window prefill (``banded_attention_ref``) comes with
+the ``local`` layer kind.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import NamedTuple
 
 import torch
 from torch import nn
@@ -112,6 +123,109 @@ def flash_attention_ref(
     return out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, d).to(q.dtype)
 
 
+def decode_attention(
+    q: torch.Tensor,
+    k_cache: torch.Tensor,
+    v_cache: torch.Tensor,
+    *,
+    q_position: torch.Tensor,
+    kv_positions: torch.Tensor,
+    window: int | None = None,
+    scale: float | None = None,
+) -> torch.Tensor:
+    """One decode step: ``q (B,Sq,H,D)`` over the cache ``(B,KH,L,D)``.
+
+    Direct stable softmax over the whole cache.  ``kv_positions`` holds the
+    global position of every cache row (a ring buffer passes its unrolled
+    positions); rows not yet written sit beyond ``q_position`` and causality
+    masks them.  Both positions may carry a leading batch dim
+    (``q_position (B,Sq)``, ``kv_positions (B,L)``) or none.  The reference's
+    rounding points are kept: the scores dot in the cache dtype, the
+    softmax in f32, ``p`` cast to the values' dtype before its dot."""
+    b, sq, h, d = q.shape
+    _, kh, l, _ = k_cache.shape
+    g = h // kh
+    scale = d**-0.5 if scale is None else scale
+    qg = q.reshape(b, sq, kh, g, d).permute(0, 2, 3, 1, 4).reshape(b, kh, g * sq, d).to(k_cache.dtype)
+    s = torch.matmul(qg, k_cache.transpose(-1, -2))  # (B,KH,G·Sq,L) in the cache dtype
+    s = s.float().reshape(b, kh, g, sq, l) * scale
+    bias = _mask_bias(q_position, kv_positions, True, window)  # ([B,]Sq,L)
+    s = s + (bias[:, None, None] if bias.ndim == 3 else bias)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    p = (p / p.sum(dim=-1, keepdim=True)).to(v_cache.dtype)
+    o = torch.matmul(p.reshape(b, kh, g * sq, l), v_cache)  # (B,KH,G·Sq,D)
+    o = o.reshape(b, kh, g, sq, d).permute(0, 3, 1, 2, 4)
+    return o.reshape(b, sq, h, d).to(q.dtype)
+
+
+class KVCache(NamedTuple):
+    """Fixed-capacity cache: ``k``/``v (B, KH, capacity, D)`` and ``pos``,
+    the tokens each row has seen, ``(B,)`` int32 (a 0-d ``pos`` shares one
+    position over the rows)."""
+
+    k: torch.Tensor
+    v: torch.Tensor
+    pos: torch.Tensor
+
+    @property
+    def capacity(self) -> int:
+        return self.k.shape[2]
+
+
+def kv_cache_init(b: int, capacity: int, kh: int, d: int, dtype=torch.bfloat16, device=None) -> KVCache:
+    z = torch.zeros((b, kh, capacity, d), dtype=dtype, device=device)
+    return KVCache(z, z.clone(), torch.zeros((b,), dtype=torch.int32, device=device))
+
+
+def kv_cache_update_decode(cache: KVCache, k_new: torch.Tensor, v_new: torch.Tensor) -> KVCache:
+    """Insert one token ``(B,1,KH,D)`` at each row's ``pos % capacity``."""
+    idx = (cache.pos % cache.capacity).long()
+    k_t = k_new.to(cache.k.dtype).transpose(1, 2)  # (B,KH,1,D)
+    v_t = v_new.to(cache.v.dtype).transpose(1, 2)
+    k, v = cache.k.clone(), cache.v.clone()
+    if idx.ndim == 0:  # one shared position: one slice for every row
+        k[:, :, idx] = k_t[:, :, 0]
+        v[:, :, idx] = v_t[:, :, 0]
+    else:  # the advanced indices split by a slice put B first: (B, KH, D)
+        rows = torch.arange(k.shape[0], device=k.device)
+        k[rows, :, idx] = k_t[:, :, 0]
+        v[rows, :, idx] = v_t[:, :, 0]
+    return KVCache(k, v, cache.pos + 1)
+
+
+def kv_cache_positions(cache: KVCache) -> torch.Tensor:
+    """Global position of each cache slot's entry: ``(B, capacity)`` for a
+    per-row ``pos``, ``(capacity,)`` for a shared one.  Slots not yet
+    written get a position past ``pos``, so causality masks them; a reused
+    pool row's stale entries sit there too until they are overwritten."""
+    cap = cache.capacity
+    slots = torch.arange(cap, device=cache.pos.device)
+    pos = cache.pos[..., None].long()  # (B,1), or (1,) for a shared pos
+    n_wraps = torch.div(pos, cap, rounding_mode="floor")
+    base = slots + (n_wraps - 1) * cap
+    latest = slots + n_wraps * cap
+    positions = torch.where(latest < pos, latest, base)
+    return torch.where(positions >= 0, positions, pos + 1 + slots)
+
+
+def kv_cache_prefill(cache: KVCache, k_seq: torch.Tensor, v_seq: torch.Tensor) -> KVCache:
+    """Fill from a whole prefill sequence ``(B,S,KH,D)``; a ring buffer
+    keeps the last ``capacity`` tokens, laid out so that slot = pos % capacity."""
+    s, cap = k_seq.shape[1], cache.capacity
+    pos = torch.full(cache.pos.shape, s, dtype=torch.int32, device=cache.pos.device)
+    k_t, v_t = k_seq.transpose(1, 2), v_seq.transpose(1, 2)  # (B,KH,S,D)
+    if s <= cap:
+        k, v = cache.k.clone(), cache.v.clone()
+        k[:, :, :s] = k_t
+        v[:, :, :s] = v_t
+        return KVCache(k, v, pos)
+    roll = (s - cap) % cap  # the token at global position p lives in slot p % cap
+    k = torch.roll(k_t[:, :, s - cap:], shifts=roll, dims=2).to(cache.k.dtype)
+    v = torch.roll(v_t[:, :, s - cap:], shifts=roll, dims=2).to(cache.v.dtype)
+    return KVCache(k, v, pos)
+
+
 def attn_qkv(p: Attention, x: torch.Tensor, spec: AttnSpec, positions: torch.Tensor):
     b, s, _ = x.shape
     h, kh, d = spec.n_heads, spec.n_kv_heads, spec.head_dim
@@ -126,8 +240,8 @@ def attn_qkv(p: Attention, x: torch.Tensor, spec: AttnSpec, positions: torch.Ten
     return q, k, v
 
 
-def attn_train(p: Attention, x: torch.Tensor, spec: AttnSpec, chunk: int = 512) -> torch.Tensor:
-    """Causal self-attention over a full sequence."""
+def _self_attention(p: Attention, x: torch.Tensor, spec: AttnSpec, chunk: int):
+    """Causal self-attention over a whole sequence: ``(y, k, v)``."""
     if spec.window is not None:
         raise NotImplementedError("sliding-window attention (the local layer kind) comes with a later slice")
     b, s, _ = x.shape
@@ -135,4 +249,27 @@ def attn_train(p: Attention, x: torch.Tensor, spec: AttnSpec, chunk: int = 512) 
     q, k, v = attn_qkv(p, x, spec, positions)
     o = flash_attention_ref(q, k, v, q_positions=positions, kv_positions=positions, causal=True,
                             scale=spec.scale, chunk=min(chunk, s))
-    return o.reshape(b, s, -1) @ p.wo
+    return o.reshape(b, s, -1) @ p.wo, k, v
+
+
+def attn_train(p: Attention, x: torch.Tensor, spec: AttnSpec, chunk: int = 512) -> torch.Tensor:
+    """Causal self-attention over a full sequence."""
+    return _self_attention(p, x, spec, chunk)[0]
+
+
+def attn_prefill(p: Attention, x: torch.Tensor, spec: AttnSpec, cache: KVCache, chunk: int = 512):
+    """The train path's attention that also fills the cache: ``(y, cache)``."""
+    y, k, v = _self_attention(p, x, spec, chunk)
+    return y, kv_cache_prefill(cache, k, v)
+
+
+def attn_decode(p: Attention, x: torch.Tensor, spec: AttnSpec, cache: KVCache):
+    """One decode step of ``x (B,1,d)``: each row at its cache's ``pos``
+    (rope and mask positions ``(B,S)``; a shared ``pos`` gives ``(S,)``)."""
+    b, s, _ = x.shape
+    positions = cache.pos[..., None].long() + torch.arange(s, device=x.device)
+    q, k, v = attn_qkv(p, x, spec, positions)
+    cache = kv_cache_update_decode(cache, k, v)
+    o = decode_attention(q, cache.k, cache.v, q_position=positions, kv_positions=kv_cache_positions(cache),
+                         window=spec.window, scale=spec.scale)
+    return o.reshape(b, s, -1) @ p.wo, cache

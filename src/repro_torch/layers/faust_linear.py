@@ -52,6 +52,23 @@ class FaustSpec:
         return in_dim * out_dim / self.s_tot(in_dim, out_dim)
 
 
+def factorize_spec(spec: FaustSpec, n_iter_two: int = 40, n_iter_global: int = 40):
+    """The :class:`repro_torch.api.factorize.FactorizeSpec` that compresses
+    a dense weight into this layer's chain layout (the block route with
+    ``k_first = k_mid = spec.k``)."""
+    from repro_torch.api.factorize import FactorizeSpec
+
+    return FactorizeSpec(
+        strategy="hierarchical",
+        n_factors=spec.n_factors,
+        block=spec.block,
+        k_first=spec.k,
+        k_mid=spec.k,
+        n_iter_two=n_iter_two,
+        n_iter_global=n_iter_global,
+    )
+
+
 class _Factor(nn.Module):
     def __init__(self, f: BlockSparseFactor):
         super().__init__()

@@ -1,1 +1,1 @@
-"""The port's decoder LM (train mode).  Counterpart of :mod:`repro.models`."""
+"""The port's decoder LM (training, prefill and decode).  Counterpart of :mod:`repro.models`."""

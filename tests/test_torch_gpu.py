@@ -592,3 +592,58 @@ def test_batched_factorization_equals_sequential(dev):
         single, _ = factorize(ws[i], spec, device=dev)
         assert abs(float(o.rel_error_fro(ws[i])) - float(single.rel_error_fro(ws[i]))) <= 1e-5
         assert _rel(o.apply(x, "fused", device=dev), x @ o.todense()) <= 1e-4
+
+
+# ---------------------------------------------------------------------------
+# Slice 8: serving — the FAµST head at decode batches, one decode step
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("batch", [1, 3, 8])
+def test_head_at_decode_batches_matches_plain(dev, batch):
+    """The unembedding's layout (2048 → 2048 → 32000 here, block 16, k 4,
+    bf16) at decode batches: K1 over the packed chain and K6 factor by
+    factor against their plain versions."""
+    g = torch.Generator().manual_seed(batch)
+    dims = (2048, 2048, 32000)
+    bf = BlockFaust(tuple(random_block_factor(dims[j], dims[j + 1], 16, 16, 4, generator=g, device=dev,
+                                              dtype=torch.bfloat16) for j in range(2)), torch.ones((), device=dev))
+    pc = pack_chain(bf)
+    x = torch.randn((batch, 2048), generator=g).to(dev, torch.bfloat16)
+    meta = ops.chain_meta(pc.plan, pc.in_idx)
+    before = (chain_matmul.launches, bsr_matmul.launches)
+    y = chain_matmul(x, pc.values, meta, plan=pc.plan)
+    assert _rel(y, chain_matmul_plain(x, pc.values, meta, plan=pc.plan)) <= TOL[torch.bfloat16]
+    h = x
+    for f in bf.factors:
+        h_k = bsr_matmul(h, f.values, f.in_idx)
+        assert _rel(h_k, bsr_matmul_plain(h, f.values, f.in_idx)) <= TOL[torch.bfloat16]
+        h = h_k
+    torch.cuda.synchronize()
+    assert (chain_matmul.launches, bsr_matmul.launches) == (before[0] + 1, before[1] + 2)
+
+
+def test_decode_step_on_the_card_matches_the_cpu(dev):
+    """gemma-2b smoke in bf16 with a FAµST unembedding: a prefill and one
+    decode step of a two-slot engine pool on the card (the head through
+    the kernels) against the same model's plain path on the CPU, within the
+    bf16 bound of max|logits|."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.layers.faust_linear import FaustSpec
+    from repro_torch.models.lm import LM
+    from repro_torch.runtime.engine import LMExecutor
+
+    cfg = dataclasses.replace(get_smoke("gemma_2b"), dtype="bfloat16", faust_unembed=FaustSpec(2, 16, 2),
+                              tie_embeddings=False)
+    cpu = LM(cfg, seed=0, device="cpu")
+    card = LM(cfg, seed=0, device="cpu").to(dev)
+    card.load_state_dict(cpu.state_dict())
+    prompts = [torch.randint(0, cfg.vocab, (n,), generator=torch.Generator().manual_seed(n)).numpy() for n in (6, 5)]
+    logits = []
+    for model in (cpu, card):
+        ex = LMExecutor(model, 16, n_slots=2)
+        for slot, p in enumerate(prompts):
+            ex.prefill_forward(slot, p, {})
+        logits.append(ex.decode_forward([0, 1], [[3], [7]]).float().cpu())
+    assert logits[1].shape == (2, 1, cfg.vocab)
+    assert _rel(logits[1], logits[0]) <= TOL[torch.bfloat16]

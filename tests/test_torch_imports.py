@@ -1,13 +1,15 @@
 """The port stands alone: nothing under ``src/repro_torch`` and nothing in
-its root scripts ``chip_smoke.py`` and ``dgrad_probe.py`` imports JAX or
-the JAX package ``repro``."""
+its root scripts ``chip_smoke.py``, ``dgrad_probe.py`` and
+``dispatch_probe.py`` imports JAX or the JAX package ``repro``."""
 import ast
 from pathlib import Path
 
 import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
-FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "dgrad_probe.py"]
+FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py", ROOT / "dgrad_probe.py", ROOT / "dispatch_probe.py"
+]
 
 
 def _imported(tree: ast.AST):

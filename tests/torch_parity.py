@@ -81,3 +81,17 @@ def rel_max_err(y, ref) -> float:
     """max |y − ref| over max |ref|."""
     y, ref = np.asarray(y, np.float32), np.asarray(ref, np.float32)
     return float(np.abs(y - ref).max() / max(np.abs(ref).max(), 1e-30))
+
+
+def kv_caches_dict(caches) -> tuple[list, str | None]:
+    """A reference cache tree (``repro.models.lm.make_caches``: stages of
+    unit positions of stacked ``KVCache``) as nested lists of
+    ``{"k", "v", "pos"}`` numpy dicts, with the k/v dtype name."""
+    tree, dtype = [], None
+    for stage in caches:
+        out = []
+        for c in stage:
+            k, dtype = array(c.k)
+            out.append({"k": k, "v": array(c.v)[0], "pos": np.asarray(c.pos)})
+        tree.append(out)
+    return tree, dtype
