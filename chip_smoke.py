@@ -127,7 +127,29 @@ Phases, each fatal on failure (non-zero exit):
    after it (teacher-forced against the swapped model), a regressed chain
    rejected (``swap_rejects == 1``), and ``quantized_swap`` of the refresh
    into an int8 chain applied by K4 at B ∈ {1, 8} against its plain
-   version.
+   version;
+14. the rest of training (slice 9) through ``repro_torch.launch.train``'s
+   path at gemma-2b's full width (``--faust --batch 8 --seq 128``, bf16,
+   FAµST unembedding), on a fresh read-only autotune table: (a) 18
+   layers, ``--compress-grads 0.01``, 4 steps: loss, step time, the EF
+   residual's norm and tokens/s per step, peak memory, a profiled step's
+   idle share, K2/K3 launches, one more step with
+   ``set_sync_debug_mode("error")`` around the compression and the guarded
+   update (the whole step under ``"warn"``, its warnings counted), then
+   the top-k selection at the embedding's size against the stable sort
+   and ``torch.topk``; (b) 2 layers with EF (a state of about 10 GB; the
+   free disk checked first): 4 steps uninterrupted, then
+   ``checkpoint_every=2`` with SIGTERM raised in-process after step 2, then
+   a fresh trainer resuming for steps 2-3: losses within 1e-6 relative,
+   every restored tensor bit for bit the saved one, bytes and seconds of
+   the save (snapshot, hash, write) and the restore, the directory removed
+   after; (c) 18 layers, 4 steps, ``recompress_every=2`` on the
+   reference's default targets and spec: each tick's action, RE, sweeps
+   and seconds, K1 launches, the record on the heartbeat; (d)
+   ``launch.calibrate`` into a temporary ``REPRO_TORCH_ROOFLINE``: each
+   constant beside the data sheet's (within 0.3-1.1×, the launch time and
+   the builtin link rate excepted), a dispatch priced by it, the builtin
+   constants restored.
 
 Prints one JSON object per line; the last three lines are the kernels
 summary, the card's ``name, power.limit`` and ``{"ok": true, ...}``.
@@ -1023,12 +1045,13 @@ def measure(op, card_line: str) -> tuple[list[dict], float]:
     import torch
 
     from repro_torch.core.compress import unpack_chain
-    from repro_torch.kernels.bsr_matmul import BSR_BT, bsr_matmul, bsr_matmul_plain, launch_noop
+    from repro_torch.kernels.bsr_matmul import BSR_BT, bsr_matmul, bsr_matmul_plain
+    from repro_torch.launch.calibrate import measure_t_launch_us
     from repro_torch.kernels.chain import FORWARD_BT, SUPPORTED_BT, chain_matmul, chain_matmul_plain
     from repro_torch.kernels.ops import chain_meta
 
     dev = op.device
-    t_launch_us = time_ms(launch_noop, iters=1000) * 1e3
+    t_launch_us = measure_t_launch_us(device=dev)
     log({"phase": "t_launch", "card": card_line, "t_launch_us": t_launch_us})
     m, n = op.shape
     rows = []
@@ -1334,7 +1357,7 @@ def train_lm(card_line: str, argv=None) -> dict:
             torch.cuda.reset_peak_memory_stats()
         _zero_counts()
         t0 = time.perf_counter()
-        out = trainer.run()
+        out = trainer.run(resume=args.resume)
         wall_s = time.perf_counter() - t0
         counts = _bwd_counts()
         for name, fn in wrapped.items():
@@ -1413,8 +1436,8 @@ def device_spans(prof, step_s: float) -> dict:
             "family_ms": families, "top_kernels_ms": [[n[:120], us / 1e3] for n, us in top]}
 
 
-def profile_step(trainer, out, card_line: str) -> dict:
-    """Phase 7, one more steady step of the trained model under
+def profile_step(trainer, out, card_line: str, phase: str = "train_profile") -> dict:
+    """Phase 7 (and 14), one more steady step of the trained model under
     ``torch.profiler``: the host's step time, the device's busy time (the
     union of kernel spans) and idle share, and device time by kernel family
     and by the ten costliest kernels."""
@@ -1428,14 +1451,14 @@ def profile_step(trainer, out, card_line: str) -> dict:
     step_fn = make_train_step(out["model"], trainer.opt_cfg, trainer.tcfg)
     data = DataIterator(trainer.data_cfg)
     batches = [{k: torch.from_numpy(v).to(trainer.device) for k, v in next(data).items()} for _ in range(2)]
-    float(step_fn(batches[0], out["opt"])["loss"])  # warm: the step's allocations
+    float(step_fn(batches[0], out["opt"], out.get("ef"))["loss"])  # warm: the step's allocations
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        loss = float(step_fn(batches[1], out["opt"])["loss"])
+        loss = float(step_fn(batches[1], out["opt"], out.get("ef"))["loss"])
         torch.cuda.synchronize()
         step_s = time.perf_counter() - t0
-    row = {"phase": "train_profile", "card": card_line, "loss": loss, **device_spans(prof, step_s)}
+    row = {"phase": phase, "card": card_line, "loss": loss, **device_spans(prof, step_s)}
     log(row)
     require(math.isfinite(loss), f"the profiled step's loss is not finite: {row}")
     return {k: row[k] for k in ("step_s", "device_busy_ms", "device_idle_share", "family_ms")}
@@ -2454,6 +2477,356 @@ def serve(card_line: str, dev) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Slice 9: the rest of training (phase 14)
+# ---------------------------------------------------------------------------
+
+RESILIENT_ARGV = ("--arch", "gemma_2b", "--faust", "--batch", "8", "--seq", "128")
+EF_RATIO = "0.01"
+RESUME_LAYERS = 2  # (b)'s depth: full width, a state of about 10 GB on disk
+RESUME_RTOL = 1e-6  # resumed losses against the uninterrupted run's, relative
+# (c)'s spec: None is the reference's default (block 8, 8/8 sweeps;
+# src/repro/runtime/trainer.py:291-294)
+RECOMPRESS_SPEC = None
+CALIB_RANGE = (0.3, 1.1)  # a measured constant over its data-sheet value
+CKPT_ROOT = ROOT / "build" / "chip_smoke_ckpt"
+
+
+@contextlib.contextmanager
+def _fresh_tables(name: str):
+    """A fresh autotune table ``build/<name>.json`` in read-only mode (so
+    ``auto`` is the model's choice, as in phase 7), the old one after."""
+    from repro_torch.api import autotune
+
+    table = ROOT / "build" / f"{name}.json"
+    table.unlink(missing_ok=True)
+    saved = {k: os.environ.get(k) for k in ("REPRO_TORCH_AUTOTUNE_TABLE", "REPRO_AUTOTUNE")}
+    os.environ["REPRO_TORCH_AUTOTUNE_TABLE"] = str(table)
+    os.environ.pop("REPRO_AUTOTUNE", None)
+    autotune.reload()
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        autotune.reload()
+
+
+def _resilient_trainer(argv, n_layers: int | None = None, **tcfg):
+    """``repro_torch.launch.train``'s trainer for ``RESILIENT_ARGV + argv``,
+    its depth cut to ``n_layers`` and its ``TrainConfig`` fields replaced by
+    ``tcfg`` where given; and the parsed arguments."""
+    import dataclasses
+
+    from repro_torch.launch import train
+    from repro_torch.runtime.trainer import Trainer
+
+    args = train.parse_args([*RESILIENT_ARGV, *argv])
+    base = train.build(args)
+    if n_layers is None and not tcfg:
+        return base, args
+    cfg = base.cfg if n_layers is None else dataclasses.replace(base.cfg, n_layers=n_layers,
+                                                                  stages=((n_layers, ("attn",)),))
+    return Trainer(cfg, base.data_cfg, base.opt_cfg, dataclasses.replace(base.tcfg, **tcfg), device=base.device), args
+
+
+def _state_leaves(out) -> list:
+    from repro_torch.checkpoint.manager import _leaves
+    from repro_torch.runtime.trainer import state_tree
+
+    return _leaves(state_tree(out["model"], out["opt"], out["ef"]))
+
+
+def _same_bits(a, b) -> bool:
+    import torch
+
+    view = (lambda t: t.view(torch.int16)) if a.dtype == torch.bfloat16 else (lambda t: t)  # noqa: E731
+    return a.dtype == b.dtype and a.shape == b.shape and torch.equal(view(a), view(b))
+
+
+def _step_rows(phase: str, card_line: str, hist, tokens: int) -> None:
+    for h in hist:
+        log({"phase": phase, "card": card_line, "step": h["step"], "loss": h["loss"],
+             "step_time_s": h["step_time_s"], "tokens_per_s": tokens / h["step_time_s"],
+             "ef_residual_norm": h.get("ef_residual_norm"), "recompress_re": h.get("recompress_re"),
+             "skipped": h["skipped"]})
+
+
+def ef_sync_check(trainer, out) -> dict:
+    """One more compressed step with ``set_sync_debug_mode("error")`` around
+    the compression and the guarded update (as ``test_torch_gpu.py`` holds
+    the update), inside ``"warn"`` around the whole step: a read-back in
+    the compression or the update raises; the forward's and backward's are
+    counted."""
+    import warnings
+
+    import torch
+
+    from repro_torch.data.pipeline import DataIterator
+    from repro_torch.runtime import trainer as trainer_mod
+
+    ran = []
+
+    def strict(real):
+        def call(*a, **k):
+            prev = torch.cuda.get_sync_debug_mode()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                return real(*a, **k)
+            finally:
+                torch.cuda.set_sync_debug_mode(prev)
+                ran.append(real.__name__)
+        return call
+
+    real = {n: getattr(trainer_mod, n) for n in ("ef_topk_compress", "guarded_update")}
+    step_fn = trainer_mod.make_train_step(out["model"], trainer.opt_cfg, trainer.tcfg)
+    batch = {k: torch.from_numpy(v).to(trainer.device) for k, v in next(DataIterator(trainer.data_cfg)).items()}
+    torch.cuda.synchronize()
+    try:
+        for n, fn in real.items():
+            setattr(trainer_mod, n, strict(fn))
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                metrics = step_fn(batch, out["opt"], out["ef"])
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+    finally:
+        for n, fn in real.items():
+            setattr(trainer_mod, n, fn)
+    syncs = [str(w.message)[:160] for w in caught if "called a synchronizing" in str(w.message)]
+    return {"strict_parts": ran, "loss": float(metrics["loss"]), "step_sync_warnings": len(syncs),
+            "first_sync_warnings": syncs[:3]}
+
+
+def time_topk(card_line: str, n: int, ratio: float) -> dict:
+    """The EF selection at the embedding gradient's size: ``topk_mask_flat``
+    (``torch.topk``'s k-th value, then ties in index order) against the
+    plain stable sort of ``core.projections`` (the same set required), and
+    ``torch.topk`` alone (the library call; its set may differ at ties)."""
+    import torch
+
+    from repro_torch.core.projections import _topk_mask_flat
+    from repro_torch.optim.compression import n_kept, topk_mask_flat
+
+    k = n_kept(n, ratio)
+    v = torch.randn(n, generator=torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    same = bool(torch.equal(topk_mask_flat(v, k), _topk_mask_flat(v, k).float()))
+    _free()
+    row = {"phase": "ef_topk_time", "card": card_line, "n": n, "k": k, "same_set": same,
+           "selection_ms": time_ms(lambda: topk_mask_flat(v, k), iters=5),
+           "stable_sort_ms": time_ms(lambda: _topk_mask_flat(v, k), iters=3),
+           "torch_topk_ms": time_ms(lambda: torch.topk(v.abs(), k, sorted=False), iters=5),
+           "bound_ms": 4.0 * n * 2 / HBM_BW * 1e3}  # read v, write the f32 mask
+    log(row)
+    require(same, f"the selection's set is not the stable sort's: {row}")
+    del v
+    _free()
+    return row
+
+
+def ef_run(card_line: str) -> dict:
+    """Phase 14 (a): gemma-2b at full width and depth, ``--compress-grads``
+    for 4 steps: loss, step time, the EF residual's norm and tokens/s per
+    step, peak memory, a profiled step's idle share, the sync check, K2 and
+    K3 launches; then the selection's time at the embedding's size."""
+    import torch
+
+    _free()
+    trainer, args = _resilient_trainer(["--steps", "4", "--compress-grads", EF_RATIO, "--checkpoint-dir",
+                                        str(CKPT_ROOT / "ef"), "--checkpoint-every", "1000"])
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    t0 = time.perf_counter()
+    out = trainer.run(resume=args.resume)
+    wall_s = time.perf_counter() - t0
+    counts = _bwd_counts()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    _step_rows("train_ef_step", card_line, out["history"], args.batch * args.seq)
+    profile = profile_step(trainer, out, card_line, "train_ef_profile")
+    sync = ef_sync_check(trainer, out)
+    n_embed = out["model"].embed.table.numel()
+    ef_gb = sum(r.numel() for r in out["ef"].residual.values()) * 4 / 1e9
+    row = {"phase": "train_ef", "card": card_line, "n_layers": trainer.cfg.n_layers, "ratio": float(EF_RATIO),
+           "wall_s": wall_s, "max_memory_allocated_gb": peak, "ef_residual_gb": ef_gb, "launches": counts,
+           "profile": profile, "sync": sync, "losses": [h["loss"] for h in out["history"]]}
+    log(row)
+    losses = row["losses"]
+    require(len(losses) == 4 and all(math.isfinite(v) for v in losses), f"bad EF losses: {losses}")
+    require(all("ef_residual_norm" in h and math.isfinite(h["ef_residual_norm"]) for h in out["history"]),
+            "no finite EF residual norm in a step")
+    require(counts["chain_dgrad"] > 0 and counts["chain_wgrad"] > 0, f"the EF trainer never ran K2/K3: {counts}")
+    require(sync["strict_parts"] == ["ef_topk_compress", "guarded_update"], f"the sync check did not run: {sync}")
+    del out, trainer
+    _free()
+    row["topk"] = time_topk(card_line, n_embed, float(EF_RATIO))
+    return row
+
+
+def preempt_resume(card_line: str) -> dict:
+    """Phase 14 (b): full width at ``RESUME_LAYERS`` layers with EF: 4 steps
+    uninterrupted; then ``checkpoint_every=2`` with SIGTERM raised after
+    step 2 (save, clean exit); then a fresh trainer resuming for steps 2-3.
+    The losses within ``RESUME_RTOL``, the restored state bit for bit; the
+    bytes, a save's seconds (snapshot, hash, write) and the restore's."""
+    import shutil
+    import signal
+
+    _free()
+    folder = CKPT_ROOT / "resume"
+    shutil.rmtree(folder, ignore_errors=True)
+    argv = ["--steps", "4", "--compress-grads", EF_RATIO, "--checkpoint-dir", str(folder),
+            "--checkpoint-every", "1000"]
+    full_t, _ = _resilient_trainer(argv, n_layers=RESUME_LAYERS)
+    full = full_t.run(resume=False)
+    want = [h["loss"] for h in full["history"]]
+    nbytes = sum(t.numel() * t.element_size() for _, t in _state_leaves(full))
+    del full, full_t
+    _free()
+    folder.mkdir(parents=True, exist_ok=True)
+    free = shutil.disk_usage(folder).free
+    require(free >= 1.2 * nbytes, f"{free / 1e9:.1f} GB free under {folder}: a checkpoint takes "
+                                  f"{nbytes / 1e9:.1f} GB (and 20 % room)")
+    first_t, _ = _resilient_trainer(argv, n_layers=RESUME_LAYERS, checkpoint_every=2)
+    beat = first_t._heartbeat
+
+    def preempt_after_step_2(step):
+        beat(step)
+        if step == 1:
+            signal.raise_signal(signal.SIGTERM)
+
+    first_t._heartbeat = preempt_after_step_2
+    first = first_t.run(resume=False)
+    saved = {n: t for n, t in _state_leaves(first)}
+    steps_on_disk = first_t.ckpt.all_steps()
+    second_t, _ = _resilient_trainer(argv, n_layers=RESUME_LAYERS)
+    restore = second_t.ckpt.restore_latest
+    mismatched = []
+
+    def checked_restore(target, shardings=None):
+        out = restore(target, shardings)
+        from repro_torch.checkpoint.manager import _leaves
+
+        mismatched.extend(n for n, t in _leaves(target) if not _same_bits(t, saved[n]))
+        return out
+
+    second_t.ckpt.restore_latest = checked_restore
+    del first
+    second = second_t.run(resume=True)
+    got = [h["loss"] for h in first_t.history + second["history"]]
+    rel = max(abs(a - b) / max(abs(b), 1e-30) for a, b in zip(got, want))
+    save = first_t.saves[0] if first_t.saves else {}
+    row = {"phase": "train_resume", "card": card_line, "n_layers": RESUME_LAYERS, "losses": got,
+           "uninterrupted": want, "max_rel_diff": rel, "steps": [h["step"] for h in first_t.history + second["history"]],
+           "steps_on_disk": steps_on_disk, "state_bytes": nbytes, "saved_bytes": save.get("bytes"),
+           "snapshot_s": save.get("snapshot_s"), "hash_s": save.get("hash_s"), "write_s": first_t.ckpt.last_write_s,
+           "restore_s": (second_t.resumed or {}).get("restore_s"), "resumed_step": (second_t.resumed or {}).get("step"),
+           "leaves": len(saved), "mismatched_leaves": mismatched[:8], "disk_free_gb": free / 1e9}
+    log(row)
+    require(row["steps"] == [0, 1, 2, 3] and steps_on_disk == [2] and row["resumed_step"] == 2,
+            f"preemption did not save at step 2 and resume there: {row}")
+    require(not mismatched and len(saved) > 0, f"restored leaves differ from the saved ones: {row}")
+    require(rel <= RESUME_RTOL, f"resumed losses differ from the uninterrupted run's: {row}")
+    del second, second_t, first_t, saved
+    shutil.rmtree(folder, ignore_errors=True)
+    _free()
+    return row
+
+
+def recompress_run(card_line: str) -> dict:
+    """Phase 14 (c): full width and depth, 4 steps, ``recompress_every=2``
+    on the reference's default targets and spec: each tick's action, RE,
+    sweeps and seconds, the K1 launches, the heartbeat's record."""
+    _free()
+    hb = ROOT / "build" / "chip_smoke_heartbeat.json"
+    hb.parent.mkdir(parents=True, exist_ok=True)
+    hb.unlink(missing_ok=True)
+    trainer, args = _resilient_trainer(["--steps", "4", "--checkpoint-dir", str(CKPT_ROOT / "recompress"),
+                                        "--checkpoint-every", "1000"], recompress_every=2,
+                                       heartbeat_path=str(hb), recompress_spec=RECOMPRESS_SPEC)
+    ticks = []
+    tick = trainer._recompress
+
+    def recorded(model, step_idx):
+        recs = tick(model, step_idx)
+        ticks.append({"step": step_idx, "weights": recs})
+        return recs
+
+    trainer._recompress = recorded
+    _zero_counts()
+    out = trainer.run(resume=args.resume)
+    counts = _bwd_counts()
+    _step_rows("train_recompress_step", card_line, out["history"], args.batch * args.seq)
+    beat = json.loads(hb.read_text())
+    row = {"phase": "train_recompress", "card": card_line, "spec": str(RECOMPRESS_SPEC or "reference default"),
+           "ticks": ticks, "tracked": sorted(trainer.streaming), "launches": counts,
+           "heartbeat": beat.get("recompress"), "losses": [h["loss"] for h in out["history"]]}
+    log(row)
+    require([t["step"] for t in ticks] == [1, 3] and row["tracked"] == ["embed/table"],
+            f"recompression ticked elsewhere or tracked other weights: {row}")
+    require(all(math.isfinite(r["re"]) for t in ticks for r in t["weights"].values()), f"a non-finite RE: {row}")
+    require(beat.get("recompress", {}).get("step") == 3 and "embed/table" in beat["recompress"]["weights"],
+            f"the heartbeat lacks the recompression record: {beat}")
+    require(counts["chain_matmul"] > 0 and all(math.isfinite(v) for v in row["losses"]), f"bad run: {row}")
+    del out, trainer
+    _free()
+    return row
+
+
+def calibration(card_line: str) -> dict:
+    """Phase 14 (d): ``launch.calibrate`` into a temporary cache, each
+    measured constant beside its data-sheet value (within ``CALIB_RANGE``
+    but the launch time and the builtin link rate), a dispatch decision
+    priced by the measured source; the builtin constants restored."""
+    import torch
+
+    from repro_torch.api import dispatch
+    from repro_torch.launch import calibrate, roofline
+
+    path = ROOT / "build" / "chip_smoke_roofline.json"
+    path.unlink(missing_ok=True)
+    saved = os.environ.get("REPRO_TORCH_ROOFLINE")
+    os.environ["REPRO_TORCH_ROOFLINE"] = str(path)
+    try:
+        t0 = time.perf_counter()
+        rec = calibrate.calibrate()
+        calibrate.write(rec)
+        seconds = time.perf_counter() - t0
+        consts, source = roofline.roofline_constants()
+        rep = dispatch.choose_backend(batch=128, shape=(2048, 16384), s_tot=11_010_048, inner_dims=(2048, 2048),
+                                      n_factors=3, dtype=torch.bfloat16)
+    finally:
+        if saved is None:
+            os.environ.pop("REPRO_TORCH_ROOFLINE", None)
+        else:
+            os.environ["REPRO_TORCH_ROOFLINE"] = saved
+        roofline.reload()
+        path.unlink(missing_ok=True)
+    builtin = roofline._BUILTIN
+    ratios = {k: rec[k] / builtin[k] for k in builtin}
+    row = {"phase": "calibrate", "card": card_line, "seconds": seconds, "measured": {k: rec[k] for k in builtin},
+           "datasheet": builtin, "ratio": ratios, "source": source, "dispatch_roofline": rep.roofline,
+           "after": roofline.roofline_constants()[1], "meta": rec["meta"]}
+    log(row)
+    require(source == f"measured:{path}" and rep.roofline == source, f"dispatch did not price with the cache: {row}")
+    require(row["after"] == roofline.BUILTIN_SOURCE, f"the builtin constants were not restored: {row}")
+    for k in ("peak_flops", "peak_flops_f32", "hbm_bw"):
+        require(CALIB_RANGE[0] <= ratios[k] <= CALIB_RANGE[1], f"{k} is {ratios[k]:.3f}× its data-sheet value: {row}")
+    return row
+
+
+def train_resilient(card_line: str) -> dict:
+    """Phase 14, slice 9 (module docstring)."""
+    with _fresh_tables("chip_smoke_resilient_autotune"):
+        out = {"ef": ef_run(card_line), "resume": preempt_resume(card_line), "recompress": recompress_run(card_line)}
+    out["calibrate"] = calibration(card_line)
+    return out
+
+
 def _kernel_entry(name, source, replaces, launches, cases, checks, card_line, head) -> dict:
     first = next(r for r in cases if all(r.get(k) == v for k, v in head.items()))
     keys = ("chain", "quant", "dtype", "batch", "bt", "launches_per_apply", "max_abs_err", "ms", "cold_ms",
@@ -2493,6 +2866,7 @@ def main() -> int:
     measured_dispatch(ops)
     _, train_counts = training_path(ops, info["card"])
     lm = train_lm(info["card"])
+    resilient = train_resilient(info["card"])
     batched = factorize_batched(dev)
     strategies(dev, batched["ops"][0].todense())
     compose(batched["ops"][:2])
@@ -2535,9 +2909,14 @@ def main() -> int:
                       train_counts["chain_wgrad_q"], [r for r in rows if r.get("kernel") == "chain_wgrad_q"],
                       checks, info["card"], {"quant": "int8:per_block", **f32_b128}),
     ]
+    # slice 9: phase 14's counts, the EF trainer's (a) and the recompressing one's (c)
+    resilient_launches = {n: resilient["ef"]["launches"][n] + resilient["recompress"]["launches"][n]
+                          for n in ("chain_matmul", "chain_dgrad", "chain_wgrad")}
     for k in kernels:  # slice 8: the serving engine's counts (K4: the quantized refresh's applies)
         if k["name"] in serve_launches:
             k["serve_launches"] = serve_launches[k["name"]]
+        if k["name"] in resilient_launches:
+            k["train_resilient_launches"] = resilient_launches[k["name"]]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(info["card"], flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -38,6 +38,7 @@ import dataclasses
 import functools
 import json
 import os
+import statistics
 import tempfile
 import time
 from pathlib import Path
@@ -46,8 +47,11 @@ import torch
 
 TABLE_VERSION = 1
 DEFAULT_TABLE = Path(__file__).resolve().parents[3] / "build" / "autotune.json"
-# timing: warm-up calls, then the least of N_RUNS runs of N_ITER calls
-N_WARMUP, N_ITER, N_RUNS = 2, 10, 3
+# timing: N_WARMUP calls of each candidate, then rounds of single calls
+# alternating across the candidates; each candidate's median.  Rounds stop
+# once ROUND_BUDGET_S seconds have passed (at least MIN_ROUNDS, at most
+# MAX_ROUNDS), so a key costs about two seconds whatever its call time
+N_WARMUP, MIN_ROUNDS, MAX_ROUNDS, ROUND_BUDGET_S = 2, 5, 400, 2.0
 # the fused sweep keeps FORWARD_BT unless another tile is faster by more
 # than this share: at B = 128 under grad the tile changes only the forward
 # kernel, and single sweeps picked a tile 7 % slower than the default there
@@ -244,28 +248,36 @@ def invalidate(prefix: str, path: str | None = None) -> int:
 
 
 def _timeit_us(fns: dict, device: torch.device) -> dict:
-    """µs a call of each ``fns[k]``: ``N_ITER`` calls back to back between
-    two device synchronizations, the least of ``N_RUNS`` runs, after
-    ``N_WARMUP`` calls.  Back to back, the host enqueues a call while the
-    device runs the last, as in a serving or training loop.  The runs are
-    interleaved, each round timing every candidate once, so a stretch of
-    host contention slows one run of every candidate rather than every
-    run of one; at serving batch a step is host-paced and its time jumps
-    by a third between stretches on the H100's host (PERF.md §6)."""
+    """µs a call of each ``fns[k]``: the median of single calls, one device
+    synchronization after each, after ``N_WARMUP`` calls of each.  The
+    calls alternate across the candidates round by round (the order
+    rotated each round), so a stretch of host contention slows the calls
+    of every candidate alike and the medians compare the candidates, not
+    the moments they ran in; at training and serving batch a call is
+    host-paced and the least of a few runs of back-to-back calls picked a
+    tile 12 % slower than the default on a loaded host (PERF.md §6).
+
+    The budget: rounds stop once ``ROUND_BUDGET_S`` (2 s) have passed since
+    the first, after at least ``MIN_ROUNDS`` (5) and at most ``MAX_ROUNDS``
+    (400): about 400 calls of each candidate at B = 128, where a call takes
+    about a millisecond, and 5 to 40 at B = 4096 (3-13 ms a call)."""
     sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
     for fn in fns.values():
         for _ in range(N_WARMUP):
             fn()
     sync()
-    best = dict.fromkeys(fns, float("inf"))
-    for _ in range(N_RUNS):
-        for k, fn in fns.items():
+    names = list(fns)
+    samples: dict = {k: [] for k in names}
+    start = time.perf_counter()
+    for r in range(MAX_ROUNDS):
+        if r >= MIN_ROUNDS and time.perf_counter() - start > ROUND_BUDGET_S:
+            break
+        for k in names[r % len(names):] + names[:r % len(names)]:
             t0 = time.perf_counter()
-            for _ in range(N_ITER):
-                fn()
+            fns[k]()
             sync()
-            best[k] = min(best[k], (time.perf_counter() - t0) / N_ITER)
-    return {k: v * 1e6 for k, v in best.items()}
+            samples[k].append(time.perf_counter() - t0)
+    return {k: statistics.median(v) * 1e6 for k, v in samples.items()}
 
 
 def _trainable(op):
@@ -294,7 +306,7 @@ def measure(op, x: torch.Tensor, *, grad: bool = False, use_kernel: bool) -> dic
     tensors.  With the kernels on, the fused backend sweeps every supported
     forward tile; the winner is the entry's ``bt``, the default tile where
     none beats it by ``TILE_MARGIN``.  Every candidate is timed in the
-    same interleaved rounds (:func:`_timeit_us`).  Errors propagate."""
+    same alternating rounds (:func:`_timeit_us`).  Errors propagate."""
     from repro_torch.kernels.chain import FORWARD_BT, SUPPORTED_BT
 
     global _MEASURING

@@ -21,6 +21,11 @@ compute on the same arrays:
                 from the port's :class:`~repro_torch.models.lm.LM` state
                 dict (layers unstacked: ``stages/0/0/attn/wq[l]`` is
                 ``layers.{l}.attn.wq``)
+* train state:  the reference trainer's ``{"params", "opt": AdamWState(mu,
+                nu, step), "ef": EFState(residual)}`` with numpy leaves,
+                mapped to and from the port's state dict, ``AdamWState``
+                and ``EFState`` (moments and residuals keyed like the
+                parameters)
 
 bf16 values cross as ``uint16`` bit views with ``"dtype": "bfloat16"``
 beside them (``torch.from_numpy`` has no bfloat16); fp8 codes likewise as
@@ -285,3 +290,70 @@ def kv_caches_to_numpy(caches: list[KVCache], cfg) -> tuple[list, str | None]:
         tree.append(stage)
         layer += repeat * len(unit)
     return tree, dtype
+
+
+def _field(obj, name: str):
+    """``obj.name`` of a NamedTuple, or ``obj[name]`` of a dict."""
+    return obj[name] if isinstance(obj, dict) else getattr(obj, name)
+
+
+def _is_float_array(a) -> bool:
+    a = np.asarray(a)
+    return a.dtype.kind == "f" or a.dtype == np.uint16  # uint16: bf16 bits
+
+
+def _per_param(params, moments, other):
+    """The moment tree with ``other(param)`` in place of each leaf whose
+    parameter is not floating (the FAµST supports, whose reference moments
+    are 0-d zeros, never stacked per layer)."""
+    if isinstance(params, dict):
+        return {k: _per_param(params[k], moments[k], other) for k in params}
+    if isinstance(params, (list, tuple)):
+        return [_per_param(p, m, other) for p, m in zip(params, moments)]
+    return moments if _is_float_array(params) else other(params)
+
+
+def train_state_from_numpy(tree: dict, cfg, *, dtype: str | None = None, device=None):
+    """The port's ``(state dict, AdamWState, EFState | None)`` from the
+    reference trainer's state with numpy leaves (``tree["opt"]`` and
+    ``tree["ef"]`` as the NamedTuples or as dicts of their fields).  The
+    moments and residuals of integer parameters have no counterpart and
+    are dropped; ``dtype`` names the parameters' type when they cross as
+    bit views (``bfloat16``)."""
+    from repro_torch.optim.adamw import AdamWState
+    from repro_torch.optim.compression import EFState
+
+    dev = resolve_device(device)
+    params = tree["params"]
+    sd = lm_state_dict_from_numpy(params, cfg, dtype=dtype, device=dev)
+    floats = {k for k, t in sd.items() if t.is_floating_point()}
+
+    def moments(m) -> dict:
+        # the integer parameters stand in for their moments while the layers unstack
+        flat = flatten_lm_tree(_per_param(params, m, lambda a: a), cfg)
+        return {k: _tensor(np.asarray(a, np.float32), dev) for k, a in flat.items() if k in floats}
+
+    opt = tree["opt"]
+    step = _tensor(np.asarray(_field(opt, "step"), np.int32), dev)
+    state = AdamWState(moments(_field(opt, "mu")), moments(_field(opt, "nu")), step)
+    ef = EFState(moments(_field(tree["ef"], "residual"))) if tree.get("ef") is not None else None
+    return sd, state, ef
+
+
+def train_state_to_numpy(state_dict: dict, opt, ef, cfg) -> tuple[dict, str | None]:
+    """The reference trainer's state tree ``{"params", "opt": {"mu", "nu",
+    "step"}, "ef": {"residual"}}`` (``"ef"`` only with ``ef``) from the
+    port's, with the parameters' dtype name (bf16 as ``uint16`` bits).
+    Integer parameters get the reference's 0-d zero moments."""
+    params, dtype = lm_state_dict_to_numpy(state_dict, cfg)
+
+    def moments(m: dict):
+        # the integer parameters stand in for their moments while the layers stack
+        full = {k: m.get(k, state_dict[k]) for k in state_dict}
+        return _per_param(params, lm_state_dict_to_numpy(full, cfg)[0], lambda a: np.zeros((), np.float32))
+
+    out = {"params": params,
+           "opt": {"mu": moments(opt.mu), "nu": moments(opt.nu), "step": _array(opt.step)[0]}}
+    if ef is not None:
+        out["ef"] = {"residual": moments(ef.residual)}
+    return out, dtype

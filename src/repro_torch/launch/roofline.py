@@ -1,6 +1,8 @@
 """Roofline constants of one NVIDIA H100 SXM, for the dispatch cost model.
-Counterpart of ``load_roofline``/``roofline_constants`` in
+Counterpart of ``load_roofline``/``roofline_constants``/``reload`` in
 :mod:`repro.launch.roofline`; the port prices with its own card's numbers.
+
+Builtin constants:
 
 * ``peak_flops`` 989e12 FLOP/s: dense bf16 tensor-core peak;
   ``peak_flops_f32`` 67e12 FLOP/s: f32 outside the tensor cores (FFMA),
@@ -14,8 +16,27 @@ Counterpart of ``load_roofline``/``roofline_constants`` in
   H100 80GB HBM3 at a 700 W power limit read 29.83, 19.52, 13.20 and
   11.20 µs; the constant is their median.  The spread (2.7×) is host
   time (Python and ctypes calls), not the card's own launch latency.
+
+Measured constants: ``python -m repro_torch.launch.calibrate`` writes them
+to the calibration cache, ``build/roofline.json`` at the repository root
+(inside the checkout: a cache that outlived it would change a later run's
+dispatch without notice) or the path in ``REPRO_TORCH_ROOFLINE``, where
+``builtin`` or ``off`` (or ``0``, or empty) mean the builtin constants.
+Each key of the cache is taken where it is a finite positive number and falls
+back to its builtin value otherwise, so a partial cache contributes what
+it measured.  :func:`roofline_constants` re-reads the cache when its path
+changes, or its mtime, which it checks at most every ``RECHECK_S`` seconds
+(every apply prices with these constants, and a stat per apply is a system
+call on the serving path); :func:`reload` reads it at once.
+``DispatchReport.roofline`` names the source that priced a decision.
 """
 from __future__ import annotations
+
+import json
+import math
+import os
+import time
+from pathlib import Path
 
 _BUILTIN = {
     "peak_flops": 989e12,
@@ -24,14 +45,68 @@ _BUILTIN = {
     "link_bw": 450e9,
     "t_launch_us": 16.36,
 }
-_SOURCE = "builtin:h100-sxm-datasheet;t_launch_us=chip_smoke.py"
+BUILTIN_SOURCE = "builtin:h100-sxm-datasheet;t_launch_us=chip_smoke.py"
+DEFAULT_CACHE = Path(__file__).resolve().parents[3] / "build" / "roofline.json"
+_OFF = ("", "0", "builtin", "off")
+RECHECK_S = 1.0  # seconds between checks of the cache's mtime
+
+
+def roofline_cache_path() -> str:
+    """Where the calibration lives: ``REPRO_TORCH_ROOFLINE`` or
+    ``build/roofline.json`` at the repository root."""
+    return os.environ.get("REPRO_TORCH_ROOFLINE", str(DEFAULT_CACHE))
 
 
 def load_roofline() -> tuple[dict, str]:
-    """(constants, source label)."""
-    return dict(_BUILTIN), _SOURCE
+    """(constants, source label): the cache's valid keys over the builtin
+    constants, or the builtin constants alone."""
+    path = roofline_cache_path()
+    if path.lower() in _OFF:
+        return dict(_BUILTIN), BUILTIN_SOURCE
+    try:
+        with open(path, encoding="utf-8") as f:
+            data = json.load(f)
+    except (OSError, ValueError):
+        return dict(_BUILTIN), BUILTIN_SOURCE
+    if not isinstance(data, dict):
+        return dict(_BUILTIN), BUILTIN_SOURCE
+    measured = {k: float(data[k]) for k in _BUILTIN
+                if isinstance(data.get(k), (int, float)) and not isinstance(data[k], bool) and 0 < data[k] < math.inf}
+    if not measured:
+        return dict(_BUILTIN), BUILTIN_SOURCE
+    return {**_BUILTIN, **measured}, f"measured:{path}"
+
+
+# (path, mtime_ns) of the last load, what it gave, and when it was checked
+_STATE: dict = {"stamp": None, "values": None, "source": None, "checked": float("-inf")}
+
+
+def _stamp() -> tuple:
+    path = roofline_cache_path()
+    if path.lower() in _OFF:
+        return (path, None)
+    try:
+        return (path, os.stat(path).st_mtime_ns)
+    except OSError:
+        return (path, None)
 
 
 def roofline_constants() -> tuple[dict, str]:
-    """The accessor the dispatch cost model reads on every decision."""
-    return load_roofline()
+    """The accessor the dispatch cost model reads on every decision:
+    (constants, source), re-read when the cache's path changes or, checked
+    at most every ``RECHECK_S``, its mtime."""
+    now = time.monotonic()
+    fresh = _STATE["stamp"] is not None and _STATE["stamp"][0] == roofline_cache_path()
+    if not (fresh and now - _STATE["checked"] < RECHECK_S):
+        _STATE["checked"] = now
+        stamp = _stamp()
+        if _STATE["stamp"] != stamp:
+            _STATE["values"], _STATE["source"] = load_roofline()
+            _STATE["stamp"] = stamp
+    return dict(_STATE["values"]), _STATE["source"]
+
+
+def reload() -> tuple[dict, str]:
+    """Drop the cached constants and read the cache now."""
+    _STATE["stamp"] = None
+    return roofline_constants()

@@ -2,14 +2,16 @@
 with the same flags.
 
     python -m repro_torch.launch.train --arch gemma_2b --faust --steps 3 \\
-        --batch 8 --seq 128 --checkpoint-every 1000      # on the CUDA card
+        --batch 8 --seq 128                              # on the CUDA card
     python -m repro_torch.launch.train --arch gemma_2b --smoke --steps 20 \\
-        --checkpoint-every 1000 --device cpu             # plain versions, CPU
+        --checkpoint-dir /tmp/ckpt --resume --device cpu # plain versions, CPU
 
 ``--faust`` makes the unembedding a FAµST chain (``--faust-factors``,
-``--faust-block``, ``--faust-k``) and unties it from the embedding.  The
-flags of later slices (``--resume``, ``--compress-grads``, ``--mesh``,
-``--multi-pod``, and a ``--checkpoint-every`` within ``--steps``) raise.
+``--faust-block``, ``--faust-k``) and unties it from the embedding.
+Checkpoints go to ``--checkpoint-dir`` every ``--checkpoint-every``
+steps; ``--resume`` restores the newest intact one; ``--compress-grads
+RATIO`` trains with EF top-k gradient compression.  ``--mesh`` and
+``--multi-pod`` come with the multi-GPU slice and raise.
 """
 from __future__ import annotations
 
@@ -21,6 +23,7 @@ from repro_torch.configs import get_config, get_smoke
 from repro_torch.data.pipeline import DataConfig
 from repro_torch.layers.faust_linear import FaustSpec
 from repro_torch.optim.adamw import AdamWConfig
+from repro_torch.optim.compression import TopKConfig
 from repro_torch.runtime.trainer import TrainConfig, Trainer
 
 
@@ -48,11 +51,9 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 
 def build(args: argparse.Namespace) -> Trainer:
-    """The trainer the flags describe (raises for a later slice's flag)."""
+    """The trainer the flags describe (raises for the multi-GPU flags)."""
     if args.mesh or args.multi_pod:
         raise NotImplementedError("--mesh/--multi-pod: multi-GPU training comes with a later slice of the port")
-    if args.compress_grads:
-        raise NotImplementedError("--compress-grads: EF top-k compression comes with a later slice of the port")
     cfg = get_smoke(args.arch) if args.smoke else get_config(args.arch)
     if args.faust:
         cfg = dataclasses.replace(
@@ -74,6 +75,7 @@ def build(args: argparse.Namespace) -> Trainer:
         microbatches=args.microbatches,
         checkpoint_every=args.checkpoint_every,
         checkpoint_dir=args.checkpoint_dir,
+        compression=TopKConfig(args.compress_grads) if args.compress_grads else None,
     )
     return Trainer(cfg, data_cfg, opt_cfg, tcfg, device=args.device)
 

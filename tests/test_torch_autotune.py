@@ -321,3 +321,58 @@ def test_tile_sweep_keeps_the_default_tile_within_the_margin(table, op, monkeypa
     assert len(seen) == 1 and {c for c in seen[0] if c[0] == "fused"} == {("fused", t) for t in SUPPORTED_BT}
     assert entry["bt"] == want and entry["best"] == "fused"
     assert entry["us"]["fused"] == pytest.approx(100.0 * (1 - gain) if want == 16 else 100.0)
+
+
+class _SteppedOp:
+    """A stand-in leaf whose fused apply at tile ``bt`` advances a fake
+    clock by ``COST[bt]`` ms, times ``SLOW`` inside contention stretches:
+    calls 16-35 of every 30 after the 6 warm-up calls (in the old scheme,
+    the runs of tiles 32 and 64 in every round)."""
+
+    COST = {16: 1.10, 32: 1.03, 64: 1.00}
+    SLOW = 1.5
+
+    def __init__(self):
+        self.calls, self.now = 0, 0.0
+
+    def feasible_backends(self):
+        return ["fused"]
+
+    def clock(self):
+        return self.now
+
+    def apply(self, x, backend, *, bt, **kw):
+        i = self.calls
+        self.calls += 1
+        slow = i >= 6 and (i - 6) % 30 >= 10
+        self.now += self.COST[bt] * (self.SLOW if slow else 1.0) * 1e-3
+        return x
+
+
+def test_tile_sweep_keeps_the_default_tile_under_host_contention(table, monkeypatch):
+    """Host contention in stretches of consecutive calls: the least of a
+    few runs of back-to-back calls saw the default tile only inside the
+    stretches and picked tile 16, 10 % slower; medians of single calls
+    alternating across the tiles see every tile slowed alike and keep 64."""
+    fake = _SteppedOp()
+    monkeypatch.setattr(autotune.time, "perf_counter", fake.clock)
+    entry = autotune.measure(fake, torch.ones((8, 4)), use_kernel=True)
+    assert entry["bt"] == FORWARD_BT == 64
+    assert entry["bt_us"]["16"] > entry["bt_us"]["64"]
+    assert fake.calls <= 3 * (autotune.N_WARMUP + autotune.MAX_ROUNDS)
+
+
+def test_tile_sweep_stops_at_its_time_budget(table, monkeypatch):
+    """A key whose calls take 10 ms runs about ``ROUND_BUDGET_S`` of rounds,
+    not ``MAX_ROUNDS``; none runs fewer than ``MIN_ROUNDS``."""
+    fake = _SteppedOp()
+    fake.COST = {16: 10.0, 32: 10.0, 64: 10.0}
+    monkeypatch.setattr(autotune.time, "perf_counter", fake.clock)
+    autotune.measure(fake, torch.ones((8, 4)), use_kernel=True)
+    rounds = fake.calls // 3 - autotune.N_WARMUP
+    assert autotune.MIN_ROUNDS <= rounds <= autotune.ROUND_BUDGET_S / (3 * 10e-3) + 2
+    fake = _SteppedOp()
+    fake.COST = {16: 1e3, 32: 1e3, 64: 1e3}
+    monkeypatch.setattr(autotune.time, "perf_counter", fake.clock)
+    autotune.measure(fake, torch.ones((8, 4)), use_kernel=True)
+    assert fake.calls // 3 - autotune.N_WARMUP == autotune.MIN_ROUNDS

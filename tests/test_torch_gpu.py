@@ -557,6 +557,83 @@ def test_trainer_update_never_syncs_the_host(dev, monkeypatch):
     assert float(metrics["skipped"]) == 0.0 and int(state.step) == 2 and torch.isfinite(metrics["loss"])
 
 
+def test_compressed_step_never_syncs_the_host(dev, monkeypatch):
+    """EF top-k compression and the guarded update run under
+    ``set_sync_debug_mode("error")``: the top-k selection (``torch.topk``'s
+    k-th value, ties by a cumulative count) and the guarded residual read
+    nothing back to the host."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.models.lm import LM
+    from repro_torch.optim import adamw, compression
+    from repro_torch.runtime import trainer
+
+    runs = []
+
+    def strict(real):
+        def call(*args, **kw):
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                out = real(*args, **kw)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            runs.append(real.__name__)
+            return out
+        return call
+
+    for name in ("ef_topk_compress", "guarded_update"):
+        monkeypatch.setattr(trainer, name, strict(getattr(trainer, name)))
+    model = LM(get_smoke("gemma_2b"), seed=0, device=dev)
+    tcfg = trainer.TrainConfig(compression=compression.TopKConfig(0.01))
+    step = trainer.make_train_step(model, adamw.AdamWConfig(lr=1e-3, warmup_steps=1), tcfg)
+    params = dict(model.named_parameters())
+    state, ef = adamw.init_state(params), compression.ef_topk_init(params)
+    tokens = torch.randint(0, model.cfg.vocab, (2, 16), generator=torch.Generator().manual_seed(0)).to(dev)
+    for _ in range(2):
+        metrics = step({"tokens": tokens}, state, ef)
+    assert runs == ["ef_topk_compress", "guarded_update"] * 2
+    assert float(metrics["skipped"]) == 0.0 and float(metrics["ef_residual_norm"]) > 0
+
+
+def test_topk_selection_on_the_card_keeps_the_stable_sorts_set(dev):
+    """``topk_mask_flat`` on the card keeps the set the stable sort keeps,
+    ties included, at a leaf of a million entries."""
+    from repro_torch.core.projections import _topk_mask_flat
+    from repro_torch.optim.compression import topk_mask_flat
+
+    g = torch.Generator().manual_seed(0)
+    v = (torch.randint(-20, 21, (1 << 20,), generator=g).float() / 4).to(dev)
+    for k in (1, 10_485, 200_000):
+        assert torch.equal(topk_mask_flat(v, k), _topk_mask_flat(v, k).float())
+
+
+def test_checkpoint_round_trip_of_bf16_parameters_on_the_card(dev, tmp_path):
+    """Save → restore of a bf16 model's parameters and f32 moments on the
+    card is bit exact, written into the live tensors."""
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.configs import get_smoke
+    from repro_torch.models.lm import LM
+
+    cfg = dataclasses.replace(get_smoke("gemma_2b"), dtype="bfloat16")
+    src = LM(cfg, seed=0, device=dev)
+    tree = {"params": src.state_dict(keep_vars=True),
+            "opt": {"mu": {k: torch.randn(p.shape, device=dev) for k, p in src.named_parameters()}}}
+    mgr = CheckpointManager(str(tmp_path))
+    mgr.save_async(1, tree)
+    mgr.wait()
+    dst = LM(cfg, seed=1, device=dev)
+    target = {"params": dst.state_dict(keep_vars=True),
+              "opt": {"mu": {k: torch.zeros(p.shape, device=dev) for k, p in dst.named_parameters()}}}
+    table = dst.embed.table
+    mgr.restore(1, target)
+    assert dst.embed.table is table and table.dtype == torch.bfloat16 and table.device.type == "cuda"
+    for k, t in src.state_dict().items():
+        got = dst.state_dict()[k]
+        assert torch.equal(got.view(torch.int16) if got.dtype == torch.bfloat16 else got,
+                           t.view(torch.int16) if t.dtype == torch.bfloat16 else t), k
+    assert all(torch.equal(target["opt"]["mu"][k], v) for k, v in tree["opt"]["mu"].items())
+
+
 def test_measure_under_grad_records_the_fused_tile(dev, tmp_path, monkeypatch):
     """``measure(grad=True)`` on the card: fwd+bwd per feasible backend,
     the fused forward tile swept and its winner recorded: the default tile

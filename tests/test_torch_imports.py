@@ -1,6 +1,8 @@
 """The port stands alone: nothing under ``src/repro_torch`` and nothing in
 its root scripts ``chip_smoke.py``, ``dgrad_probe.py`` and
-``dispatch_probe.py`` imports JAX or the JAX package ``repro``."""
+``dispatch_probe.py`` imports JAX, the JAX package ``repro`` or
+``ml_dtypes`` (the card's machine has none: bf16 crosses as ``uint16``
+bits)."""
 import ast
 from pathlib import Path
 
@@ -22,7 +24,7 @@ def _imported(tree: ast.AST):
 
 def _forbidden(name: str) -> bool:
     top = name.split(".")[0]
-    return top in ("jax", "jaxlib", "repro")
+    return top in ("jax", "jaxlib", "repro", "ml_dtypes")
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
@@ -33,5 +35,8 @@ def test_port_imports_neither_jax_nor_reference(path):
 
 def test_scan_sees_the_port():
     assert len(FILES) > 10
-    assert _forbidden("repro.kernels.ops") and _forbidden("jax.numpy")
+    port = ROOT / "src" / "repro_torch"
+    for new in ("checkpoint/manager.py", "optim/compression.py", "launch/calibrate.py", "launch/roofline.py"):
+        assert port / new in FILES
+    assert _forbidden("repro.kernels.ops") and _forbidden("jax.numpy") and _forbidden("ml_dtypes")
     assert not _forbidden("repro_torch.kernels.ops")
