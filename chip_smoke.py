@@ -149,7 +149,36 @@ Phases, each fatal on failure (non-zero exit):
    ``launch.calibrate`` into a temporary ``REPRO_TORCH_ROOFLINE``: each
    constant beside the data sheet's (within 0.3-1.1×, the launch time and
    the builtin link rate excepted), a dispatch priced by it, the builtin
-   constants restored.
+   constants restored;
+15. the partial-rotary, sliding-window and MoE architectures (slice 10)
+   at their published widths, bf16, each with the trainer's FAµST
+   unembedding (``--faust``: 2 factors, block 16, k 4, untied), on a
+   fresh read-only autotune table; every run's parameter sizes (all but
+   the norms') equal to ``stored_param_count`` of its config, K1/K2/K3
+   (and K6) counts zeroed before each run and required, the head's K1
+   and K6 against their plain versions at B = 1, 8 and the longest
+   prompt's rows, each trained head's K2 and K3 against theirs at the
+   trainer's B·S rows: (a) gemma3-27b cut to one stage unit (five local layers, one
+   global), ``launch.train --faust --steps 3 --batch 1 --seq 2048`` (the
+   local layers run banded: window 1024 < 2048), then served (8 slots of
+   2112 tokens; prompts 64, 200, 512, 1024, 1536, 2048, budgets 16-48:
+   banded prefills, ring caches that wrap); (b) granite-moe-3b at full
+   depth, ``launch.train --faust --steps 3 --batch 8 --seq 128`` at the
+   published capacity factor 1.25 (cross entropy and aux loss of the
+   trained model; the MoE layers' share of the step's device time,
+   estimated from one layer's timed forward and backward), then served
+   (8 requests, prompts 32-512) drop-free at capacity factor E/k = 5 with
+   the teacher-forced check, and again at 1.25 with its prefills' drop
+   share and the tokens it shares with the drop-free run; (c)
+   llama4-maverick cut to one MoE layer (34.7 GB), drop-free: prefill of
+   256 tokens and a decode step at B = 1 and 8 beside two bounds (every
+   expert's weights, and only the experts its tokens reach), then 4
+   requests; (d) chatglm3-6b and nemotron-4-15b at full depth, served (8
+   requests, prompts 32-512).  Every serving run: every request ``done``,
+   TTFT/TPOT, tokens/s, peak memory, the teacher-forced check within
+   3e-2·max|logits| (for MoE on the served run's expert choices, each
+   one that differs from the reference's own a near-tie: its f32 router
+   probability within ``ROUTE_TIE_TOL`` of the reference's k-th).
 
 Prints one JSON object per line; the last three lines are the kernels
 summary, the card's ``name, power.limit`` and ``{"ok": true, ...}``.
@@ -171,6 +200,11 @@ TABLE = ROOT / "build" / "chip_smoke_autotune.json"  # this run's own measured t
 HBM_BW = 3.35e12  # B/s, H100 SXM data sheet
 PEAK = {"float32": 67e12, "bfloat16": 989e12}  # FLOP/s: FFMA f32, dense bf16 tensor cores
 TOL = {"float32": 1e-5, "bfloat16": 3e-2}  # max|kernel − plain| / max|plain|
+# a served MoE expert choice the reference did not make: its f32 router
+# probability at most this far (relative) below the reference's k-th (a
+# near-tie; granite-moe-3b's 32 bf16 layers read at most 0.043 on an H100,
+# experts shifted by one read 0.98)
+ROUTE_TIE_TOL = 0.1
 DENSE_TOL = 1e-4  # vs x @ todense(): another association order of the same f32 products
 # ΔRE = RE(quantized) − RE(f32) bounds: the reference's thresholds
 # (benchmarks/quantized_re.py THRESHOLDS)
@@ -1696,25 +1730,6 @@ def factorize_batched(dev, shape=GEMMA_UP, block: int = 128, batch: int = 128, c
     return {"ops": info.ops, "seconds": seconds, "rel_error_fro": res, "peak_memory_gb": peak, "sequential": seq}
 
 
-def synthetic_leadfield(m: int, n: int, seed: int = 0):
-    """A MEG-like gain matrix (``benchmarks/common.py``'s stand-in for an
-    MNE leadfield, numpy only): sensors on a spherical cap, dipoles in a
-    shell with random orientations, 1/r² falloff, max |g| = 1."""
-    import numpy as np
-
-    rng = np.random.default_rng(seed)
-    phi, theta = rng.uniform(0, 2 * np.pi, m), rng.uniform(0, 0.45 * np.pi, m)
-    sensors = np.stack([np.sin(theta) * np.cos(phi), np.sin(theta) * np.sin(phi), np.cos(theta)], 1)
-    r = rng.uniform(0.5, 0.85, n) ** (1 / 3) * 0.85
-    sp, st = rng.uniform(0, 2 * np.pi, n), np.arccos(rng.uniform(-1, 1, n))
-    sources = r[:, None] * np.stack([np.sin(st) * np.cos(sp), np.sin(st) * np.sin(sp), np.cos(st)], 1)
-    moments = rng.standard_normal((n, 3))
-    moments /= np.linalg.norm(moments, axis=1, keepdims=True)
-    diff = sensors[:, None, :] - sources[None, :, :]
-    gain = np.einsum("mns,ns->mn", diff, moments) / (np.linalg.norm(diff, axis=-1) ** 3 + 1e-3)
-    return (gain / np.abs(gain).max()).astype(np.float32)
-
-
 def noisy_image(size: int = 512, sigma: float = 30.0, seed: int = 0):
     """A cartoon-and-texture image (``benchmarks/common.py``'s
     ``piecewise_smooth_image``) plus Gaussian noise of std ``sigma``:
@@ -1764,6 +1779,7 @@ def strategies(dev, w, meg=(204, 8193), image=512, n_patches=10_000, sweeps=(40,
     from repro_torch.core import dictionary as D
     from repro_torch.core import projections as P
     from repro_torch.core.hierarchical import HierarchicalSpec
+    from repro_torch.data.synthetic import synthetic_leadfield
 
     cuda = dev.type == "cuda"
     sync = torch.cuda.synchronize if cuda else (lambda: None)
@@ -2051,23 +2067,62 @@ def faust_backend(model, backend: str, head_only: bool = False):
             m.backend = b
 
 
-def teacher_forced(model, engine, rids, prompts, tol: float) -> dict:
+def teacher_forced(model, engine, rids, prompts, tol: float, routes=None) -> dict:
     """For each request, ``forward_train`` under ``no_grad`` over prompt +
     generated, with every FAµST projection on the dense backend (``x @
     todense()``, no K1 or K6), so the served tokens are held against a path
     that runs none of the kernels: at every generated position the chosen
     token's logit must lie within ``tol·max|logits|`` of that row's
-    maximum.  Counts the positions where it was the exact argmax."""
+    maximum.  Counts the positions where it was the exact argmax.
+
+    ``routes`` (a MoE model's :meth:`RoutedExecutor.choices`, one per
+    request) makes the reference send each token to the experts the served
+    run chose (``repro_torch.layers.moe.top_experts`` replaced while it
+    runs): rounding moves the router's logits of the two paths apart, and
+    where two experts nearly tie that flips a choice and, with it, a
+    token's whole expert output.  Each (layer, position) pair whose served
+    choice differs from the reference's own is a ``routing_flip``, and must
+    be a near-tie: the least f32 router probability, in the reference, of
+    the experts it was sent to lies within ``ROUTE_TIE_TOL`` (relative) of
+    the reference's own k-th largest.  A routing fault on the serving side
+    sends tokens to experts far below that."""
     import numpy as np
     import torch
 
+    from repro_torch.layers import moe as moe_mod
+
     dev = model.embed.table.device
     n, exact, worst = 0, 0, 0.0
-    for rid, prompt in zip(rids, prompts):
+    flips = torch.zeros((), dtype=torch.int64, device=dev)
+    pairs = torch.zeros((), dtype=torch.int64, device=dev)
+    tie_gap = torch.zeros((), dtype=torch.float32, device=dev)
+    real_top = moe_mod.top_experts
+    for i, (rid, prompt) in enumerate(zip(rids, prompts)):
         gen = engine.result(rid)
         full = np.concatenate([prompt, gen]).astype(np.int64)
-        with torch.no_grad(), faust_backend(model, "dense"):
-            logits = model.forward_train(torch.as_tensor(full, device=dev)[None], chunk=len(full))[0]
+        if routes is not None:
+            forced = [torch.as_tensor(c[:len(full)], device=dev) for c in routes[i]]
+            layer = iter(range(len(forced)))
+
+            def replay(probs, k):
+                nonlocal flips, pairs, tie_gap
+                want = forced[next(layer)][None]
+                pairs = pairs + (want[..., 0] >= 0).sum()
+                own = real_top(probs, k)  # descending: the k-th largest last
+                use = torch.where(want >= 0, want, own)
+                flipped = (use.sort(dim=-1).values != own.sort(dim=-1).values).any(dim=-1)
+                kth = probs.gather(-1, own[..., -1:])
+                gap = (kth - probs.gather(-1, use)).amax(dim=-1) / kth[..., 0]
+                flips = flips + flipped.sum()
+                tie_gap = torch.maximum(tie_gap, torch.where(flipped, gap, 0.0).amax())
+                return use
+
+            moe_mod.top_experts = replay
+        try:
+            with torch.no_grad(), faust_backend(model, "dense"):
+                logits = model.forward_train(torch.as_tensor(full, device=dev)[None], chunk=len(full))[0]
+        finally:
+            moe_mod.top_experts = real_top
         p = len(prompt)
         rows = logits[p - 1:p - 1 + len(gen)]
         chosen = torch.as_tensor(gen, device=dev, dtype=torch.int64)
@@ -2078,8 +2133,88 @@ def teacher_forced(model, engine, rids, prompts, tol: float) -> dict:
         n += len(gen)
         del logits
     out = {"positions": n, "exact_argmax": exact, "worst_gap_rel": worst, "tol": tol, "reference": "dense"}
+    if routes is not None:
+        out.update(reference="dense, the served run's expert choices", routing_pairs=int(pairs),
+                   routing_flips=int(flips), routing_flip_share=int(flips) / max(int(pairs), 1),
+                   routing_flip_worst_prob_gap=float(tie_gap), routing_tie_tol=ROUTE_TIE_TOL)
+        require(out["routing_flip_worst_prob_gap"] <= ROUTE_TIE_TOL,
+                f"a served expert choice is no near-tie of the reference's: {out}")
     require(worst <= tol, f"teacher-forced check failed: {out}")
     return out
+
+
+class RoutedExecutor:
+    """An executor proxy that records every MoE layer's expert choices of a
+    served run by request and position, for :func:`teacher_forced`.  Each
+    forward says which (request, first position) its rows are, and
+    ``repro_torch.layers.moe.route`` is wrapped (:meth:`recording`) to keep
+    the ``dest`` of each call: no device work is added.  Prompts above
+    ``attn_chunk`` must be multiples of it (a ragged one would replay its
+    tail inside the prefill, unrecorded)."""
+
+    def __init__(self, inner, prompts):
+        import numpy as np
+
+        self.inner = inner
+        self._index = {np.asarray(p).tobytes(): i for i, p in enumerate(prompts)}
+        self._n_prompts = len(prompts)
+        self._slot = {}  # slot → [request, next position]
+        self._calls = []  # per forward: its rows and each MoE layer's (dest, capacity)
+        self._cur = None
+
+    def __getattr__(self, name):
+        return getattr(self.inner, name)
+
+    def prefill_forward(self, slot, prompt, extras):
+        import numpy as np
+
+        n, chunk = len(prompt), self.inner.cfg.attn_chunk
+        require(n <= chunk or n % chunk == 0, f"a ragged prefill of {n} tokens is not recorded")
+        req = self._index[np.asarray(prompt).tobytes()]
+        self._slot[slot] = [req, n]
+        self._cur = {"rows": [(req, 0)], "layers": []}
+        self._calls.append(self._cur)
+        return self.inner.prefill_forward(slot, prompt, extras)
+
+    def decode_forward(self, slots, tokens):
+        self._cur = {"rows": [tuple(self._slot[s]) for s in slots], "layers": []}
+        for s in slots:
+            self._slot[s][1] += 1
+        self._calls.append(self._cur)
+        return self.inner.decode_forward(slots, tokens)
+
+    @contextlib.contextmanager
+    def recording(self):
+        from repro_torch.layers import moe as moe_mod
+
+        real = moe_mod.route
+
+        def route(logits, spec):
+            r = real(logits, spec)
+            self._cur["layers"].append((r.dest, moe_mod.capacity_per_group(logits.shape[1], spec), spec.top_k))
+            return r
+
+        moe_mod.route = route
+        try:
+            yield self
+        finally:
+            moe_mod.route = real
+
+    def choices(self, length: int) -> list[list]:
+        """Per request, per MoE layer: ``(length, k)`` expert ids by
+        position, −1 where the served run computed none."""
+        import numpy as np
+
+        out = None
+        for call in self._calls:
+            for layer, (dest, c, k) in enumerate(call["layers"]):
+                experts = (dest.cpu().numpy() // c).reshape(dest.shape[0], -1, k)
+                if out is None:
+                    out = [[np.full((length, k), -1, np.int64) for _ in call["layers"]]
+                           for _ in range(self._n_prompts)]
+                for (req, pos), e in zip(call["rows"], experts):
+                    out[req][layer][pos:pos + len(e)] = e
+        return out
 
 
 def weight_bound(model, batch: int) -> dict:
@@ -2124,8 +2259,8 @@ def engine_report(name: str, card_line: str, engine, steps: int, counts: dict, w
 
 def serve_run(name: str, card_line: str, model, n_req: int, lengths: tuple, budgets: tuple, fixed: tuple = (),
               first: int | None = None, every=None, evict_step=None, seed: int = 0, check: bool = True,
-              kernels: bool = True) -> dict:
-    """One engine over ``model`` (``SERVE_SLOTS`` slots of ``SERVE_MAX_LEN``
+              kernels: bool = True, max_len: int = SERVE_MAX_LEN) -> dict:
+    """One engine over ``model`` (``SERVE_SLOTS`` slots of ``max_len``
     tokens): the trace of :func:`_trace` through :func:`drive`, K1/K6
     counters zeroed before and read after, the report, and (``check``) the
     teacher-forced check of every request."""
@@ -2135,10 +2270,15 @@ def serve_run(name: str, card_line: str, model, n_req: int, lengths: tuple, budg
 
     prompts, budget = _trace(n_req, seed, lengths, budgets, fixed, model.cfg.vocab)
     torch.cuda.reset_peak_memory_stats()
-    engine = Engine(LMExecutor(model, SERVE_MAX_LEN, SERVE_SLOTS))
+    ex = LMExecutor(model, max_len, SERVE_SLOTS)
+    moe = check and model.cfg.moe is not None
+    if moe:  # the MoE reference replays the served expert choices (teacher_forced)
+        ex = RoutedExecutor(ex, prompts)
+    engine = Engine(ex)
     _zero_counts()
     t0 = time.perf_counter()
-    rids, steps = drive(engine, prompts, budget, first or n_req, every, evict_step)
+    with ex.recording() if moe else contextlib.nullcontext():
+        rids, steps = drive(engine, prompts, budget, first or n_req, every, evict_step)
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
     counts = _serve_counts()
@@ -2149,7 +2289,8 @@ def serve_run(name: str, card_line: str, model, n_req: int, lengths: tuple, budg
     if kernels:
         require(counts["chain_matmul"] + counts["bsr_matmul"] > 0, f"{name}: serving launched neither K1 nor K6: {row}")
     if check:
-        row["teacher_forced"] = teacher_forced(model, engine, rids, prompts, SERVE_TOL[model.cfg.dtype])
+        routes = ex.choices(max_len) if moe else None
+        row["teacher_forced"] = teacher_forced(model, engine, rids, prompts, SERVE_TOL[model.cfg.dtype], routes)
     log(row)
     return {"row": row, "engine": engine, "rids": rids, "prompts": prompts}
 
@@ -2827,6 +2968,416 @@ def train_resilient(card_line: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Slice 10: partial rotary, sliding-window and MoE architectures (phase 15)
+# ---------------------------------------------------------------------------
+
+ARCH_HEAD = (2, 16, 4)  # the trainer's --faust defaults: factors, block, k
+GEMMA3_UNIT = ("local",) * 5 + ("attn",)  # gemma3's stage unit (src/repro/configs/gemma3_27b.py)
+GEMMA3_TRAIN_ARGV = ("--arch", "gemma3_27b", "--faust", "--steps", "3", "--batch", "1", "--seq", "2048")
+GRANITE_TRAIN_ARGV = ("--arch", "granite_moe_3b", "--faust", "--steps", "3", "--batch", "8", "--seq", "128")
+GEMMA3_PROMPTS = (64, 200, 512, 1024, 1536, 2048)  # above attn_chunk 512 only multiples of it: no replay
+ARCH_MAX_LEN = 2112  # gemma3's longest prompt and 48 new tokens, with room
+LLAMA4_PROMPT = 256  # prefill and decode at B = 1 and 8
+
+
+def arch_config(arch: str, n_layers: int | None = None, unit: tuple | None = None, dropfree: bool = False):
+    """``arch``'s published config with the FAµST unembedding
+    ``ARCH_HEAD`` (untied), bf16; its depth cut to ``n_layers`` layers of
+    ``unit`` where given; with ``dropfree`` its MoE capacity factor E/k,
+    under which a sequence routes as its tokens one by one do."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.layers.faust_linear import FaustSpec
+
+    cfg = dataclasses.replace(get_config(arch), faust_unembed=FaustSpec(*ARCH_HEAD), tie_embeddings=False)
+    if n_layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers, stages=((n_layers // len(unit), unit),))
+    if dropfree:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, capacity_factor=cfg.moe.n_experts / cfg.moe.top_k))
+    return cfg
+
+
+def _lm(cfg, dev):
+    """``LM(cfg)`` from seed 0 on ``dev``."""
+    from repro_torch.models.lm import LM
+
+    return LM(cfg, seed=0, device=dev)
+
+
+def param_check(name: str, model) -> dict:
+    """The model's parameter sizes, summed over every parameter but the
+    norms', against ``stored_param_count`` of the config it was built from
+    (``param_count`` with the FAµST head counted by what it stores)."""
+    from repro_torch.configs.base import param_count, stored_param_count
+
+    counted = sum(p.numel() for n, p in model.named_parameters() if "norm" not in n)
+    row = {"params": sum(p.numel() for p in model.parameters()), "params_counted": counted,
+           "stored_param_count": stored_param_count(model.cfg), "param_count": param_count(model.cfg)}
+    require(counted == row["stored_param_count"],
+            f"{name}: parameters {counted} != stored_param_count {row['stored_param_count']}")
+    return row
+
+
+def _moes(model) -> list:
+    return [layer.moe for layer in model.layers if layer.kind == "moe"]
+
+
+@contextlib.contextmanager
+def moe_capacity(model, capacity_factor: float):
+    """Every MoE layer of ``model`` at ``capacity_factor``; restored on exit."""
+    import dataclasses
+
+    mods = _moes(model)
+    saved = [m.spec for m in mods]
+    for m in mods:
+        m.spec = dataclasses.replace(m.spec, capacity_factor=capacity_factor)
+    try:
+        yield
+    finally:
+        for m, spec in zip(mods, saved):
+            m.spec = spec
+
+
+@contextlib.contextmanager
+def moe_routing(model):
+    """Each MoE forward's routing recomputed from its input by ``route``
+    and counted: (token, k) pairs, pairs dropped, and per forward the
+    distinct experts its tokens reach (each forward syncs the host: not
+    for timed runs)."""
+    import torch
+
+    from repro_torch.layers.moe import route
+
+    stats = {"pairs": 0, "dropped": 0, "experts": []}
+
+    def hook(mod, args, out):
+        with torch.no_grad():
+            r = route(args[0].float() @ mod.router, mod.spec)
+        slots = r.slot_src.shape[1]
+        kept = r.dest[r.dest < slots]
+        stats["pairs"] += r.dest.numel()
+        stats["dropped"] += int((r.dest == slots).sum())
+        stats["experts"].append(int(torch.unique(kept // (slots // mod.spec.n_experts)).numel()))
+
+    handles = [m.register_forward_hook(hook) for m in _moes(model)]
+    try:
+        yield stats
+    finally:
+        for h in handles:
+            h.remove()
+
+
+def arch_train(card_line: str, name: str, argv, n_layers: int | None = None, unit: tuple | None = None) -> dict:
+    """``repro_torch.launch.train``'s trainer for ``argv`` (depth cut to
+    ``n_layers`` of ``unit`` where given) on a fresh read-only autotune
+    table: losses, step seconds, tokens/s, peak GB, K1/K2/K3 launches
+    (zeroed before, each required), the banded attention calls, the
+    parameter count, one more step under the profiler, K2 and K3 against
+    their plain versions on the trained head at B·S rows
+    (:func:`arch_head_bwd`), and for MoE the cross entropy and aux loss of
+    the trained model and an estimate of the MoE layers' share of the
+    step's device time: the layers' count × one layer's forward and
+    forward + backward, timed alone on random inputs, over the profiled
+    step's device busy time (an estimate, not a reading of the trace)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.core.compress import pack_chain
+    from repro_torch.data.pipeline import DataIterator
+    from repro_torch.launch import train
+    from repro_torch.layers import attention
+    from repro_torch.runtime.engine import unembed_blockfaust
+    from repro_torch.runtime.trainer import Trainer
+
+    args = train.parse_args([*argv, "--checkpoint-dir", str(CKPT_ROOT / "archs")])  # 3 steps: nothing saved
+    base = train.build(args)
+    cfg = base.cfg if n_layers is None else dataclasses.replace(
+        base.cfg, n_layers=n_layers, stages=((n_layers // len(unit), unit),))
+    trainer = Trainer(cfg, base.data_cfg, base.opt_cfg, base.tcfg, device=base.device)
+    banded = {"calls": 0}
+    plain_banded = attention.banded_attention_ref
+
+    def counting(*a, **k):
+        banded["calls"] += 1
+        return plain_banded(*a, **k)
+
+    cuda = trainer.device.type == "cuda"
+    _free()
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    attention.banded_attention_ref = counting
+    try:
+        _zero_counts()
+        t0 = time.perf_counter()
+        out = trainer.run(resume=False)
+        wall_s = time.perf_counter() - t0
+        if cuda:
+            torch.cuda.synchronize()
+        counts = _bwd_counts()
+    finally:
+        attention.banded_attention_ref = plain_banded
+    peak = torch.cuda.max_memory_allocated() / 1e9 if cuda else None
+    model = out["model"]
+    tokens = args.batch * args.seq
+    hist = out["history"]
+    _step_rows(f"{name}_train_step", card_line, hist, tokens)
+    row = {"phase": f"{name}_train", "card": card_line, "argv": list(argv), "n_layers": cfg.n_layers,
+           "stages": cfg.stages, "d_model": cfg.d_model, "vocab": cfg.vocab, "dtype": cfg.dtype, "remat": cfg.remat,
+           "faust_unembed": str(cfg.faust_unembed), **param_check(name, model), "wall_s": wall_s,
+           "losses": [h["loss"] for h in hist], "step_time_s": [h["step_time_s"] for h in hist],
+           "tokens_per_s": [tokens / h["step_time_s"] for h in hist], "max_memory_allocated_gb": peak,
+           "launches": counts, "banded_attention_calls": banded["calls"],
+           "faust_dispatch": None if trainer.faust_dispatch is None else trainer.faust_dispatch.as_row()}
+    if cfg.moe is not None:
+        batch = {k: torch.from_numpy(v).to(trainer.device) for k, v in next(DataIterator(trainer.data_cfg)).items()}
+        with torch.no_grad():
+            _, met = model.train_loss(batch)
+        row.update(ce=float(met["ce"]), aux=float(met["aux"]))
+    row["profile"] = profile_step(trainer, out, card_line, phase=f"{name}_train_profile") if cuda else None
+    if cfg.moe is not None and cuda:
+        moe = model.layers[0].moe
+        x = torch.randn((args.batch, args.seq, cfg.d_model), device=trainer.device).to(torch.bfloat16)
+        xg = x.clone().requires_grad_(True)
+
+        def fwd_bwd():
+            y, aux = moe(xg)
+            (y.float().sum() + aux).backward()
+
+        with torch.no_grad():
+            fwd_ms = time_ms(lambda: moe(x))
+        fwd_bwd_ms = time_ms(fwd_bwd)
+        model.zero_grad(set_to_none=True)
+        # remat: every layer's forward runs again in the backward
+        est = cfg.n_layers * (fwd_ms + fwd_bwd_ms)
+        row["moe"] = {"layer_fwd_ms": fwd_ms, "layer_fwd_bwd_ms": fwd_bwd_ms, "step_est_ms": est,
+                      "share_of_device_busy_est": est / row["profile"]["device_busy_ms"]}
+    log(row)
+    require(len(hist) == args.steps and all(math.isfinite(h["loss"]) for h in hist), f"{name}: bad losses: {row}")
+    if cuda:
+        require(all(counts[k] > 0 for k in ("chain_matmul", "chain_dgrad", "chain_wgrad")),
+                f"{name}: the trainer did not run K1, K2 and K3: {counts}")
+    if cfg.window is not None and args.seq > cfg.window:
+        require(banded["calls"] > 0, f"{name}: no local layer ran banded at seq {args.seq}")
+    if cfg.moe is not None:
+        require(math.isfinite(row["ce"]) and row["aux"] > 0, f"{name}: no aux loss: {row}")
+    with torch.no_grad():
+        head = pack_chain(unembed_blockfaust(model))
+    del out, model, trainer
+    _free()
+    row["head_bwd_check"] = arch_head_bwd(card_line, name, head, tokens) if cuda else None
+    return row
+
+
+def arch_head_bwd(card_line: str, name: str, pc, rows: int) -> dict:
+    """K2 and K3 against their plain versions on a trained bf16 head
+    ``pc`` (packed) at the trainer's ``rows`` = B·S rows and at the tiles
+    the fused backward runs them (``DGRAD_BT``, ``WGRAD_BT``), on the same
+    card tensors; ``dy`` zero past the vocab, as the slice of the padded
+    output gives it.  One launch of each, counted."""
+    import torch
+
+    from repro_torch.kernels.chain import DGRAD_BT, WGRAD_BT
+    from repro_torch.kernels.chain_bwd import (
+        chain_dgrad,
+        chain_dgrad_plain,
+        chain_wgrad,
+        chain_wgrad_plain,
+        dgrad_meta,
+        wgrad_meta,
+    )
+
+    plan, values = pc.plan, pc.values
+    require(values.dtype == torch.bfloat16, f"{name}: the trained head is {values.dtype}, not bf16")
+    dev = values.device
+    g = torch.Generator(device=dev).manual_seed(14)
+    x = torch.randn((rows, plan.in_blocks[0] * plan.block), generator=g, device=dev).to(torch.bfloat16)
+    x[:, plan.in_features:] = 0  # the path pads x with zeros
+    dy = torch.zeros((rows, plan.out_blocks[-1] * plan.block), dtype=torch.bfloat16, device=dev)
+    dy[:, :plan.out_features] = torch.randn((rows, plan.out_features), generator=g, device=dev)
+    dm, wm = dgrad_meta(plan, pc.in_idx), wgrad_meta(plan, pc.in_idx)
+    _zero_counts()
+    dx = chain_dgrad(dy, values, dm, plan=plan, bt=DGRAD_BT)
+    dv = chain_wgrad(x, dy, values, wm, plan=plan, bt=WGRAD_BT)
+    torch.cuda.synchronize()
+    counts = _bwd_counts()
+    dx_err, dx_rel = rel_err(dx, chain_dgrad_plain(dy, values, dm, plan=plan))
+    del dx
+    dv_err, dv_rel = rel_err(dv, chain_wgrad_plain(x, dy, values, wm, plan=plan))
+    row = {"phase": "arch_head_bwd_check", "card": card_line, "chain": f"{name}.unembed", "dtype": "bfloat16",
+           "rows": rows, "dims": [plan.in_features, *plan.out_feats], "padded_out": plan.out_blocks[-1] * plan.block,
+           "dgrad_bt": DGRAD_BT, "wgrad_bt": WGRAD_BT, "k2_max_abs_err": dx_err, "k2_rel_err": dx_rel,
+           "k3_max_abs_err": dv_err, "k3_rel_err": dv_rel, "tol": TOL["bfloat16"],
+           "launches": {k: counts[k] for k in ("chain_dgrad", "chain_wgrad")}}
+    log(row)
+    require(counts["chain_dgrad"] == 1 and counts["chain_wgrad"] == 1, f"{name}: launches {counts}")
+    require(dx_rel <= TOL["bfloat16"] and dv_rel <= TOL["bfloat16"],
+            f"{name}'s head at {rows} rows: K2 {dx_rel}, K3 {dv_rel} against their plain versions")
+    del dv, x, dy
+    _free()
+    return row
+
+
+def arch_heads(card_line: str, dev, name: str, model, rows: int) -> list[dict]:
+    """K1 (and K6) against their plain versions on ``model``'s bf16 head,
+    at decode batches 1 and 8 and at ``rows`` rows (a whole sequence's
+    forward)."""
+    from repro_torch.runtime.engine import unembed_blockfaust
+
+    return check_chains(card_line, dev, "arch_head_check", {f"{name}.unembed": unembed_blockfaust(model)},
+                        (1, 8, rows))
+
+
+def arch_serve(card_line: str, dev, name: str, model, n_req: int, lengths: tuple, budgets: tuple,
+               fixed: tuple = (), seed: int = 0, max_len: int = SERVE_MAX_LEN) -> dict:
+    """The engine over ``model`` on a trace (:func:`serve_run`, every
+    request ``done``, the teacher-forced check), its parameter count and
+    its head's K1 against plain."""
+    params = param_check(name, model)
+    res = serve_run(f"{name}_serve", card_line, model, n_req, lengths, budgets, fixed=fixed, seed=seed,
+                    max_len=max_len)
+    row = res["row"]
+    row.update(params)
+    row["head_checks"] = arch_heads(card_line, dev, name, model, max(row["prompt_lengths"]))
+    log({"phase": f"{name}_serve_summary", "card": card_line, **params,
+         **{k: row[k] for k in ("tokens_per_s", "ttft_p50_s", "tpot_p50_s", "prefill_s", "decode_s", "wall_s",
+                                "max_memory_allocated_gb", "launches", "teacher_forced")},
+         "head_k1_rel_err": max(c["k1_rel_err"] for c in row["head_checks"])})
+    return res
+
+
+def moe_decode(card_line: str, model, batch: int, prompt_len: int = LLAMA4_PROMPT) -> dict:
+    """A MoE model's prefill of ``batch × prompt_len`` tokens and its
+    decode step at ``batch`` live rows: prefill seconds, the step's host
+    seconds (median of 5), one step under the profiler, and the step's two
+    bounds: every weight read once (every expert; what the dense-capacity
+    einsums read) and only the experts its tokens reach (counted from the
+    step's routing)."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models.lm import DTYPES, make_caches
+    from repro_torch.runtime.engine import LMExecutor
+
+    cfg = model.cfg
+    rng = np.random.default_rng(11)
+    tokens = torch.as_tensor(rng.integers(0, cfg.vocab, size=(batch, prompt_len)), device=model.embed.table.device)
+    spans = []
+    with torch.no_grad():
+        for _ in range(3):
+            caches = make_caches(cfg, batch, prompt_len + 8, DTYPES[cfg.dtype], tokens.device)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            model.prefill(tokens, caches)
+            torch.cuda.synchronize()
+            spans.append(time.perf_counter() - t0)
+    del caches
+    ex = LMExecutor(model, prompt_len + 64, batch)
+    for slot in range(batch):
+        ex.prefill_forward(slot, tokens[slot].cpu().numpy().astype(np.int32), {})
+    slots, toks = list(range(batch)), rng.integers(0, cfg.vocab, size=(batch, 1))
+    ex.decode_forward(slots, toks)
+    steps = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        ex.decode_forward(slots, toks)
+        steps.append(time.perf_counter() - t0)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        ex.decode_forward(slots, toks)
+        torch.cuda.synchronize()
+        prof_s = time.perf_counter() - t0
+    with moe_routing(model) as routed:
+        ex.decode_forward(slots, toks)
+    spec = cfg.moe
+    glu = 3 if spec.act in ("geglu", "swiglu") else 2
+    expert_bytes = glu * cfg.d_model * spec.d_ff * model.layers[0].moe.w_up.element_size()
+    bound = weight_bound(model, batch)
+    unread = sum(spec.n_experts - e for e in routed["experts"]) * expert_bytes
+    active_bytes = bound["weight_bytes"] - unread
+    row = {"phase": "moe_decode", "card": card_line, "arch": cfg.name, "batch": batch, "prompt_len": prompt_len,
+           "capacity_factor": spec.capacity_factor, "prefill_s": statistics.median(spans),
+           "decode_step_s": statistics.median(steps), "decode_step_s_all": steps,
+           "experts_reached": routed["experts"], "all_experts_bytes": bound["weight_bytes"],
+           "all_experts_bound_ms": bound["weight_bound_ms"], "active_experts_bytes": active_bytes,
+           "active_experts_bound_ms": active_bytes / HBM_BW * 1e3, **device_spans(prof, prof_s)}
+    log(row)
+    require(routed["dropped"] == 0, f"a decode step dropped tokens at capacity factor {spec.capacity_factor}")
+    return row
+
+
+def archs(card_line: str, dev) -> dict:
+    """Phase 15, slice 10: the partial-rotary, sliding-window and MoE
+    architectures at their published widths with the FAµST unembedding
+    (module docstring); every model freed before the next."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models.lm import DTYPES, make_caches
+
+    out = {}
+    with _fresh_tables("chip_smoke_archs_autotune"):
+        # gemma3-27b: one stage unit (five local layers, one global) at seq 2048, so the local layers run banded
+        out["gemma3_train"] = arch_train(card_line, "gemma3", GEMMA3_TRAIN_ARGV, 6, GEMMA3_UNIT)
+        out["granite_train"] = arch_train(card_line, "granite", GRANITE_TRAIN_ARGV)
+        model = _lm(arch_config("gemma3_27b", 6, GEMMA3_UNIT), dev)
+        res = arch_serve(card_line, dev, "gemma3", model, len(GEMMA3_PROMPTS), (64, 64), (16, 48),
+                         fixed=GEMMA3_PROMPTS, seed=21, max_len=ARCH_MAX_LEN)
+        out["gemma3_serve"] = res["row"]
+        caps = sorted({c.capacity for c in res["engine"].executor.pool})
+        require(caps == [model.cfg.window, ARCH_MAX_LEN], f"gemma3's pool capacities {caps}")
+        del model, res
+        _free()
+        # granite-moe-3b, full depth: teacher-forced drop-free (cf = E/k), then the published factor beside it
+        published = arch_config("granite_moe_3b").moe.capacity_factor
+        model = _lm(arch_config("granite_moe_3b", dropfree=True), dev)
+        res = arch_serve(card_line, dev, "granite", model, 8, (32, 512), (16, 48), seed=22)
+        out["granite_serve"] = res["row"]
+        with moe_capacity(model, published):
+            pub = serve_run("granite_serve_published_cf", card_line, model, 8, (32, 512), (16, 48), seed=22,
+                            check=False)
+            # what those prefills routed (a prompt ≤ attn_chunk prefills in one piece)
+            with moe_routing(model) as routed, torch.no_grad():
+                for p in pub["prompts"]:
+                    caches = make_caches(model.cfg, 1, len(p), DTYPES[model.cfg.dtype], dev)
+                    model.prefill(torch.as_tensor(p[None], device=dev), caches)
+        same = [int(np.sum(pub["engine"].result(b) == res["engine"].result(a)))
+                for a, b in zip(res["rids"], pub["rids"])]
+        row = {"phase": "granite_published_cf", "card": card_line, "capacity_factor": published,
+               "dropfree_capacity_factor": model.cfg.moe.capacity_factor, "prefill_pairs": routed["pairs"],
+               "prefill_dropped": routed["dropped"], "prefill_drop_share": routed["dropped"] / routed["pairs"],
+               "tokens_equal_to_dropfree": sum(same),
+               "tokens": sum(len(res["engine"].result(r)) for r in res["rids"]),
+               **{k: pub["row"][k] for k in ("tokens_per_s", "ttft_p50_s", "tpot_p50_s", "wall_s", "launches")}}
+        log(row)
+        require(routed["dropped"] > 0, f"granite's published capacity factor dropped nothing: {row}")
+        out["granite_published_cf"] = row
+        del model, res, pub
+        _free()
+        # llama4-maverick: one layer at full width (34.7 GB), serving only, drop-free
+        model = _lm(arch_config("llama4_maverick", 1, ("moe",), dropfree=True), dev)
+        out["llama4_decode"] = [moe_decode(card_line, model, b) for b in (1, 8)]
+        out["llama4_serve"] = arch_serve(card_line, dev, "llama4", model, 4, (32, 512), (16, 32), seed=23)["row"]
+        del model
+        _free()
+        for arch, name in (("chatglm3_6b", "chatglm3"), ("nemotron4_15b", "nemotron")):
+            model = _lm(arch_config(arch), dev)
+            out[f"{name}_serve"] = arch_serve(card_line, dev, name, model, 8, (32, 512), (16, 48), seed=24)["row"]
+            del model
+            _free()
+    launches = {}
+    for row in (out["gemma3_train"], out["granite_train"], *(out[f"{n}_serve"] for n in
+                ("gemma3", "granite", "llama4", "chatglm3", "nemotron"))):
+        for k, v in row["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    out["launches"] = launches
+    log({"phase": "archs", "card": card_line, "launches": launches})
+    return out
+
+
 def _kernel_entry(name, source, replaces, launches, cases, checks, card_line, head) -> dict:
     first = next(r for r in cases if all(r.get(k) == v for k, v in head.items()))
     keys = ("chain", "quant", "dtype", "batch", "bt", "launches_per_apply", "max_abs_err", "ms", "cold_ms",
@@ -2879,6 +3430,7 @@ def main() -> int:
     rows += measure_unembed(info["card"], dev)
     srv = serve(info["card"], dev)
     serve_launches = {**srv["engine"]["launches"], "chain_matmul_q": srv["stream"]["k4_launches"]}
+    arch = archs(info["card"], dev)
 
     src = "src/repro_torch/kernels/csrc/"
     f32_b128 = {"dtype": "float32", "batch": 128}
@@ -2917,6 +3469,8 @@ def main() -> int:
             k["serve_launches"] = serve_launches[k["name"]]
         if k["name"] in resilient_launches:
             k["train_resilient_launches"] = resilient_launches[k["name"]]
+        if k["name"] in ("chain_matmul", "bsr_matmul", "chain_dgrad", "chain_wgrad"):  # slice 10: phase 15's runs
+            k["archs_launches"] = arch["launches"][k["name"]]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(info["card"], flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,29 +1,36 @@
 """Architecture registry of the port: ``get_config(name)`` /
 ``get_smoke(name)``.  Counterpart of :mod:`repro.configs`.
 
-The port trains and serves the dense ``"attn"`` layer kind so far, so
-gemma-2b is the one architecture it holds; the others need layer kinds
-(sliding-window, MoE, mamba) or modality front ends that come with later
-slices, and asking for one raises, naming that slice.
+The port trains and serves the ``"attn"``, ``"local"`` (sliding-window)
+and ``"moe"`` layer kinds with partial rotary, so it holds six of the
+reference's ten architectures; the others need the mamba2 layer kinds or
+a modality front end that come with later slices, and asking for one
+raises, naming what it needs.
 """
 from __future__ import annotations
 
 import importlib
 
-ARCH_IDS = ["gemma_2b"]
+ARCH_IDS = ["gemma3_27b", "gemma_2b", "nemotron4_15b", "chatglm3_6b", "llama4_maverick", "granite_moe_3b"]
 # the reference's other architectures, and what each still needs
 LATER = {
     "mamba2_2p7b": "the mamba2 (ssm) layer kind",
-    "gemma3_27b": "the sliding-window (local) layer kind",
-    "nemotron4_15b": "partial rotary, squared-ReLU MLPs and layernorm1p",
-    "chatglm3_6b": "partial rotary (2d RoPE)",
     "internvl2_2b": "the vision front end (n_vision_tokens)",
-    "llama4_maverick": "the MoE layer kind",
-    "granite_moe_3b": "the MoE layer kind",
     "musicgen_medium": "the audio front end (n_codebooks > 1)",
     "zamba2_7b": "the mamba2 and shared layer kinds",
 }
-ALIASES = {"gemma-2b": "gemma_2b"}
+ALIASES = {
+    "mamba2-2.7b": "mamba2_2p7b",
+    "gemma3-27b": "gemma3_27b",
+    "gemma-2b": "gemma_2b",
+    "nemotron-4-15b": "nemotron4_15b",
+    "chatglm3-6b": "chatglm3_6b",
+    "internvl2-2b": "internvl2_2b",
+    "llama4-maverick-400b-a17b": "llama4_maverick",
+    "granite-moe-3b-a800m": "granite_moe_3b",
+    "musicgen-medium": "musicgen_medium",
+    "zamba2-7b": "zamba2_7b",
+}
 
 
 def _module(name: str):

@@ -2,8 +2,8 @@
 attention in f32, and decode over per-row KV caches.  Counterpart of
 :mod:`repro.layers.attention` (``attn_init``, ``_mask_bias``,
 ``_gqa_scores``, ``flash_attention_ref``, ``decode_attention``,
-``KVCache`` and its functions, ``attn_qkv``, ``attn_train``,
-``attn_prefill``, ``attn_decode``).
+``banded_attention_ref``, ``KVCache`` and its functions, ``attn_qkv``,
+``attn_train``, ``attn_prefill``, ``attn_decode``).
 
 Plain PyTorch: the reference computes attention outside any Pallas
 kernel.  The softmax runs over chunks of ``chunk`` keys with a running
@@ -15,8 +15,9 @@ dot-native layout: decode reads it without a transpose) and a per-row
 rows decode at independent positions.  A capacity below the sequence is a
 ring buffer (token ``p`` in slot ``p % capacity``).  The cache functions
 return new caches and leave their inputs as they were, as the reference's.
-The banded sliding-window prefill (``banded_attention_ref``) comes with
-the ``local`` layer kind.
+A sliding window shorter than the sequence (the ``local`` layer kind) runs
+the banded form, each query chunk against its band of ``window + chunk``
+keys, in O(S·(window + chunk)).
 """
 from __future__ import annotations
 
@@ -121,6 +122,47 @@ def flash_attention_ref(
         m = m_new
     out = acc / torch.clamp(l, min=1e-30)[..., None]
     return out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, d).to(q.dtype)
+
+
+def banded_attention_ref(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    window: int,
+    scale: float | None = None,
+    chunk: int = 512,
+) -> torch.Tensor:
+    """Causal sliding-window self-attention over positions ``0..S-1``:
+    each chunk of ``chunk`` queries attends to the keys of its band
+    ``[chunk start − window + 1, chunk end)``, read as a static width of
+    ``window + chunk`` keys whose start is clamped into ``[0, S − band]``.
+    ``q (B,S,H,D)``, ``k``/``v (B,S,KH,D)``; returns ``(B,S,H,D)`` in q's
+    dtype."""
+    b, s, h, d = q.shape
+    kh = k.shape[2]
+    g = h // kh
+    scale = d**-0.5 if scale is None else scale
+    chunk = min(chunk, s)
+    if s % chunk:
+        raise ValueError(f"sequence length {s} is not a multiple of the chunk {chunk}")
+    band = window + chunk
+    width = min(band, s)
+    qg = q.reshape(b, s // chunk, chunk, kh, g, d)
+    outs = []
+    for i in range(s // chunk):
+        start = min(max(i * chunk + chunk - band, 0), max(s - band, 0))
+        kb, vb = k[:, start:start + width], v[:, start:start + width]
+        sc = _gqa_scores(qg[:, i], kb, scale)  # (B,KH,G,chunk,width)
+        q_pos = i * chunk + torch.arange(chunk, device=q.device)
+        kv_pos = start + torch.arange(width, device=q.device)
+        sc = sc + _mask_bias(q_pos, kv_pos, True, window)
+        p = torch.exp(sc - sc.amax(dim=-1, keepdim=True))
+        # p rounds to v's dtype before the product, as the reference
+        o = torch.einsum("bhgqc,bchd->bhgqd", p.to(v.dtype).float(), vb.float())
+        outs.append(o / p.sum(dim=-1)[..., None])
+    out = torch.stack(outs, dim=1)  # (B, n_chunks, KH, G, chunk, D)
+    return out.permute(0, 1, 4, 2, 3, 5).reshape(b, s, h, d).to(q.dtype)
 
 
 def decode_attention(
@@ -241,14 +283,17 @@ def attn_qkv(p: Attention, x: torch.Tensor, spec: AttnSpec, positions: torch.Ten
 
 
 def _self_attention(p: Attention, x: torch.Tensor, spec: AttnSpec, chunk: int):
-    """Causal self-attention over a whole sequence: ``(y, k, v)``."""
-    if spec.window is not None:
-        raise NotImplementedError("sliding-window attention (the local layer kind) comes with a later slice")
+    """Causal self-attention over a whole sequence: ``(y, k, v)``; a window
+    shorter than the sequence runs banded, any other through the chunked
+    softmax with the window's mask."""
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device)
     q, k, v = attn_qkv(p, x, spec, positions)
-    o = flash_attention_ref(q, k, v, q_positions=positions, kv_positions=positions, causal=True,
-                            scale=spec.scale, chunk=min(chunk, s))
+    if spec.window is not None and spec.window < s:
+        o = banded_attention_ref(q, k, v, window=spec.window, scale=spec.scale, chunk=min(chunk, s))
+    else:
+        o = flash_attention_ref(q, k, v, q_positions=positions, kv_positions=positions, causal=True,
+                                window=spec.window, scale=spec.scale, chunk=min(chunk, s))
     return o.reshape(b, s, -1) @ p.wo, k, v
 
 

@@ -2,8 +2,10 @@
 (``_layer_init``, ``init_model``, ``_apply_layer``, ``_run_stages``,
 ``_embed_tokens``, ``_logits``, ``forward_train``, ``train_loss``,
 ``make_caches``, ``gather_cache_slots``, ``scatter_cache_slots``,
-``prefill``, ``decode_step``, ``greedy_token``) for the dense ``"attn"``
-layer kind.
+``prefill``, ``decode_step``, ``greedy_token``) for the ``"attn"``
+(global attention + FFN), ``"local"`` (sliding-window attention + FFN)
+and ``"moe"`` (global attention + MoE FFN) layer kinds, with partial
+rotary.
 
 The reference stacks every layer's parameters on a leading axis and scans
 over them; here the layers are an ``nn.ModuleList`` run in a Python loop,
@@ -12,13 +14,17 @@ reference's ``jax.checkpoint`` of the scan body).  State dict keys mirror
 the reference's parameter paths with the stack unrolled:
 ``embed.table``, ``layers.{i}.norm1``, ``layers.{i}.attn.wq``,
 ``layers.{i}.mlp.w_up`` (or ``...w_up.factors.{f}.values`` with
-``faust_mlp``), ``final_norm``, ``unembed.w`` or ``unembed.faust...``;
-:mod:`repro_torch.bridge` maps one onto the other.  The other layer kinds
-and the modality front ends come with later slices
-(:func:`repro_torch.configs.base.check_supported`).
+``faust_mlp``) or ``layers.{i}.moe.router``/``.w_up``/``.w_gate``/
+``.w_down``/``.shared.*``, ``final_norm``, ``unembed.w`` or
+``unembed.faust...``; :mod:`repro_torch.bridge` maps one onto the other.
+The layers run in ``cfg.layer_kinds()`` order (the stages unrolled).  The
+loss adds every MoE layer's load-balancing term to the cross entropy, as
+the reference's.  The mamba2 layer kinds and the modality front ends come
+with later slices (:func:`repro_torch.configs.base.check_supported`).
 
 Serving: :func:`make_caches` gives one :class:`KVCache` per layer in a
-list (the layers are unrolled, so there is no repeat axis); the batch axis
+list (the layers are unrolled, so there is no repeat axis), a ``local``
+layer's a ring of ``min(window, cache_len)`` tokens; the batch axis
 of every cache tensor, axis 0, is the serving engine's *slot* axis, where
 the reference's stacked caches have it at axis 1 (``_CACHE_BATCH_AXIS``).
 :meth:`LM.prefill` returns the last position's logits and the filled
@@ -38,39 +44,55 @@ from repro_torch.device import resolve_device
 from repro_torch.layers.attention import Attention, AttnSpec, KVCache, attn_decode, attn_prefill, kv_cache_init
 from repro_torch.layers.embedding import Embedding, Unembed, unembed_apply
 from repro_torch.layers.mlp import MLP
+from repro_torch.layers.moe import MoE
 from repro_torch.layers.norms import apply_norm, norm_params
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 TRAIN, PREFILL, DECODE = "train", "prefill", "decode"
 
 
-def attn_spec(cfg: ArchConfig) -> AttnSpec:
+def attn_spec(cfg: ArchConfig, kind: str) -> AttnSpec:
+    """The attention of a ``kind`` layer: rotary over ``rotary_pct`` of the
+    head dim (rounded down to even; none at 0), and for ``"local"`` the
+    window and the local rope base."""
+    local = kind == "local"
+    rotary_dim = int(cfg.head_dim * cfg.rotary_pct)
+    rotary_dim -= rotary_dim % 2
     return AttnSpec(
         n_heads=cfg.n_heads,
         n_kv_heads=cfg.n_kv_heads,
         head_dim=cfg.head_dim,
-        rope_base=cfg.rope_base,
+        rope_base=(cfg.rope_base_local or cfg.rope_base) if local else cfg.rope_base,
+        rotary_dim=rotary_dim if cfg.rotary_pct < 1.0 else None,
+        window=cfg.window if local else None,
         qk_norm=cfg.qk_norm,
         scale=cfg.attn_scale,
+        use_rope=cfg.rotary_pct > 0.0,
     )
 
 
 class Layer(nn.Module):
-    """One ``"attn"`` layer: norm → attention → residual, norm → MLP → residual."""
+    """One layer of ``kind``: norm → attention → residual, then norm → MLP
+    (``"attn"``, ``"local"``) or MoE (``"moe"``) → residual."""
 
-    def __init__(self, cfg: ArchConfig, *, generator, dtype, device):
+    def __init__(self, cfg: ArchConfig, kind: str, *, generator, dtype, device):
         super().__init__()
-        self.cfg = cfg
+        self.cfg, self.kind = cfg, kind
         kw = dict(generator=generator, dtype=dtype, device=device)
         self.norm1 = norm_params(cfg.norm, cfg.d_model, dtype, device)
-        self.attn = Attention(cfg.d_model, attn_spec(cfg), **kw)
+        self.attn = Attention(cfg.d_model, attn_spec(cfg, kind), **kw)
         self.norm2 = norm_params(cfg.norm, cfg.d_model, dtype, device)
-        self.mlp = MLP(cfg.d_model, cfg.d_ff, cfg.act, faust=cfg.faust_mlp, **kw)
+        if kind == "moe":
+            self.moe = MoE(cfg.d_model, cfg.moe, **kw)
+        else:
+            self.mlp = MLP(cfg.d_model, cfg.d_ff, cfg.act, faust=cfg.faust_mlp, **kw)
 
     def forward(self, x: torch.Tensor, mode: str = TRAIN, cache: KVCache | None = None,
                 chunk: int | None = None):
-        """``(x, new cache)``: ``mode`` train (no cache), prefill (fills
-        ``cache``) or decode (one token per row into ``cache``)."""
+        """``(x, aux, new cache)``: ``mode`` train (no cache), prefill
+        (fills ``cache``) or decode (one token per row into ``cache``);
+        ``aux`` is a MoE layer's weighted load-balancing loss, None for
+        the others."""
         cfg = self.cfg
         chunk = cfg.attn_chunk if chunk is None else chunk
         h = apply_norm(cfg.norm, self.norm1, x)
@@ -84,7 +106,12 @@ class Layer(nn.Module):
             raise ValueError(f"mode must be {TRAIN!r}, {PREFILL!r} or {DECODE!r}; got {mode!r}")
         x = x + y.to(x.dtype)
         h = apply_norm(cfg.norm, self.norm2, x)
-        return x + self.mlp(h).to(x.dtype), cache
+        aux = None
+        if self.kind == "moe":
+            y, aux = self.moe(h)
+        else:
+            y = self.mlp(h)
+        return x + y.to(x.dtype), aux, cache
 
 
 class LM(nn.Module):
@@ -100,7 +127,7 @@ class LM(nn.Module):
         gen = torch.Generator(device=dev).manual_seed(seed)
         kw = dict(generator=gen, dtype=dtype, device=dev)
         self.embed = Embedding(cfg.vocab, cfg.d_model, **kw)
-        self.layers = nn.ModuleList(Layer(cfg, **kw) for _ in cfg.layer_kinds())
+        self.layers = nn.ModuleList(Layer(cfg, kind, **kw) for kind in cfg.layer_kinds())
         self.final_norm = norm_params(cfg.norm, cfg.d_model, dtype, dev)
         if not cfg.tie_embeddings:
             self.unembed = Unembed(cfg.d_model, cfg.vocab, cfg.faust_unembed, **kw)
@@ -119,19 +146,26 @@ class LM(nn.Module):
         """f32 logits ``(B, S, vocab)`` of ``tokens (B, S)``; ``chunk`` is
         attention's key chunk (default ``cfg.attn_chunk``: a sequence longer
         than it must be a multiple of it)."""
+        return self._forward_train(tokens, chunk)[0]
+
+    def _forward_train(self, tokens: torch.Tensor, chunk: int | None = None):
+        """The logits and the f32 sum of the MoE layers' aux losses."""
         x = self._embed_tokens(tokens)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for layer in self.layers:
             if self.cfg.remat and torch.is_grad_enabled():
-                x = checkpoint(layer, x, TRAIN, None, chunk, use_reentrant=False)[0]
+                x, layer_aux, _ = checkpoint(layer, x, TRAIN, None, chunk, use_reentrant=False)
             else:
-                x = layer(x, TRAIN, None, chunk)[0]
+                x, layer_aux, _ = layer(x, TRAIN, None, chunk)
+            if layer_aux is not None:
+                aux = aux + layer_aux
         x = apply_norm(self.cfg.norm, self.final_norm, x)
-        return self._logits(x)
+        return self._logits(x), aux
 
     def _run(self, x: torch.Tensor, mode: str, caches: list[KVCache]):
         new = []
         for layer, cache in zip(self.layers, caches, strict=True):
-            x, cache = layer(x, mode, cache)
+            x, _, cache = layer(x, mode, cache)
             new.append(cache)
         return apply_norm(self.cfg.norm, self.final_norm, x), new
 
@@ -148,15 +182,15 @@ class LM(nn.Module):
         return self._logits(x), new
 
     def train_loss(self, batch: dict) -> tuple[torch.Tensor, dict]:
-        """Mean next-token cross entropy: ``(loss, {"loss", "ce", "aux"})``."""
+        """Mean next-token cross entropy plus the MoE layers' aux losses:
+        ``(loss, {"loss", "ce", "aux"})``."""
         tokens = batch["tokens"]
-        logits = self.forward_train(tokens)
+        logits, aux = self._forward_train(tokens)
         labels = tokens[:, 1:].long()
         lg = logits[:, :-1]
         lse = torch.logsumexp(lg, dim=-1)
         gold = torch.gather(lg, -1, labels[..., None])[..., 0]
         ce = torch.mean(lse - gold)
-        aux = torch.zeros((), dtype=torch.float32, device=ce.device)
         loss = ce + aux
         return loss, {"loss": loss, "ce": ce, "aux": aux}
 
@@ -166,12 +200,21 @@ class LM(nn.Module):
 # ---------------------------------------------------------------------------
 
 
+def cache_capacity(cfg: ArchConfig, kind: str, cache_len: int) -> int:
+    """A ``kind`` layer's cache capacity: ``min(window, cache_len)`` for
+    ``"local"`` (a ring buffer), else ``cache_len``."""
+    if kind == "local" and cfg.window is not None:
+        return min(cfg.window, cache_len)
+    return cache_len
+
+
 def make_caches(cfg: ArchConfig, batch: int, cache_len: int, dtype=torch.bfloat16, device=None) -> list[KVCache]:
-    """One empty :class:`KVCache` of ``batch`` rows and capacity
-    ``cache_len`` per layer, on ``device`` (default: the CUDA card)."""
+    """One empty :class:`KVCache` of ``batch`` rows per layer, of capacity
+    :func:`cache_capacity`, on ``device`` (default: the CUDA card)."""
     check_supported(cfg)
     dev = resolve_device(device)
-    return [kv_cache_init(batch, cache_len, cfg.n_kv_heads, cfg.head_dim, dtype, dev) for _ in cfg.layer_kinds()]
+    return [kv_cache_init(batch, cache_capacity(cfg, kind, cache_len), cfg.n_kv_heads, cfg.head_dim, dtype, dev)
+            for kind in cfg.layer_kinds()]
 
 
 def gather_cache_slots(caches: list[KVCache], slot_idx: torch.Tensor) -> list[KVCache]:

@@ -15,6 +15,12 @@ device, and the schedule and bias corrections are computed there once
 per step.  ``apply_updates(ok=)`` is the NaN guard as the reference writes
 it (``jnp.where``): where ``ok`` is false the parameters, the moments and
 the step count keep their values, with no host sync.
+
+The update is elementwise, so it runs on each parameter in flat slices of
+``UPDATE_SLICE`` elements, one clipped gradient at a time: the same bits as
+one pass, with f32 temporaries of one slice rather than of the largest
+parameter (a 1.41 G-entry embedding would otherwise need ≈ 28 GB of them
+on top of the optimizer state).
 """
 from __future__ import annotations
 
@@ -22,6 +28,8 @@ import dataclasses
 import math
 
 import torch
+
+UPDATE_SLICE = 1 << 26  # elements of a parameter updated at once
 
 
 @dataclasses.dataclass(frozen=True)
@@ -69,12 +77,6 @@ def global_norm(grads: dict) -> torch.Tensor:
     return torch.sqrt(sum(torch.sum(torch.square(g.float())) for g in grads.values()))
 
 
-def clip_by_global_norm(grads: dict, max_norm: float) -> tuple[dict, torch.Tensor]:
-    norm = global_norm(grads)
-    scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
-    return {k: g * scale.to(g.dtype) for k, g in grads.items()}, norm
-
-
 @torch.no_grad()
 def apply_updates(cfg: AdamWConfig, params: dict, grads: dict, state: AdamWState, ok=None) -> dict:
     """One step in place on ``params`` and ``state``; returns
@@ -83,7 +85,8 @@ def apply_updates(cfg: AdamWConfig, params: dict, grads: dict, state: AdamWState
     default true) applies the step only where it holds: otherwise the
     moments decay by 1 and take no gradient, the parameters move by 0 and
     the step count stays, so every tensor keeps its bits."""
-    grads, gnorm = clip_by_global_norm({k: grads[k] for k in state.mu}, cfg.grad_clip)
+    gnorm = global_norm({k: grads[k] for k in state.mu})
+    scale = torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-9), max=1.0)  # global-norm clipping
     dev = state.step.device
     ok = torch.ones((), dtype=torch.bool, device=dev) if ok is None else ok
 
@@ -98,13 +101,16 @@ def apply_updates(cfg: AdamWConfig, params: dict, grads: dict, state: AdamWState
     b2c = 1 - cfg.b2**s32
     d1, c1, d2, c2 = pick(cfg.b1, 1.0), pick(1 - cfg.b1, 0.0), pick(cfg.b2, 1.0), pick(1 - cfg.b2, 0.0)
     lr_eff = torch.where(ok, lr, 0.0)
-    for k, g in grads.items():
-        p, mu, nu = params[k], state.mu[k], state.nu[k]
-        g32 = torch.where(ok, g.float(), 0.0)
-        mu.mul_(d1).add_(c1 * g32)
-        nu.mul_(d2).add_(c2 * g32 * g32)
-        delta = (mu / b1c) / (torch.sqrt(nu / b2c) + cfg.eps)
-        delta = delta + cfg.weight_decay * p.float()
-        p.copy_((p.float() - lr_eff * delta).to(p.dtype))
+    for k in state.mu:
+        g = grads[k] * scale.to(grads[k].dtype)  # clipped, one parameter at a time
+        flat = params[k].view(-1), state.mu[k].view(-1), state.nu[k].view(-1), g.reshape(-1)
+        for a in range(0, flat[0].numel(), UPDATE_SLICE):
+            p, mu, nu, gs = (t[a:a + UPDATE_SLICE] for t in flat)
+            g32 = torch.where(ok, gs.float(), 0.0)
+            mu.mul_(d1).add_(c1 * g32)
+            nu.mul_(d2).add_(c2 * g32 * g32)
+            delta = (mu / b1c) / (torch.sqrt(nu / b2c) + cfg.eps)
+            delta = delta + cfg.weight_decay * p.float()
+            p.copy_((p.float() - lr_eff * delta).to(p.dtype))
     state.step = torch.where(ok, step, state.step)
     return {"grad_norm": gnorm, "lr": lr}

@@ -36,7 +36,10 @@ def test_port_imports_neither_jax_nor_reference(path):
 def test_scan_sees_the_port():
     assert len(FILES) > 10
     port = ROOT / "src" / "repro_torch"
-    for new in ("checkpoint/manager.py", "optim/compression.py", "launch/calibrate.py", "launch/roofline.py"):
+    for new in ("checkpoint/manager.py", "optim/compression.py", "launch/calibrate.py", "launch/roofline.py",
+                "layers/moe.py", "configs/chatglm3_6b.py", "configs/nemotron4_15b.py", "configs/gemma3_27b.py",
+                "configs/granite_moe_3b.py", "configs/llama4_maverick.py", "examples/quickstart.py",
+                "examples/compress_operator.py", "examples/train_tiny_lm.py", "examples/serve_lm.py"):
         assert port / new in FILES
     assert _forbidden("repro.kernels.ops") and _forbidden("jax.numpy") and _forbidden("ml_dtypes")
     assert not _forbidden("repro_torch.kernels.ops")

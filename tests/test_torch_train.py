@@ -362,16 +362,22 @@ def test_grad_priced_choose_backend_matches_reference(same_constants, batch, sha
 
 
 def test_later_slices_raise():
-    """What the port does not run yet raises: MoE, the ``local`` layer
-    kind, a mesh, and the launcher's multi-GPU flags.  Checkpoints, EF
-    compression and recompression work (``tests/test_torch_resilience.py``)."""
-    with pytest.raises(NotImplementedError, match="MoE"):
-        get_config("llama4_maverick")
+    """What the port does not run yet raises, one case each: the mamba2
+    architecture and the ``ssm``/``shared`` layer kinds, musicgen's
+    codebooks, internvl's vision tokens, a mesh, and the launcher's
+    multi-GPU flags.  Checkpoints, EF compression and recompression work
+    (``tests/test_torch_resilience.py``); the ``local`` and ``moe`` kinds
+    and partial rotary too (``tests/test_torch_archs.py``)."""
+    with pytest.raises(NotImplementedError, match="mamba2"):
+        get_config("mamba2_2p7b")
     cfg = get_smoke("gemma_2b")
-    with pytest.raises(NotImplementedError, match="layer kinds"):
-        LM(dataclasses.replace(cfg, stages=((2, ("local",)),)), device=CPU)
-    with pytest.raises(NotImplementedError, match="moe"):
-        LM(dataclasses.replace(cfg, moe=object()), device=CPU)
+    for kind in ("ssm", "shared"):
+        with pytest.raises(NotImplementedError, match="layer kinds"):
+            LM(dataclasses.replace(cfg, stages=((2, (kind,)),)), device=CPU)
+    with pytest.raises(NotImplementedError, match="n_codebooks"):
+        LM(dataclasses.replace(cfg, n_codebooks=4), device=CPU)
+    with pytest.raises(NotImplementedError, match="n_vision_tokens"):
+        LM(dataclasses.replace(cfg, n_vision_tokens=4), device=CPU)
     data = pipeline.DataConfig(vocab=131, seq_len=8, global_batch=2)
     with pytest.raises(NotImplementedError, match="mesh"):
         trainer.Trainer(cfg, data, tcfg=trainer.TrainConfig(checkpoint_every=999), mesh=object(), device=CPU)
@@ -443,3 +449,26 @@ def test_skipped_update_keeps_every_bit():
                                torch.tensor(1.5))
     assert float(m["skipped"]) == 0.0 and int(state.step) == 2
     assert not torch.equal(params["w"], before[0]["w"])
+
+
+def test_adamw_slices_keep_every_bit(monkeypatch):
+    """The update runs each parameter in slices of ``UPDATE_SLICE``
+    entries: slices of 7 (ragged, a 0-d λ among them) give every
+    parameter and moment the bits of one pass, over three steps."""
+    g = torch.Generator().manual_seed(0)
+    base = {"w": torch.randn(5, 9, generator=g), "b": torch.randn(11, generator=g).to(torch.bfloat16),
+            "lam": torch.tensor(0.75)}
+    cfg = adamw.AdamWConfig(lr=1e-2, warmup_steps=1, grad_clip=0.5)
+    grads = [{k: torch.randn(v.shape, generator=g).to(v.dtype) for k, v in base.items()} for _ in range(3)]
+    runs = []
+    for size in (1 << 26, 7):
+        monkeypatch.setattr(adamw, "UPDATE_SLICE", size)
+        params = {k: v.clone() for k, v in base.items()}
+        state = adamw.init_state(params)
+        for gr in grads:
+            m = adamw.apply_updates(cfg, params, gr, state)
+        runs.append((params, state, m))
+    (p1, s1, m1), (p2, s2, m2) = runs
+    for a, b in ((p1, p2), (s1.mu, s2.mu), (s1.nu, s2.nu)):
+        assert all(torch.equal(a[k], b[k]) for k in a)
+    assert torch.equal(m1["grad_norm"], m2["grad_norm"]) and int(s2.step) == 3

@@ -5,6 +5,7 @@ reads, so both packages compute on the same arrays.  JAX stays on the CPU.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 
@@ -95,3 +96,45 @@ def kv_caches_dict(caches) -> tuple[list, str | None]:
             out.append({"k": k, "v": array(c.v)[0], "pos": np.asarray(c.pos)})
         tree.append(out)
     return tree, dtype
+
+
+# the architectures of the port's slice 10, and the FAµST unembedding
+# their parity tests give them (n_factors, block, k)
+SLICE10_ARCHS = ["chatglm3_6b", "nemotron4_15b", "gemma3_27b", "granite_moe_3b", "llama4_maverick"]
+ARCH_HEAD = (2, 16, 2)
+
+
+def arch_cfgs(arch: str, faust: bool = False):
+    """(reference smoke config, port smoke config) of ``arch``, with the
+    FAµST unembedding ``ARCH_HEAD`` (untied) when ``faust``."""
+    from repro.configs import get_smoke as jget_smoke
+    from repro.layers.faust_linear import FaustSpec as JSpec
+    from repro_torch.configs import get_smoke
+    from repro_torch.layers.faust_linear import FaustSpec
+
+    jextra = dict(faust_unembed=JSpec(*ARCH_HEAD), tie_embeddings=False) if faust else {}
+    extra = dict(faust_unembed=FaustSpec(*ARCH_HEAD), tie_embeddings=False) if faust else {}
+    return dataclasses.replace(jget_smoke(arch), **jextra), dataclasses.replace(get_smoke(arch), **extra)
+
+
+@functools.lru_cache(maxsize=None)
+def arch_pair(arch: str, faust: bool = False):
+    """(reference cfg, reference params, port cfg, port LM on the CPU) on
+    the same parameters: the reference's ``init_model(PRNGKey(0))``
+    carried across by the bridge."""
+    import jax
+
+    from repro.models import lm as jlm
+    from repro_torch import bridge
+    from repro_torch.models.lm import LM
+
+    jcfg, cfg = arch_cfgs(arch, faust)
+    params = jlm.init_model(jax.random.PRNGKey(0), jcfg)
+    model = LM(cfg, device="cpu")
+    tree = jax.tree_util.tree_map(np.asarray, params)
+    model.load_state_dict(bridge.lm_state_dict_from_numpy(tree, cfg, device="cpu"), strict=True)
+    return jcfg, params, cfg, model
+
+
+def arch_tokens(cfg, b: int, s: int, seed: int = 0) -> np.ndarray:
+    return np.random.default_rng(seed).integers(0, cfg.vocab, (b, s)).astype(np.int32)
