@@ -93,8 +93,10 @@ Phases, each fatal on failure (non-zero exit):
    buffer written between launches); the batch-tile sweeps of K1, K6, K2
    and K3 in f32 and bf16; K1, K2 and K3 also at the trainer's shapes (the
    FAµST unembedding, bf16, B = 1024);
-13. serving and streaming refresh (slice 8) at gemma-2b's full width and
-   depth with the trainer's FAµST unembedding: (a) ``Engine`` +
+13. serving and streaming refresh (slice 8) at gemma-2b's full width, its
+   depth cut to ``SERVE_LAYERS`` = 4 of 18 layers (the engine's ragged
+   replays are most of this phase's time), with the trainer's FAµST
+   unembedding: (a) ``Engine`` +
    ``LMExecutor`` (8 slots of 1088 tokens, bf16) on 24 requests (prompts
    uniform over 32–1000 from numpy seed 0, two fixed at 512 and 700;
    budgets 16–64; 12 at the start, 4 more every 10 steps; one live
@@ -178,7 +180,38 @@ Phases, each fatal on failure (non-zero exit):
    TTFT/TPOT, tokens/s, peak memory, the teacher-forced check within
    3e-2·max|logits| (for MoE on the served run's expert choices, each
    one that differs from the reference's own a near-tie: its f32 router
-   probability within ``ROUTE_TIE_TOL`` of the reference's k-th).
+   probability within ``ROUTE_TIE_TOL`` of the reference's k-th);
+16. the mamba2 (SSD) and zamba2 (shared block) architectures (slice 11)
+   at their published widths, bf16, the same FAµST unembedding untied, on
+   a fresh read-only autotune table, with the same counts, parameter and
+   kernel checks as phase 15: (a) mamba2-2.7b at full depth (64 layers),
+   ``launch.train --faust --steps 3 --batch 4 --seq 1024`` (four SSD chunks
+   a sequence: the inter-chunk loop runs); (b) zamba2-7b cut to six whole
+   units of five ssm layers and the shared block (36 layers, ≈ 2.7 G
+   parameters: the full 5.74 G's AdamW state does not fit), same flags;
+   (c) both at full depth (zamba2: 81 layers) served, 8 slots of 1160
+   tokens, 10 requests: prompts 300, 200, 256, 480, 512, 700, 1024 and
+   three uniform over 32-1100, budgets 16-48, one eviction at step 6 (of
+   the 300-token request: its re-prefill is ragged and replays too); each prefill's split recorded (the prefix every
+   chunked path takes, ``lm.prefill_length``: 300 and 480 are the band
+   the reference's SSD rejects); the teacher-forced check against an f32
+   copy of the model (attention and the SSD each over the whole sequence
+   as one chunk): each served token within 3e-2·max|logits| of the f32
+   row's maximum, or a tie at bf16's resolution (its gap at most twice the
+   bf16 model's own one-pass error on that row, such ties at most 5 % of
+   the positions: over 64-81 random layers bf16 rounding alone moves the
+   logits by several 1e-2); zamba2's pool 68
+   ``MambaCache`` and 13 ``KVCache``; two faults planted in zamba2's
+   serving path (every mamba state zeroed after each prefill; each shared
+   occurrence decoding against the next one's ``KVCache``), two requests
+   each (prompts 256 and 512, 32 tokens), which that bf16 check must fail; (d) both
+   f32 copies served (2 requests, prompts 300 and 1024, an eviction)
+   and held
+   teacher-forced within 1e-4: the aligned prefill, the replays, the
+   recurrent decode and the re-prefill against one chunked pass; (e) a
+   mamba2 decode step at B = 1 and 8 after 256-token prefills: host
+   seconds, launches, busy time and idle share beside the bound of the
+   weights read once and the state read and written.
 
 Prints one JSON object per line; the last three lines are the kernels
 summary, the card's ``name, power.limit`` and ``{"ok": true, ...}``.
@@ -1983,19 +2016,21 @@ def grad_dispatch(ops: dict, card_line: str, batches=(128, 4096)) -> list[dict]:
 
 SERVE_TOL = {"bfloat16": 3e-2, "float32": 1e-4}  # teacher-forced: chosen logit within tol·max|logits| of the max
 SERVE_SLOTS, SERVE_MAX_LEN = 8, 1088  # prompts ≤ 1000 plus ≤ 64 new tokens
+SERVE_LAYERS = 4  # phase 13's depth, of gemma-2b's 18: keeps the whole script well inside its time limit
 STREAM_SWEEPS = 10  # n_iter_two = n_iter_global: the reference's defaults are 40/40
 STREAM_DRIFT = 1e-2  # ‖εG‖ / ‖W0‖
 
 
 def serve_config(**kw):
-    """gemma-2b at full width and depth with the trainer's FAµST
-    unembedding (2048 → 2048 → 256000, block 16, k 4), untied, bf16."""
+    """gemma-2b at full width, ``SERVE_LAYERS`` deep, with the trainer's
+    FAµST unembedding (2048 → 2048 → 256000, block 16, k 4), untied, bf16."""
     import dataclasses
 
     from repro_torch.configs import get_config
     from repro_torch.layers.faust_linear import FaustSpec
 
-    return dataclasses.replace(get_config("gemma_2b"), faust_unembed=FaustSpec(2, 16, 4), tie_embeddings=False, **kw)
+    return dataclasses.replace(get_config("gemma_2b"), faust_unembed=FaustSpec(2, 16, 4), tie_embeddings=False,
+                               n_layers=SERVE_LAYERS, stages=((SERVE_LAYERS, ("attn",)),), **kw)
 
 
 def _serve_counts() -> dict:
@@ -2067,13 +2102,18 @@ def faust_backend(model, backend: str, head_only: bool = False):
             m.backend = b
 
 
-def teacher_forced(model, engine, rids, prompts, tol: float, routes=None) -> dict:
+def teacher_forced(model, engine, rids, prompts, tol: float, routes=None, exact=None,
+                   enforce: bool = True) -> dict:
     """For each request, ``forward_train`` under ``no_grad`` over prompt +
     generated, with every FAµST projection on the dense backend (``x @
     todense()``, no K1 or K6), so the served tokens are held against a path
     that runs none of the kernels: at every generated position the chosen
     token's logit must lie within ``tol·max|logits|`` of that row's
     maximum.  Counts the positions where it was the exact argmax.
+    Attention and the SSD each take the whole sequence as one chunk (any
+    length; the SSD's chunking changes its result only by rounding), so
+    the served run's prefill, replays and decode steps are held against
+    one chunked pass.
 
     ``routes`` (a MoE model's :meth:`RoutedExecutor.choices`, one per
     request) makes the reference send each token to the experts the served
@@ -2085,14 +2125,35 @@ def teacher_forced(model, engine, rids, prompts, tol: float, routes=None) -> dic
     be a near-tie: the least f32 router probability, in the reference, of
     the experts it was sent to lies within ``ROUTE_TIE_TOL`` (relative) of
     the reference's own k-th largest.  A routing fault on the serving side
-    sends tokens to experts far below that."""
+    sends tokens to experts far below that.
+
+    ``exact`` (an f32 copy of a bf16 ``model``, :func:`exact_copy`) is the
+    reference instead: the exact function of the served weights.  Over
+    64-81 random mamba layers bf16's own rounding moves the logits by
+    several 1e-2 of max|logits|: the bf16 one-pass forward lands that far
+    from the f32 one, and two bf16 passes (served, one-pass) that far from
+    each other (PERF.md §6).  So a served token may trail the f32 row's
+    maximum by more than ``tol`` only where the row is a tie at bf16's
+    resolution: its gap at most ``SSM_TIE`` times that row's error of the
+    bf16 one-pass forward (max|bf16 − f32| / max|f32|), as two bf16 passes
+    each that far off can swap candidates that close; and such ties are
+    rare, at most ``SSM_TIE_SHARE`` of the positions.  A served path that
+    computes another function trails by more, and at more positions (the
+    planted faults of :func:`planted_fault`).  Reports the positions each
+    clause holds, the ties' share, the worst gap over error of the ties
+    and of the positions neither holds, and the bf16 rows' own gap beside
+    them.
+
+    ``enforce=False`` returns the verdict (``passed``) instead of failing."""
     import numpy as np
     import torch
 
     from repro_torch.layers import moe as moe_mod
 
+    require(routes is None or exact is None, "teacher_forced: one reference, routed or exact")
     dev = model.embed.table.device
-    n, exact, worst = 0, 0, 0.0
+    gaps, errs, own = [], [], []
+    exact_argmax = 0
     flips = torch.zeros((), dtype=torch.int64, device=dev)
     pairs = torch.zeros((), dtype=torch.int64, device=dev)
     tie_gap = torch.zeros((), dtype=torch.float32, device=dev)
@@ -2118,28 +2179,52 @@ def teacher_forced(model, engine, rids, prompts, tol: float, routes=None) -> dic
                 return use
 
             moe_mod.top_experts = replay
+        tokens = torch.as_tensor(full, device=dev)[None]
+        rows = slice(len(prompt) - 1, len(prompt) - 1 + len(gen))
         try:
             with torch.no_grad(), faust_backend(model, "dense"):
-                logits = model.forward_train(torch.as_tensor(full, device=dev)[None], chunk=len(full))[0]
+                b = model.forward_train(tokens, chunk=len(full))[0, rows]
+                if exact is not None:
+                    with faust_backend(exact, "dense"):
+                        f = exact.forward_train(tokens, chunk=len(full))[0, rows]
         finally:
             moe_mod.top_experts = real_top
-        p = len(prompt)
-        rows = logits[p - 1:p - 1 + len(gen)]
-        chosen = torch.as_tensor(gen, device=dev, dtype=torch.int64)
-        gap = rows.amax(dim=-1) - rows.gather(1, chosen[:, None])[:, 0]
-        rel = (gap / rows.abs().amax(dim=-1).clamp_min(1e-30)).max()
-        worst = max(worst, float(rel))
-        exact += int((rows.argmax(dim=-1) == chosen).sum())
-        n += len(gen)
-        del logits
-    out = {"positions": n, "exact_argmax": exact, "worst_gap_rel": worst, "tol": tol, "reference": "dense"}
+        ref = b if exact is None else f
+        chosen = torch.as_tensor(gen, device=dev, dtype=torch.int64)[:, None]
+        scale = ref.abs().amax(dim=-1).clamp_min(1e-30)
+        gaps.append((ref.amax(dim=-1) - ref.gather(1, chosen)[:, 0]) / scale)
+        if exact is not None:
+            errs.append((b - f).abs().amax(dim=-1) / scale)
+            own.append((b.amax(dim=-1) - b.gather(1, chosen)[:, 0]) / b.abs().amax(dim=-1).clamp_min(1e-30))
+        exact_argmax += int((ref.argmax(dim=-1) == chosen[:, 0]).sum())
+        del b, ref
+    gap = torch.cat(gaps)
+    within = gap <= tol
+    out = {"positions": int(gap.numel()), "exact_argmax": exact_argmax, "worst_gap_rel": float(gap.max()),
+           "tol": tol, "reference": "dense"}
+    ok = bool(within.all())
+    if exact is not None:
+        err = torch.cat(errs).clamp_min(1e-30)
+        tie = ~within & (gap <= SSM_TIE * err)
+        over = ~within & ~tie
+        ratio = gap / err
+        out.update(reference="f32 copy, dense", within_tol=int(within.sum()), bf16_ties=int(tie.sum()),
+                   beyond=int(over.sum()), tie_factor=SSM_TIE, tie_share=float(tie.float().mean()),
+                   tie_share_max=SSM_TIE_SHARE,
+                   worst_tie_gap_over_err=float(ratio[tie].max()) if bool(tie.any()) else None,
+                   worst_beyond_gap_over_err=float(ratio[over].max()) if bool(over.any()) else None,
+                   bf16_err_rel={"max": float(err.max()), "median": float(err.median())},
+                   bf16_vs_bf16_worst_gap_rel=float(torch.cat(own).max()))
+        ok = not bool(over.any()) and out["tie_share"] <= SSM_TIE_SHARE
     if routes is not None:
         out.update(reference="dense, the served run's expert choices", routing_pairs=int(pairs),
                    routing_flips=int(flips), routing_flip_share=int(flips) / max(int(pairs), 1),
                    routing_flip_worst_prob_gap=float(tie_gap), routing_tie_tol=ROUTE_TIE_TOL)
         require(out["routing_flip_worst_prob_gap"] <= ROUTE_TIE_TOL,
                 f"a served expert choice is no near-tie of the reference's: {out}")
-    require(worst <= tol, f"teacher-forced check failed: {out}")
+    out["passed"] = ok
+    if enforce:
+        require(ok, f"teacher-forced check failed: {out}")
     return out
 
 
@@ -2569,8 +2654,8 @@ def serve_stream(card_line: str, dev, model, engine) -> dict:
 
 
 def serve(card_line: str, dev) -> dict:
-    """Phase 13: serving and streaming refresh at gemma-2b's full width and
-    depth (a–e, module docstring)."""
+    """Phase 13: serving and streaming refresh at gemma-2b's full width,
+    ``SERVE_LAYERS`` deep (a–e, module docstring)."""
     from repro_torch.layers.faust_linear import FaustSpec
     from repro_torch.models.lm import LM
     from repro_torch.runtime.engine import unembed_blockfaust
@@ -3378,6 +3463,267 @@ def archs(card_line: str, dev) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Slice 11: the mamba2 (ssm) and zamba2 (ssm + shared) architectures (phase 16)
+# ---------------------------------------------------------------------------
+
+MAMBA2_TRAIN_ARGV = ("--arch", "mamba2_2p7b", "--faust", "--steps", "3", "--batch", "4", "--seq", "1024")
+ZAMBA2_TRAIN_ARGV = ("--arch", "zamba2_7b", "--faust", "--steps", "3", "--batch", "4", "--seq", "1024")
+ZAMBA2_UNIT = ("ssm",) * 5 + ("shared",)  # zamba2's stage unit (src/repro/configs/zamba2_7b.py)
+ZAMBA2_TRAIN_LAYERS = 36  # six whole units: ≈ 2.7 G parameters, whose AdamW state fits the card
+# 300 and 480 lie in the band the reference's SSD rejects (above ssm.chunk 256, below attn_chunk 512);
+# 300 first: the eviction takes the lowest slot's request, so its re-prefill lands in the band too
+SSM_PROMPTS = (300, 200, 256, 480, 512, 700, 1024)
+SSM_LENGTHS = (32, 1100)  # the random prompts'
+SSM_REQUESTS = 10
+SSM_EVICT_STEP = 6
+SSM_MAX_LEN = 1160  # the longest prompt and 48 new tokens, with room
+SSM_DECODE_PROMPT = 256
+# teacher_forced(exact=): a bf16 tie's gap in units of the bf16 forward's own error, and the share of
+# positions the ties may hold (sound runs on an H100: gap/err ≤ 0.96, ties 0.5-1.3 %; planted faults:
+# 3.21 and 18.07 beyond, 25 % and 84 % outside the tolerance)
+SSM_TIE, SSM_TIE_SHARE = 2.0, 0.05
+SSM_F32_PROMPTS = (300, 1024)  # the f32 runs' two requests (300: in the band the reference's SSD rejects)
+SSM_PLANTED_PROMPTS = (256, 512)  # a planted fault's two requests: aligned, so no replays to wait for
+
+
+@contextlib.contextmanager
+def prefill_splits():
+    """Every ``LMExecutor.prefill_forward`` recorded as (prompt, prefix
+    prefilled whole); the rest is replayed through decode."""
+    import numpy as np
+
+    from repro_torch.models.lm import prefill_length
+    from repro_torch.runtime.engine import LMExecutor
+
+    real = LMExecutor.prefill_forward
+    seen = []
+
+    def recording(self, slot, prompt, extras):
+        seen.append((np.asarray(prompt), prefill_length(self.cfg, len(prompt))))
+        return real(self, slot, prompt, extras)
+
+    LMExecutor.prefill_forward = recording
+    try:
+        yield seen
+    finally:
+        LMExecutor.prefill_forward = real
+
+
+def exact_copy(model):
+    """An f32 copy of ``model`` (its weights converted exactly), on its
+    device."""
+    import dataclasses
+
+    cfg = dataclasses.replace(model.cfg, dtype="float32")
+    exact = _lm(cfg, model.embed.table.device)
+    exact.load_state_dict({k: v.float() if v.is_floating_point() else v for k, v in model.state_dict().items()})
+    return exact
+
+
+@contextlib.contextmanager
+def planted_fault(kind: str):
+    """A wrong serving path, planted in ``LMExecutor`` while the block
+    runs, to show that the bf16 teacher-forced check fails it:
+    ``"ssm_state_zeroed"`` zeroes every mamba layer's recurrent state of
+    the slot after each prefill; ``"kv_of_next_occurrence"`` runs each
+    shared-block occurrence's decode against the next occurrence's
+    ``KVCache`` (the last against the first's)."""
+    from repro_torch.layers.attention import KVCache
+    from repro_torch.layers.mamba2 import MambaCache
+    from repro_torch.runtime.engine import LMExecutor
+
+    if kind == "ssm_state_zeroed":
+        name, real = "prefill_forward", LMExecutor.prefill_forward
+
+        def faulty(self, slot, prompt, extras):
+            logits = real(self, slot, prompt, extras)
+            for c in self.pool:
+                if isinstance(c, MambaCache):
+                    c.ssm[slot].zero_()
+            return logits
+    else:
+        require(kind == "kv_of_next_occurrence", f"unknown planted fault {kind!r}")
+        name, real = "_decode", LMExecutor._decode
+
+        def faulty(self, tokens, slot_idx):
+            idx = [i for i, c in enumerate(self.pool) if isinstance(c, KVCache)]
+            own = [self.pool[i] for i in idx]
+            for i, c in zip(idx, own[1:] + own[:1]):
+                self.pool[i] = c
+            try:
+                return real(self, tokens, slot_idx)
+            finally:
+                for i, c in zip(idx, own):
+                    self.pool[i] = c
+
+    setattr(LMExecutor, name, faulty)
+    try:
+        yield
+    finally:
+        setattr(LMExecutor, name, real)
+
+
+def planted_serve(card_line: str, name: str, model, exact, kind: str) -> dict:
+    """Two requests (prompts ``SSM_PLANTED_PROMPTS``, prefilled whole, then
+    decode) served by ``model`` under :func:`planted_fault` ``kind``; the
+    bf16 teacher-forced check against ``exact`` must fail them."""
+    with planted_fault(kind):
+        res = serve_run(f"{name}_planted_{kind}", card_line, model, 2, SSM_LENGTHS, (32, 32),
+                        fixed=SSM_PLANTED_PROMPTS, seed=27, max_len=SSM_MAX_LEN, check=False)
+    tf = teacher_forced(model, res["engine"], res["rids"], res["prompts"], SERVE_TOL[model.cfg.dtype],
+                        exact=exact, enforce=False)
+    row = {"phase": f"{name}_planted_fault", "card": card_line, "fault": kind, "teacher_forced": tf}
+    log(row)
+    require(not tf["passed"], f"{name}: the planted fault {kind!r} passed the teacher-forced check: {row}")
+    return row
+
+
+def ssm_serve(card_line: str, dev, name: str, model, exact) -> dict:
+    """The engine over the bf16 ``model`` (:func:`serve_run`) on
+    ``SSM_REQUESTS`` requests (prompts ``SSM_PROMPTS`` and random ones over
+    ``SSM_LENGTHS``, budgets 16-48, one live request evicted at step
+    ``SSM_EVICT_STEP``), every request ``done``, each prefill's split
+    recorded (the prompts in the band the reference's SSD rejects and the
+    eviction's ragged re-prefill must have been served), the teacher-forced
+    check against ``exact`` (:func:`teacher_forced`), its parameter
+    count and its head's K1 against plain."""
+    params = param_check(name, model)
+    chunk, attn = model.cfg.ssm.chunk, model.cfg.attn_chunk
+    with prefill_splits() as seen:
+        res = serve_run(f"{name}_serve", card_line, model, SSM_REQUESTS, SSM_LENGTHS, (16, 48), fixed=SSM_PROMPTS,
+                        seed=25, max_len=SSM_MAX_LEN, evict_step=SSM_EVICT_STEP, check=False)
+    row = res["row"]
+    prompts = {p.tobytes() for p in res["prompts"]}
+    splits = [(len(p), head) for p, head in seen]
+    band = [n for n, _ in splits if chunk < n < attn and n % chunk]
+    again = [(len(p), head) for p, head in seen if p.tobytes() not in prompts]  # prompt + generated
+    row["prefills"] = {"ssm_chunk": chunk, "attn_chunk": attn, "prefills": splits,
+                       "replayed_tokens": sum(n - h for n, h in splits), "reference_ssd_rejects": band,
+                       "reprefill": again}
+    require(len(band) >= 2, f"{name}: fewer than two prompts in the band the reference's SSD rejects: {row}")
+    require(len(again) == 1 and again[0][0] % chunk, f"{name}: the eviction's re-prefill is not ragged: {row}")
+    row["teacher_forced"] = teacher_forced(model, res["engine"], res["rids"], res["prompts"],
+                                           SERVE_TOL[model.cfg.dtype], exact=exact)
+    row.update(params)
+    row["head_checks"] = arch_heads(card_line, dev, name, model, max(row["prompt_lengths"]))
+    log({"phase": f"{name}_serve_summary", "card": card_line, **params,
+         **{k: row[k] for k in ("tokens_per_s", "ttft_p50_s", "tpot_p50_s", "prefill_s", "decode_s", "wall_s",
+                                "max_memory_allocated_gb", "launches", "teacher_forced", "prefills")},
+         "head_k1_rel_err": max(c["k1_rel_err"] for c in row["head_checks"])})
+    return res
+
+
+def ssm_serve_f32(card_line: str, name: str, exact) -> dict:
+    """The f32 copy served (:func:`serve_run`: prompts ``SSM_F32_PROMPTS``,
+    an eviction) and held teacher-forced within 1e-4: the aligned prefill,
+    the replays, the recurrent decode and the re-prefill against one
+    chunked pass."""
+    return serve_run(f"{name}_serve_f32", card_line, exact, len(SSM_F32_PROMPTS), SSM_LENGTHS, (8, 16),
+                     fixed=SSM_F32_PROMPTS, seed=26, max_len=SSM_MAX_LEN, evict_step=3)["row"]
+
+
+def state_bytes(caches, batch: int) -> int:
+    """What a decode step of ``batch`` rows must read and write of the
+    mamba layers' state: each row's recurrent state, conv history and
+    position, once each way."""
+    from repro_torch.layers.mamba2 import MambaCache
+
+    per_row = sum(sum(t[0].numel() * t.element_size() for t in c) for c in caches if isinstance(c, MambaCache))
+    return 2 * batch * per_row
+
+
+def ssm_decode(card_line: str, model, batch: int, prompt_len: int = SSM_DECODE_PROMPT) -> dict:
+    """A mamba model's decode step at ``batch`` live rows after prefills of
+    ``prompt_len`` tokens: the step's host seconds (median of 5), kernel
+    launches, one step under the profiler, beside the bound of the weights
+    read once and the state read and written (:func:`state_bytes`)."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.runtime.engine import LMExecutor
+
+    cfg = model.cfg
+    rng = np.random.default_rng(12)
+    ex = LMExecutor(model, prompt_len + 64, batch)
+    for slot in range(batch):
+        ex.prefill_forward(slot, rng.integers(0, cfg.vocab, size=prompt_len).astype(np.int32), {})
+    slots, toks = list(range(batch)), rng.integers(0, cfg.vocab, size=(batch, 1))
+    for _ in range(2):
+        ex.decode_forward(slots, toks)
+    _zero_counts()
+    ex.decode_forward(slots, toks)
+    counts = _serve_counts()
+    steps = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        ex.decode_forward(slots, toks)
+        steps.append(time.perf_counter() - t0)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        ex.decode_forward(slots, toks)
+        torch.cuda.synchronize()
+        prof_s = time.perf_counter() - t0
+    bound = weight_bound(model, batch)
+    state = state_bytes(ex.pool, batch)
+    row = {"phase": "ssm_decode", "card": card_line, "arch": cfg.name, "batch": batch, "prompt_len": prompt_len,
+           "decode_step_s": statistics.median(steps), "decode_step_s_all": steps, "launches_per_step": counts,
+           **bound, "state_bytes": state, "weight_state_bytes": bound["weight_bytes"] + state,
+           "weight_state_bound_ms": (bound["weight_bytes"] + state) / HBM_BW * 1e3, **device_spans(prof, prof_s)}
+    log(row)
+    require(counts["chain_matmul"] + counts["bsr_matmul"] > 0, f"the decode step launched neither K1 nor K6: {row}")
+    return row
+
+
+def ssm_archs(card_line: str, dev) -> dict:
+    """Phase 16, slice 11: mamba2-2.7b and zamba2-7b at their published
+    widths with the FAµST unembedding (module docstring); every model
+    freed before the next."""
+    from repro_torch.layers.attention import KVCache
+    from repro_torch.layers.mamba2 import MambaCache
+
+    out = {}
+    with _fresh_tables("chip_smoke_ssm_autotune"):
+        out["mamba2_train"] = arch_train(card_line, "mamba2", MAMBA2_TRAIN_ARGV)
+        out["zamba2_train"] = arch_train(card_line, "zamba2", ZAMBA2_TRAIN_ARGV, ZAMBA2_TRAIN_LAYERS, ZAMBA2_UNIT)
+        model = _lm(arch_config("mamba2_2p7b"), dev)
+        exact = exact_copy(model)
+        out["mamba2_serve"] = ssm_serve(card_line, dev, "mamba2", model, exact)["row"]
+        out["mamba2_decode"] = [ssm_decode(card_line, model, b) for b in (1, 8)]
+        del model
+        _free()
+        # the f32 model served: prefill, replays, recurrent decode and eviction against one chunked pass at 1e-4
+        out["mamba2_serve_f32"] = ssm_serve_f32(card_line, "mamba2", exact)
+        del exact
+        _free()
+        model = _lm(arch_config("zamba2_7b"), dev)
+        exact = exact_copy(model)
+        res = ssm_serve(card_line, dev, "zamba2", model, exact)
+        out["zamba2_serve"] = res["row"]
+        pool = res["engine"].executor.pool
+        kinds = {"MambaCache": sum(isinstance(c, MambaCache) for c in pool),
+                 "KVCache": sum(isinstance(c, KVCache) for c in pool)}
+        log({"phase": "zamba2_pool", "card": card_line, "caches": kinds, "layers": len(pool)})
+        require(kinds == {"MambaCache": 68, "KVCache": 13}, f"zamba2's pool holds {kinds}")
+        del res, pool
+        out["zamba2_planted"] = [planted_serve(card_line, "zamba2", model, exact, kind)
+                                 for kind in ("ssm_state_zeroed", "kv_of_next_occurrence")]
+        del model
+        _free()
+        out["zamba2_serve_f32"] = ssm_serve_f32(card_line, "zamba2", exact)
+        del exact
+        _free()
+    launches = {}
+    for row in (out["mamba2_train"], out["zamba2_train"], out["mamba2_serve"], out["mamba2_serve_f32"],
+                out["zamba2_serve"], out["zamba2_serve_f32"]):
+        for k, v in row["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    out["launches"] = launches
+    log({"phase": "ssm_archs", "card": card_line, "launches": launches})
+    return out
+
+
 def _kernel_entry(name, source, replaces, launches, cases, checks, card_line, head) -> dict:
     first = next(r for r in cases if all(r.get(k) == v for k, v in head.items()))
     keys = ("chain", "quant", "dtype", "batch", "bt", "launches_per_apply", "max_abs_err", "ms", "cold_ms",
@@ -3431,6 +3777,7 @@ def main() -> int:
     srv = serve(info["card"], dev)
     serve_launches = {**srv["engine"]["launches"], "chain_matmul_q": srv["stream"]["k4_launches"]}
     arch = archs(info["card"], dev)
+    ssm = ssm_archs(info["card"], dev)
 
     src = "src/repro_torch/kernels/csrc/"
     f32_b128 = {"dtype": "float32", "batch": 128}
@@ -3469,8 +3816,9 @@ def main() -> int:
             k["serve_launches"] = serve_launches[k["name"]]
         if k["name"] in resilient_launches:
             k["train_resilient_launches"] = resilient_launches[k["name"]]
-        if k["name"] in ("chain_matmul", "bsr_matmul", "chain_dgrad", "chain_wgrad"):  # slice 10: phase 15's runs
+        if k["name"] in ("chain_matmul", "bsr_matmul", "chain_dgrad", "chain_wgrad"):  # slices 10, 11: phases 15, 16
             k["archs_launches"] = arch["launches"][k["name"]]
+            k["ssm_archs_launches"] = ssm["launches"][k["name"]]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(info["card"], flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

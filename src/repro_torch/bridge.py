@@ -9,18 +9,23 @@ compute on the same arrays:
                 "out_features"}, ...], "lam": float}``
 * PackedChain:  ``{"values", "in_idx", "lam", "plan": {ChainPlan fields}}``,
                 plus ``"scales"`` and ``"qscheme"`` for a quantized chain
-* KV caches:    the reference's cache tree (``repro.models.lm``
+* caches:       the reference's cache tree (``repro.models.lm``
                 ``make_caches``: per stage, per unit position, a
-                ``{"k", "v", "pos"}`` dict stacked over the stage's repeat
-                on axis 0, slots on axis 1), mapped to and from the port's
-                per-layer :class:`~repro_torch.layers.attention.KVCache`
-                list (slots on axis 0)
+                ``{"k", "v", "pos"}`` (``KVCache``) or ``{"conv", "ssm",
+                "pos"}`` (``MambaCache``) dict stacked over the stage's
+                repeat on axis 0, slots on axis 1), mapped to and from the
+                port's per-layer list of
+                :class:`~repro_torch.layers.attention.KVCache` and
+                :class:`~repro_torch.layers.mamba2.MambaCache` (slots on
+                axis 0)
 * LM params:    the reference's parameter tree (``repro.models.lm``
                 ``init_model``: nested dicts and lists, each stage's layers
                 stacked on a leading axis) with numpy leaves, mapped to and
                 from the port's :class:`~repro_torch.models.lm.LM` state
                 dict (layers unstacked: ``stages/0/0/attn/wq[l]`` is
-                ``layers.{l}.attn.wq``)
+                ``layers.{l}.attn.wq``; the shared block's ``shared/...``
+                is ``shared....``, and the empty dict the reference stacks
+                at each ``"shared"`` stage position has no keys)
 * train state:  the reference trainer's ``{"params", "opt": AdamWState(mu,
                 nu, step), "ef": EFState(residual)}`` with numpy leaves,
                 mapped to and from the port's state dict, ``AdamWState``
@@ -50,7 +55,9 @@ from repro_torch.core.compress import (
 from repro_torch.core.faust import Faust
 from repro_torch.device import resolve_device
 from repro_torch.layers.attention import KVCache
+from repro_torch.layers.mamba2 import MambaCache
 
+_CACHE_TYPES = {KVCache._fields: KVCache, MambaCache._fields: MambaCache}  # a reference cache's fields → type
 _PLAN_FIELDS = ("block", "in_blocks", "out_blocks", "k_blocks", "offsets", "in_feats", "out_feats")
 # dtypes numpy lacks: name -> (torch dtype, numpy dtype of the bit view)
 _BIT_VIEWS = {
@@ -228,7 +235,7 @@ def _nest(flat: dict) -> dict:
         if not isinstance(node, dict):
             return node
         node = {k: lists(v) for k, v in node.items()}
-        if all(k.isdigit() for k in node):
+        if node and all(k.isdigit() for k in node):
             return [node[str(i)] for i in range(len(node))]
         return node
 
@@ -237,7 +244,8 @@ def _nest(flat: dict) -> dict:
 
 def lm_state_dict_to_numpy(state_dict: dict, cfg) -> tuple[dict, str | None]:
     """The reference's tree (layers stacked again) from the port's state
-    dict, with the floating leaves' dtype name (bf16 as ``uint16`` bits)."""
+    dict, with the floating leaves' dtype name (bf16 as ``uint16`` bits).
+    A ``"shared"`` stage position gets the reference's empty dict."""
     flat, dtype = {}, None
     for key, t in state_dict.items():
         flat[key], name = _array(t)
@@ -245,6 +253,10 @@ def lm_state_dict_to_numpy(state_dict: dict, cfg) -> tuple[dict, str | None]:
             dtype = name
     where = [(si, pos) for si, (repeat, unit) in enumerate(cfg.stages) for _ in range(repeat)
              for pos in range(len(unit))]
+    for si, (_, unit) in enumerate(cfg.stages):
+        for pos, kind in enumerate(unit):
+            if kind == "shared":
+                flat[f"stages.{si}.{pos}"] = {}
     per: dict = {}
     for key in [k for k in flat if k.startswith("layers.")]:
         _, layer, rest = key.split(".", 2)
@@ -255,36 +267,42 @@ def lm_state_dict_to_numpy(state_dict: dict, cfg) -> tuple[dict, str | None]:
     return _nest(flat), dtype
 
 
-def kv_caches_from_numpy(tree: list, cfg, *, dtype: str | None = None, device=None) -> list[KVCache]:
-    """The port's per-layer cache list from the reference's cache tree
-    with numpy leaves; ``dtype`` names the k/v leaves' type when they
-    cross as bit views (``bfloat16``)."""
+def caches_from_numpy(tree: list, cfg, *, dtype: str | None = None, device=None) -> list:
+    """The port's per-layer cache list (:class:`KVCache` or
+    :class:`MambaCache`, by the fields of each reference cache) from the
+    reference's cache tree with numpy leaves; ``dtype`` names the type of
+    the leaves that cross as bit views (``bfloat16``: k/v, or a mamba
+    cache's conv history)."""
     dev = resolve_device(device)
     out = []
     for si, (repeat, unit) in enumerate(cfg.stages):
         for r in range(repeat):
             for pos in range(len(unit)):
                 c = tree[si][pos]
-                kv = [_tensor(np.asarray(c[n])[r], dev, dtype if np.asarray(c[n]).dtype == np.uint16 else None)
-                      for n in ("k", "v")]
-                out.append(KVCache(*kv, _tensor(np.asarray(c["pos"])[r].astype(np.int32), dev)))
+                kind = _CACHE_TYPES[tuple(c)]
+                leaves = []
+                for n in kind._fields:
+                    a = np.asarray(c[n])[r]
+                    a = a.astype(np.int32) if n == "pos" else a
+                    leaves.append(_tensor(a, dev, dtype if a.dtype == np.uint16 else None))
+                out.append(kind(*leaves))
     return out
 
 
-def kv_caches_to_numpy(caches: list[KVCache], cfg) -> tuple[list, str | None]:
+def caches_to_numpy(caches: list, cfg) -> tuple[list, str | None]:
     """The reference's cache tree (layers stacked per stage again) from
-    the port's cache list, with the k/v leaves' dtype name (bf16 as
-    ``uint16`` bits)."""
+    the port's cache list, with the name of the dtype that crosses as bit
+    views (bf16 as ``uint16``)."""
     tree, layer, dtype = [], 0, None
     for repeat, unit in cfg.stages:
         stage = []
         for pos in range(len(unit)):
             rows = [caches[layer + r * len(unit) + pos] for r in range(repeat)]
             leaf = {}
-            for n in ("k", "v", "pos"):
+            for n in rows[0]._fields:
                 arrs = [_array(getattr(c, n)) for c in rows]
                 leaf[n] = np.stack([a for a, _ in arrs])
-                if n != "pos" and arrs[0][1] in _BIT_VIEWS:
+                if arrs[0][1] in _BIT_VIEWS:
                     dtype = arrs[0][1]
             stage.append(leaf)
         tree.append(stage)

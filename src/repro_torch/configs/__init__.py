@@ -1,23 +1,22 @@
 """Architecture registry of the port: ``get_config(name)`` /
 ``get_smoke(name)``.  Counterpart of :mod:`repro.configs`.
 
-The port trains and serves the ``"attn"``, ``"local"`` (sliding-window)
-and ``"moe"`` layer kinds with partial rotary, so it holds six of the
-reference's ten architectures; the others need the mamba2 layer kinds or
-a modality front end that come with later slices, and asking for one
-raises, naming what it needs.
+The port trains and serves the ``"attn"``, ``"local"`` (sliding-window),
+``"moe"``, ``"ssm"`` (mamba2) and ``"shared"`` layer kinds with partial
+rotary, so it holds eight of the reference's ten architectures; the other
+two need a modality front end that comes with a later slice, and asking
+for one raises, naming what it needs.
 """
 from __future__ import annotations
 
 import importlib
 
-ARCH_IDS = ["gemma3_27b", "gemma_2b", "nemotron4_15b", "chatglm3_6b", "llama4_maverick", "granite_moe_3b"]
+ARCH_IDS = ["mamba2_2p7b", "gemma3_27b", "gemma_2b", "nemotron4_15b", "chatglm3_6b", "llama4_maverick",
+            "granite_moe_3b", "zamba2_7b"]
 # the reference's other architectures, and what each still needs
 LATER = {
-    "mamba2_2p7b": "the mamba2 (ssm) layer kind",
     "internvl2_2b": "the vision front end (n_vision_tokens)",
     "musicgen_medium": "the audio front end (n_codebooks > 1)",
-    "zamba2_7b": "the mamba2 and shared layer kinds",
 }
 ALIASES = {
     "mamba2-2.7b": "mamba2_2p7b",

@@ -4,26 +4,28 @@
 ``stages`` describes the layer pattern as ``(repeat, unit)`` pairs, as in
 the reference.  Layer kinds: ``"attn"`` (global attention + FFN),
 ``"local"`` (sliding-window attention + FFN), ``"moe"`` (global attention
-+ MoE FFN); the reference's ``"ssm"`` and ``"shared"`` come with a later
-slice.  The reference's sharding policies have no counterpart yet
-(multi-GPU is a later slice), and ``ssm`` is a placeholder that must stay
-``None``: :func:`check_supported` names what a config needs that the port
-does not have.  :func:`param_count` and :func:`active_param_count` are the
-reference's analytic counts: the projections, embeddings and routers,
-not the norms' vectors, a FAµST projection (``faust_unembed``,
-``faust_mlp``) counted as the dense matrix it stands for.
-:func:`stored_param_count` counts such a projection by what it stores,
-its block values and λ.
++ MoE FFN), ``"ssm"`` (a mamba2 block, ``ssm``'s :class:`Mamba2Spec`) and
+``"shared"`` (zamba2's attention + FFN block, one parameter set run at
+every such position).  The reference's sharding policies have no
+counterpart yet (multi-GPU is a later slice): :func:`check_supported`
+names what a config needs that the port does not have.
+:func:`param_count` and :func:`active_param_count` are the reference's
+analytic counts: the projections, embeddings and routers, not the norms'
+vectors (but a mamba block's ``norm_w``, and not its ``conv_b``), the
+shared block once, a FAµST projection (``faust_unembed``, ``faust_mlp``)
+counted as the dense matrix it stands for.  :func:`stored_param_count`
+counts what the port's model stores but the norms.
 """
 from __future__ import annotations
 
 import dataclasses
 
 from repro_torch.layers.faust_linear import FaustSpec
+from repro_torch.layers.mamba2 import Mamba2Spec
 from repro_torch.layers.moe import MoESpec
 
 Stage = tuple[int, tuple[str, ...]]
-SUPPORTED_KINDS = ("attn", "local", "moe")
+SUPPORTED_KINDS = ("attn", "local", "moe", "ssm", "shared")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -52,9 +54,9 @@ class ArchConfig:
     scale_embed: bool = False
     n_codebooks: int = 1
     n_vision_tokens: int = 0
-    # moe; ssm: a later slice
+    # moe / ssm
     moe: MoESpec | None = None
-    ssm: object | None = None
+    ssm: Mamba2Spec | None = None
     # the paper's technique
     faust_unembed: FaustSpec | None = None
     faust_mlp: FaustSpec | None = None
@@ -76,8 +78,6 @@ class ArchConfig:
 def check_supported(cfg: ArchConfig) -> None:
     """Raise ``NotImplementedError`` naming the later slice a config needs."""
     needs = []
-    if cfg.ssm is not None:
-        needs.append("mamba2 layers (ssm)")
     if cfg.n_codebooks > 1:
         needs.append("the audio front end (n_codebooks > 1)")
     if cfg.n_vision_tokens:
@@ -87,6 +87,8 @@ def check_supported(cfg: ArchConfig) -> None:
         needs.append(f"layer kinds {bad}")
     if "moe" in cfg.layer_kinds() and cfg.moe is None:
         raise ValueError(f"{cfg.name}: moe layers need a MoESpec (moe)")
+    if "ssm" in cfg.layer_kinds() and cfg.ssm is None:
+        raise ValueError(f"{cfg.name}: ssm layers need a Mamba2Spec (ssm)")
     if needs:
         raise NotImplementedError(
             f"{cfg.name}: the port trains and serves {SUPPORTED_KINDS} layers; "
@@ -107,8 +109,11 @@ def _dense(spec: FaustSpec | None, in_dim: int, out_dim: int) -> int:
     return in_dim * out_dim
 
 
-def _count(cfg: ArchConfig, proj) -> int:
-    """Embedding + layers + unembedding, each projection counted by ``proj``."""
+def _count(cfg: ArchConfig, stored: bool) -> int:
+    """Embedding + layers + unembedding as the reference counts them, or
+    (``stored``) as the model stores them: each FAµST projection by its
+    values and λ, a mamba block's ``conv_b`` in place of its ``norm_w``."""
+    proj = _stored if stored else _dense
     d = cfg.d_model
     total = cfg.vocab * d * cfg.n_codebooks  # embedding
     if not cfg.tie_embeddings:
@@ -116,6 +121,7 @@ def _count(cfg: ArchConfig, proj) -> int:
     glu = _glu(cfg)
     attn_p = d * (cfg.n_heads + 2 * cfg.n_kv_heads) * cfg.head_dim + cfg.n_heads * cfg.head_dim * d
     mlp_p = (glu - 1) * proj(cfg.faust_mlp, d, cfg.d_ff) + proj(cfg.faust_mlp, cfg.d_ff, d)
+    shared_seen = False
     for kind in cfg.layer_kinds():
         if kind in ("attn", "local"):
             total += attn_p + mlp_p
@@ -125,8 +131,16 @@ def _count(cfg: ArchConfig, proj) -> int:
             if cfg.moe.shared_expert_ff:
                 moe_p += glu * d * cfg.moe.shared_expert_ff
             total += attn_p + moe_p
-        elif kind in ("ssm", "shared"):
-            raise NotImplementedError(f"{cfg.name}: counting {kind} layers comes with a later slice")
+        elif kind == "ssm":
+            s = cfg.ssm
+            din = s.d_inner
+            total += d * (2 * din + 2 * s.n_groups * s.d_state + s.n_heads) + din * d  # in_proj, out_proj
+            total += s.d_conv * s.conv_dim + 3 * s.n_heads  # conv_w; a_log, d_skip, dt_bias
+            total += s.conv_dim if stored else din  # conv_b, or the reference's norm_w
+        elif kind == "shared":
+            if not shared_seen:
+                total += attn_p + mlp_p
+                shared_seen = True
         else:
             raise ValueError(kind)
     return total
@@ -134,15 +148,20 @@ def _count(cfg: ArchConfig, proj) -> int:
 
 def param_count(cfg: ArchConfig) -> int:
     """Analytic parameter count (embedding + layers + unembedding), a
-    FAµST projection counted as the dense matrix it stands for."""
-    return _count(cfg, _dense)
+    FAµST projection counted as the dense matrix it stands for, the
+    shared block once.  A mamba block counts its ``norm_w`` and not its
+    ``conv_b``, as the reference's."""
+    return _count(cfg, stored=False)
 
 
 def stored_param_count(cfg: ArchConfig) -> int:
     """:func:`param_count` with each FAµST projection counted by what it
     stores (block values and λ): the port model's parameter sizes summed
-    over every parameter but the norms'."""
-    return _count(cfg, _stored)
+    over every parameter whose name lacks ``norm``.  It differs from
+    :func:`param_count` by that and, per mamba block, in two vectors: it
+    counts ``conv_b`` (``conv_dim``), which the reference's count leaves
+    out, and not ``norm_w`` (``d_inner``), which the reference counts."""
+    return _count(cfg, stored=True)
 
 
 def active_param_count(cfg: ArchConfig) -> int:

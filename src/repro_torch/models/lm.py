@@ -3,8 +3,9 @@
 ``_embed_tokens``, ``_logits``, ``forward_train``, ``train_loss``,
 ``make_caches``, ``gather_cache_slots``, ``scatter_cache_slots``,
 ``prefill``, ``decode_step``, ``greedy_token``) for the ``"attn"``
-(global attention + FFN), ``"local"`` (sliding-window attention + FFN)
-and ``"moe"`` (global attention + MoE FFN) layer kinds, with partial
+(global attention + FFN), ``"local"`` (sliding-window attention + FFN),
+``"moe"`` (global attention + MoE FFN), ``"ssm"`` (mamba2) and
+``"shared"`` (zamba2's shared attention block) layer kinds, with partial
 rotary.
 
 The reference stacks every layer's parameters on a leading axis and scans
@@ -15,21 +16,28 @@ the reference's parameter paths with the stack unrolled:
 ``embed.table``, ``layers.{i}.norm1``, ``layers.{i}.attn.wq``,
 ``layers.{i}.mlp.w_up`` (or ``...w_up.factors.{f}.values`` with
 ``faust_mlp``) or ``layers.{i}.moe.router``/``.w_up``/``.w_gate``/
-``.w_down``/``.shared.*``, ``final_norm``, ``unembed.w`` or
-``unembed.faust...``; :mod:`repro_torch.bridge` maps one onto the other.
-The layers run in ``cfg.layer_kinds()`` order (the stages unrolled).  The
-loss adds every MoE layer's load-balancing term to the cross entropy, as
-the reference's.  The mamba2 layer kinds and the modality front ends come
-with later slices (:func:`repro_torch.configs.base.check_supported`).
+``.w_down``/``.shared.*``, ``layers.{i}.norm`` and
+``layers.{i}.mamba.*`` for an ``"ssm"`` layer, ``shared.*`` (one
+``"attn"`` layer's parameters, held once and run at every ``"shared"``
+position, whose list entry is a :class:`SharedSlot` without parameters),
+``final_norm``, ``unembed.w`` or ``unembed.faust...``;
+:mod:`repro_torch.bridge` maps one onto the other.  The layers run in
+``cfg.layer_kinds()`` order (the stages unrolled).  The loss adds every
+MoE layer's load-balancing term to the cross entropy, as the reference's.
+The modality front ends come with a later slice
+(:func:`repro_torch.configs.base.check_supported`).
 
-Serving: :func:`make_caches` gives one :class:`KVCache` per layer in a
-list (the layers are unrolled, so there is no repeat axis), a ``local``
-layer's a ring of ``min(window, cache_len)`` tokens; the batch axis
-of every cache tensor, axis 0, is the serving engine's *slot* axis, where
-the reference's stacked caches have it at axis 1 (``_CACHE_BATCH_AXIS``).
-:meth:`LM.prefill` returns the last position's logits and the filled
-caches; :meth:`LM.decode_step` feeds one token per row, each row at its
-own cache position.
+Serving: :func:`make_caches` gives one cache per layer in a list (the
+layers are unrolled, so there is no repeat axis): a :class:`MambaCache`
+for an ``"ssm"`` layer, a :class:`KVCache` for the others (each
+``"shared"`` occurrence its own), a ``local`` layer's a ring of
+``min(window, cache_len)`` tokens; the batch axis of every cache tensor,
+axis 0, is the serving engine's *slot* axis, where the reference's stacked
+caches have it at axis 1 (``_CACHE_BATCH_AXIS``).  :meth:`LM.prefill`
+returns the last position's logits and the filled caches; a prompt must
+be a length every chunked path accepts (:func:`prefill_length`).
+:meth:`LM.decode_step` feeds one token per row, each row at its own cache
+position.
 """
 from __future__ import annotations
 
@@ -43,12 +51,19 @@ from repro_torch.configs.base import ArchConfig, check_supported
 from repro_torch.device import resolve_device
 from repro_torch.layers.attention import Attention, AttnSpec, KVCache, attn_decode, attn_prefill, kv_cache_init
 from repro_torch.layers.embedding import Embedding, Unembed, unembed_apply
+from repro_torch.layers.mamba2 import Mamba2, MambaCache, mamba2_apply, mamba_cache_init
 from repro_torch.layers.mlp import MLP
 from repro_torch.layers.moe import MoE
 from repro_torch.layers.norms import apply_norm, norm_params
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 TRAIN, PREFILL, DECODE = "train", "prefill", "decode"
+Cache = KVCache | MambaCache
+
+
+def _check_mode(mode: str) -> None:
+    if mode not in (TRAIN, PREFILL, DECODE):
+        raise ValueError(f"mode must be {TRAIN!r}, {PREFILL!r} or {DECODE!r}; got {mode!r}")
 
 
 def attn_spec(cfg: ArchConfig, kind: str) -> AttnSpec:
@@ -100,10 +115,9 @@ class Layer(nn.Module):
             y = self.attn(h, chunk)
         elif mode == PREFILL:
             y, cache = attn_prefill(self.attn, h, self.attn.spec, cache, chunk)
-        elif mode == DECODE:
-            y, cache = attn_decode(self.attn, h, self.attn.spec, cache)
         else:
-            raise ValueError(f"mode must be {TRAIN!r}, {PREFILL!r} or {DECODE!r}; got {mode!r}")
+            _check_mode(mode)
+            y, cache = attn_decode(self.attn, h, self.attn.spec, cache)
         x = x + y.to(x.dtype)
         h = apply_norm(cfg.norm, self.norm2, x)
         aux = None
@@ -112,6 +126,35 @@ class Layer(nn.Module):
         else:
             y = self.mlp(h)
         return x + y.to(x.dtype), aux, cache
+
+
+class SSMLayer(nn.Module):
+    """An ``"ssm"`` layer: norm → mamba2 → residual (no FFN)."""
+
+    kind = "ssm"
+
+    def __init__(self, cfg: ArchConfig, *, generator, dtype, device):
+        super().__init__()
+        self.cfg = cfg
+        self.norm = norm_params(cfg.norm, cfg.d_model, dtype, device)
+        self.mamba = Mamba2(cfg.ssm, generator=generator, dtype=dtype, device=device)
+
+    def forward(self, x: torch.Tensor, mode: str = TRAIN, cache: MambaCache | None = None,
+                chunk: int | None = None):
+        """``(x, None, new cache)`` as :meth:`Layer.forward`; ``chunk`` is
+        the SSD chunk (default ``cfg.ssm.chunk``)."""
+        _check_mode(mode)
+        h = apply_norm(self.cfg.norm, self.norm, x)
+        y, cache = mamba2_apply(self.mamba, h, self.cfg.ssm, None if mode == TRAIN else cache, mode == DECODE,
+                                chunk)
+        return x + y.to(x.dtype), None, cache
+
+
+class SharedSlot(nn.Module):
+    """A ``"shared"`` position of the layer list: no parameters; the model
+    runs its :attr:`LM.shared` block there."""
+
+    kind = "shared"
 
 
 class LM(nn.Module):
@@ -127,7 +170,12 @@ class LM(nn.Module):
         gen = torch.Generator(device=dev).manual_seed(seed)
         kw = dict(generator=gen, dtype=dtype, device=dev)
         self.embed = Embedding(cfg.vocab, cfg.d_model, **kw)
-        self.layers = nn.ModuleList(Layer(cfg, kind, **kw) for kind in cfg.layer_kinds())
+        kinds = cfg.layer_kinds()
+        self.layers = nn.ModuleList(
+            SSMLayer(cfg, **kw) if kind == "ssm" else SharedSlot() if kind == "shared" else Layer(cfg, kind, **kw)
+            for kind in kinds)
+        if "shared" in kinds:
+            self.shared = Layer(cfg, "attn", **kw)
         self.final_norm = norm_params(cfg.norm, cfg.d_model, dtype, dev)
         if not cfg.tie_embeddings:
             self.unembed = Unembed(cfg.d_model, cfg.vocab, cfg.faust_unembed, **kw)
@@ -143,16 +191,23 @@ class LM(nn.Module):
         return unembed_apply(getattr(self, "unembed", None), x, tied).float()
 
     def forward_train(self, tokens: torch.Tensor, chunk: int | None = None) -> torch.Tensor:
-        """f32 logits ``(B, S, vocab)`` of ``tokens (B, S)``; ``chunk`` is
-        attention's key chunk (default ``cfg.attn_chunk``: a sequence longer
-        than it must be a multiple of it)."""
+        """f32 logits ``(B, S, vocab)`` of ``tokens (B, S)``.  ``chunk``,
+        when given, is the chunk of every chunked path (attention's keys
+        and the SSD); each defaults to its config's (``cfg.attn_chunk``,
+        ``cfg.ssm.chunk``).  A sequence longer than a chunk must be a
+        multiple of it."""
         return self._forward_train(tokens, chunk)[0]
+
+    def _layer(self, layer: nn.Module) -> nn.Module:
+        """The module that runs at ``layer``'s position."""
+        return self.shared if layer.kind == "shared" else layer
 
     def _forward_train(self, tokens: torch.Tensor, chunk: int | None = None):
         """The logits and the f32 sum of the MoE layers' aux losses."""
         x = self._embed_tokens(tokens)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for layer in self.layers:
+            layer = self._layer(layer)
             if self.cfg.remat and torch.is_grad_enabled():
                 x, layer_aux, _ = checkpoint(layer, x, TRAIN, None, chunk, use_reentrant=False)
             else:
@@ -162,20 +217,22 @@ class LM(nn.Module):
         x = apply_norm(self.cfg.norm, self.final_norm, x)
         return self._logits(x), aux
 
-    def _run(self, x: torch.Tensor, mode: str, caches: list[KVCache]):
+    def _run(self, x: torch.Tensor, mode: str, caches: list[Cache]):
         new = []
         for layer, cache in zip(self.layers, caches, strict=True):
-            x, _, cache = layer(x, mode, cache)
+            x, _, cache = self._layer(layer)(x, mode, cache)
             new.append(cache)
         return apply_norm(self.cfg.norm, self.final_norm, x), new
 
-    def prefill(self, tokens: torch.Tensor, caches: list[KVCache]):
+    def prefill(self, tokens: torch.Tensor, caches: list[Cache]):
         """``tokens (B, S)`` through the model into ``caches``: the last
-        position's f32 logits ``(B, 1, vocab)`` and the filled caches."""
+        position's f32 logits ``(B, 1, vocab)`` and the filled caches.
+        ``S`` must be a length every chunked path takes whole
+        (:func:`prefill_length`), or the SSD or attention raises."""
         x, new = self._run(self._embed_tokens(tokens), PREFILL, caches)
         return self._logits(x[:, -1:]), new
 
-    def decode_step(self, tokens: torch.Tensor, caches: list[KVCache]):
+    def decode_step(self, tokens: torch.Tensor, caches: list[Cache]):
         """One token per row, ``tokens (B, 1)``, each row at its cache's
         position: f32 logits ``(B, 1, vocab)`` and the new caches."""
         x, new = self._run(self._embed_tokens(tokens), DECODE, caches)
@@ -208,22 +265,38 @@ def cache_capacity(cfg: ArchConfig, kind: str, cache_len: int) -> int:
     return cache_len
 
 
-def make_caches(cfg: ArchConfig, batch: int, cache_len: int, dtype=torch.bfloat16, device=None) -> list[KVCache]:
-    """One empty :class:`KVCache` of ``batch`` rows per layer, of capacity
-    :func:`cache_capacity`, on ``device`` (default: the CUDA card)."""
+def make_caches(cfg: ArchConfig, batch: int, cache_len: int, dtype=torch.bfloat16, device=None) -> list[Cache]:
+    """One empty cache of ``batch`` rows per layer on ``device`` (default:
+    the CUDA card): a :class:`MambaCache` (conv history in ``dtype``, f32
+    state) for an ``"ssm"`` layer, else a :class:`KVCache` of capacity
+    :func:`cache_capacity`."""
     check_supported(cfg)
     dev = resolve_device(device)
-    return [kv_cache_init(batch, cache_capacity(cfg, kind, cache_len), cfg.n_kv_heads, cfg.head_dim, dtype, dev)
+    return [mamba_cache_init(batch, cfg.ssm, dtype, dev) if kind == "ssm" else
+            kv_cache_init(batch, cache_capacity(cfg, kind, cache_len), cfg.n_kv_heads, cfg.head_dim, dtype, dev)
             for kind in cfg.layer_kinds()]
 
 
-def gather_cache_slots(caches: list[KVCache], slot_idx: torch.Tensor) -> list[KVCache]:
+def prefill_length(cfg: ArchConfig, n: int) -> int:
+    """The longest prefix of an ``n``-token prompt that :meth:`LM.prefill`
+    takes whole: at most each chunk of the model's chunked paths or a
+    multiple of it (attention's ``attn_chunk``, and with ``"ssm"`` layers
+    the SSD's ``ssm.chunk``).  The serving engine replays the rest through
+    the decode step.  The reference aligns to ``attn_chunk`` alone, so it
+    raises in the SSD where ``attn_chunk`` is no multiple of ``ssm.chunk``
+    (mamba2's 512 over 256: prompts of 257–511 tokens not a multiple of
+    256)."""
+    chunks = [cfg.attn_chunk] + ([cfg.ssm.chunk] if "ssm" in cfg.layer_kinds() else [])
+    return next(m for m in range(n, 0, -1) if all(m <= c or m % c == 0 for c in chunks))
+
+
+def gather_cache_slots(caches: list[Cache], slot_idx: torch.Tensor) -> list[Cache]:
     """The rows ``slot_idx (B,)`` of a slot pool, as a live-batch cache
-    list with batch ``len(slot_idx)`` (a copy)."""
-    return [KVCache(*(t.index_select(0, slot_idx) for t in c)) for c in caches]
+    list with batch ``len(slot_idx)`` (a copy, each cache of its own type)."""
+    return [type(c)(*(t.index_select(0, slot_idx) for t in c)) for c in caches]
 
 
-def scatter_cache_slots(pool: list[KVCache], caches: list[KVCache], slot_idx: torch.Tensor) -> list[KVCache]:
+def scatter_cache_slots(pool: list[Cache], caches: list[Cache], slot_idx: torch.Tensor) -> list[Cache]:
     """Write a live-batch cache list into the pool rows ``slot_idx``, in
     place (the pool's owner hands it over, as the reference donates its
     buffer), and return the pool."""

@@ -31,7 +31,8 @@ step gathers the live slots' rows (``lm.gather_cache_slots``) into a
 ``(B_live, …)`` cache, steps it, and scatters the rows back.  Per-row
 positions (``KVCache.pos``) replace left-padding: a reused slot restarts
 its row's positions, and stale entries beyond the new occupant's ``pos``
-are masked by position.
+are masked by position.  A mamba layer's row (``MambaCache``: conv
+history, recurrent state, ``pos``) is overwritten whole by the prefill.
 
 **Live-batch dispatch.** Each decode step consults the dispatch layer at
 the *live* batch size (:meth:`repro_torch.api.FaustOp.dispatch_for`,
@@ -359,7 +360,9 @@ class LMExecutor:
     ``model`` is a :class:`~repro_torch.models.lm.LM` (it stands where the
     reference takes ``cfg`` and ``params``).  The pool is one
     ``make_caches(model.cfg, n_slots, max_len)`` on the model's device, in
-    the model's dtype.  Every forward runs under
+    the model's dtype (a :class:`KVCache` or :class:`MambaCache` per
+    layer).  A prompt is prefilled up to :func:`lm.prefill_length` and its
+    rest replayed through the decode step.  Every forward runs under
     ``torch.no_grad`` and synchronizes the device before it returns, so the
     engine's ``prefill_s``/``decode_s`` time the device's work.  In eager
     PyTorch every FAµST apply records its dispatch decision
@@ -433,18 +436,16 @@ class LMExecutor:
             raise NotImplementedError(f"per-request side inputs {sorted(extras)}: the port serves token models")
         torch, lm = self._torch, self._lm
         prompt = np.asarray(prompt)
-        n = prompt.shape[-1]
-        chunk = self.cfg.attn_chunk
-        head, tail = prompt, prompt[..., :0]
-        if n > chunk and n % chunk:
-            # Chunked prefill requires S % attn_chunk == 0 for S > chunk.
-            # Re-prefills of prompt+generated — the retry and evict
-            # re-admission paths — arrive at ragged lengths, so prefill the
-            # aligned prefix and replay the remainder through the decode
-            # step: the final replayed token's logits are exactly the full
-            # prompt's prefill logits (token-exact by construction).
-            aligned = (n // chunk) * chunk
-            head, tail = prompt[..., :aligned], prompt[..., aligned:]
+        # Chunked prefill takes a sequence longer than a chunk only as a
+        # multiple of it.  Prompts and the re-prefills of prompt+generated
+        # (the retry and evict re-admission paths) arrive at ragged
+        # lengths, so prefill the longest prefix every chunked path takes
+        # (lm.prefill_length: attention's attn_chunk, and the SSD's chunk,
+        # which the reference leaves out) and replay the remainder through
+        # the decode step: the final replayed token's logits are the full
+        # prompt's prefill logits (token-exact by construction).
+        aligned = lm.prefill_length(self.cfg, prompt.shape[-1])
+        head, tail = prompt[..., :aligned], prompt[..., aligned:]
         mark = _dispatch.last_report()
         with torch.no_grad():
             caches = lm.make_caches(self.cfg, 1, self.max_len, dtype=self._act_dtype, device=self.device)

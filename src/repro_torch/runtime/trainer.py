@@ -139,9 +139,10 @@ def state_tree(model: LM, opt: AdamWState, ef: EFState | None) -> dict:
 
 def reference_name(key: str) -> str | None:
     """The reference's slash-joined tree path of the port's parameter
-    ``key`` (``embed.table`` → ``embed/table``), or None for a layer's: the
-    reference stacks each stage's layers, so its per-layer weights are
-    never 2-D and never recompressed."""
+    ``key`` (``embed.table`` → ``embed/table``; zamba2's shared block,
+    ``shared.attn.wq`` → ``shared/attn/wq``, is top-level in both), or None
+    for a layer's: the reference stacks each stage's layers, so its
+    per-layer weights are never 2-D and never recompressed."""
     return None if key.startswith("layers.") else key.replace(".", "/")
 
 

@@ -33,7 +33,7 @@ from repro_torch.runtime.server import Server
 from torch_parity import SLICE10_ARCHS as ARCHS
 from torch_parity import arch_pair as _pair
 from torch_parity import arch_tokens as _tokens
-from torch_parity import kv_caches_dict, rel_max_err, to_np
+from torch_parity import caches_dict, rel_max_err, to_np
 
 jax.config.update("jax_platform_name", "cpu")
 CPU = "cpu"
@@ -56,8 +56,8 @@ def _close(got, want, tol=TOL):
 
 
 def _same_caches(caches, jcaches, cfg):
-    got, _ = bridge.kv_caches_to_numpy(caches, cfg)
-    want, _ = kv_caches_dict(jcaches)
+    got, _ = bridge.caches_to_numpy(caches, cfg)
+    want, _ = caches_dict(jcaches)
     for gs, ws in zip(got, want, strict=True):
         for g, w in zip(gs, ws, strict=True):
             np.testing.assert_array_equal(g["pos"], w["pos"])
@@ -136,10 +136,10 @@ def test_make_caches_capacities_and_bridge_round_trip(arch):
     jpool = jax.tree_util.tree_map(
         lambda a: jnp.asarray(rng.standard_normal(a.shape), a.dtype) if a.dtype == jnp.bfloat16
         else jnp.asarray(rng.integers(0, 30, a.shape), a.dtype), jpool)
-    tree, dtype = kv_caches_dict(jpool)
-    pool = bridge.kv_caches_from_numpy(tree, cfg, dtype=dtype, device=CPU)
+    tree, dtype = caches_dict(jpool)
+    pool = bridge.caches_from_numpy(tree, cfg, dtype=dtype, device=CPU)
     assert [c.capacity for c in pool] == caps
-    back, back_dtype = bridge.kv_caches_to_numpy(pool, cfg)
+    back, back_dtype = bridge.caches_to_numpy(pool, cfg)
     assert back_dtype == "bfloat16"
     for bs, ts in zip(back, tree, strict=True):
         for b_, t_ in zip(bs, ts, strict=True):

@@ -37,7 +37,8 @@ def test_scan_sees_the_port():
     assert len(FILES) > 10
     port = ROOT / "src" / "repro_torch"
     for new in ("checkpoint/manager.py", "optim/compression.py", "launch/calibrate.py", "launch/roofline.py",
-                "layers/moe.py", "configs/chatglm3_6b.py", "configs/nemotron4_15b.py", "configs/gemma3_27b.py",
+                "layers/moe.py", "layers/mamba2.py", "configs/mamba2_2p7b.py", "configs/zamba2_7b.py",
+                "configs/chatglm3_6b.py", "configs/nemotron4_15b.py", "configs/gemma3_27b.py",
                 "configs/granite_moe_3b.py", "configs/llama4_maverick.py", "examples/quickstart.py",
                 "examples/compress_operator.py", "examples/train_tiny_lm.py", "examples/serve_lm.py"):
         assert port / new in FILES

@@ -31,7 +31,7 @@ from repro_torch.models import lm
 from repro_torch.models.lm import LM
 from repro_torch.runtime import engine
 from repro_torch.runtime.server import Server
-from torch_parity import kv_caches_dict, rel_max_err, to_np
+from torch_parity import caches_dict, rel_max_err, to_np
 
 jax.config.update("jax_platform_name", "cpu")
 CPU = "cpu"
@@ -76,8 +76,8 @@ def _close(got, want, tol=TOL):
 
 
 def _same_caches(caches, jcaches, cfg):
-    got, _ = bridge.kv_caches_to_numpy(caches, cfg)
-    want, _ = kv_caches_dict(jcaches)
+    got, _ = bridge.caches_to_numpy(caches, cfg)
+    want, _ = caches_dict(jcaches)
     for gs, ws in zip(got, want):
         for g, w in zip(gs, ws):
             np.testing.assert_array_equal(g["pos"], w["pos"])
@@ -141,11 +141,11 @@ def test_cache_slots_gather_scatter_match_reference():
     jpool = jax.tree_util.tree_map(
         lambda a: jnp.asarray(rng.standard_normal(a.shape), a.dtype) if a.dtype == jnp.bfloat16
         else jnp.asarray(rng.integers(0, 6, a.shape), a.dtype), jpool)
-    tree, dtype = kv_caches_dict(jpool)
+    tree, dtype = caches_dict(jpool)
     assert dtype == "bfloat16"
-    pool = bridge.kv_caches_from_numpy(tree, cfg, dtype=dtype, device=CPU)
+    pool = bridge.caches_from_numpy(tree, cfg, dtype=dtype, device=CPU)
     assert len(pool) == cfg.n_layers and pool[0].k.dtype == torch.bfloat16
-    back, back_dtype = bridge.kv_caches_to_numpy(pool, cfg)
+    back, back_dtype = bridge.caches_to_numpy(pool, cfg)
     assert back_dtype == "bfloat16"
     for bs, ts in zip(back, tree):
         for b_, t_ in zip(bs, ts):
@@ -154,18 +154,18 @@ def test_cache_slots_gather_scatter_match_reference():
     idx = np.asarray([3, 1], np.int32)
     jlive = jlm.gather_cache_slots(jpool, jnp.asarray(idx))
     live = lm.gather_cache_slots(pool, torch.as_tensor(idx, dtype=torch.int64))
-    got, _ = bridge.kv_caches_to_numpy(live, cfg)
-    want, _ = kv_caches_dict(jlive)
+    got, _ = bridge.caches_to_numpy(live, cfg)
+    want, _ = caches_dict(jlive)
     for gs, ws in zip(got, want):
         for g, w in zip(gs, ws):
             for name in ("k", "v", "pos"):
                 np.testing.assert_array_equal(g[name], w[name])
     jlive2 = jax.tree_util.tree_map(lambda a: a + jnp.asarray(1, a.dtype), jlive)
-    live2 = bridge.kv_caches_from_numpy(kv_caches_dict(jlive2)[0], cfg, dtype="bfloat16", device=CPU)
+    live2 = bridge.caches_from_numpy(caches_dict(jlive2)[0], cfg, dtype="bfloat16", device=CPU)
     jpool = jlm.scatter_cache_slots(jpool, jlive2, jnp.asarray(idx))
     pool = lm.scatter_cache_slots(pool, live2, torch.as_tensor(idx, dtype=torch.int64))
-    got, _ = bridge.kv_caches_to_numpy(pool, cfg)
-    want, _ = kv_caches_dict(jpool)
+    got, _ = bridge.caches_to_numpy(pool, cfg)
+    want, _ = caches_dict(jpool)
     for gs, ws in zip(got, want):
         for g, w in zip(gs, ws):
             for name in ("k", "v", "pos"):

@@ -362,18 +362,22 @@ def test_grad_priced_choose_backend_matches_reference(same_constants, batch, sha
 
 
 def test_later_slices_raise():
-    """What the port does not run yet raises, one case each: the mamba2
-    architecture and the ``ssm``/``shared`` layer kinds, musicgen's
-    codebooks, internvl's vision tokens, a mesh, and the launcher's
-    multi-GPU flags.  Checkpoints, EF compression and recompression work
-    (``tests/test_torch_resilience.py``); the ``local`` and ``moe`` kinds
-    and partial rotary too (``tests/test_torch_archs.py``)."""
-    with pytest.raises(NotImplementedError, match="mamba2"):
-        get_config("mamba2_2p7b")
+    """What the port does not run yet raises, one case each: the two
+    architectures with a modality front end, a layer kind the reference
+    does not have, musicgen's codebooks, internvl's vision tokens, a mesh,
+    and the launcher's multi-GPU flags; an ``ssm`` layer without its
+    ``Mamba2Spec`` is refused.  Checkpoints, EF compression and
+    recompression work (``tests/test_torch_resilience.py``); the ``local``
+    and ``moe`` kinds and partial rotary too (``tests/test_torch_archs.py``),
+    and the ``ssm`` and ``shared`` kinds (``tests/test_torch_ssm_archs.py``)."""
+    for arch in ("internvl2_2b", "musicgen_medium"):
+        with pytest.raises(NotImplementedError, match="front end"):
+            get_config(arch)
     cfg = get_smoke("gemma_2b")
-    for kind in ("ssm", "shared"):
-        with pytest.raises(NotImplementedError, match="layer kinds"):
-            LM(dataclasses.replace(cfg, stages=((2, (kind,)),)), device=CPU)
+    with pytest.raises(NotImplementedError, match="layer kinds"):
+        LM(dataclasses.replace(cfg, stages=((2, ("cross",)),)), device=CPU)
+    with pytest.raises(ValueError, match="Mamba2Spec"):
+        LM(dataclasses.replace(cfg, stages=((2, ("ssm",)),)), device=CPU)
     with pytest.raises(NotImplementedError, match="n_codebooks"):
         LM(dataclasses.replace(cfg, n_codebooks=4), device=CPU)
     with pytest.raises(NotImplementedError, match="n_vision_tokens"):

@@ -73,6 +73,17 @@ def packed_dict(pc) -> dict:
     return d
 
 
+def tensor(a):
+    """A torch tensor (on the CPU) of a JAX or numpy array; bf16 through
+    its bits."""
+    import torch
+
+    a, dtype = array(a)
+    if dtype == "bfloat16":
+        return torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16)
+    return torch.from_numpy(np.array(a))
+
+
 def to_np(t) -> np.ndarray:
     """A torch tensor (any float dtype) as f32 numpy."""
     return t.detach().float().cpu().numpy()
@@ -84,16 +95,20 @@ def rel_max_err(y, ref) -> float:
     return float(np.abs(y - ref).max() / max(np.abs(ref).max(), 1e-30))
 
 
-def kv_caches_dict(caches) -> tuple[list, str | None]:
+def caches_dict(caches) -> tuple[list, str | None]:
     """A reference cache tree (``repro.models.lm.make_caches``: stages of
-    unit positions of stacked ``KVCache``) as nested lists of
-    ``{"k", "v", "pos"}`` numpy dicts, with the k/v dtype name."""
+    unit positions of stacked ``KVCache`` or ``MambaCache``) as nested
+    lists of numpy dicts of the caches' fields, with the name of the dtype
+    that crosses as bit views (k/v, or a mamba cache's conv history)."""
     tree, dtype = [], None
     for stage in caches:
         out = []
         for c in stage:
-            k, dtype = array(c.k)
-            out.append({"k": k, "v": array(c.v)[0], "pos": np.asarray(c.pos)})
+            leaf = {}
+            for name, a in c._asdict().items():
+                leaf[name], dt = array(a)
+                dtype = dt or dtype
+            out.append(leaf)
         tree.append(out)
     return tree, dtype
 
@@ -101,6 +116,8 @@ def kv_caches_dict(caches) -> tuple[list, str | None]:
 # the architectures of the port's slice 10, and the FAµST unembedding
 # their parity tests give them (n_factors, block, k)
 SLICE10_ARCHS = ["chatglm3_6b", "nemotron4_15b", "gemma3_27b", "granite_moe_3b", "llama4_maverick"]
+# slice 11: the mamba2 (ssm) and zamba2 (ssm + shared) architectures
+SSM_ARCHS = ["mamba2_2p7b", "zamba2_7b"]
 ARCH_HEAD = (2, 16, 2)
 
 
@@ -138,3 +155,18 @@ def arch_pair(arch: str, faust: bool = False):
 
 def arch_tokens(cfg, b: int, s: int, seed: int = 0) -> np.ndarray:
     return np.random.default_rng(seed).integers(0, cfg.vocab, (b, s)).astype(np.int32)
+
+
+def bf16_tree(params):
+    """A reference parameter tree with numpy leaves, bf16 as uint16 bits."""
+    import jax
+
+    return jax.tree_util.tree_map(lambda a: array(a)[0], params)
+
+
+def same_tree(a, b) -> bool:
+    """Two trees of the same structure with bitwise-equal leaves."""
+    import jax
+
+    return jax.tree_util.tree_all(jax.tree_util.tree_map(lambda x, y: np.array_equal(np.asarray(x), np.asarray(y)),
+                                                         a, b))
