@@ -191,7 +191,7 @@ Phases, each fatal on failure (non-zero exit):
    parameters: the full 5.74 G's AdamW state does not fit), same flags;
    (c) both at full depth (zamba2: 81 layers) served, 8 slots of 1160
    tokens, 10 requests: prompts 300, 200, 256, 480, 512, 700, 1024 and
-   three uniform over 32-1100, budgets 16-48, one eviction at step 6 (of
+   three uniform over 32-256, budgets 16-48, one eviction at step 6 (of
    the 300-token request: its re-prefill is ragged and replays too); each prefill's split recorded (the prefix every
    chunked path takes, ``lm.prefill_length``: 300 and 480 are the band
    the reference's SSD rejects); the teacher-forced check against an f32
@@ -211,7 +211,29 @@ Phases, each fatal on failure (non-zero exit):
    recurrent decode and the re-prefill against one chunked pass; (e) a
    mamba2 decode step at B = 1 and 8 after 256-token prefills: host
    seconds, launches, busy time and idle share beside the bound of the
-   weights read once and the state read and written.
+   weights read once and the state read and written;
+17. the modality front ends (slice 12) at their published widths and full
+   depth, bf16, the same FAµST unembedding untied, on a fresh read-only
+   autotune table, with phase 15's counts, parameter and kernel checks:
+   (a) internvl2-2b (24 layers), ``launch.train --faust --steps 3 --batch
+   4 --seq 1024`` (two attention chunks and 256 image positions a row,
+   ``vision_embeds`` from the data pipeline), K1, K2 and K3 each launched
+   exactly once a step; (b) musicgen-medium (48 layers), ``--batch 8 --seq
+   1024`` (tokens ``(8, 4, 1024)``), each launched four times a step, once
+   per codebook's head, every head's K2 and K3 against their plain
+   versions at the trainer's 8192 rows; (c) both served, 8 slots of 1088
+   tokens, 8 requests, budgets 16-32, one eviction at step 4: internvl2's
+   prompts 256, 300, 512, 600, 1024 and three over 256-512, each request
+   with its own ``vision_embeds`` from numpy; musicgen's ``(4, S)`` with S
+   64, 128, 256, 512, 600, 1024 and two over 32-512; only the 600-token
+   prompts replay, every prefix holds the image positions; every request
+   ``done``; the teacher-forced check against each model's f32 copy with
+   the same ``vision_embeds``, phase 16's tie clause applied to every
+   codebook on its own; two faults planted, two requests each (prompts
+   256 and 512, 32 tokens), which that check must fail: internvl2 prefilled
+   as a text model (``vision_embeds`` unread), musicgen's decode sinusoid
+   at position 0 instead of each row's own; (d) every head's K1 and K6
+   against their plain versions at B = 1, 8 and the trainer's rows.
 
 Prints one JSON object per line; the last three lines are the kernels
 summary, the card's ``name, power.limit`` and ``{"ok": true, ...}``.
@@ -2050,31 +2072,51 @@ def _pct(values, q: float) -> float | None:
     return vals[lo] + (vals[hi] - vals[lo]) * (pos - lo)
 
 
-def _trace(n_req: int, seed: int, lengths: tuple, budgets: tuple, fixed: tuple, vocab: int):
+def _trace(n_req: int, seed: int, lengths: tuple, budgets: tuple, fixed: tuple, vocab: int, codebooks: int = 1):
     """Prompts (numpy seed ``seed``, lengths uniform over ``lengths`` with
-    the first ``len(fixed)`` set to ``fixed``) and budgets."""
+    the first ``len(fixed)`` set to ``fixed``; ``(codebooks, n)`` each for
+    an audio model) and budgets."""
     import numpy as np
 
     rng = np.random.default_rng(seed)
     lens = rng.integers(lengths[0], lengths[1] + 1, size=n_req)
     lens[:len(fixed)] = fixed
     budget = rng.integers(budgets[0], budgets[1] + 1, size=n_req)
-    prompts = [rng.integers(0, vocab, size=int(n)).astype(np.int32) for n in lens]
+    shape = (lambda n: int(n)) if codebooks == 1 else (lambda n: (codebooks, int(n)))
+    prompts = [rng.integers(0, vocab, size=shape(n)).astype(np.int32) for n in lens]
     return prompts, [int(b) for b in budget]
 
 
+def _vision_extras(cfg, n_req: int, seed: int) -> list[dict]:
+    """Each request's own ``vision_embeds (n_vision_tokens, d_model)``,
+    f32 N(0, 1) × 0.02 from numpy ``seed`` (the data pipeline's stand-in
+    patch embeddings); empty dicts for a model without vision tokens."""
+    import numpy as np
+
+    if not cfg.n_vision_tokens:
+        return [{} for _ in range(n_req)]
+    rng = np.random.default_rng(seed)
+    return [{"vision_embeds": rng.standard_normal((cfg.n_vision_tokens, cfg.d_model), dtype=np.float32)
+             * np.float32(0.02)} for _ in range(n_req)]
+
+
 def drive(engine, prompts, budgets, first: int, every: tuple[int, int] | None = None,
-          evict_step: int | None = None) -> tuple[list[str], int]:
+          evict_step: int | None = None, extras: list | None = None) -> tuple[list[str], int]:
     """Submit ``first`` requests, then ``every[1]`` more every ``every[0]``
     engine steps; evict the lowest-slot live request at ``evict_step`` (or
     the first step after it with one live); step until every request is
-    submitted and finished.  Returns the rids and the steps taken."""
-    rids = [engine.submit(p, b) for p, b in zip(prompts[:first], budgets[:first])]
+    submitted and finished.  ``extras`` are the requests' side inputs.
+    Returns the rids and the steps taken."""
+    extras = extras or [{} for _ in prompts]
+
+    def submit(lo, hi):
+        return [engine.submit(prompts[i], budgets[i], extras=extras[i]) for i in range(lo, min(hi, len(prompts)))]
+
+    rids = submit(0, first)
     step, evicted = 0, False
     while engine.n_pending or len(rids) < len(prompts):
         if every and step and step % every[0] == 0 and len(rids) < len(prompts):
-            n = len(rids)
-            rids += [engine.submit(p, b) for p, b in zip(prompts[n:n + every[1]], budgets[n:n + every[1]])]
+            rids += submit(len(rids), len(rids) + every[1])
         if evict_step is not None and step >= evict_step and not evicted and engine.running:
             victim = min(engine.running.values(), key=lambda r: r.slot)
             require(engine.evict(victim.rid), f"eviction of {victim.rid} refused")
@@ -2103,7 +2145,7 @@ def faust_backend(model, backend: str, head_only: bool = False):
 
 
 def teacher_forced(model, engine, rids, prompts, tol: float, routes=None, exact=None,
-                   enforce: bool = True) -> dict:
+                   enforce: bool = True, extras: list | None = None) -> dict:
     """For each request, ``forward_train`` under ``no_grad`` over prompt +
     generated, with every FAµST projection on the dense backend (``x @
     todense()``, no K1 or K6), so the served tokens are held against a path
@@ -2144,6 +2186,13 @@ def teacher_forced(model, engine, rids, prompts, tol: float, routes=None, exact=
     and of the positions neither holds, and the bf16 rows' own gap beside
     them.
 
+    A vision model's requests are held with their own ``extras``
+    (``vision_embeds``) on both sides.  An audio model's prompts and
+    outputs are ``(K, n)``: every codebook's token at every position is
+    held against its head's logits, and each clause (the ties' share
+    too) must hold for every codebook on its own; ``codebooks`` reports
+    each one's counts.
+
     ``enforce=False`` returns the verdict (``passed``) instead of failing."""
     import numpy as np
     import torch
@@ -2152,7 +2201,8 @@ def teacher_forced(model, engine, rids, prompts, tol: float, routes=None, exact=
 
     require(routes is None or exact is None, "teacher_forced: one reference, routed or exact")
     dev = model.embed.table.device
-    gaps, errs, own = [], [], []
+    extras = extras or [{} for _ in prompts]
+    gaps, errs, own, books = [], [], [], []
     exact_argmax = 0
     flips = torch.zeros((), dtype=torch.int64, device=dev)
     pairs = torch.zeros((), dtype=torch.int64, device=dev)
@@ -2160,7 +2210,7 @@ def teacher_forced(model, engine, rids, prompts, tol: float, routes=None, exact=
     real_top = moe_mod.top_experts
     for i, (rid, prompt) in enumerate(zip(rids, prompts)):
         gen = engine.result(rid)
-        full = np.concatenate([prompt, gen]).astype(np.int64)
+        full = np.concatenate([prompt, gen], axis=-1).astype(np.int64)  # (L,) or (K, L)
         if routes is not None:
             forced = [torch.as_tensor(c[:len(full)], device=dev) for c in routes[i]]
             layer = iter(range(len(forced)))
@@ -2180,17 +2230,24 @@ def teacher_forced(model, engine, rids, prompts, tol: float, routes=None, exact=
 
             moe_mod.top_experts = replay
         tokens = torch.as_tensor(full, device=dev)[None]
-        rows = slice(len(prompt) - 1, len(prompt) - 1 + len(gen))
+        n_prompt, n_gen, length = prompt.shape[-1], gen.shape[-1], full.shape[-1]
+        rows = slice(n_prompt - 1, n_prompt - 1 + n_gen)
+        side = {k: torch.as_tensor(v, device=dev)[None] for k, v in extras[i].items()}
         try:
             with torch.no_grad(), faust_backend(model, "dense"):
-                b = model.forward_train(tokens, chunk=len(full))[0, rows]
+                b = model.forward_train(tokens, chunk=length, **side)[0, rows]
                 if exact is not None:
                     with faust_backend(exact, "dense"):
-                        f = exact.forward_train(tokens, chunk=len(full))[0, rows]
+                        f = exact.forward_train(tokens, chunk=length, **side)[0, rows]
         finally:
             moe_mod.top_experts = real_top
+        k = gen.shape[0] if gen.ndim == 2 else 1
+        # every (position, codebook) as one row: logits (n, K, V) → (n·K, V), tokens (K, n) → (n·K,)
+        b = b.reshape(n_gen * k, -1)
+        f = f.reshape(n_gen * k, -1) if exact is not None else None
         ref = b if exact is None else f
-        chosen = torch.as_tensor(gen, device=dev, dtype=torch.int64)[:, None]
+        chosen = torch.as_tensor(np.asarray(gen).T.reshape(-1), device=dev, dtype=torch.int64)[:, None]
+        books.append(torch.arange(k, device=dev).repeat(n_gen))
         scale = ref.abs().amax(dim=-1).clamp_min(1e-30)
         gaps.append((ref.amax(dim=-1) - ref.gather(1, chosen)[:, 0]) / scale)
         if exact is not None:
@@ -2198,11 +2255,12 @@ def teacher_forced(model, engine, rids, prompts, tol: float, routes=None, exact=
             own.append((b.amax(dim=-1) - b.gather(1, chosen)[:, 0]) / b.abs().amax(dim=-1).clamp_min(1e-30))
         exact_argmax += int((ref.argmax(dim=-1) == chosen[:, 0]).sum())
         del b, ref
-    gap = torch.cat(gaps)
+    gap, book = torch.cat(gaps), torch.cat(books)
     within = gap <= tol
     out = {"positions": int(gap.numel()), "exact_argmax": exact_argmax, "worst_gap_rel": float(gap.max()),
            "tol": tol, "reference": "dense"}
     ok = bool(within.all())
+    tie = over = None
     if exact is not None:
         err = torch.cat(errs).clamp_min(1e-30)
         tie = ~within & (gap <= SSM_TIE * err)
@@ -2216,6 +2274,20 @@ def teacher_forced(model, engine, rids, prompts, tol: float, routes=None, exact=
                    bf16_err_rel={"max": float(err.max()), "median": float(err.median())},
                    bf16_vs_bf16_worst_gap_rel=float(torch.cat(own).max()))
         ok = not bool(over.any()) and out["tie_share"] <= SSM_TIE_SHARE
+    if int(book.max()) > 0:  # per codebook: each must pass on its own
+        out["codebooks"] = []
+        for k in range(int(book.max()) + 1):
+            mine = book == k
+            rec = {"codebook": k, "positions": int(mine.sum()), "within_tol": int((within & mine).sum()),
+                   "worst_gap_rel": float(gap[mine].max())}
+            passed = bool(within[mine].all())
+            if exact is not None:
+                rec.update(bf16_ties=int((tie & mine).sum()), beyond=int((over & mine).sum()),
+                           tie_share=float(tie[mine].float().mean()))
+                passed = rec["beyond"] == 0 and rec["tie_share"] <= SSM_TIE_SHARE
+            rec["passed"] = passed
+            out["codebooks"].append(rec)
+            ok = ok and passed
     if routes is not None:
         out.update(reference="dense, the served run's expert choices", routing_pairs=int(pairs),
                    routing_flips=int(flips), routing_flip_share=int(flips) / max(int(pairs), 1),
@@ -2346,14 +2418,17 @@ def serve_run(name: str, card_line: str, model, n_req: int, lengths: tuple, budg
               first: int | None = None, every=None, evict_step=None, seed: int = 0, check: bool = True,
               kernels: bool = True, max_len: int = SERVE_MAX_LEN) -> dict:
     """One engine over ``model`` (``SERVE_SLOTS`` slots of ``max_len``
-    tokens): the trace of :func:`_trace` through :func:`drive`, K1/K6
+    tokens): the trace of :func:`_trace` through :func:`drive` (a vision
+    model's requests each with its own :func:`_vision_extras`), K1/K6
     counters zeroed before and read after, the report, and (``check``) the
     teacher-forced check of every request."""
     import torch
 
     from repro_torch.runtime.engine import Engine, LMExecutor
 
-    prompts, budget = _trace(n_req, seed, lengths, budgets, fixed, model.cfg.vocab)
+    cfg = model.cfg
+    prompts, budget = _trace(n_req, seed, lengths, budgets, fixed, cfg.vocab, cfg.n_codebooks)
+    extras = _vision_extras(cfg, n_req, seed + 1000)
     torch.cuda.reset_peak_memory_stats()
     ex = LMExecutor(model, max_len, SERVE_SLOTS)
     moe = check and model.cfg.moe is not None
@@ -2363,21 +2438,22 @@ def serve_run(name: str, card_line: str, model, n_req: int, lengths: tuple, budg
     _zero_counts()
     t0 = time.perf_counter()
     with ex.recording() if moe else contextlib.nullcontext():
-        rids, steps = drive(engine, prompts, budget, first or n_req, every, evict_step)
+        rids, steps = drive(engine, prompts, budget, first or n_req, every, evict_step, extras)
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
     counts = _serve_counts()
     row = engine_report(name, card_line, engine, steps, counts, wall_s)
-    row["prompt_lengths"] = [len(p) for p in prompts]
+    row["prompt_lengths"] = [p.shape[-1] for p in prompts]
     if evict_step is not None:
         require(engine.stats.evicted == 1, f"{name}: {engine.stats.evicted} evictions, want 1")
     if kernels:
         require(counts["chain_matmul"] + counts["bsr_matmul"] > 0, f"{name}: serving launched neither K1 nor K6: {row}")
     if check:
         routes = ex.choices(max_len) if moe else None
-        row["teacher_forced"] = teacher_forced(model, engine, rids, prompts, SERVE_TOL[model.cfg.dtype], routes)
+        row["teacher_forced"] = teacher_forced(model, engine, rids, prompts, SERVE_TOL[model.cfg.dtype], routes,
+                                               extras=extras)
     log(row)
-    return {"row": row, "engine": engine, "rids": rids, "prompts": prompts}
+    return {"row": row, "engine": engine, "rids": rids, "prompts": prompts, "extras": extras}
 
 
 def profile_decode(card_line: str, model, batch: int = SERVE_SLOTS, prompt_len: int = 256) -> dict:
@@ -3154,7 +3230,28 @@ def moe_routing(model):
             h.remove()
 
 
-def arch_train(card_line: str, name: str, argv, n_layers: int | None = None, unit: tuple | None = None) -> dict:
+def head_chains(name: str, model) -> dict:
+    """Each FAµST unembedding head of ``model`` as a ``BlockFaust`` on
+    detached views of its parameters: ``{name}.unembed``, or
+    ``{name}.unembed[k]`` for each codebook's head of an audio model."""
+    import dataclasses
+
+    from repro_torch.layers.faust_linear import StackedFaustLinear
+    from repro_torch.runtime.engine import unembed_blockfaust
+
+    head = model.unembed.faust
+    if not isinstance(head, StackedFaustLinear):
+        return {f"{name}.unembed": unembed_blockfaust(model)}
+    out = {}
+    for k in range(head.n):
+        bf = head.blockfaust(k)
+        out[f"{name}.unembed[{k}]"] = type(bf)(
+            tuple(dataclasses.replace(f, values=f.values.detach()) for f in bf.factors), bf.lam.detach())
+    return out
+
+
+def arch_train(card_line: str, name: str, argv, n_layers: int | None = None, unit: tuple | None = None,
+               per_step: int | None = None) -> dict:
     """``repro_torch.launch.train``'s trainer for ``argv`` (depth cut to
     ``n_layers`` of ``unit`` where given) on a fresh read-only autotune
     table: losses, step seconds, tokens/s, peak GB, K1/K2/K3 launches
@@ -3165,7 +3262,10 @@ def arch_train(card_line: str, name: str, argv, n_layers: int | None = None, uni
     the trained model and an estimate of the MoE layers' share of the
     step's device time: the layers' count × one layer's forward and
     forward + backward, timed alone on random inputs, over the profiled
-    step's device busy time (an estimate, not a reading of the trace)."""
+    step's device busy time (an estimate, not a reading of the trace).
+    Every head of the unembedding is checked (:func:`head_chains`); with
+    ``per_step`` K1, K2 and K3 must each have launched exactly that many
+    times a step (one per head)."""
     import dataclasses
 
     import torch
@@ -3174,7 +3274,6 @@ def arch_train(card_line: str, name: str, argv, n_layers: int | None = None, uni
     from repro_torch.data.pipeline import DataIterator
     from repro_torch.launch import train
     from repro_torch.layers import attention
-    from repro_torch.runtime.engine import unembed_blockfaust
     from repro_torch.runtime.trainer import Trainer
 
     args = train.parse_args([*argv, "--checkpoint-dir", str(CKPT_ROOT / "archs")])  # 3 steps: nothing saved
@@ -3244,21 +3343,26 @@ def arch_train(card_line: str, name: str, argv, n_layers: int | None = None, uni
     if cuda:
         require(all(counts[k] > 0 for k in ("chain_matmul", "chain_dgrad", "chain_wgrad")),
                 f"{name}: the trainer did not run K1, K2 and K3: {counts}")
+        if per_step is not None:
+            require(all(counts[k] == per_step * args.steps for k in ("chain_matmul", "chain_dgrad", "chain_wgrad")),
+                    f"{name}: K1/K2/K3 launches {counts}, want {per_step} each a step")
     if cfg.window is not None and args.seq > cfg.window:
         require(banded["calls"] > 0, f"{name}: no local layer ran banded at seq {args.seq}")
     if cfg.moe is not None:
         require(math.isfinite(row["ce"]) and row["aux"] > 0, f"{name}: no aux loss: {row}")
     with torch.no_grad():
-        head = pack_chain(unembed_blockfaust(model))
+        heads = {label: pack_chain(bf) for label, bf in head_chains(name, model).items()}
     del out, model, trainer
     _free()
-    row["head_bwd_check"] = arch_head_bwd(card_line, name, head, tokens) if cuda else None
+    row["head_bwd_check"] = [arch_head_bwd(card_line, label, pc, tokens) for label, pc in heads.items()] if cuda \
+        else None
     return row
 
 
 def arch_head_bwd(card_line: str, name: str, pc, rows: int) -> dict:
     """K2 and K3 against their plain versions on a trained bf16 head
-    ``pc`` (packed) at the trainer's ``rows`` = B·S rows and at the tiles
+    ``pc`` (packed; ``name`` its :func:`head_chains` label) at the
+    trainer's ``rows`` = B·S rows and at the tiles
     the fused backward runs them (``DGRAD_BT``, ``WGRAD_BT``), on the same
     card tensors; ``dy`` zero past the vocab, as the slice of the padded
     output gives it.  One launch of each, counted."""
@@ -3291,7 +3395,7 @@ def arch_head_bwd(card_line: str, name: str, pc, rows: int) -> dict:
     dx_err, dx_rel = rel_err(dx, chain_dgrad_plain(dy, values, dm, plan=plan))
     del dx
     dv_err, dv_rel = rel_err(dv, chain_wgrad_plain(x, dy, values, wm, plan=plan))
-    row = {"phase": "arch_head_bwd_check", "card": card_line, "chain": f"{name}.unembed", "dtype": "bfloat16",
+    row = {"phase": "arch_head_bwd_check", "card": card_line, "chain": name, "dtype": "bfloat16",
            "rows": rows, "dims": [plan.in_features, *plan.out_feats], "padded_out": plan.out_blocks[-1] * plan.block,
            "dgrad_bt": DGRAD_BT, "wgrad_bt": WGRAD_BT, "k2_max_abs_err": dx_err, "k2_rel_err": dx_rel,
            "k3_max_abs_err": dv_err, "k3_rel_err": dv_rel, "tol": TOL["bfloat16"],
@@ -3299,20 +3403,17 @@ def arch_head_bwd(card_line: str, name: str, pc, rows: int) -> dict:
     log(row)
     require(counts["chain_dgrad"] == 1 and counts["chain_wgrad"] == 1, f"{name}: launches {counts}")
     require(dx_rel <= TOL["bfloat16"] and dv_rel <= TOL["bfloat16"],
-            f"{name}'s head at {rows} rows: K2 {dx_rel}, K3 {dv_rel} against their plain versions")
+            f"{name} at {rows} rows: K2 {dx_rel}, K3 {dv_rel} against their plain versions")
     del dv, x, dy
     _free()
     return row
 
 
 def arch_heads(card_line: str, dev, name: str, model, rows: int) -> list[dict]:
-    """K1 (and K6) against their plain versions on ``model``'s bf16 head,
-    at decode batches 1 and 8 and at ``rows`` rows (a whole sequence's
-    forward)."""
-    from repro_torch.runtime.engine import unembed_blockfaust
-
-    return check_chains(card_line, dev, "arch_head_check", {f"{name}.unembed": unembed_blockfaust(model)},
-                        (1, 8, rows))
+    """K1 (and K6) against their plain versions on each of ``model``'s bf16
+    heads (:func:`head_chains`), at decode batches 1 and 8 and at ``rows``
+    rows (a whole sequence's forward)."""
+    return check_chains(card_line, dev, "arch_head_check", head_chains(name, model), (1, 8, rows))
 
 
 def arch_serve(card_line: str, dev, name: str, model, n_req: int, lengths: tuple, budgets: tuple,
@@ -3474,7 +3575,9 @@ ZAMBA2_TRAIN_LAYERS = 36  # six whole units: ≈ 2.7 G parameters, whose AdamW s
 # 300 and 480 lie in the band the reference's SSD rejects (above ssm.chunk 256, below attn_chunk 512);
 # 300 first: the eviction takes the lowest slot's request, so its re-prefill lands in the band too
 SSM_PROMPTS = (300, 200, 256, 480, 512, 700, 1024)
-SSM_LENGTHS = (32, 1100)  # the random prompts'
+# the random prompts': within one SSD chunk, so they prefill whole; the fixed ones hold the band, the
+# replays above attn_chunk and the ragged re-prefill (a random 425 replayed 169 tokens in each bf16 run)
+SSM_LENGTHS = (32, 256)
 SSM_REQUESTS = 10
 SSM_EVICT_STEP = 6
 SSM_MAX_LEN = 1160  # the longest prompt and 48 new tokens, with room
@@ -3500,7 +3603,7 @@ def prefill_splits():
     seen = []
 
     def recording(self, slot, prompt, extras):
-        seen.append((np.asarray(prompt), prefill_length(self.cfg, len(prompt))))
+        seen.append((np.asarray(prompt), prefill_length(self.cfg, np.asarray(prompt).shape[-1])))
         return real(self, slot, prompt, extras)
 
     LMExecutor.prefill_forward = recording
@@ -3528,12 +3631,37 @@ def planted_fault(kind: str):
     ``"ssm_state_zeroed"`` zeroes every mamba layer's recurrent state of
     the slot after each prefill; ``"kv_of_next_occurrence"`` runs each
     shared-block occurrence's decode against the next occurrence's
-    ``KVCache`` (the last against the first's)."""
+    ``KVCache`` (the last against the first's); ``"vision_ignored"``
+    prefills a vision model as a text model (its token embeddings at the
+    image positions, the request's ``vision_embeds`` unread);
+    ``"sinusoid_at_zero"`` adds an audio model's sinusoid at position 0 in
+    every decode step (the replays' too) instead of each row's own."""
     from repro_torch.layers.attention import KVCache
     from repro_torch.layers.mamba2 import MambaCache
+    from repro_torch.models import lm as lm_mod
     from repro_torch.runtime.engine import LMExecutor
 
-    if kind == "ssm_state_zeroed":
+    if kind == "vision_ignored":
+        name, real = "prefill_forward", LMExecutor.prefill_forward
+
+        def faulty(self, slot, prompt, extras):
+            front = lm_mod.LM._front
+            lm_mod.LM._front = lambda model, tokens, vision_embeds: model._embed_tokens(tokens)
+            try:
+                return real(self, slot, prompt, extras)
+            finally:
+                lm_mod.LM._front = front
+    elif kind == "sinusoid_at_zero":
+        name, real = "_decode", LMExecutor._decode
+
+        def faulty(self, tokens, slot_idx):
+            sinusoid = lm_mod.sinusoid
+            lm_mod.sinusoid = lambda d_model, pos0, s, device: sinusoid(d_model, 0, s, device)
+            try:
+                return real(self, tokens, slot_idx)
+            finally:
+                lm_mod.sinusoid = sinusoid
+    elif kind == "ssm_state_zeroed":
         name, real = "prefill_forward", LMExecutor.prefill_forward
 
         def faulty(self, slot, prompt, extras):
@@ -3564,15 +3692,16 @@ def planted_fault(kind: str):
         setattr(LMExecutor, name, real)
 
 
-def planted_serve(card_line: str, name: str, model, exact, kind: str) -> dict:
-    """Two requests (prompts ``SSM_PLANTED_PROMPTS``, prefilled whole, then
-    decode) served by ``model`` under :func:`planted_fault` ``kind``; the
-    bf16 teacher-forced check against ``exact`` must fail them."""
+def planted_serve(card_line: str, name: str, model, exact, kind: str, prompts: tuple = SSM_PLANTED_PROMPTS,
+                  max_len: int = SSM_MAX_LEN) -> dict:
+    """Two requests (``prompts``, prefilled whole, then decode) served by
+    ``model`` under :func:`planted_fault` ``kind``; the bf16 teacher-forced
+    check against ``exact`` must fail them."""
     with planted_fault(kind):
         res = serve_run(f"{name}_planted_{kind}", card_line, model, 2, SSM_LENGTHS, (32, 32),
-                        fixed=SSM_PLANTED_PROMPTS, seed=27, max_len=SSM_MAX_LEN, check=False)
+                        fixed=prompts, seed=27, max_len=max_len, check=False)
     tf = teacher_forced(model, res["engine"], res["rids"], res["prompts"], SERVE_TOL[model.cfg.dtype],
-                        exact=exact, enforce=False)
+                        exact=exact, enforce=False, extras=res["extras"])
     row = {"phase": f"{name}_planted_fault", "card": card_line, "fault": kind, "teacher_forced": tf}
     log(row)
     require(not tf["passed"], f"{name}: the planted fault {kind!r} passed the teacher-forced check: {row}")
@@ -3724,6 +3853,97 @@ def ssm_archs(card_line: str, dev) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Slice 12: the modality front ends (phase 17)
+# ---------------------------------------------------------------------------
+
+INTERNVL2_TRAIN_ARGV = ("--arch", "internvl2_2b", "--faust", "--steps", "3", "--batch", "4", "--seq", "1024")
+MUSICGEN_TRAIN_ARGV = ("--arch", "musicgen_medium", "--faust", "--steps", "3", "--batch", "8", "--seq", "1024")
+# served prompts: above attn_chunk 512 only the 600s are ragged (512 prefilled, 88 replayed); internvl2's
+# hold its 256 image positions, its three random ones stay within 256-512 so that they prefill whole
+INTERNVL2_PROMPTS = (256, 300, 512, 600, 1024)
+INTERNVL2_LENGTHS = (256, 512)
+MUSICGEN_PROMPTS = (64, 128, 256, 512, 600, 1024)
+MUSICGEN_LENGTHS = (32, 512)
+MODALITY_REQUESTS = 8
+MODALITY_BUDGETS = (16, 32)
+MODALITY_EVICT_STEP = 4  # the first prompt's request (slot 0): its re-prefill is prompt + generated
+MODALITY_MAX_LEN = 1088  # the longest prompt and 32 new tokens, with room
+MODALITY_PLANTED_PROMPTS = (256, 512)  # a planted fault's two requests: aligned, so no replays to wait for
+MODALITY_REPLAYED = [600]  # the prompt lengths that may replay
+
+
+def modality_serve(card_line: str, dev, name: str, model, exact, prompts: tuple, lengths: tuple, seed: int,
+                   rows: int) -> dict:
+    """The engine over the bf16 ``model`` (:func:`serve_run`) on
+    ``MODALITY_REQUESTS`` requests (prompts ``prompts`` and random ones
+    over ``lengths``, a vision model's each with its own
+    ``vision_embeds``; budgets 16-32; one live request evicted at step
+    ``MODALITY_EVICT_STEP``), every request ``done``, each prefill's split
+    recorded (only the 600-token prompts may replay, and every prefix holds
+    the image positions), the teacher-forced check against ``exact`` per
+    codebook with each request's extras (:func:`teacher_forced`), the
+    parameter count, and every head's K1 and K6 against their plain
+    versions at B = 1, 8 and the trainer's ``rows``."""
+    params = param_check(name, model)
+    with prefill_splits() as seen:
+        res = serve_run(f"{name}_serve", card_line, model, MODALITY_REQUESTS, lengths, MODALITY_BUDGETS,
+                        fixed=prompts, seed=seed, max_len=MODALITY_MAX_LEN, evict_step=MODALITY_EVICT_STEP,
+                        check=False)
+    row = res["row"]
+    splits = [(p.shape[-1], head) for p, head in seen]
+    replayed = sorted({n for n, head in splits if head < n})
+    row["prefills"] = {"attn_chunk": model.cfg.attn_chunk, "n_vision_tokens": model.cfg.n_vision_tokens,
+                       "prefills": splits, "replayed_lengths": replayed,
+                       "replayed_tokens": sum(n - head for n, head in splits)}
+    require(len(splits) == MODALITY_REQUESTS + 1, f"{name}: {len(splits)} prefills, want one a request and the "
+                                                  f"eviction's: {row['prefills']}")
+    require(replayed == MODALITY_REPLAYED, f"{name}: replayed prompts {replayed}, want only {MODALITY_REPLAYED}")
+    require(all(head >= model.cfg.n_vision_tokens for _, head in splits), f"{name}: a prefix without every image "
+                                                                          f"position: {row['prefills']}")
+    row["teacher_forced"] = teacher_forced(model, res["engine"], res["rids"], res["prompts"],
+                                           SERVE_TOL[model.cfg.dtype], exact=exact, extras=res["extras"])
+    row.update(params)
+    row["head_checks"] = arch_heads(card_line, dev, name, model, rows)
+    log({"phase": f"{name}_serve_summary", "card": card_line, **params,
+         **{k: row[k] for k in ("tokens_per_s", "ttft_p50_s", "tpot_p50_s", "prefill_s", "decode_s", "wall_s",
+                                "max_memory_allocated_gb", "launches", "teacher_forced", "prefills")},
+         "head_k1_rel_err": max(c["k1_rel_err"] for c in row["head_checks"])})
+    return res
+
+
+def modality(card_line: str, dev) -> dict:
+    """Phase 17, slice 12: internvl2-2b (vision) and musicgen-medium (four
+    codebooks, sinusoidal positions) at their published widths and full
+    depth with the FAµST unembedding (module docstring); every model freed
+    before the next."""
+    out = {}
+    with _fresh_tables("chip_smoke_modality_autotune"):
+        out["internvl2_train"] = arch_train(card_line, "internvl2", INTERNVL2_TRAIN_ARGV, per_step=1)
+        out["musicgen_train"] = arch_train(card_line, "musicgen", MUSICGEN_TRAIN_ARGV, per_step=4)
+        serving = (("internvl2_2b", "internvl2", INTERNVL2_PROMPTS, INTERNVL2_LENGTHS, 31, "vision_ignored",
+                    INTERNVL2_TRAIN_ARGV),
+                   ("musicgen_medium", "musicgen", MUSICGEN_PROMPTS, MUSICGEN_LENGTHS, 32, "sinusoid_at_zero",
+                    MUSICGEN_TRAIN_ARGV))
+        for arch, name, prompts, lengths, seed, fault, argv in serving:
+            rows = int(argv[argv.index("--batch") + 1]) * int(argv[argv.index("--seq") + 1])
+            model = _lm(arch_config(arch), dev)
+            exact = exact_copy(model)
+            out[f"{name}_serve"] = modality_serve(card_line, dev, name, model, exact, prompts, lengths, seed,
+                                                  rows)["row"]
+            out[f"{name}_planted"] = planted_serve(card_line, name, model, exact, fault, MODALITY_PLANTED_PROMPTS,
+                                                   MODALITY_MAX_LEN)
+            del model, exact
+            _free()
+    launches = {}
+    for row in (out["internvl2_train"], out["musicgen_train"], out["internvl2_serve"], out["musicgen_serve"]):
+        for k, v in row["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    out["launches"] = launches
+    log({"phase": "modality", "card": card_line, "launches": launches})
+    return out
+
+
 def _kernel_entry(name, source, replaces, launches, cases, checks, card_line, head) -> dict:
     first = next(r for r in cases if all(r.get(k) == v for k, v in head.items()))
     keys = ("chain", "quant", "dtype", "batch", "bt", "launches_per_apply", "max_abs_err", "ms", "cold_ms",
@@ -3778,6 +3998,7 @@ def main() -> int:
     serve_launches = {**srv["engine"]["launches"], "chain_matmul_q": srv["stream"]["k4_launches"]}
     arch = archs(info["card"], dev)
     ssm = ssm_archs(info["card"], dev)
+    mod = modality(info["card"], dev)
 
     src = "src/repro_torch/kernels/csrc/"
     f32_b128 = {"dtype": "float32", "batch": 128}
@@ -3816,9 +4037,10 @@ def main() -> int:
             k["serve_launches"] = serve_launches[k["name"]]
         if k["name"] in resilient_launches:
             k["train_resilient_launches"] = resilient_launches[k["name"]]
-        if k["name"] in ("chain_matmul", "bsr_matmul", "chain_dgrad", "chain_wgrad"):  # slices 10, 11: phases 15, 16
+        if k["name"] in ("chain_matmul", "bsr_matmul", "chain_dgrad", "chain_wgrad"):  # slices 10-12: phases 15-17
             k["archs_launches"] = arch["launches"][k["name"]]
             k["ssm_archs_launches"] = ssm["launches"][k["name"]]
+            k["modality_launches"] = mod["launches"][k["name"]]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(info["card"], flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

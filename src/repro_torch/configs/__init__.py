@@ -3,21 +3,16 @@
 
 The port trains and serves the ``"attn"``, ``"local"`` (sliding-window),
 ``"moe"``, ``"ssm"`` (mamba2) and ``"shared"`` layer kinds with partial
-rotary, so it holds eight of the reference's ten architectures; the other
-two need a modality front end that comes with a later slice, and asking
-for one raises, naming what it needs.
+rotary and the two modality front ends (internvl2's vision embeddings,
+musicgen's codebooks with sinusoidal positions), so it holds all ten of
+the reference's architectures.
 """
 from __future__ import annotations
 
 import importlib
 
-ARCH_IDS = ["mamba2_2p7b", "gemma3_27b", "gemma_2b", "nemotron4_15b", "chatglm3_6b", "llama4_maverick",
-            "granite_moe_3b", "zamba2_7b"]
-# the reference's other architectures, and what each still needs
-LATER = {
-    "internvl2_2b": "the vision front end (n_vision_tokens)",
-    "musicgen_medium": "the audio front end (n_codebooks > 1)",
-}
+ARCH_IDS = ["mamba2_2p7b", "gemma3_27b", "gemma_2b", "nemotron4_15b", "chatglm3_6b", "internvl2_2b",
+            "llama4_maverick", "granite_moe_3b", "musicgen_medium", "zamba2_7b"]
 ALIASES = {
     "mamba2-2.7b": "mamba2_2p7b",
     "gemma3-27b": "gemma3_27b",
@@ -34,8 +29,6 @@ ALIASES = {
 
 def _module(name: str):
     name = ALIASES.get(name, name)
-    if name in LATER:
-        raise NotImplementedError(f"arch {name!r} needs {LATER[name]}, which the port has not reached yet")
     if name not in ARCH_IDS:
         raise KeyError(f"unknown arch {name!r}; known: {ARCH_IDS}")
     return importlib.import_module(f"repro_torch.configs.{name}")

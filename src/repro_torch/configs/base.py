@@ -6,7 +6,10 @@ the reference.  Layer kinds: ``"attn"`` (global attention + FFN),
 ``"local"`` (sliding-window attention + FFN), ``"moe"`` (global attention
 + MoE FFN), ``"ssm"`` (a mamba2 block, ``ssm``'s :class:`Mamba2Spec`) and
 ``"shared"`` (zamba2's attention + FFN block, one parameter set run at
-every such position).  The reference's sharding policies have no
+every such position).  ``n_codebooks > 1`` (audio) sums that many token
+embeddings, adds sinusoidal positions and predicts each codebook with its
+own head; ``n_vision_tokens`` (vlm) replaces the first positions with
+precomputed patch embeddings.  The reference's sharding policies have no
 counterpart yet (multi-GPU is a later slice): :func:`check_supported`
 names what a config needs that the port does not have.
 :func:`param_count` and :func:`active_param_count` are the reference's
@@ -76,23 +79,16 @@ class ArchConfig:
 
 
 def check_supported(cfg: ArchConfig) -> None:
-    """Raise ``NotImplementedError`` naming the later slice a config needs."""
-    needs = []
-    if cfg.n_codebooks > 1:
-        needs.append("the audio front end (n_codebooks > 1)")
-    if cfg.n_vision_tokens:
-        needs.append("the vision front end (n_vision_tokens)")
+    """Raise ``NotImplementedError`` for a layer kind the reference does
+    not have, ``ValueError`` for a ``moe``/``ssm`` layer without its spec."""
     bad = sorted(set(cfg.layer_kinds()) - set(SUPPORTED_KINDS))
-    if bad:
-        needs.append(f"layer kinds {bad}")
     if "moe" in cfg.layer_kinds() and cfg.moe is None:
         raise ValueError(f"{cfg.name}: moe layers need a MoESpec (moe)")
     if "ssm" in cfg.layer_kinds() and cfg.ssm is None:
         raise ValueError(f"{cfg.name}: ssm layers need a Mamba2Spec (ssm)")
-    if needs:
+    if bad:
         raise NotImplementedError(
-            f"{cfg.name}: the port trains and serves {SUPPORTED_KINDS} layers; "
-            f"this config needs {', '.join(needs)}, which come with later slices"
+            f"{cfg.name}: the port trains and serves {SUPPORTED_KINDS} layers; this config needs layer kinds {bad}"
         )
 
 

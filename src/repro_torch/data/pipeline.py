@@ -51,11 +51,18 @@ def _synthetic_tokens(rng: np.random.Generator, shape, vocab: int) -> np.ndarray
 
 
 def global_batch(cfg: DataConfig, step: int) -> dict[str, np.ndarray]:
-    """The global batch of ``step`` as numpy: ``{"tokens": (B, S) int32}``."""
-    if cfg.n_codebooks > 1 or cfg.n_vision_tokens:
-        raise NotImplementedError("audio and vision batches come with the modality front ends (a later slice)")
+    """The global batch of ``step`` as numpy: ``{"tokens": (B, S) int32}``
+    (``(B, K, S)`` with ``K = n_codebooks > 1``), and ``"vision_embeds"
+    (B, n_vision_tokens, d_model)`` f32 for a vision config."""
     rng = _batch_rng(cfg, step)
-    return {"tokens": _synthetic_tokens(rng, (cfg.global_batch, cfg.seq_len), cfg.vocab)}
+    shape = (cfg.global_batch, cfg.seq_len)
+    if cfg.n_codebooks > 1:
+        shape = (cfg.global_batch, cfg.n_codebooks, cfg.seq_len)
+    batch = {"tokens": _synthetic_tokens(rng, shape, cfg.vocab)}
+    if cfg.n_vision_tokens:
+        embeds = rng.standard_normal((cfg.global_batch, cfg.n_vision_tokens, cfg.d_model), dtype=np.float32)
+        batch["vision_embeds"] = embeds * np.float32(0.02)
+    return batch
 
 
 class DataIterator:

@@ -1,8 +1,8 @@
 """Serving example: batched prefill and greedy decode on ``--arch``'s
 smoke config, through :class:`repro_torch.runtime.server.Server`.
 Counterpart of the reference's ``examples/serve_lm.py``; ``--arch``
-takes every architecture the port serves (gemma-2b, chatglm3-6b,
-nemotron-4-15b, gemma3-27b, granite-moe-3b, llama4-maverick).
+takes every architecture of the reference (internvl2-2b with its stand-in
+``vision_embeds``, musicgen-medium's codebooks: tokens ``(B, K, n)``).
 
     python -m repro_torch.examples.serve_lm [--arch gemma3_27b] [--device cpu]
 """
@@ -29,7 +29,7 @@ def main(argv=None):
     model = LM(cfg, seed=0, device=args.device)
     data_cfg = DataConfig(vocab=cfg.vocab, seq_len=args.prompt_len, global_batch=args.batch,
                           n_codebooks=cfg.n_codebooks, n_vision_tokens=cfg.n_vision_tokens, d_model=cfg.d_model)
-    batch = {"tokens": global_batch(data_cfg, 0)["tokens"]}
+    batch = global_batch(data_cfg, 0)  # tokens, and a vision model's vision_embeds
     server = Server(model, max_len=args.prompt_len + args.new_tokens)
     gen, stats = server.generate(batch, args.new_tokens)
     print(f"arch={cfg.name} generated {gen.shape} tokens")

@@ -5,6 +5,8 @@
     python -m repro_torch.launch.serve --arch gemma_2b --batch 4 \\
         --prompt-len 64 --new-tokens 32                  # on the CUDA card
     python -m repro_torch.launch.serve --arch gemma_2b --smoke --device cpu
+    python -m repro_torch.launch.serve --arch internvl2_2b --smoke \
+        --prompt-len 16 --device cpu     # prompts of at least n_vision_tokens
 
 Without ``--device`` it runs on the card and raises when there is none.
 """
@@ -41,7 +43,7 @@ def main(argv=None):
         n_vision_tokens=cfg.n_vision_tokens,
         d_model=cfg.d_model,
     )
-    batch = {"tokens": global_batch(data_cfg, 0)["tokens"]}
+    batch = global_batch(data_cfg, 0)  # tokens, and a vision model's vision_embeds
     server = Server(model, max_len=args.prompt_len + args.new_tokens)
     gen, stats = server.generate(batch, args.new_tokens)
     print(f"generated shape: {gen.shape}")

@@ -1,5 +1,7 @@
 """Token embedding and the unembedding (dense, FAµST or tied).
-Counterpart of :mod:`repro.layers.embedding`."""
+Counterpart of :mod:`repro.layers.embedding`, with the reference's
+per-codebook stacking (``repro.models.lm._init_annotated``): ``n`` tables
+``(n, vocab, d_model)`` and ``n`` heads, each applied on its own."""
 from __future__ import annotations
 
 import math
@@ -7,7 +9,7 @@ import math
 import torch
 from torch import nn
 
-from repro_torch.layers.faust_linear import FaustLinear, FaustSpec
+from repro_torch.layers.faust_linear import FaustLinear, FaustSpec, StackedFaustLinear
 
 
 def dense_param(in_dim: int, out_dim: int, *, generator, dtype, device, scale: float = 1.0) -> nn.Parameter:
@@ -18,14 +20,22 @@ def dense_param(in_dim: int, out_dim: int, *, generator, dtype, device, scale: f
 
 
 class Embedding(nn.Module):
-    """``table (vocab, d_model)`` of N(0, 1) values."""
+    """``table (vocab, d_model)`` of N(0, 1) values, or with ``n > 1``
+    codebooks ``table (n, vocab, d_model)``, one table per codebook."""
 
-    def __init__(self, vocab: int, d_model: int, *, generator, dtype, device):
+    def __init__(self, vocab: int, d_model: int, *, generator, dtype, device, n: int = 1):
         super().__init__()
-        t = torch.randn((vocab, d_model), generator=generator, dtype=torch.float32, device=generator.device)
+        shape = (vocab, d_model) if n == 1 else (n, vocab, d_model)
+        t = torch.randn(shape, generator=generator, dtype=torch.float32, device=generator.device)
         self.table = nn.Parameter(t.to(device=device, dtype=dtype))
 
     def forward(self, tokens: torch.Tensor, scale_by_sqrt_dim: bool = False) -> torch.Tensor:
+        """``tokens (...)`` → ``(..., d_model)``; with codebooks ``tokens
+        (B, n, S)`` → ``(B, S, d_model)``, the sum over the codebooks of
+        ``table[k, tokens[b, k, s]]`` in the table's dtype."""
+        if self.table.ndim == 3:
+            k = torch.arange(self.table.shape[0], device=tokens.device)[None, :, None]
+            return self.table[k, tokens.long()].sum(dim=1)
         x = self.table[tokens.long()]
         if scale_by_sqrt_dim:
             x = x * math.sqrt(self.table.shape[-1])
@@ -33,16 +43,26 @@ class Embedding(nn.Module):
 
 
 class Unembed(nn.Module):
-    """Logits ``(..., vocab)``: ``x @ w``, or a :class:`FaustLinear` (``faust``)."""
+    """Logits ``(..., vocab)``: ``x @ w``, or a :class:`FaustLinear`
+    (``faust``).  With ``n > 1`` heads (one per codebook) the parameters
+    are stacked, ``w (n, d_model, vocab)`` or a :class:`StackedFaustLinear`,
+    and ``forward(x, head)`` applies one of them."""
 
-    def __init__(self, d_model: int, vocab: int, faust: FaustSpec | None, *, generator, dtype, device):
+    def __init__(self, d_model: int, vocab: int, faust: FaustSpec | None, *, generator, dtype, device, n: int = 1):
         super().__init__()
+        self.n = n
         if faust is None:
-            self.w = dense_param(d_model, vocab, generator=generator, dtype=dtype, device=device)
-        else:
+            ws = [dense_param(d_model, vocab, generator=generator, dtype=dtype, device=device) for _ in range(n)]
+            self.w = ws[0] if n == 1 else nn.Parameter(torch.stack([w.detach() for w in ws]))
+        elif n == 1:
             self.faust = FaustLinear(d_model, vocab, faust, generator=generator, dtype=dtype, device=device)
+        else:
+            self.faust = StackedFaustLinear(d_model, vocab, faust, n, generator=generator, dtype=dtype,
+                                            device=device)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, head: int | None = None) -> torch.Tensor:
+        if self.n > 1:
+            return self.faust(x, head) if hasattr(self, "faust") else x @ self.w[head]
         if hasattr(self, "faust"):
             return self.faust(x)
         return x @ self.w

@@ -11,7 +11,10 @@ from the live parameters and applies it through
 ``FaustOp`` from its params on every apply: ``auto`` dispatch prices the
 training apply, the fused backend packs the live values (its backward runs
 the chain backward kernels), and an optimizer step is seen by the next
-forward.  Sharded placement (the reference's ``FaustSpec.shard``) comes
+forward.  :class:`StackedFaustLinear` holds ``n`` such projections of one
+layout stacked on a leading axis (musicgen's per-codebook heads, as the
+reference stacks them) and applies one of them at a time, each its own
+chain.  Sharded placement (the reference's ``FaustSpec.shard``) comes
 with the multi-GPU slice.
 """
 from __future__ import annotations
@@ -70,11 +73,19 @@ def factorize_spec(spec: FaustSpec, n_iter_two: int = 40, n_iter_global: int = 4
 
 
 class _Factor(nn.Module):
-    def __init__(self, f: BlockSparseFactor):
+    def __init__(self, values: torch.Tensor, in_idx: torch.Tensor, in_features: int, out_features: int):
         super().__init__()
-        self.values = nn.Parameter(f.values)
-        self.register_buffer("in_idx", f.in_idx)
-        self.in_features, self.out_features = f.in_features, f.out_features
+        self.values = nn.Parameter(values)
+        self.register_buffer("in_idx", in_idx)
+        self.in_features, self.out_features = in_features, out_features
+
+
+def _supports_generator(generator: torch.Generator) -> torch.Generator:
+    """A CPU generator seeded from ``generator``: the supports are drawn on the CPU."""
+    if generator.device.type == "cpu":
+        return generator
+    seed = torch.randint(2**62, (1,), generator=generator, device=generator.device)
+    return torch.Generator().manual_seed(int(seed))
 
 
 class FaustLinear(nn.Module):
@@ -97,14 +108,13 @@ class FaustLinear(nn.Module):
         dev = resolve_device(device)
         self.in_dim, self.out_dim, self.spec, self.backend = in_dim, out_dim, spec, backend
         dims = spec.chain_dims(in_dim, out_dim)
-        if generator.device.type != "cpu":  # the supports are drawn on the CPU
-            seed = torch.randint(2**62, (1,), generator=generator, device=generator.device)
-            generator = torch.Generator().manual_seed(int(seed))
-        self.factors = nn.ModuleList(
-            _Factor(random_block_factor(dims[i], dims[i + 1], spec.block, spec.block, spec.k,
-                                        generator=generator, dtype=dtype, device=dev))
-            for i in range(spec.n_factors)
-        )
+        generator = _supports_generator(generator)
+        factors = []
+        for i in range(spec.n_factors):
+            f = random_block_factor(dims[i], dims[i + 1], spec.block, spec.block, spec.k,
+                                    generator=generator, dtype=dtype, device=dev)
+            factors.append(_Factor(f.values, f.in_idx, f.in_features, f.out_features))
+        self.factors = nn.ModuleList(factors)
         self.lam = nn.Parameter(torch.ones((), dtype=dtype, device=dev))
 
     def blockfaust(self) -> BlockFaust:
@@ -115,7 +125,55 @@ class FaustLinear(nn.Module):
         )
 
     def forward(self, x: torch.Tensor, backend: str | None = None) -> torch.Tensor:
+        return self._apply_chain(self.blockfaust(), x, backend)
+
+    def _apply_chain(self, bf: BlockFaust, x: torch.Tensor, backend: str | None) -> torch.Tensor:
         from repro_torch.api.operator import FaustOp
 
-        op = FaustOp(self.blockfaust())
-        return op.apply(x, backend or self.backend, device=x.device)
+        return FaustOp(bf).apply(x, backend or self.backend, device=x.device)
+
+
+class StackedFaustLinear(FaustLinear):
+    """``n`` projections ``y = x @ (λ_h · F_h1 ⋯ F_hJ)`` of one layout,
+    stacked: ``factors.{i}.values (n, O, K, blk, blk)``,
+    ``factors.{i}.in_idx (n, O, K)`` and ``lam (n,)``, the reference's
+    stacked parameter tree (``stack_annotated`` of ``n`` inits).  Head
+    ``h`` is applied on its own chain, views of the stacked tensors."""
+
+    def __init__(
+        self,
+        in_dim: int,
+        out_dim: int,
+        spec: FaustSpec,
+        n: int,
+        *,
+        generator: torch.Generator,
+        dtype: torch.dtype = torch.float32,
+        device=None,
+        backend: str = "auto",
+    ):
+        nn.Module.__init__(self)
+        dev = resolve_device(device)
+        self.in_dim, self.out_dim, self.spec, self.backend, self.n = in_dim, out_dim, spec, backend, n
+        dims = spec.chain_dims(in_dim, out_dim)
+        generator = _supports_generator(generator)
+        heads = [[random_block_factor(dims[i], dims[i + 1], spec.block, spec.block, spec.k,
+                                      generator=generator, dtype=dtype, device=dev)
+                  for i in range(spec.n_factors)] for _ in range(n)]
+        self.factors = nn.ModuleList(
+            _Factor(torch.stack([h[i].values for h in heads]), torch.stack([h[i].in_idx for h in heads]),
+                    dims[i], dims[i + 1])
+            for i in range(spec.n_factors)
+        )
+        self.lam = nn.Parameter(torch.ones((n,), dtype=dtype, device=dev))
+
+    def blockfaust(self, head: int) -> BlockFaust:
+        """Head ``head``'s chain on views of the live parameters (no copy)."""
+        return BlockFaust(
+            tuple(BlockSparseFactor(f.values[head], f.in_idx[head], f.in_features, f.out_features)
+                  for f in self.factors),
+            self.lam[head],
+        )
+
+    def forward(self, x: torch.Tensor, head: int, backend: str | None = None) -> torch.Tensor:
+        return self._apply_chain(self.blockfaust(head), x, backend)

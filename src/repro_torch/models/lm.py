@@ -6,7 +6,7 @@
 (global attention + FFN), ``"local"`` (sliding-window attention + FFN),
 ``"moe"`` (global attention + MoE FFN), ``"ssm"`` (mamba2) and
 ``"shared"`` (zamba2's shared attention block) layer kinds, with partial
-rotary.
+rotary and the two modality front ends.
 
 The reference stacks every layer's parameters on a leading axis and scans
 over them; here the layers are an ``nn.ModuleList`` run in a Python loop,
@@ -24,8 +24,21 @@ position, whose list entry is a :class:`SharedSlot` without parameters),
 :mod:`repro_torch.bridge` maps one onto the other.  The layers run in
 ``cfg.layer_kinds()`` order (the stages unrolled).  The loss adds every
 MoE layer's load-balancing term to the cross entropy, as the reference's.
-The modality front ends come with a later slice
-(:func:`repro_torch.configs.base.check_supported`).
+
+Modality front ends, stubs as in the reference (no ViT, no EnCodec):
+
+* audio (``n_codebooks`` K > 1): tokens ``(B, K, S)``; ``embed.table (K,
+  V, d)`` summed over the codebooks, plus sinusoidal positions computed in
+  f32 from ``pos0`` (0 in train and prefill, each row's cache position in
+  decode) and cast; K heads, stacked as the reference stacks them
+  (``unembed.w (K, d, V)`` or every ``unembed.faust`` leaf with a leading
+  K), each applied on its own; logits ``(B, S, K, V)``; the loss over
+  every codebook's next token;
+* vision (``n_vision_tokens`` nv): ``vision_embeds (B, nv, d)`` replace the
+  first nv positions in train and prefill, cast to the activation dtype.
+  A sequence shorter than nv raises ``ValueError``: the reference's
+  ``concatenate`` lengthens it to nv positions instead (reference caveat
+  R6 in ROADMAP.md).
 
 Serving: :func:`make_caches` gives one cache per layer in a list (the
 layers are unrolled, so there is no repeat axis): a :class:`MambaCache`
@@ -169,7 +182,7 @@ class LM(nn.Module):
         dtype = DTYPES[cfg.dtype]
         gen = torch.Generator(device=dev).manual_seed(seed)
         kw = dict(generator=gen, dtype=dtype, device=dev)
-        self.embed = Embedding(cfg.vocab, cfg.d_model, **kw)
+        self.embed = Embedding(cfg.vocab, cfg.d_model, n=cfg.n_codebooks, **kw)
         kinds = cfg.layer_kinds()
         self.layers = nn.ModuleList(
             SSMLayer(cfg, **kw) if kind == "ssm" else SharedSlot() if kind == "shared" else Layer(cfg, kind, **kw)
@@ -178,33 +191,61 @@ class LM(nn.Module):
             self.shared = Layer(cfg, "attn", **kw)
         self.final_norm = norm_params(cfg.norm, cfg.d_model, dtype, dev)
         if not cfg.tie_embeddings:
-            self.unembed = Unembed(cfg.d_model, cfg.vocab, cfg.faust_unembed, **kw)
+            self.unembed = Unembed(cfg.d_model, cfg.vocab, cfg.faust_unembed, n=cfg.n_codebooks, **kw)
 
-    def _embed_tokens(self, tokens: torch.Tensor) -> torch.Tensor:
-        x = self.embed(tokens).to(DTYPES[self.cfg.dtype])
+    def _embed_tokens(self, tokens: torch.Tensor, pos0=0) -> torch.Tensor:
+        """``(B, S, d)`` in the activation dtype; with codebooks the summed
+        embeddings plus the sinusoid at positions ``pos0 + [0, S)``
+        (``pos0`` an int or per-row ``(B,)``)."""
+        dt = DTYPES[self.cfg.dtype]
+        x = self.embed(tokens).to(dt)
+        if self.cfg.n_codebooks > 1:
+            return x + sinusoid(self.cfg.d_model, pos0, tokens.shape[-1], x.device).to(dt)
         if self.cfg.scale_embed:
             x = x * math.sqrt(self.cfg.d_model)  # a Python float keeps x's dtype
         return x
 
+    def _front(self, tokens: torch.Tensor, vision_embeds: torch.Tensor | None) -> torch.Tensor:
+        """The embedded sequence of train and prefill: positions from 0,
+        and ``vision_embeds (B, nv, d)`` in place of the first nv."""
+        x = self._embed_tokens(tokens)
+        nv = self.cfg.n_vision_tokens
+        if not nv:
+            if vision_embeds is not None:
+                raise ValueError(f"{self.cfg.name} takes no vision_embeds")
+            return x
+        if vision_embeds is None:
+            raise ValueError(f"{self.cfg.name} needs vision_embeds (B, {nv}, {self.cfg.d_model})")
+        if tuple(vision_embeds.shape) != (x.shape[0], nv, x.shape[-1]):
+            raise ValueError(f"vision_embeds {tuple(vision_embeds.shape)}, want {(x.shape[0], nv, x.shape[-1])}")
+        if x.shape[1] < nv:  # reference caveat R6: the reference lengthens the sequence to nv
+            raise ValueError(f"a sequence of {x.shape[1]} positions is shorter than the {nv} vision tokens")
+        return torch.cat([vision_embeds.to(x.dtype), x[:, nv:]], dim=1)
+
     def _logits(self, x: torch.Tensor) -> torch.Tensor:
+        if self.cfg.n_codebooks > 1:  # (B, S, K, V): one head per codebook
+            return torch.stack([self.unembed(x, k) for k in range(self.cfg.n_codebooks)], dim=-2).float()
         tied = self.embed.table if self.cfg.tie_embeddings else None
         return unembed_apply(getattr(self, "unembed", None), x, tied).float()
 
-    def forward_train(self, tokens: torch.Tensor, chunk: int | None = None) -> torch.Tensor:
-        """f32 logits ``(B, S, vocab)`` of ``tokens (B, S)``.  ``chunk``,
-        when given, is the chunk of every chunked path (attention's keys
-        and the SSD); each defaults to its config's (``cfg.attn_chunk``,
-        ``cfg.ssm.chunk``).  A sequence longer than a chunk must be a
-        multiple of it."""
-        return self._forward_train(tokens, chunk)[0]
+    def forward_train(self, tokens: torch.Tensor, chunk: int | None = None,
+                      vision_embeds: torch.Tensor | None = None) -> torch.Tensor:
+        """f32 logits ``(B, S, vocab)`` of ``tokens (B, S)`` (audio: ``(B,
+        S, K, vocab)`` of ``(B, K, S)``; vision: with ``vision_embeds``).
+        ``chunk``, when given, is the chunk of every chunked path
+        (attention's keys and the SSD); each defaults to its config's
+        (``cfg.attn_chunk``, ``cfg.ssm.chunk``).  A sequence longer than a
+        chunk must be a multiple of it."""
+        return self._forward_train(tokens, chunk, vision_embeds)[0]
 
     def _layer(self, layer: nn.Module) -> nn.Module:
         """The module that runs at ``layer``'s position."""
         return self.shared if layer.kind == "shared" else layer
 
-    def _forward_train(self, tokens: torch.Tensor, chunk: int | None = None):
+    def _forward_train(self, tokens: torch.Tensor, chunk: int | None = None,
+                       vision_embeds: torch.Tensor | None = None):
         """The logits and the f32 sum of the MoE layers' aux losses."""
-        x = self._embed_tokens(tokens)
+        x = self._front(tokens, vision_embeds)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for layer in self.layers:
             layer = self._layer(layer)
@@ -224,27 +265,37 @@ class LM(nn.Module):
             new.append(cache)
         return apply_norm(self.cfg.norm, self.final_norm, x), new
 
-    def prefill(self, tokens: torch.Tensor, caches: list[Cache]):
-        """``tokens (B, S)`` through the model into ``caches``: the last
-        position's f32 logits ``(B, 1, vocab)`` and the filled caches.
-        ``S`` must be a length every chunked path takes whole
-        (:func:`prefill_length`), or the SSD or attention raises."""
-        x, new = self._run(self._embed_tokens(tokens), PREFILL, caches)
+    def prefill(self, tokens: torch.Tensor, caches: list[Cache], vision_embeds: torch.Tensor | None = None):
+        """``tokens (B, S)`` (audio: ``(B, K, S)``; vision: with
+        ``vision_embeds``) through the model into ``caches``: the last
+        position's f32 logits ``(B, 1, vocab)`` (audio: ``(B, 1, K,
+        vocab)``) and the filled caches.  ``S`` must be a length every
+        chunked path takes whole (:func:`prefill_length`), or the SSD or
+        attention raises."""
+        x, new = self._run(self._front(tokens, vision_embeds), PREFILL, caches)
         return self._logits(x[:, -1:]), new
 
     def decode_step(self, tokens: torch.Tensor, caches: list[Cache]):
-        """One token per row, ``tokens (B, 1)``, each row at its cache's
-        position: f32 logits ``(B, 1, vocab)`` and the new caches."""
-        x, new = self._run(self._embed_tokens(tokens), DECODE, caches)
+        """One token per row, ``tokens (B, 1)`` (audio: ``(B, K, 1)``), each
+        row at its cache's position (the first layer's ``pos``, which the
+        audio sinusoid reads): f32 logits ``(B, 1, vocab)`` (audio: ``(B,
+        1, K, vocab)``) and the new caches."""
+        x, new = self._run(self._embed_tokens(tokens, caches[0].pos), DECODE, caches)
         return self._logits(x), new
 
     def train_loss(self, batch: dict) -> tuple[torch.Tensor, dict]:
-        """Mean next-token cross entropy plus the MoE layers' aux losses:
-        ``(loss, {"loss", "ce", "aux"})``."""
+        """Mean next-token cross entropy (over every codebook's) plus the
+        MoE layers' aux losses: ``(loss, {"loss", "ce", "aux"})``.
+        ``batch`` holds ``tokens`` and, for a vision model,
+        ``vision_embeds``."""
         tokens = batch["tokens"]
-        logits, aux = self._forward_train(tokens)
-        labels = tokens[:, 1:].long()
-        lg = logits[:, :-1]
+        logits, aux = self._forward_train(tokens, vision_embeds=batch.get("vision_embeds"))
+        if self.cfg.n_codebooks > 1:
+            labels = tokens[:, :, 1:].long()  # (B, K, S-1)
+            lg = logits[:, :-1].transpose(1, 2)  # (B, K, S-1, V)
+        else:
+            labels = tokens[:, 1:].long()
+            lg = logits[:, :-1]
         lse = torch.logsumexp(lg, dim=-1)
         gold = torch.gather(lg, -1, labels[..., None])[..., 0]
         ce = torch.mean(lse - gold)
@@ -285,9 +336,26 @@ def prefill_length(cfg: ArchConfig, n: int) -> int:
     the decode step.  The reference aligns to ``attn_chunk`` alone, so it
     raises in the SSD where ``attn_chunk`` is no multiple of ``ssm.chunk``
     (mamba2's 512 over 256: prompts of 257–511 tokens not a multiple of
-    256)."""
+    256).  A vision model's prefix must hold every image position, so a
+    prefix shorter than ``n_vision_tokens`` raises ``ValueError``."""
     chunks = [cfg.attn_chunk] + ([cfg.ssm.chunk] if "ssm" in cfg.layer_kinds() else [])
-    return next(m for m in range(n, 0, -1) if all(m <= c or m % c == 0 for c in chunks))
+    m = next(m for m in range(n, 0, -1) if all(m <= c or m % c == 0 for c in chunks))
+    if m < cfg.n_vision_tokens:
+        raise ValueError(f"{cfg.name}: a prefill of {m} of {n} tokens would leave out vision positions "
+                         f"(n_vision_tokens {cfg.n_vision_tokens})")
+    return m
+
+
+def sinusoid(d_model: int, pos0, s: int, device) -> torch.Tensor:
+    """The f32 sinusoidal positions ``pos0 + [0, s)``: ``(s, d_model)`` for
+    an int ``pos0``, ``(B, s, d_model)`` for a per-row ``(B,)`` one; sines
+    over the first half of the features, cosines over the second, at
+    frequencies ``10000^(-i/half)``."""
+    pos = torch.as_tensor(pos0, device=device)[..., None] + torch.arange(s, device=device)
+    half = d_model // 2
+    freq = torch.exp(-math.log(10000.0) * torch.arange(half, dtype=torch.float32, device=device) / half)
+    ang = pos[..., None].to(torch.float32) * freq
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
 
 
 def gather_cache_slots(caches: list[Cache], slot_idx: torch.Tensor) -> list[Cache]:

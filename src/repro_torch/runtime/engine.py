@@ -302,9 +302,20 @@ class Executor(Protocol):
 
 
 def _faust_head(model):
-    """The LM's FAµST unembedding (a FaustLinear), or None."""
+    """The LM's FAµST unembedding (a FaustLinear, or a StackedFaustLinear of
+    per-codebook heads), or None."""
     head = getattr(model, "unembed", None)
     return None if model.cfg.faust_unembed is None or head is None else getattr(head, "faust", None)
+
+
+def _single_head(model, what: str):
+    """:func:`_faust_head`, refusing stacked per-codebook heads for ``what``."""
+    from repro_torch.layers.faust_linear import StackedFaustLinear
+
+    head = _faust_head(model)
+    if isinstance(head, StackedFaustLinear):
+        raise NotImplementedError(f"{what} of stacked per-codebook heads")
+    return head
 
 
 def unembed_blockfaust(model):
@@ -312,8 +323,9 @@ def unembed_blockfaust(model):
     :class:`~repro_torch.core.compress.BlockFaust` on detached views of the
     live parameters (None for a dense or tied head) — what
     :func:`repro_torch.streaming.swap.hot_swap` classifies a refresh
-    against."""
-    head = _faust_head(model)
+    against.  Stacked per-codebook heads (musicgen) raise
+    ``NotImplementedError``, as their hot-swap does."""
+    head = _single_head(model, "the published chain")
     if head is None:
         return None
     bf = head.blockfaust()
@@ -327,10 +339,12 @@ def swap_unembed(model, bf) -> None:
     support and λ become *new* tensors on the model's device in the head's
     dtype; the old ones are not written, so a chain taken before the swap
     keeps its values.  The next apply builds its operator (and packs the
-    fused layout) from the new tensors, whether the support moved or not."""
+    fused layout) from the new tensors, whether the support moved or not.
+    Stacked per-codebook heads raise ``NotImplementedError``, as the
+    reference's swap does."""
     import torch
 
-    head = _faust_head(model)
+    head = _single_head(model, "hot-swap")
     if head is None:
         raise ValueError("model has no FAµST unembedding to swap")
     if len(bf.factors) != len(head.factors):
@@ -370,7 +384,12 @@ class LMExecutor:
     recorded (the unembedding's, applied last) lands on
     ``faust_dispatch``.  :meth:`dispatch_for` answers the engine's
     advisory per-step query from the unembedding chain, the projection
-    every decode step pays.
+    every decode step pays (head 0 of per-codebook heads, as the
+    reference).  A prefill passes the request's ``extras`` (a vision
+    model's ``vision_embeds`` row, ``(nv, d)``) to :meth:`LM.prefill` as
+    ``(1, nv, d)`` tensors on the device, on a first admission and on a
+    re-prefill alike; every image position falls in the prefix it
+    prefills whole (:func:`lm.prefill_length`).
     """
 
     def __init__(self, model, max_len: int, n_slots: int):
@@ -392,7 +411,11 @@ class LMExecutor:
         """The unembedding FaustOp (decode's per-step projection) for
         advisory live-batch dispatch queries; None for dense models."""
         from repro_torch.api.operator import FaustOp
+        from repro_torch.layers.faust_linear import StackedFaustLinear
 
+        head = _faust_head(self.model)
+        if isinstance(head, StackedFaustLinear):  # per-codebook heads: query head 0
+            return FaustOp(head.blockfaust(0))
         bf = self.unembed_blockfaust()
         return None if bf is None else FaustOp(bf)
 
@@ -432,8 +455,6 @@ class LMExecutor:
     def prefill_forward(self, slot: int, prompt: np.ndarray, extras: dict):
         from repro_torch.api import dispatch as _dispatch
 
-        if extras:
-            raise NotImplementedError(f"per-request side inputs {sorted(extras)}: the port serves token models")
         torch, lm = self._torch, self._lm
         prompt = np.asarray(prompt)
         # Chunked prefill takes a sequence longer than a chunk only as a
@@ -446,10 +467,11 @@ class LMExecutor:
         # prompt's prefill logits (token-exact by construction).
         aligned = lm.prefill_length(self.cfg, prompt.shape[-1])
         head, tail = prompt[..., :aligned], prompt[..., aligned:]
+        side = {k: torch.as_tensor(np.asarray(v), device=self.device)[None] for k, v in extras.items()}
         mark = _dispatch.last_report()
         with torch.no_grad():
             caches = lm.make_caches(self.cfg, 1, self.max_len, dtype=self._act_dtype, device=self.device)
-            logits, caches = self.model.prefill(self._tokens(head)[None], caches)
+            logits, caches = self.model.prefill(self._tokens(head)[None], caches, **side)
             for p, c in zip(self.pool, caches):
                 for dst, src in zip(p, c):
                     dst[slot:slot + 1] = src
@@ -481,8 +503,10 @@ class LMExecutor:
 
     def sample(self, logits) -> np.ndarray:
         """Greedy argmax of the last position — same slicing contract as
-        ``Server._sample`` (the sequence axis is axis 1)."""
-        return self._lm.greedy_token(logits[:, -1]).reshape(-1, 1).cpu().numpy()
+        ``Server._sample`` (the sequence axis is axis 1): ``(B, 1)``, or
+        ``(B, K, 1)`` for K codebooks."""
+        tok = self._lm.greedy_token(logits[:, -1])  # (B,) or (B, K)
+        return tok.reshape(*tok.shape, 1).cpu().numpy()
 
     def row_finite(self, logits) -> np.ndarray:
         """Per-row all-finite mask of the last position, ``(B,)`` bool —

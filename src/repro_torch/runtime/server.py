@@ -5,7 +5,10 @@
 :class:`~repro_torch.runtime.engine.Request` per row to a fresh
 :class:`~repro_torch.runtime.engine.Engine` whose slot pool is exactly the
 batch, runs it to completion and re-stacks the rows: greedy tokens of
-every row.  Streams of uneven length should use the engine directly.
+every row, ``(B, n)`` or ``(B, K, n)`` for K codebooks.  Every batch key
+but ``tokens`` (a vision model's ``vision_embeds``) is a side input: each
+row's slice rides on its request as ``extras``.  Streams of uneven length
+should use the engine directly.
 
 FAµST projections run through ``FaustOp.apply(backend="auto")`` in every
 forward; the last decision a forward recorded (the unembedding's) is kept
@@ -58,10 +61,12 @@ class Server:
         self._executor: LMExecutor | None = None  # reused across generate()s
 
     def _sample(self, logits: torch.Tensor) -> torch.Tensor:
-        """Greedy next-token pick from one step's logits ``(B, S, V)``: the
-        last position is sliced here, once.  Returns ``(B, 1)`` int32, the
-        shape ``decode_step`` takes."""
-        return lm.greedy_token(logits[:, -1]).reshape(-1, 1)
+        """Greedy next-token pick from one step's logits ``(B, S, V)`` (or
+        ``(B, S, K, V)`` for K codebooks): the last position is sliced here,
+        once.  Returns ``(B, 1)`` (``(B, K, 1)``) int32, the shape
+        ``decode_step`` takes."""
+        tok = lm.greedy_token(logits[:, -1])  # (B,) or (B, K)
+        return tok.reshape(*tok.shape, 1)
 
     def _executor_for(self, b: int) -> LMExecutor:
         ex = self._executor
@@ -85,15 +90,13 @@ class Server:
             _engine.swap_unembed(self.model, bf)
 
     def generate(self, batch: dict, n_new_tokens: int) -> tuple[np.ndarray, ServeStats]:
-        tokens = np.asarray(batch["tokens"].cpu() if isinstance(batch["tokens"], torch.Tensor)
-                            else batch["tokens"])
-        extra = sorted(k for k in batch if k != "tokens")
-        if extra:
-            raise NotImplementedError(f"side inputs {extra}: the port serves token models")
+        arrays = {k: np.asarray(v.cpu() if isinstance(v, torch.Tensor) else v) for k, v in batch.items()}
+        tokens = arrays.pop("tokens")
         b = tokens.shape[0]
         ex = self._executor_for(b)
         engine = Engine(ex)
-        rids = [engine.submit(tokens[i], n_new_tokens) for i in range(b)]
+        rids = [engine.submit(tokens[i], n_new_tokens, extras={k: v[i] for k, v in arrays.items()})
+                for i in range(b)]
         engine.run()
         gen = np.stack([engine.result(r) for r in rids], axis=0)
         es = engine.stats

@@ -4,7 +4,8 @@
 
 Kept from the reference:
 
-* microbatch gradient accumulation (f32 sums);
+* microbatch gradient accumulation (f32 sums), every batch leaf
+  (``tokens``, a vision model's ``vision_embeds``) split along its rows;
 * **EF top-k gradient compression** (``tcfg.compression``): the gradients
   are compressed before the update, and the new residual is guarded like
   the parameters;
@@ -76,8 +77,10 @@ class TrainConfig:
 def make_train_step(model: LM, opt_cfg: AdamWConfig, tcfg: TrainConfig):
     """``step(batch, state, ef=None) -> metrics``: loss and gradients
     (accumulated in f32 over ``tcfg.microbatches``), EF top-k compression
-    when ``ef`` is given, then :func:`guarded_update`.  The metrics are
-    device tensors."""
+    when ``ef`` is given, then :func:`guarded_update`.  ``batch`` holds
+    ``tokens`` and any side input (``vision_embeds``); microbatches split
+    every leaf along its rows, as the reference's.  The metrics are device
+    tensors."""
     params = {k: p for k, p in model.named_parameters()}
 
     def step(batch: dict, state: AdamWState, ef: EFState | None = None) -> dict:
@@ -88,10 +91,11 @@ def make_train_step(model: LM, opt_cfg: AdamWConfig, tcfg: TrainConfig):
                 raise ValueError(f"batch {tokens.shape[0]} does not split into {n} microbatches")
             acc = {k: torch.zeros(p.shape, dtype=torch.float32, device=p.device) for k, p in params.items()}
             loss = torch.zeros((), dtype=torch.float32, device=tokens.device)
-            for mb in tokens.chunk(n):
+            split = {k: v.chunk(n) for k, v in batch.items()}
+            for i in range(n):
                 for p in params.values():
                     p.grad = None
-                mb_loss, _ = model.train_loss({"tokens": mb})
+                mb_loss, _ = model.train_loss({k: v[i] for k, v in split.items()})
                 mb_loss.backward()
                 for k, p in params.items():
                     acc[k] += p.grad.float()
@@ -100,7 +104,7 @@ def make_train_step(model: LM, opt_cfg: AdamWConfig, tcfg: TrainConfig):
         else:
             for p in params.values():
                 p.grad = None
-            loss, _ = model.train_loss({"tokens": tokens})
+            loss, _ = model.train_loss(batch)
             loss.backward()
             loss = loss.detach()
             grads = {k: p.grad for k, p in params.items()}
@@ -142,7 +146,9 @@ def reference_name(key: str) -> str | None:
     ``key`` (``embed.table`` → ``embed/table``; zamba2's shared block,
     ``shared.attn.wq`` → ``shared/attn/wq``, is top-level in both), or None
     for a layer's: the reference stacks each stage's layers, so its
-    per-layer weights are never 2-D and never recompressed."""
+    per-layer weights are never 2-D and never recompressed.  musicgen's
+    per-codebook tables and heads are stacked in both (``embed/table (K,
+    V, d)``, ``unembed/w (K, d, V)``): never 2-D either."""
     return None if key.startswith("layers.") else key.replace(".", "/")
 
 

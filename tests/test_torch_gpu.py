@@ -724,3 +724,59 @@ def test_decode_step_on_the_card_matches_the_cpu(dev):
         logits.append(ex.decode_forward([0, 1], [[3], [7]]).float().cpu())
     assert logits[1].shape == (2, 1, cfg.vocab)
     assert _rel(logits[1], logits[0]) <= TOL[torch.bfloat16]
+
+
+# ---------------------------------------------------------------------------
+# Slice 12: the modality front ends — every codebook head's kernels
+# ---------------------------------------------------------------------------
+
+
+def _arch_heads(arch: str, dev):
+    """``arch``'s smoke model in bf16 with a FAµST head (2 factors, block
+    16, k 2) on the card, and each head's packed chain: musicgen's K
+    per-codebook heads, internvl2's one."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.layers.faust_linear import FaustSpec
+    from repro_torch.models.lm import LM
+
+    cfg = dataclasses.replace(get_smoke(arch), dtype="bfloat16", faust_unembed=FaustSpec(2, 16, 2))
+    model = LM(cfg, seed=0, device=dev)
+    head = model.unembed.faust
+    chains = [head.blockfaust(k) for k in range(cfg.n_codebooks)] if cfg.n_codebooks > 1 else [head.blockfaust()]
+    with torch.no_grad():
+        return cfg, [pack_chain(bf) for bf in chains]
+
+
+@pytest.mark.parametrize("arch", ["internvl2_2b", "musicgen_medium"])
+def test_every_codebook_head_matches_plain(dev, arch):
+    """Each head of the smoke model's FAµST unembedding (bf16): K1 at
+    B = 1, 8 and a training batch's 2 × 16 rows, K2 and K3 at those rows,
+    each against its plain version; one launch per call."""
+    from repro_torch.kernels.chain import DGRAD_BT
+
+    cfg, heads = _arch_heads(arch, dev)
+    assert len(heads) == max(cfg.n_codebooks, 1)
+    g = torch.Generator().manual_seed(7)
+    rows = 2 * 16
+    for pc in heads:
+        plan, values = pc.plan, pc.values
+        meta = ops.chain_meta(plan, pc.in_idx)
+        for b in (1, 8, rows):
+            x = torch.randn((b, plan.in_features), generator=g).to(dev, torch.bfloat16)
+            before = chain_matmul.launches
+            y = chain_matmul(x, values, meta, plan=plan)
+            torch.cuda.synchronize()
+            assert chain_matmul.launches == before + 1
+            assert _rel(y, chain_matmul_plain(x, values, meta, plan=plan)) <= TOL[torch.bfloat16]
+        x = torch.zeros((rows, plan.in_blocks[0] * plan.block), dtype=torch.bfloat16, device=dev)
+        x[:, :plan.in_features] = torch.randn((rows, plan.in_features), generator=g).to(dev)
+        dy = torch.zeros((rows, plan.out_blocks[-1] * plan.block), dtype=torch.bfloat16, device=dev)
+        dy[:, :plan.out_features] = torch.randn((rows, plan.out_features), generator=g).to(dev)
+        dm, wm = dgrad_meta(plan, pc.in_idx), wgrad_meta(plan, pc.in_idx)
+        before = (chain_dgrad.launches, chain_wgrad.launches)
+        dx = chain_dgrad(dy, values, dm, plan=plan, bt=DGRAD_BT)
+        dv = chain_wgrad(x, dy, values, wm, plan=plan, bt=WGRAD_BT)
+        torch.cuda.synchronize()
+        assert (chain_dgrad.launches, chain_wgrad.launches) == (before[0] + 1, before[1] + 1)
+        assert _rel(dx, chain_dgrad_plain(dy, values, dm, plan=plan)) <= TOL[torch.bfloat16]
+        assert _rel(dv, chain_wgrad_plain(x, dy, values, wm, plan=plan)) <= TOL[torch.bfloat16]

@@ -362,26 +362,29 @@ def test_grad_priced_choose_backend_matches_reference(same_constants, batch, sha
 
 
 def test_later_slices_raise():
-    """What the port does not run yet raises, one case each: the two
-    architectures with a modality front end, a layer kind the reference
-    does not have, musicgen's codebooks, internvl's vision tokens, a mesh,
-    and the launcher's multi-GPU flags; an ``ssm`` layer without its
-    ``Mamba2Spec`` is refused.  Checkpoints, EF compression and
-    recompression work (``tests/test_torch_resilience.py``); the ``local``
-    and ``moe`` kinds and partial rotary too (``tests/test_torch_archs.py``),
-    and the ``ssm`` and ``shared`` kinds (``tests/test_torch_ssm_archs.py``)."""
+    """What the port does not run yet raises, one case each: a layer kind
+    the reference does not have, a mesh, and the launcher's multi-GPU
+    flags; an ``ssm`` layer without its ``Mamba2Spec`` is refused.  Every
+    architecture of the reference is known (the registry has no ``LATER``
+    list): the modality front ends run (``tests/test_torch_modality.py``),
+    as do checkpoints, EF compression and recompression
+    (``tests/test_torch_resilience.py``), the ``local`` and ``moe`` kinds
+    and partial rotary (``tests/test_torch_archs.py``), and the ``ssm``
+    and ``shared`` kinds (``tests/test_torch_ssm_archs.py``)."""
+    from repro.configs import ARCH_IDS as JARCH_IDS
+    from repro_torch import configs
+
+    assert not hasattr(configs, "LATER") and sorted(configs.ARCH_IDS) == sorted(JARCH_IDS)
     for arch in ("internvl2_2b", "musicgen_medium"):
-        with pytest.raises(NotImplementedError, match="front end"):
-            get_config(arch)
+        assert get_config(arch).name == get_config(arch.replace("_", "-")).name
+        LM(get_smoke(arch), device=CPU)
+    with pytest.raises(KeyError, match="unknown arch"):
+        get_config("whisper_large")
     cfg = get_smoke("gemma_2b")
     with pytest.raises(NotImplementedError, match="layer kinds"):
         LM(dataclasses.replace(cfg, stages=((2, ("cross",)),)), device=CPU)
     with pytest.raises(ValueError, match="Mamba2Spec"):
         LM(dataclasses.replace(cfg, stages=((2, ("ssm",)),)), device=CPU)
-    with pytest.raises(NotImplementedError, match="n_codebooks"):
-        LM(dataclasses.replace(cfg, n_codebooks=4), device=CPU)
-    with pytest.raises(NotImplementedError, match="n_vision_tokens"):
-        LM(dataclasses.replace(cfg, n_vision_tokens=4), device=CPU)
     data = pipeline.DataConfig(vocab=131, seq_len=8, global_batch=2)
     with pytest.raises(NotImplementedError, match="mesh"):
         trainer.Trainer(cfg, data, tcfg=trainer.TrainConfig(checkpoint_every=999), mesh=object(), device=CPU)
