@@ -233,7 +233,35 @@ Phases, each fatal on failure (non-zero exit):
    256 and 512, 32 tokens), which that check must fail: internvl2 prefilled
    as a text model (``vision_embeds`` unread), musicgen's decode sinusoid
    at position 0 instead of each row's own; (d) every head's K1 and K6
-   against their plain versions at B = 1, 8 and the trainer's rows.
+   against their plain versions at B = 1, 8 and the trainer's rows;
+18. the FAµST operator on a mesh (slice 13): (d) a 1 × 1 mesh over NCCL
+   (world size 1) in this process, the up-projection's sharded apply
+   beside its fused apply (f32 and bf16, B = 128 and 4096, medians of
+   alternating calls; K1 against the plain version, one output gather a
+   call); then four ranks spawned on this card, a 2 × 2 ``("data",
+   "model")`` mesh over ``gloo`` (CUDA collectives staged through host
+   memory; the kernels built before any rank starts), each rank: (a) the
+   up-projection factorized with ``FactorizeSpec(mesh=)`` (rank 0 solves;
+   every rank's chain digest equal), the sharded apply against the
+   single-card fused apply, forward and fwd+bwd (``dx``, ``dvalues``), f32
+   and bf16, B = 128 and 4096, one K1 a segment a rank, one K2 and one K3
+   a segment backward, boundary gathers only at crossings; its int8 form
+   (K4, K5; ``dscales``); a local-support chain (one K1, no boundary
+   gather, ``collective_bytes`` 0), a chain of 127 out-blocks (replicated,
+   one K1), a chain that does not pack (replicated, K6 per factor); the
+   report under ``auto``; (b) gemma-2b's FAµST head (2048 → 2048 → 256000,
+   block 16, k 4, bf16) as a ``FaustLinear`` with ``shard``: each segment's
+   K1 at B = 1 and 8 and K2/K3 at 1024 rows at the rank's plan against the
+   plain versions, the sharded head against the unsharded one; (c) gemma-2b
+   at full width, ``SERVE_LAYERS`` deep, with that head sharded (forced
+   onto ``fused_sharded``), ``Engine`` + ``LMExecutor(mesh=)`` over 8 slots
+   on 8 requests (prompts 32–512 from numpy seed 0, budgets 16–32), every
+   request ``done``, and ``Server(mesh=)``; a planted fault (each crossing
+   reads only the rank's block, no all-gather) on two requests; every
+   rank's tokens equal; on rank 0, after every collective, the
+   teacher-forced check (within 3e-2) that the planted run must fail, and
+   the unsharded engine's tokens beside the sharded ones.  No time of the
+   four ranks is a multi-GPU number: they share one card.
 
 Prints one JSON object per line; the last three lines are the kernels
 summary, the card's ``name, power.limit`` and ``{"ok": true, ...}``.
@@ -271,6 +299,9 @@ ITERS = 20
 
 
 def log(obj) -> None:
+    if _ROWS is not None:  # a phase-18 rank: the parent prints them
+        _ROWS.append(obj)
+        return
     print(json.dumps(obj), flush=True)
 
 
@@ -3944,6 +3975,522 @@ def modality(card_line: str, dev) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Slice 13: the FAµST operator on a mesh (phase 18)
+# ---------------------------------------------------------------------------
+
+MESH = (2, 2)  # ("data", "model"): four ranks sharing the one card over gloo
+MESH_TIMEOUT_S = 240  # a rank waiting in a collective longer than this fails
+MESH_JOIN_S = 900  # the whole 4-rank run
+MESH_REQUESTS, MESH_LENGTHS, MESH_BUDGETS = 8, (32, 512), (16, 32)
+MESH_PLANTED_PROMPTS = (64, 128)
+MESH_MAX_LEN = 576  # the longest prompt and 32 new tokens, with room
+MESH_UP = ((2048, 16384), 128)  # (a): phase 3's up-projection and block
+MESH_BATCHES = (128, 4096)
+MESH_ODD_BLOCKS = 127  # (a)'s replicated chain: out-blocks that do not divide the model axis
+MESH_HEAD = ((2048, 256000), 16, 4, 1024)  # (b): the head's (in, out), block, k, and K2/K3 rows
+MESH_ROUNDS = 5  # alternating timed calls a variant in the 4-rank run (one card shared by four ranks)
+NCCL_ROUNDS = 50  # the 1 × 1 NCCL mesh's alternating calls a variant
+_ROWS = None  # a mesh rank's rows, saved for the parent instead of printed
+
+
+def _mesh_counts() -> dict:
+    from repro_torch.kernels.chain_sharded import COLLECTIVES
+
+    return {**_bwd_counts(), **{f"coll_{k}": v for k, v in COLLECTIVES.items()}}
+
+
+def _zero_mesh_counts() -> None:
+    from repro_torch.kernels.chain_sharded import COLLECTIVES
+
+    _zero_counts()
+    COLLECTIVES.update(dict.fromkeys(COLLECTIVES, 0))
+
+
+def _digest(tensors) -> str:
+    """A digest of the tensors' bits (the ranks' copies compared)."""
+    import hashlib
+
+    import torch
+
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().contiguous().view(-1).view(torch.uint8).cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def _local_chain(dev, dims, blk: int, k: int = 4, seed: int = 40):
+    """A chain whose out-blocks read only input blocks of their own model
+    rank (two ranks): no boundary crosses, one K1 a rank."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.compress import BlockFaust, BlockSparseFactor
+
+    rng = np.random.default_rng(seed)
+    factors = []
+    for in_f, out_f in zip(dims[:-1], dims[1:]):
+        ob, per = out_f // blk, (in_f // blk) // MESH[1]
+        idx = np.stack([np.sort(rng.choice(per, size=k, replace=False)) + (o // (ob // MESH[1])) * per
+                        for o in range(ob)]).astype(np.int32)
+        vals = (rng.standard_normal((ob, k, blk, blk)) / np.sqrt(k * blk)).astype(np.float32)
+        factors.append(BlockSparseFactor(torch.as_tensor(vals, device=dev), torch.as_tensor(idx, device=dev),
+                                         in_f, out_f))
+    return BlockFaust(tuple(factors), torch.ones((), device=dev))
+
+
+def _mesh_grads(op, x, dy, backend: str):
+    """(y, dx, d trained tensor) of ``sum(op.apply(x) * dy)`` on a fresh
+    leaf copy of ``op``'s trained tensor (:func:`_trainable`)."""
+    top, leaf = _trainable(op)
+    top = top.with_sharding(op.shard) if op.shard is not None else top
+    xg = x.clone().requires_grad_(True)
+    y = top.apply(xg, backend, device=x.device)
+    (y.float() * dy).sum().backward()
+    return y.detach(), xg.grad, leaf.grad
+
+
+def mesh_operator(card_line: str, dev, mesh) -> dict:
+    """Phase 18 (a) on one rank: phase 3's up-projection factorized with
+    ``FactorizeSpec(mesh=)`` (rank 0 solves), the sharded apply against
+    the single-card fused apply on the same card (f32 and bf16, B = 128 and
+    4096, forward and fwd+bwd; int8), a local-support chain, a replicated
+    chain (127 out-blocks), a chain that does not pack, the report under
+    ``auto``."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.api import FactorizeSpec, FaustOp, factorize, last_report
+    from repro_torch.api.operator import ShardSpec
+    from repro_torch.core.compress import BlockFaust, pack_chain, quantize_chain, random_block_factor
+    from repro_torch.kernels import chain_sharded as cs
+
+    spec = ShardSpec(mesh)
+    (d, n), blk = MESH_UP
+    w = np.random.default_rng(0).standard_normal((d, n), dtype=np.float32) / np.sqrt(d)
+    t0 = time.perf_counter()
+    op, info = factorize(w, FactorizeSpec(strategy="hierarchical", n_factors=3, block=blk, k_first=4, k_mid=4,
+                                          mesh=mesh), device=dev)
+    torch.cuda.synchronize()
+    plan = op._shard_plan()
+    nseg = plan.n_launches
+    out = {"factorize_s": time.perf_counter() - t0, "chain_digest": _digest(op._tensors()),
+           "summary": {k: v for k, v in plan.summary().items()}, "rows": []}
+    log({"phase": "mesh_factorize", "card": card_line, "seconds": out["factorize_s"], "digest": out["chain_digest"],
+         "sharded": op.shard == spec, "summary": out["summary"], "sweeps": info.n_sweeps})
+    require(op.shard == spec and plan.mode == "model", f"the placed operator: {out['summary']}")
+    g = torch.Generator().manual_seed(1)
+    launches = dict.fromkeys(("chain_matmul", "chain_dgrad", "chain_wgrad", "chain_matmul_q", "chain_dgrad_q",
+                              "chain_wgrad_q", "bsr_matmul"), 0)
+
+    def add(counts):
+        for k in launches:
+            launches[k] += counts[k]
+
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).removeprefix("torch.")
+        for b in MESH_BATCHES:
+            x = torch.randn((b, d), generator=g).to(dev, dtype)
+            dy = torch.randn((b, n), generator=g).to(dev)
+            with torch.no_grad():
+                _zero_mesh_counts()
+                y = op.apply(x, "fused_sharded", device=dev)
+                torch.cuda.synchronize()
+                fwd = _mesh_counts()
+                y1 = op.apply(x, "fused", device=dev)
+            _zero_mesh_counts()
+            ys, dxs, dvs = _mesh_grads(op, x, dy, "fused_sharded")
+            torch.cuda.synchronize()
+            bwd = _mesh_counts()
+            add(fwd), add(bwd)
+            y1g, dx1, dv1 = _mesh_grads(op.with_sharding(None), x, dy, "fused")
+            with torch.no_grad():
+                times = interleaved_ms({"sharded": lambda: op.apply(x, "fused_sharded", device=dev),
+                                        "fused": lambda: op.apply(x, "fused", device=dev)}, MESH_ROUNDS)
+            row = {"phase": "mesh_apply", "card": card_line, "dtype": dname, "batch": b,
+                   "rel_err": rel_err(y, y1)[1], "rel_err_fwdbwd_y": rel_err(ys, y1g)[1],
+                   "rel_err_dx": rel_err(dxs, dx1)[1], "rel_err_dvalues": rel_err(dvs, dv1)[1],
+                   "tol": TOL[dname], "fwd_launches": fwd, "fwdbwd_launches": bwd,
+                   "sharded_ms_p50": statistics.median(times["sharded"]),
+                   "fused_ms_p50": statistics.median(times["fused"]),
+                   "timing": "one card shared by four ranks (not a multi-GPU number)"}
+            log(row)
+            out["rows"].append(row)
+            require(max(row["rel_err"], row["rel_err_fwdbwd_y"], row["rel_err_dx"], row["rel_err_dvalues"])
+                    <= TOL[dname], f"the sharded apply disagrees with the fused one: {row}")
+            require(fwd["chain_matmul"] == nseg and fwd["coll_boundary_gather"] == len(plan.crossing_feats),
+                    f"forward launches {fwd}, want {nseg} K1")
+            require(bwd["chain_dgrad"] == nseg and bwd["chain_wgrad"] == nseg, f"backward launches {bwd}")
+    # int8 (K4, K5): the codes split by out-block with their scales
+    qop = FaustOp(quantize_chain(pack_chain(op.rep), "int8", "per_block"), shard=spec)
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).removeprefix("torch.")
+        x = torch.randn((MESH_BATCHES[0], d), generator=g).to(dev, dtype)
+        dy = torch.randn((MESH_BATCHES[0], n), generator=g).to(dev)
+        _zero_mesh_counts()
+        ys, dxs, dss = _mesh_grads(qop, x, dy, "fused_sharded")
+        torch.cuda.synchronize()
+        counts = _mesh_counts()
+        add(counts)
+        y1, dx1, ds1 = _mesh_grads(qop.with_sharding(None), x, dy, "fused")
+        row = {"phase": "mesh_apply_int8", "card": card_line, "dtype": dname, "batch": MESH_BATCHES[0],
+               "rel_err": rel_err(ys, y1)[1], "rel_err_dx": rel_err(dxs, dx1)[1],
+               "rel_err_dscales": rel_err(dss, ds1)[1], "tol": TOL[dname], "launches": counts}
+        log(row)
+        out["rows"].append(row)
+        require(max(row["rel_err"], row["rel_err_dx"], row["rel_err_dscales"]) <= TOL[dname], f"int8: {row}")
+        require(counts["chain_matmul_q"] == nseg and counts["chain_dgrad_q"] == nseg
+                and counts["chain_wgrad_q"] == nseg, f"int8 launches {counts}")
+    # a local-support chain, a replicated one, one that does not pack
+    gen = torch.Generator().manual_seed(41)
+    odd = BlockFaust(tuple(random_block_factor(i, o, blk, blk, 4, generator=gen, device=dev)
+                           for i, o in ((d, d), (d, MESH_ODD_BLOCKS * blk))), torch.ones((), device=dev))
+    mixed = BlockFaust((random_block_factor(d, d, blk, blk, 4, generator=gen, device=dev),
+                        random_block_factor(d, 2 * d, blk // 2, blk // 2, 4, generator=gen, device=dev)),
+                       torch.ones((), device=dev))
+    x = torch.randn((MESH_BATCHES[0], d), generator=g).to(dev)
+    for name, bf, want_mode, kernel, want in (("local", _local_chain(dev, (d,) * 4, blk), "model", "chain_matmul", 1),
+                                              ("replicated", odd, "replicated", "chain_matmul", 1),
+                                              ("per_factor", mixed, "replicated", "bsr_matmul", 2)):
+        sop = FaustOp(cs.place_blockfaust(bf, mesh), shard=spec)
+        p = sop._shard_plan()
+        with torch.no_grad():
+            _zero_mesh_counts()
+            y = sop.apply(x, "fused_sharded", device=dev)
+            torch.cuda.synchronize()
+            counts = _mesh_counts()
+            add(counts)
+            y1 = sop.apply(x, "fused" if p.fusable else "bsr", device=dev)
+        row = {"phase": "mesh_chain", "card": card_line, "chain": name, "summary": p.summary(),
+               "batch": MESH_BATCHES[0], "collective_bytes": p.collective_bytes(MESH_BATCHES[0], 4),
+               "rel_err": rel_err(y, y1)[1],
+               "launches": counts}
+        log(row)
+        out["rows"].append(row)
+        require(p.mode == want_mode and counts[kernel] == want and row["rel_err"] <= TOL["float32"],
+                f"{name}: {row}")
+        if name == "local":
+            require(p.crossing_feats == () and row["collective_bytes"] == 0
+                    and counts["coll_boundary_gather"] == 0, f"the local chain gathered: {row}")
+    for b in MESH_BATCHES:
+        with torch.no_grad():
+            op.apply(torch.randn((b, d), generator=g).to(dev), "auto", device=dev)
+        log({"phase": "mesh_auto", "card": card_line, "batch": b, "report": last_report().as_row()})
+    out["launches"] = launches
+    log({"phase": "mesh_operator_launches", "card": card_line, "launches": launches})
+    require(all(v > 0 for v in launches.values()), f"a kernel of the sharded path never ran: {launches}")
+    return out
+
+
+def mesh_head(card_line: str, dev, mesh) -> dict:
+    """Phase 18 (b) on one rank: gemma-2b's FAµST head (2048 → 2048 →
+    256000, block 16, k 4, bf16) as a ``FaustLinear`` with ``shard``: this
+    rank's K1 at B = 1 and 8 and its K2/K3 at 1024 rows, each segment at
+    this rank's plan, against their plain versions; the sharded head
+    against the unsharded one."""
+    import torch
+
+    from repro_torch.api.operator import ShardSpec
+    from repro_torch.kernels import chain_sharded as cs
+    from repro_torch.kernels.chain import FORWARD_BT, chain_matmul, chain_matmul_plain
+    from repro_torch.kernels.chain_bwd import (DGRAD_BT, WGRAD_BT, chain_dgrad, chain_dgrad_plain, chain_wgrad,
+                                               chain_wgrad_plain, dgrad_meta, wgrad_meta)
+    from repro_torch.kernels.ops import chain_meta
+    from repro_torch.layers.faust_linear import FaustLinear, FaustSpec
+
+    (d, vocab), blk, k, rows_bwd = MESH_HEAD
+    head = FaustLinear(d, vocab, FaustSpec(2, blk, k, shard=ShardSpec(mesh)),
+                       generator=torch.Generator().manual_seed(5), dtype=torch.bfloat16, device=dev)
+    bf = head.blockfaust()
+    plan = cs.plan_shard(bf, mesh)
+    p = mesh.coord["model"]
+    g = torch.Generator().manual_seed(6)
+    rows = []
+    with torch.no_grad():
+        for s, seg in enumerate(plan.segments):
+            vals, idx = cs.segment_values(bf, seg, p), cs.segment_idx(bf, seg, p)
+            sp = seg.plan
+            meta = chain_meta(sp, idx)
+            for b in (1, 8):
+                x = torch.randn((b, sp.in_features), generator=g).to(dev, torch.bfloat16)
+                _zero_counts()
+                err = rel_err(chain_matmul(x, vals, meta, plan=sp, bt=FORWARD_BT),
+                              chain_matmul_plain(x, vals, meta, plan=sp))[1]
+                k1 = _bwd_counts()["chain_matmul"]
+                rows.append({"kernel": "chain_matmul", "segment": s, "batch": b, "rel_err": err, "launches": k1})
+            x = torch.randn((rows_bwd, sp.in_features), generator=g).to(dev, torch.bfloat16)
+            dy = torch.randn((rows_bwd, sp.out_features), generator=g).to(dev, torch.bfloat16)
+            dm, wm = dgrad_meta(sp, idx), wgrad_meta(sp, idx)
+            _zero_counts()
+            dgrad = rel_err(chain_dgrad(dy, vals, dm, plan=sp, bt=DGRAD_BT), chain_dgrad_plain(dy, vals, dm, plan=sp))[1]
+            wgrad = rel_err(chain_wgrad(x, dy, vals, wm, plan=sp, bt=WGRAD_BT),
+                            chain_wgrad_plain(x, dy, vals, wm, plan=sp))[1]
+            c = _bwd_counts()
+            rows.append({"kernel": "chain_dgrad", "segment": s, "batch": rows_bwd, "rel_err": dgrad,
+                         "launches": c["chain_dgrad"]})
+            rows.append({"kernel": "chain_wgrad", "segment": s, "batch": rows_bwd, "rel_err": wgrad,
+                         "launches": c["chain_wgrad"]})
+        for b in (1, 8):
+            x = torch.randn((b, d), generator=g).to(dev, torch.bfloat16)
+            y, y1 = head(x, "fused_sharded"), head(x, "fused")
+            rows.append({"kernel": "head", "batch": b, "rel_err": rel_err(y, y1)[1], "shape": list(y.shape)})
+    row = {"phase": "mesh_head", "card": card_line, "rank_model_coord": p, "summary": plan.summary(),
+           "segment_plans": [{"in_blocks": s.plan.in_blocks, "out_blocks": s.plan.out_blocks} for s in plan.segments],
+           "checks": rows, "tol": TOL["bfloat16"]}
+    log(row)
+    require(all(r["rel_err"] <= TOL["bfloat16"] for r in rows), f"the head's kernels disagree: {row}")
+    require(all(r.get("launches", 1) == 1 for r in rows), f"the head's checks launched: {row}")
+    return row
+
+
+@contextlib.contextmanager
+def boundary_gather_skipped():
+    """While it runs, a model-mode apply skips each crossing all-gather and
+    reads only this rank's block of the activation (zeros elsewhere)."""
+    import torch
+
+    from repro_torch.kernels import chain_sharded as cs
+
+    real = cs._BoundaryGather.apply
+
+    def local_only(y, group):
+        n, p = torch.distributed.get_world_size(group), torch.distributed.get_rank(group)
+        out = y.new_zeros((y.shape[0], y.shape[1] * n))
+        out[:, p * y.shape[1]:(p + 1) * y.shape[1]] = y
+        return out
+
+    cs._BoundaryGather.apply = local_only
+    try:
+        yield
+    finally:
+        cs._BoundaryGather.apply = real
+
+
+def _mesh_engine(name: str, card_line: str, model, mesh, prompts, budgets) -> dict:
+    import torch
+
+    from repro_torch.runtime.engine import Engine, LMExecutor
+
+    torch.cuda.reset_peak_memory_stats()
+    engine = Engine(LMExecutor(model, MESH_MAX_LEN, SERVE_SLOTS, mesh=mesh))
+    _zero_mesh_counts()
+    t0 = time.perf_counter()
+    rids, steps = drive(engine, prompts, budgets, len(prompts))
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    counts = _mesh_counts()
+    row = engine_report(name, card_line, engine, steps, counts, wall_s)
+    tokens = [engine.result(r).tolist() for r in rids]
+    row["tokens_digest"] = _digest([torch.as_tensor(sum(tokens, []))])
+    return {"row": row, "engine": engine, "rids": rids, "tokens": tokens}
+
+
+def mesh_serve(card_line: str, dev, mesh) -> dict:
+    """Phase 18 (c) on one rank: gemma-2b at full width, ``SERVE_LAYERS``
+    deep, its FAµST head sharded (forced onto ``fused_sharded``), served
+    through ``Engine`` + ``LMExecutor(mesh=)`` (8 slots) and through
+    ``Server(mesh=)``; then the planted fault; rank 0 alone, after every
+    collective: the teacher-forced checks and the unsharded engine."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.api.operator import ShardSpec
+    from repro_torch.models.lm import LM
+    from repro_torch.runtime.server import Server
+
+    cfg = serve_config()
+    cfg = dataclasses.replace(cfg, faust_unembed=dataclasses.replace(cfg.faust_unembed, shard=ShardSpec(mesh)))
+    model = LM(cfg, seed=0, device=dev)
+    prompts, budgets = _trace(MESH_REQUESTS, 0, MESH_LENGTHS, MESH_BUDGETS, (), cfg.vocab)
+    planted_prompts, _ = _trace(2, 27, MESH_LENGTHS, (32, 32), MESH_PLANTED_PROMPTS, cfg.vocab)
+    out = {}
+    with faust_backend(model, "fused_sharded", head_only=True):
+        run = _mesh_engine("mesh_serve_engine", card_line, model, mesh, prompts, budgets)
+        srv_tokens = np.stack([p[:MESH_LENGTHS[0]] for p in prompts[:2]])
+        gen, stats = Server(model, 64, mesh=mesh).generate({"tokens": srv_tokens}, 4)
+        with boundary_gather_skipped():
+            bad = _mesh_engine("mesh_serve_planted", card_line, model, mesh, planted_prompts, [32, 32])
+    row = run["row"]
+    row["prompt_lengths"] = [len(p) for p in prompts]
+    row["server"] = {"mesh_axes": stats.mesh_axes, "tokens": gen.tolist(),
+                     "faust_dispatch": stats.faust_dispatch.backend}
+    require(row["launches"]["chain_matmul"] > 0 and row["launches"]["coll_boundary_gather"] > 0,
+            f"the sharded head never ran: {row['launches']}")
+    require(stats.mesh_axes == dict(mesh.shape) and stats.faust_dispatch.backend == "fused_sharded",
+            f"Server(mesh=): {row['server']}")
+    out.update(tokens=run["tokens"], planted_tokens=bad["tokens"], server_tokens=gen.tolist(),
+               launches=row["launches"])
+    if mesh.rank == 0:
+        row["teacher_forced"] = teacher_forced(model, run["engine"], run["rids"], prompts, SERVE_TOL["bfloat16"])
+        tf = teacher_forced(model, bad["engine"], bad["rids"], planted_prompts, SERVE_TOL["bfloat16"], enforce=False)
+        log({"phase": "mesh_serve_planted_fault", "card": card_line, "fault": "boundary_gather_skipped",
+             "teacher_forced": tf, "engine": {k: bad["row"][k] for k in ("wall_s", "tokens_decoded", "launches")}})
+        require(not tf["passed"], f"the planted fault passed the teacher-forced check: {tf}")
+        with faust_backend(model, "fused", head_only=True):
+            plain = _mesh_engine("mesh_serve_unsharded", card_line, model, mesh, prompts, budgets)
+        same = sum(int(a == b) for p, q in zip(run["tokens"], plain["tokens"]) for a, b in zip(p, q))
+        row["tokens_equal_unsharded"] = {"equal": same, "of": sum(len(p) for p in run["tokens"])}
+        row["unsharded_wall_s"] = plain["row"]["wall_s"]
+        row["unsharded_tpot_p50_s"] = plain["row"]["tpot_p50_s"]
+    row["timing"] = "one card shared by four ranks (not a multi-GPU number)"
+    log(row)
+    del model
+    _free()
+    return out
+
+
+def mesh_rank(rank: int, rendezvous: str, out_dir: str, card_line: str, device: str) -> None:
+    """One of phase 18's four ranks (a spawned process): join the gloo
+    group, run (a)-(c) on a 2 × 2 mesh over the parent's ``device``, save
+    the rows and results to ``out_dir/rank{rank}.json`` for the parent."""
+    global _ROWS
+    import datetime
+    import traceback
+
+    import torch
+    import torch.distributed as dist
+
+    _ROWS = []
+    os.environ["REPRO_AUTOTUNE"] = "off"  # the cost model alone: every rank decides alike
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    result: dict = {"rank": rank}
+    dist.init_process_group("gloo", init_method=f"file://{rendezvous}", rank=rank, world_size=math.prod(MESH),
+                            timeout=datetime.timedelta(seconds=MESH_TIMEOUT_S))
+    try:
+        from repro_torch.distributed import make_debug_mesh
+        from repro_torch.distributed.mesh import TRANSPORT
+
+        mesh = make_debug_mesh(*MESH, device=dev)
+        t0 = time.perf_counter()
+        result["operator"] = mesh_operator(card_line, dev, mesh)
+        result["head"] = mesh_head(card_line, dev, mesh)
+        result["serve"] = mesh_serve(card_line, dev, mesh)
+        result["seconds"] = time.perf_counter() - t0
+        result["transport"] = dict(TRANSPORT)
+        result["coord"] = dict(mesh.coord)
+    except Exception:  # noqa: BLE001 — reported by the parent
+        result["error"] = traceback.format_exc()
+    finally:
+        result["rows"] = _ROWS
+        Path(out_dir, f"rank{rank}.json").write_text(json.dumps(result, default=str))
+        dist.destroy_process_group()
+
+
+def mesh_nccl(card_line: str, dev, op) -> dict:
+    """Phase 18 (d): a 1 × 1 mesh over NCCL (world size 1) in this process:
+    the real collectives at one rank, the sharded apply beside the plain
+    fused apply (f32 and bf16, B = 128 and 4096, medians of alternating
+    calls): the wrapper's cost on the card; K1 against the plain version."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.api.operator import ShardSpec
+    from repro_torch.distributed import make_debug_mesh
+    from repro_torch.distributed.mesh import TRANSPORT
+
+    folder = ROOT / "build" / "chip_smoke_mesh"
+    folder.mkdir(parents=True, exist_ok=True)
+    rdv = folder / "nccl_rendezvous"
+    rdv.unlink(missing_ok=True)
+    dist.init_process_group("nccl", init_method=f"file://{rdv}", rank=0, world_size=1)
+    rows = []
+    try:
+        mesh = make_debug_mesh(1, 1, device=dev)
+        sop = op.with_sharding(ShardSpec(mesh))
+        g = torch.Generator().manual_seed(50)
+        for dtype in (torch.float32, torch.bfloat16):
+            dname = str(dtype).removeprefix("torch.")
+            for b in (128, 4096):
+                x = torch.randn((b, op.shape[0]), generator=g).to(dev, dtype)
+                with torch.no_grad():
+                    _zero_mesh_counts()
+                    y = sop.apply(x, "fused_sharded", device=dev)
+                    torch.cuda.synchronize()
+                    counts = _mesh_counts()
+                    err = rel_err(y, op.apply(x, "fused", use_kernel=False, device=dev))[1]
+                    times = interleaved_ms({"sharded": lambda: sop.apply(x, "fused_sharded", device=dev),
+                                            "fused": lambda: op.apply(x, "fused", device=dev)}, NCCL_ROUNDS)
+                row = {"phase": "mesh_nccl_1x1", "card": card_line, "dtype": dname, "batch": b,
+                       "rel_err_plain": err, "launches": counts,
+                       "sharded_ms_p50": statistics.median(times["sharded"]),
+                       "fused_ms_p50": statistics.median(times["fused"])}
+                row["wrapper_ms"] = row["sharded_ms_p50"] - row["fused_ms_p50"]
+                log(row)
+                rows.append(row)
+                require(err <= TOL[dname] and counts["chain_matmul"] == 1 and counts["coll_output_gather"] == 1,
+                        f"the 1 x 1 mesh: {row}")
+        log({"phase": "mesh_nccl_transport", "card": card_line, "transport": dict(TRANSPORT),
+             "backend": dist.get_backend()})
+    finally:
+        dist.destroy_process_group()
+    return {"rows": rows}
+
+
+def mesh(card_line: str, dev, op) -> dict:
+    """Phase 18, slice 13: the FAµST operator on a mesh (module docstring):
+    (d) in this process, then (a)-(c) on four spawned ranks sharing
+    ``cuda:0`` over gloo, the kernels built before any rank starts."""
+    import multiprocessing
+    import shutil
+
+    from repro_torch.kernels import build
+
+    t0 = time.perf_counter()
+    out = {"nccl": mesh_nccl(card_line, dev, op)}
+    _free()
+    build.build()  # already built: ranks must only load, never build at once
+    folder = ROOT / "build" / "chip_smoke_mesh"
+    shutil.rmtree(folder, ignore_errors=True)
+    folder.mkdir(parents=True)
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=mesh_rank, args=(r, str(folder / "rendezvous"), str(folder), card_line, str(dev)))
+             for r in range(math.prod(MESH))]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + MESH_JOIN_S
+    try:
+        for p in procs:
+            p.join(max(deadline - time.monotonic(), 1))
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join(10)
+    results = []
+    for r, p in enumerate(procs):
+        path = folder / f"rank{r}.json"
+        require(path.exists(), f"mesh rank {r} saved nothing (exit code {p.exitcode})")
+        res = json.loads(path.read_text())
+        for row in res["rows"] if r == 0 else []:
+            log(row)
+        require("error" not in res, f"mesh rank {r} failed:\n{res.get('error')}")
+        results.append(res)
+    same = {k: len({json.dumps(res["serve"][k]) for res in results}) == 1
+            for k in ("tokens", "planted_tokens", "server_tokens")}
+    same["chain_digest"] = len({res["operator"]["chain_digest"] for res in results}) == 1
+    row = {"phase": "mesh", "card": card_line, "seconds": time.perf_counter() - t0,
+           "rank_seconds": [res["seconds"] for res in results], "coords": [res["coord"] for res in results],
+           "same_on_every_rank": same, "transport": [res["transport"] for res in results],
+           "operator_launches": [res["operator"]["launches"] for res in results],
+           "serve_launches": [res["serve"]["launches"] for res in results],
+           "head_checks": [[c["rel_err"] for c in res["head"]["checks"]] for res in results],
+           "timing": "four ranks share one card: no time of this phase is a multi-GPU number"}
+    log(row)
+    require(all(same.values()), f"the ranks disagree: {same}")
+    launches = {k: results[0]["operator"]["launches"][k] for k in results[0]["operator"]["launches"]}
+    out.update(results=results, launches=launches, serve_launches=results[0]["serve"]["launches"])
+    return out
+
+
 def _kernel_entry(name, source, replaces, launches, cases, checks, card_line, head) -> dict:
     first = next(r for r in cases if all(r.get(k) == v for k, v in head.items()))
     keys = ("chain", "quant", "dtype", "batch", "bt", "launches_per_apply", "max_abs_err", "ms", "cold_ms",
@@ -3999,6 +4546,7 @@ def main() -> int:
     arch = archs(info["card"], dev)
     ssm = ssm_archs(info["card"], dev)
     mod = modality(info["card"], dev)
+    msh = mesh(info["card"], dev, op)
 
     src = "src/repro_torch/kernels/csrc/"
     f32_b128 = {"dtype": "float32", "batch": 128}
@@ -4041,6 +4589,11 @@ def main() -> int:
             k["archs_launches"] = arch["launches"][k["name"]]
             k["ssm_archs_launches"] = ssm["launches"][k["name"]]
             k["modality_launches"] = mod["launches"][k["name"]]
+        # slice 13: phase 18 (a), rank 0's counts on the mesh (every kernel
+        # of the sharded path), and (c)'s serving
+        k["mesh_launches"] = msh["launches"][k["name"]]
+        if k["name"] in msh["serve_launches"]:
+            k["mesh_serve_launches"] = msh["serve_launches"][k["name"]]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(info["card"], flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

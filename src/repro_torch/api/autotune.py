@@ -31,6 +31,12 @@ error propagate: a kernel that fails to launch is never hidden behind
 another backend (the reference skips a failing tile).  The port has no
 session quarantine: with no degraded ladder, no backend is ever demoted
 from.
+
+On a mesh every rank measures together (the sharded backend's collectives
+need every rank): an operator carrying a ``ShardSpec`` is timed for a
+fixed ``MESH_ROUNDS`` rounds, where the time budget would let ranks stop
+at different rounds, and each candidate's time is the slowest rank's, so
+every rank records the same entry and dispatches alike.
 """
 from __future__ import annotations
 
@@ -52,6 +58,7 @@ DEFAULT_TABLE = Path(__file__).resolve().parents[3] / "build" / "autotune.json"
 # once ROUND_BUDGET_S seconds have passed (at least MIN_ROUNDS, at most
 # MAX_ROUNDS), so a key costs about two seconds whatever its call time
 N_WARMUP, MIN_ROUNDS, MAX_ROUNDS, ROUND_BUDGET_S = 2, 5, 400, 2.0
+MESH_ROUNDS = 20  # rounds of an operator on a mesh: the same on every rank
 # the fused sweep keeps FORWARD_BT unless another tile is faster by more
 # than this share: at B = 128 under grad the tile changes only the forward
 # kernel, and single sweeps picked a tile 7 % slower than the default there
@@ -173,9 +180,10 @@ def _device_name(device: torch.device) -> str:
     return torch.cuda.get_device_name(device) if device.type == "cuda" else device.type
 
 
-def key_for_op(op, *, batch: int, dtype: torch.dtype, grad: bool = False) -> str:
-    """:func:`key_of` for an apply of ``op`` (``grad``: a training apply)
-    — the one spelling dispatch and measurement share."""
+def key_for_op(op, *, batch: int, dtype: torch.dtype, grad: bool = False, mesh_shape: tuple | None = None) -> str:
+    """:func:`key_of` for an apply of ``op`` (``grad``: a training apply;
+    ``mesh_shape``: its shard plan's mesh) — the one spelling dispatch and
+    measurement share."""
     return key_of(
         shape=op.shape,
         n_factors=op.n_factors,
@@ -183,7 +191,7 @@ def key_for_op(op, *, batch: int, dtype: torch.dtype, grad: bool = False) -> str
         batch=batch,
         dtype=str(dtype).removeprefix("torch."),
         grad=grad,
-        mesh_shape=None,
+        mesh_shape=mesh_shape,
         device=_device_name(op.device),
         vq=getattr(op.rep, "qscheme", None),
     )
@@ -247,7 +255,7 @@ def invalidate(prefix: str, path: str | None = None) -> int:
     return len(victims)
 
 
-def _timeit_us(fns: dict, device: torch.device) -> dict:
+def _timeit_us(fns: dict, device: torch.device, rounds: int | None = None) -> dict:
     """µs a call of each ``fns[k]``: the median of single calls, one device
     synchronization after each, after ``N_WARMUP`` calls of each.  The
     calls alternate across the candidates round by round (the order
@@ -260,7 +268,8 @@ def _timeit_us(fns: dict, device: torch.device) -> dict:
     The budget: rounds stop once ``ROUND_BUDGET_S`` (2 s) have passed since
     the first, after at least ``MIN_ROUNDS`` (5) and at most ``MAX_ROUNDS``
     (400): about 400 calls of each candidate at B = 128, where a call takes
-    about a millisecond, and 5 to 40 at B = 4096 (3-13 ms a call)."""
+    about a millisecond, and 5 to 40 at B = 4096 (3-13 ms a call).  Given
+    ``rounds``, exactly that many rounds run."""
     sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
     for fn in fns.values():
         for _ in range(N_WARMUP):
@@ -269,8 +278,8 @@ def _timeit_us(fns: dict, device: torch.device) -> dict:
     names = list(fns)
     samples: dict = {k: [] for k in names}
     start = time.perf_counter()
-    for r in range(MAX_ROUNDS):
-        if r >= MIN_ROUNDS and time.perf_counter() - start > ROUND_BUDGET_S:
+    for r in range(MAX_ROUNDS if rounds is None else rounds):
+        if rounds is None and r >= MIN_ROUNDS and time.perf_counter() - start > ROUND_BUDGET_S:
             break
         for k in names[r % len(names):] + names[:r % len(names)]:
             t0 = time.perf_counter()
@@ -296,7 +305,7 @@ def _trainable(op):
         rep = BlockFaust(tuple(dataclasses.replace(f, values=leaf(f.values)) for f in rep.factors), rep.lam)
     else:
         rep = type(rep)(tuple(leaf(s) for s in rep.factors), rep.lam)
-    return FaustOp(rep, op.adjoint, op.conj)
+    return FaustOp(rep, op.adjoint, op.conj, shard=getattr(op, "shard", None))
 
 
 def measure(op, x: torch.Tensor, *, grad: bool = False, use_kernel: bool) -> dict:
@@ -327,13 +336,21 @@ def measure(op, x: torch.Tensor, *, grad: bool = False, use_kernel: bool) -> dic
         def run(backend, bt):
             with torch.no_grad():
                 op.apply(x, backend, use_kernel=use_kernel, bt=bt, device=x.device, autotune=False)
+    shard = getattr(op, "shard", None)
     cands = [(backend, bt) for backend in op.feasible_backends()
-             for bt in (SUPPORTED_BT if backend == "fused" and use_kernel else (FORWARD_BT,))]
+             for bt in (SUPPORTED_BT if backend in ("fused", "fused_sharded") and use_kernel else (FORWARD_BT,))]
     _MEASURING = True
     try:
-        times = _timeit_us({c: (lambda c=c: run(*c)) for c in cands}, x.device)
+        fns = {c: (lambda c=c: run(*c)) for c in cands}
+        times = _timeit_us(fns, x.device) if shard is None else _timeit_us(fns, x.device, MESH_ROUNDS)
     finally:
         _MEASURING = False
+    if shard is not None:  # the slowest rank's time, the same on every rank
+        from repro_torch.distributed.mesh import all_reduce
+
+        slowest = all_reduce(torch.tensor([times[c] for c in cands], dtype=torch.float64, device=shard.mesh.device),
+                             shard.mesh.group(shard.mesh.axis_names), torch.distributed.ReduceOp.MAX)
+        times = dict(zip(cands, slowest.tolist()))
     for backend in op.feasible_backends():
         per_tile = {bt: t for (b, bt), t in times.items() if b == backend}
         win = min(per_tile, key=per_tile.get)
@@ -353,13 +370,13 @@ def measure(op, x: torch.Tensor, *, grad: bool = False, use_kernel: bool) -> dic
 
 
 def ensure_measured(op, x: torch.Tensor, *, batch: int, dtype: torch.dtype, grad: bool = False,
-                    use_kernel: bool) -> dict | None:
+                    use_kernel: bool, mesh_shape: tuple | None = None) -> dict | None:
     """Measure and record the key of this apply (``grad``: a training
     apply) if the table lacks it.  Returns the entry, or None re-entrantly
     from a measurement apply or for a composite (its leaves measure)."""
     if _MEASURING or op.kind != "leaf":
         return None
-    key = key_for_op(op, batch=batch, dtype=dtype, grad=grad)
+    key = key_for_op(op, batch=batch, dtype=dtype, grad=grad, mesh_shape=mesh_shape)
     table = load_table()
     if table is not None and isinstance(table["entries"].get(key), dict):
         return table["entries"][key]

@@ -9,6 +9,12 @@ pricing).
 * ``bsr``:   flops 2·b·s_tot; bytes w + b·(m+n) + 2·b·Σ d_inner (every
   factor boundary round-trips its activation); J launches;
 * ``fused``: flops 2·b·s_tot; bytes w + b·(m+n); 1 launch;
+* ``fused_sharded`` (an operator carrying a ``ShardSpec``): the fused
+  chain per rank (:mod:`repro_torch.kernels.chain_sharded`), its flops
+  and bytes divided by the shard counts, one launch per segment, plus a
+  link term ``bytes / link_bw`` for the boundary all-gathers (the
+  reference's ``ici_bytes``) and for the port's gather of the whole
+  result on every rank (caveat R7);
 
 where ``w`` is the weight stream: ``elt·s_tot``, or for a quantized chain
 the stored itemsize times s_tot plus the scale bytes.
@@ -42,8 +48,9 @@ table (:mod:`repro_torch.api.autotune`): unless ``REPRO_AUTOTUNE=off``, an
 ``auto`` request whose key (forward or ``grad``) the table holds takes the
 measured-fastest feasible backend, ``source`` is ``"measured"`` and
 ``est_us`` holds the measured µs.  Every decision is a :class:`DispatchReport`,
-the latest one retrievable with :func:`last_report`.  Sharded pricing
-comes with a later slice.
+the latest one retrievable with :func:`last_report`.  ``link_bw`` is the
+data sheet's NVLink rate (450e9 B/s each way): the port's calibration has
+one card and no link to measure.
 """
 from __future__ import annotations
 
@@ -56,8 +63,9 @@ import torch
 from repro_torch.kernels.chain import FORWARD_BT
 from repro_torch.launch import roofline as _roofline
 
-# ties go to the fewest-launch structured path
-_ORDER = {"fused": 0, "bsr": 2, "dense": 3}
+# ties go to the fewest-launch structured path (one card before the mesh:
+# a tie means the mesh buys nothing)
+_ORDER = {"fused": 0, "fused_sharded": 1, "bsr": 2, "dense": 3}
 # Decisions already made, reused while nothing they depend on changed:
 # (id(op), batch, dtype, requested, device, bt, table generation, roofline)
 # -> (weakref to op, report).  A decision costs ~50 µs of host time on the
@@ -115,6 +123,10 @@ class DispatchReport:
     weight_bytes: int = 0  # weight stream priced: values (stored itemsize) + scales
     values_dtype: str = ""  # stored values' dtype (int8/float8_* when quantized)
     grad: bool = False  # est_us are joint forward+backward costs
+    # mesh facts (None / 0 when the operator carries no ShardSpec)
+    mesh_shape: tuple | None = None  # ((axis, size), ...) of the mesh
+    collective_bytes: int = 0  # a rank's boundary all-gather bytes (the reference's count)
+    gather_bytes: int = 0  # a rank's bytes of the whole result's gather (caveat R7)
 
     def as_row(self) -> dict:
         return {
@@ -133,6 +145,9 @@ class DispatchReport:
             "weight_bytes": self.weight_bytes,
             "values_dtype": self.values_dtype,
             "grad": self.grad,
+            "mesh_shape": self.mesh_shape,
+            "collective_bytes": self.collective_bytes,
+            "gather_bytes": self.gather_bytes,
         }
 
 
@@ -166,6 +181,7 @@ def choose_backend(
     scales_bytes: int = 0,
     grad: bool = False,
     bsr_gather: int = 0,
+    shard: dict | None = None,
 ) -> DispatchReport:
     """Pick the cheapest feasible backend under the roofline model (a pure
     function of its arguments; ``device`` and ``bt`` are recorded, not
@@ -174,7 +190,9 @@ def choose_backend(
     scale bytes; unquantized pricing is unchanged.  ``grad=True`` prices
     forward and backward together (module docstring); ``bsr_gather`` is
     ``Σ_j s_j / bn_j`` of block-sparse factors, whose bsr backward is the
-    gather/scatter form, and 0 for dense factors (the reference's pricing)."""
+    gather/scatter form, and 0 for dense factors (the reference's pricing).
+    ``shard`` is the operator's ``ShardPlan.summary()``: with it
+    ``fused_sharded`` joins the priced backends (:func:`_sharded_est`)."""
     consts, source = _roofline.roofline_constants()
     peak_flops, hbm_bw, launch_us = consts["peak_flops"], consts["hbm_bw"], consts["t_launch_us"]
     if dtype == torch.float32:
@@ -183,8 +201,8 @@ def choose_backend(
     b = batch
     elt = dtype.itemsize
 
-    def roofline_us(flops: float, byts: float, launches: int) -> float:
-        return max(flops / peak_flops, byts / hbm_bw) * 1e6 + launches * launch_us
+    def roofline_us(flops: float, byts: float, launches: int, link_bytes: float = 0.0) -> float:
+        return (max(flops / peak_flops, byts / hbm_bw) + link_bytes / consts["link_bw"]) * 1e6 + launches * launch_us
 
     edge = b * (m + n)
     inner = 2 * b * sum(inner_dims)
@@ -216,6 +234,10 @@ def choose_backend(
                 4 if inner_dims else 3,
             ),
         }
+    coll_bytes = gather_bytes = 0
+    if shard is not None and "fused_sharded" in feasible:
+        est["fused_sharded"], coll_bytes, gather_bytes = _sharded_est(
+            roofline_us, b, m, n, s_tot, elt, shard, inner_dims, grad, w_elt, scales_bytes, quant)
     est = {k: v for k, v in est.items() if k in feasible}
     rank = lambda k: (est[k], _ORDER[k])  # noqa: E731
     backend = min(est, key=rank)
@@ -228,6 +250,9 @@ def choose_backend(
             f"{runner_up} {est[runner_up]:.2f}us "
             f"(batch={b}, s_tot={s_tot}, dense_nnz={m * n}, weight_bytes={w_stream})"
         )
+    if shard is not None and "fused_sharded" in est:
+        reason += (f"; sharded plan: {shard['mode']}, {shard['n_segments']} segment(s), "
+                   f"{coll_bytes} link bytes/shard (+{gather_bytes} to gather the result)")
     return DispatchReport(
         requested=requested,
         backend=backend,
@@ -244,7 +269,76 @@ def choose_backend(
         weight_bytes=int(w_stream),
         values_dtype=values_dtype if quant else _dtype_name(dtype),
         grad=grad,
+        mesh_shape=shard.get("mesh_shape") if shard is not None else None,
+        collective_bytes=coll_bytes,
+        gather_bytes=gather_bytes,
     )
+
+
+def _sharded_est(roofline_us, b: int, m: int, n: int, s_tot: int, elt: int, shard: dict,
+                 inner_dims: tuple[int, ...], grad: bool, w_elt: int, scales_bytes: int,
+                 quant: bool) -> tuple[float, int, int]:
+    """(µs, boundary bytes, result-gather bytes) of the sharded fused
+    apply: the reference's per-rank roofline plus link terms.
+
+    ``model`` mode: each of the ``n_model`` ranks streams ``s_tot/n_model``
+    weights and ``b_loc·(m + n/n_model)`` edge activations, receives the
+    boundary all-gathers' bytes (:func:`~repro_torch.kernels.chain_sharded.ici_bytes`)
+    and writes and reads each gathered activation, one launch per segment.
+    ``replicated`` mode: all the weights on every rank, the batch split
+    over every fitting axis, no boundary; a chain that does not pack runs
+    per factor and is priced like ``bsr``.  Both then gather the whole
+    result on every rank (caveat R7), a link term the reference has no
+    counterpart of.  ``grad=True``: the three-pass joint cost of the
+    single-card ``fused`` pricing per rank (``bsr``'s for the per-factor
+    chain), the boundary term tripled (its reduce-scatter runs in K2's
+    and K3's passes), the result gather once (its backward is a slice),
+    plus the gradient collectives: x's sum over the model ranks and row
+    gather, the values' sum over the data ranks and shard gather."""
+    from repro_torch.kernels.chain_sharded import ici_bytes, output_gather_bytes
+
+    n_model = max(int(shard.get("n_model", 1)), 1)
+    n_data = max(int(shard.get("n_data", 1)), 1)
+    launches = int(shard.get("n_segments", 1))
+    model = shard.get("mode") == "model"
+    n_batch = n_data if model else n_data * n_model
+    b_loc = -(-b // n_batch)
+    if model:
+        s_loc = s_tot / n_model
+        cross = tuple(shard.get("crossing_feats", ()))
+        coll_bytes = ici_bytes(b, elt, n_data, n_model, cross)
+        boundary_hbm = elt * b_loc * sum(w * (1 + 1 / n_model) for w in cross)
+        w_loc = w_elt * s_loc + scales_bytes / n_model
+        byts = w_loc + elt * b_loc * (m + n / n_model) + boundary_hbm
+    else:
+        s_loc = float(s_tot)
+        coll_bytes = 0
+        w_loc = w_elt * s_loc + scales_bytes
+        byts = w_loc + elt * b_loc * (m + n)
+        if not shard.get("fusable", True):
+            byts += elt * 2 * b_loc * sum(inner_dims)
+    flops = 2.0 * b_loc * s_loc
+    gather = output_gather_bytes(b, n, elt, n_data, n_model, n_batch)
+    link = coll_bytes + gather
+    if grad:
+        dv_loc = 4.0 * s_loc if quant else elt * s_loc
+        if not model and not shard.get("fusable", True):
+            flops, byts = 3.0 * flops, 3.0 * byts + dv_loc
+        else:
+            flops = 5.0 * flops
+            byts = 3.0 * w_loc + dv_loc + 4.0 * (byts - w_loc) + _wgrad_workspace_bytes(b_loc, inner_dims)
+        launches *= 3
+        # x's gradient: summed over the model ranks (a ring all-reduce of
+        # the rank's rows), then the rows gathered; the values' gradient:
+        # summed over the ranks that read the same rows, then the model
+        # ranks' shards gathered
+        dx = elt * b * m * (n_batch - 1) / n_batch
+        if model:
+            dx += elt * b_loc * m * 2 * (n_model - 1) / n_model
+        dv_ranks = n_data if model else n_batch
+        dv = dv_loc * 2 * (dv_ranks - 1) / dv_ranks + (dv_loc * (n_model - 1) if model else 0.0)
+        link = 3 * coll_bytes + gather + dx + dv
+    return roofline_us(flops, byts, launches, link), coll_bytes, int(gather)
 
 
 def dispatch(
@@ -257,6 +351,7 @@ def dispatch(
     bt: int | None = None,
     record: bool = True,
     grad: bool = False,
+    shard: dict | None = None,
 ) -> DispatchReport:
     """Decide (or, for a forced ``requested``, record) the backend of one
     leaf operator (``grad``: of a training apply).  A forced report keeps
@@ -268,30 +363,34 @@ def dispatch(
     ``record=False`` leaves :func:`last_report` untouched (an advisory
     query).  A decision is made once per operator and arguments, and made
     again when the table or the roofline constants change; the report is
-    shared, so treat it as read only."""
+    shared, so treat it as read only.  ``shard`` is the operator's
+    ``ShardPlan.summary()`` when it carries a ``ShardSpec``."""
     from repro_torch.api import autotune as _autotune
 
     consult = requested == "auto" and _autotune.autotune_mode() != "off"
     consts, source = _roofline.roofline_constants()
     key = (id(op), batch, dtype, requested, device, bt, grad,
-           _autotune.table_generation() if consult else None, source, tuple(consts.items()))
+           _autotune.table_generation() if consult else None, source, tuple(consts.items()),
+           tuple(shard.items()) if shard is not None else None)
     hit = _MEMO.get(key)
     if hit is not None and hit[0]() is op:
         report = hit[1]
     else:
-        report = _decide(op, batch, dtype, requested, device, bt, consult, grad)
+        report = _decide(op, batch, dtype, requested, device, bt, consult, grad, shard)
         if len(_MEMO) >= _MEMO_MAX:
             _MEMO.clear()
         _MEMO[key] = (weakref.ref(op), report)
     return _record(report) if record else report
 
 
-def _decide(op, batch, dtype, requested, device, bt, consult, grad) -> DispatchReport:
+def _decide(op, batch, dtype, requested, device, bt, consult, grad, shard) -> DispatchReport:
     from repro_torch.api import autotune as _autotune
 
     entry = None
     if consult:
-        entry = _autotune.lookup(_autotune.key_for_op(op, batch=batch, dtype=dtype, grad=grad))
+        mesh_shape = shard["mesh_shape"] if shard is not None else None
+        entry = _autotune.lookup(_autotune.key_for_op(op, batch=batch, dtype=dtype, grad=grad,
+                                                      mesh_shape=mesh_shape))
     if bt is None:
         bt = int(entry["bt"]) if entry is not None and entry.get("bt") else FORWARD_BT
     values_dtype, scales_bytes = op.quant_info()
@@ -310,6 +409,7 @@ def _decide(op, batch, dtype, requested, device, bt, consult, grad) -> DispatchR
         scales_bytes=scales_bytes,
         grad=grad,
         bsr_gather=op.bsr_gather(),
+        shard=shard,
     )
     if entry is not None:
         measured = {

@@ -28,6 +28,16 @@ A 3-D input takes the batched route: every solve runs once for the whole
 stack.  ``spec.batched`` only validates (``True`` asserts a stack;
 ``False`` on a stack is refused).  The solve runs on ``device`` (default:
 the CUDA card; raises without one).
+
+``spec.mesh`` (a :class:`repro_torch.distributed.Mesh`; every rank calls
+``factorize`` with the same target and spec): global rank 0 solves, its
+result is broadcast, and every rank's operators come out placed
+(:func:`repro_torch.kernels.chain_sharded.place_blockfaust`) and carrying
+their :class:`~repro_torch.api.operator.ShardSpec`, so ``apply("auto")``
+prices and runs ``fused_sharded`` at once.  Every rank holds rank 0's
+chain bit for bit, as the reference's one global computation gives one
+chain: solves on several ranks need not repeat each other's
+floating-point order.
 """
 from __future__ import annotations
 
@@ -37,7 +47,7 @@ from typing import Any, Callable, Sequence
 import numpy as np
 import torch
 
-from repro_torch.api.operator import FaustOp, block_diag
+from repro_torch.api.operator import FaustOp, ShardSpec, block_diag
 from repro_torch.core.compress import (
     BlockFaust,
     _compress_spec,
@@ -55,8 +65,15 @@ from repro_torch.core.hierarchical import (
 )
 from repro_torch.core.palm4msa import palm4msa, palm4msa_batched
 from repro_torch.device import resolve_device
+from repro_torch.distributed.mesh import Mesh, broadcast
 
 STRATEGIES = ("hierarchical", "palm4msa", "hadamard", "meg", "dictionary")
+
+
+def _shard_of(spec: "FactorizeSpec") -> ShardSpec | None:
+    if spec.mesh is None:
+        return None
+    return ShardSpec(spec.mesh, spec.data_axis, spec.model_axis)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -88,6 +105,11 @@ class FactorizeSpec:
     n_iter_global: int = 40
     keep_best: bool = True
     batched: bool | None = None  # None: by a.ndim
+    # mesh placement: operators come out placed on every rank of the mesh
+    # (repro_torch.distributed.Mesh) and carry a ShardSpec
+    mesh: Any = None
+    data_axis: str = "data"
+    model_axis: str = "model"
     # dictionary route
     dict_y: Any = None
     dict_gamma0: Any = None
@@ -134,8 +156,14 @@ class FactorizeInfo:
 
 
 def _finish(strategy, batched, fausts, *, blockfausts=None, hierarchical=None, loss_history=None,
-            gamma=None, hier_spec=None, prep=None, n_sweeps=None) -> tuple[FaustOp, FactorizeInfo]:
-    ops = [FaustOp(r) for r in (blockfausts if blockfausts is not None else fausts)]
+            gamma=None, hier_spec=None, prep=None, n_sweeps=None, shard=None) -> tuple[FaustOp, FactorizeInfo]:
+    if shard is not None:  # every rank holds rank 0's chain, on its device
+        from repro_torch.kernels.chain_sharded import place_blockfaust
+
+        fausts = [_placed_faust(f, shard.mesh) for f in fausts]
+        if blockfausts is not None:
+            blockfausts = [place_blockfaust(bf, shard.mesh, shard.model_axis) for bf in blockfausts]
+    ops = [FaustOp(r, shard=shard) for r in (blockfausts if blockfausts is not None else fausts)]
     if n_sweeps is None:
         n_sweeps = hierarchical.n_sweeps if hierarchical is not None else 0
     info = FactorizeInfo(
@@ -144,6 +172,45 @@ def _finish(strategy, batched, fausts, *, blockfausts=None, hierarchical=None, l
         prep=prep if prep is not None else TargetPrep(), n_sweeps=n_sweeps,
     )
     return (ops[0] if len(ops) == 1 else block_diag(ops)), info
+
+
+def _placed_faust(f: Faust, mesh) -> Faust:
+    """``f`` with rank 0's bits on every rank of ``mesh``, on its device."""
+    if not isinstance(mesh, Mesh):
+        return f
+    put = lambda t: broadcast(t.detach().to(mesh.device), 0)  # noqa: E731
+    return Faust(tuple(put(s) for s in f.factors), put(f.lam))
+
+
+def _moved(obj, device):
+    """``obj`` with every tensor in it (through dataclasses, lists, tuples
+    and dicts) on ``device``."""
+    if isinstance(obj, torch.Tensor):
+        return obj.to(device)
+    if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        return dataclasses.replace(obj, **{f.name: _moved(getattr(obj, f.name), device)
+                                           for f in dataclasses.fields(obj) if f.init})
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_moved(v, device) for v in obj)
+    if isinstance(obj, dict):
+        return {k: _moved(v, device) for k, v in obj.items()}
+    return obj
+
+
+def _on_mesh(a, spec: "FactorizeSpec", dev: torch.device) -> tuple[FaustOp, FactorizeInfo]:
+    """``factorize`` on a mesh: rank 0 solves and broadcasts its result,
+    which every rank moves to its device and shards (module docstring)."""
+    import torch.distributed as dist
+
+    payload = [None]
+    if dist.get_rank() == 0:
+        _, info = factorize(a, dataclasses.replace(spec, mesh=None), device=dev)
+        payload = [_moved(dataclasses.replace(info, ops=[]), "cpu")]
+    dist.broadcast_object_list(payload, src=0, device=spec.mesh.device if spec.mesh.backend == "nccl" else None)
+    info = _moved(payload[0], dev)  # rank 0's bits on every rank: placed
+    shard = _shard_of(spec)
+    info.ops = [FaustOp(r, shard=shard) for r in (info.blockfausts if info.blockfausts is not None else info.fausts)]
+    return (info.ops[0] if len(info.ops) == 1 else block_diag(info.ops)), info
 
 
 def _as_target(a, device: torch.device) -> torch.Tensor:
@@ -159,6 +226,8 @@ def factorize(a, spec: FactorizeSpec, *, device=None) -> tuple[FaustOp, Factoriz
     if spec.strategy not in STRATEGIES:
         raise ValueError(f"strategy must be one of {STRATEGIES}; got {spec.strategy!r}")
     dev = resolve_device(device)
+    if isinstance(spec.mesh, Mesh):
+        return _on_mesh(a, spec, dev)
     a = _as_target(a, dev)
     if a.ndim not in (2, 3):
         raise ValueError(f"expected (m, n) or (B, m, n); got {tuple(a.shape)}")
@@ -205,7 +274,7 @@ def factorize(a, spec: FactorizeSpec, *, device=None) -> tuple[FaustOp, Factoriz
     else:
         faust, info = hierarchical_factorization(a, hier)
         fausts = [faust]
-    return _finish(spec.strategy, batched, fausts, hierarchical=info, hier_spec=hier)
+    return _finish(spec.strategy, batched, fausts, hierarchical=info, hier_spec=hier, shard=_shard_of(spec))
 
 
 def _block_target(ws: torch.Tensor, n_factors: int, bk: int, bn: int, k_first: int, k_mid: int,
@@ -255,7 +324,7 @@ def _route_block(a: torch.Tensor, spec: FactorizeSpec, batched: bool):
         fausts = [faust]
         bfs = [_faust_to_blockfaust(faust, prep.transpose, spec.block, spec.block, *a.shape)]
     return _finish(spec.strategy, batched, fausts, blockfausts=bfs, hierarchical=info,
-                   hier_spec=hier, prep=prep)
+                   hier_spec=hier, prep=prep, shard=_shard_of(spec))
 
 
 def _route_palm(a: torch.Tensor, spec: FactorizeSpec, batched: bool):
@@ -272,7 +341,8 @@ def _route_palm(a: torch.Tensor, spec: FactorizeSpec, batched: bool):
     else:
         res = palm4msa(a, factors, lam, spec.projs, spec.n_iter, keep_best=spec.keep_best)
         fausts = [Faust(res.factors, res.lam)]
-    return _finish(spec.strategy, batched, fausts, loss_history=res.loss_history, n_sweeps=spec.n_iter)
+    return _finish(spec.strategy, batched, fausts, loss_history=res.loss_history, n_sweeps=spec.n_iter,
+                   shard=_shard_of(spec))
 
 
 def _route_dictionary(a: torch.Tensor, spec: FactorizeSpec):
@@ -283,4 +353,5 @@ def _route_dictionary(a: torch.Tensor, spec: FactorizeSpec):
     y = _as_target(spec.dict_y, a.device)
     gamma0 = _as_target(spec.dict_gamma0, a.device)
     faust, gamma, info = hierarchical_dictionary(y, a, gamma0, spec.hier, spec.dict_sparse_coding)
-    return _finish(spec.strategy, False, [faust], hierarchical=info, gamma=gamma, hier_spec=spec.hier)
+    return _finish(spec.strategy, False, [faust], hierarchical=info, gamma=gamma, hier_spec=spec.hier,
+                   shard=_shard_of(spec))

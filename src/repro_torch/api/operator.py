@@ -24,6 +24,11 @@ materialize nothing until applied:
 * ``block_diag`` / ``vstack`` / ``hstack`` — stacked operators; a
   composite applies each leaf through that leaf's own dispatch, so a
   fusable leaf runs K1 on the card;
+* ``op.with_sharding(ShardSpec(mesh))`` — mesh placement: the batch is
+  split over ``"data"``, every factor's out-blocks over ``"model"``, and
+  ``apply`` gains the ``"fused_sharded"`` backend
+  (:mod:`repro_torch.kernels.chain_sharded`; ``auto`` prices it with the
+  plan that would run);
 * ``op.to("faust" | "block" | "packed")`` — conversions;
 * ``op.s_tot`` / ``op.rcg`` — the paper's complexity accounting.
 
@@ -32,8 +37,9 @@ without one; ``x @ op`` and ``op @ x`` run where ``x`` lies).  On a CUDA
 device the structured backends run the CUDA kernels, on the CPU their
 plain versions.  A kernel that fails raises, under ``auto`` too: the
 port has no degraded ladder (the reference demotes a raising ``auto``
-apply fused → bsr → dense), so no fallback hides a kernel.  Sharding comes
-with a later slice.
+apply fused → bsr → dense), so no fallback hides a kernel.  On a mesh
+every rank applies the operator to the same ``x`` (SPMD) and gets the
+whole result.
 """
 from __future__ import annotations
 
@@ -47,6 +53,7 @@ from repro_torch.core.compress import (
     BlockFaust,
     PackedChain,
     _faust_to_blockfaust,
+    expand_scales,
     pack_chain,
     unpack_chain,
 )
@@ -55,7 +62,21 @@ from repro_torch.device import resolve_device
 
 _LEAF_REPS = (Faust, BlockFaust, PackedChain)
 _FORMATS = ("faust", "block", "packed")
-BACKENDS = ("auto", "dense", "bsr", "fused")
+BACKENDS = ("auto", "dense", "bsr", "fused", "fused_sharded")
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardSpec:
+    """How a FaustOp lives on a device mesh: ``data_axis`` splits the
+    apply batch, ``model_axis`` every factor's out-blocks (boundary
+    all-gathers only where the support crosses ranks; see
+    :mod:`repro_torch.kernels.chain_sharded`).  ``mesh`` is a
+    :class:`repro_torch.distributed.Mesh`.  Hashable (a mesh hashes by
+    identity).  Attach with :meth:`FaustOp.with_sharding`."""
+
+    mesh: object
+    data_axis: str = "data"
+    model_axis: str = "model"
 
 
 def _conj_rep(rep):
@@ -110,6 +131,7 @@ class FaustOp:
     conj: bool = False
     kind: str = "leaf"
     children: tuple["FaustOp", ...] = ()
+    shard: ShardSpec | None = None
 
     # numpy defers ``ndarray @ op`` to :meth:`__rmatmul__`
     __array_ufunc__ = None
@@ -211,12 +233,22 @@ class FaustOp:
     # -- algebra -------------------------------------------------------------
     def _adj(self, conj: bool) -> "FaustOp":
         if self.kind == "leaf":
-            return FaustOp(self.rep, not self.adjoint, self.conj ^ conj)
+            return FaustOp(self.rep, not self.adjoint, self.conj ^ conj, shard=self.shard)
         kids = tuple(c._adj(conj) for c in self.children)
         if self.kind == "compose":
             return FaustOp(None, kind="compose", children=tuple(reversed(kids)))
         kind = {"vstack": "hstack", "hstack": "vstack"}.get(self.kind, self.kind)
         return FaustOp(None, kind=kind, children=kids)
+
+    def with_sharding(self, shard: ShardSpec | None) -> "FaustOp":
+        """Attach (or clear, with ``None``) a :class:`ShardSpec`, pushed
+        down to every leaf so a composite dispatches each leaf on the mesh.
+        Moves no tensor: pair it with
+        :func:`repro_torch.kernels.chain_sharded.place_blockfaust` or
+        ``FactorizeSpec.mesh``."""
+        if self.kind == "leaf":
+            return dataclasses.replace(self, shard=shard)
+        return dataclasses.replace(self, children=tuple(c.with_sharding(shard) for c in self.children))
 
     @property
     def T(self) -> "FaustOp":
@@ -350,12 +382,20 @@ class FaustOp:
                 f"backend {backend!r} is not feasible for this operator "
                 f"(feasible: {self.feasible_backends()})"
             )
+        # the mesh plan first, so dispatch prices the plan that would run
+        # (cached: the apply reads the same); only where the sharded path
+        # can be chosen
+        summary = None
+        if backend in ("auto", "fused_sharded") and "fused_sharded" in self.feasible_backends():
+            summary = self._shard_plan().summary()
         if autotune and backend == "auto":
             _autotune.ensure_measured(
-                self, x, batch=batch_of(x), dtype=x.dtype, grad=grad, use_kernel=use_kernel
+                self, x, batch=batch_of(x), dtype=x.dtype, grad=grad, use_kernel=use_kernel,
+                mesh_shape=summary["mesh_shape"] if summary else None,
             )
         report = _dispatch.dispatch(
-            self, batch_of(x), x.dtype, requested=backend, device=str(x.device), bt=bt, grad=grad
+            self, batch_of(x), x.dtype, requested=backend, device=str(x.device), bt=bt, grad=grad,
+            shard=summary,
         )
         return self._run_backend(x, report.backend, use_kernel, report.bt)
 
@@ -402,6 +442,33 @@ class FaustOp:
         f32 values, dequantized once per state of the codes and scales."""
         return self._cached("_unpack_cache", lambda: unpack_chain(self._leaf_rep()), live)
 
+    def _shard_view(self, live: bool):
+        """The leaf as the sharded apply takes it: a :class:`BlockFaust`
+        and, for a quantized chain, its codes with each factor's f32 scale
+        rows ``(O_j, K_j, blk)`` beside them (``None`` otherwise)."""
+        from repro_torch.kernels.chain_sharded import split_scales
+
+        def build():
+            rep = self.rep
+            if isinstance(rep, BlockFaust):
+                view = rep, None
+            elif rep.quantized:
+                bf = unpack_chain(rep, dequantize=False)
+                view = bf, split_scales(expand_scales(rep.scales, rep.plan.block), bf)
+            else:
+                view = unpack_chain(rep), None
+            return (_conj_rep(view[0]), view[1]) if self.conj else view
+
+        return self._cached("_shard_view_cache", build, live)
+
+    def _shard_plan(self):
+        """The :class:`~repro_torch.kernels.chain_sharded.ShardPlan` of this
+        leaf on its mesh."""
+        from repro_torch.kernels.chain_sharded import plan_shard
+
+        bf, _ = self._shard_view(self._live_grad())
+        return plan_shard(bf, self.shard.mesh, self.shard.data_axis, self.shard.model_axis)
+
     @property
     def _packed(self) -> PackedChain:
         return self._packed_for(self._live_grad())
@@ -415,6 +482,13 @@ class FaustOp:
 
         rep = self.rep
         live = self._live_grad()
+        if backend == "fused_sharded":
+            from repro_torch.kernels.chain_sharded import sharded_chain_apply
+
+            bf, scales = self._shard_view(live)
+            sh = self.shard
+            return sharded_chain_apply(x, bf, sh.mesh, sh.data_axis, sh.model_axis, plan=self._shard_plan(),
+                                       use_kernel=use_kernel, bt=bt, scales=scales)
         if backend == "dense":
             return x @ self.todense().to(x.dtype)
         if self.conj:
@@ -456,13 +530,16 @@ class FaustOp:
 
     def feasible_backends(self) -> tuple[str, ...]:
         """Backends this leaf can run: adjoints and Faust leaves have no
-        fused kernel; a BlockFaust needs a packable chain."""
+        fused kernel; a BlockFaust needs a packable chain for ``fused``;
+        ``fused_sharded`` needs a :class:`ShardSpec` (any chain: one that
+        does not pack runs replicated, per factor)."""
         rep = self._leaf_rep()
         if isinstance(rep, Faust) or self.adjoint:
             return ("dense", "bsr")
+        sharded = ("fused_sharded",) if self.shard is not None else ()
         if isinstance(rep, PackedChain) or _fusable(rep):
-            return ("dense", "bsr", "fused")
-        return ("dense", "bsr")
+            return ("dense", "bsr", "fused") + sharded
+        return ("dense", "bsr") + sharded
 
     def dispatch_for(self, batch: int, dtype=torch.float32, grad: bool = False):
         """The decision ``apply(backend="auto")`` would make at ``batch``
@@ -472,8 +549,10 @@ class FaustOp:
 
         if self.kind != "leaf":
             return self.leaves()[-1].dispatch_for(batch, dtype, grad)
+        plan = self._shard_plan() if "fused_sharded" in self.feasible_backends() else None
         return _dispatch.dispatch(
-            self, batch, dtype, requested="auto", device=str(self.device), record=False, grad=grad
+            self, batch, dtype, requested="auto", device=str(self.device), record=False, grad=grad,
+            shard=plan.summary() if plan is not None else None,
         )
 
     # -- conversions -------------------------------------------------------------

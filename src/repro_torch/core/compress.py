@@ -299,11 +299,10 @@ def dequantize_chain(chain: PackedChain) -> PackedChain:
     return PackedChain(v, chain.in_idx, chain.lam, chain.plan)
 
 
-def pack_chain(bfaust: BlockFaust) -> PackedChain:
-    """Flatten a :class:`BlockFaust` into the fused-kernel layout.  Needs
-    uniform square blocks and a contiguous chain; raises ``ValueError``
-    otherwise."""
-    factors = bfaust.factors
+def chain_plan(factors: Sequence[BlockSparseFactor]) -> ChainPlan:
+    """The :class:`ChainPlan` of a chain of factors in the fused layout.
+    Needs uniform square blocks and a contiguous chain; raises
+    ``ValueError`` otherwise."""
     blk = factors[0].bk
     for f in factors:
         if f.bk != blk or f.bn != blk:
@@ -318,7 +317,7 @@ def pack_chain(bfaust: BlockFaust) -> PackedChain:
     offsets = [0]
     for f in factors:
         offsets.append(offsets[-1] + f.n_out_blocks * f.k)
-    plan = ChainPlan(
+    return ChainPlan(
         block=blk,
         in_blocks=tuple(f.n_in_blocks for f in factors),
         out_blocks=tuple(f.n_out_blocks for f in factors),
@@ -327,15 +326,27 @@ def pack_chain(bfaust: BlockFaust) -> PackedChain:
         in_feats=tuple(f.in_features for f in factors),
         out_feats=tuple(f.out_features for f in factors),
     )
+
+
+def pack_chain(bfaust: BlockFaust) -> PackedChain:
+    """Flatten a :class:`BlockFaust` into the fused-kernel layout.  Needs
+    uniform square blocks and a contiguous chain; raises ``ValueError``
+    otherwise."""
+    factors = bfaust.factors
+    plan = chain_plan(factors)
+    blk = plan.block
     values = torch.cat([f.values.reshape(-1, blk, blk) for f in factors])
     in_idx = torch.cat([f.in_idx.reshape(-1).to(torch.int32) for f in factors])
     return PackedChain(values, in_idx, bfaust.lam, plan)
 
 
-def unpack_chain(chain: PackedChain) -> BlockFaust:
+def unpack_chain(chain: PackedChain, dequantize: bool = True) -> BlockFaust:
     """Inverse of :func:`pack_chain` (views sliced by the plan's offsets).
-    A quantized chain unpacks to its exact f32 values."""
-    chain = dequantize_chain(chain)
+    A quantized chain unpacks to its exact f32 values, or with
+    ``dequantize=False`` to its codes (the sharded apply takes the scales
+    beside them)."""
+    if dequantize:
+        chain = dequantize_chain(chain)
     plan, blk = chain.plan, chain.plan.block
     factors = []
     for j in range(plan.n_factors):

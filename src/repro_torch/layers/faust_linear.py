@@ -14,8 +14,12 @@ the chain backward kernels), and an optimizer step is seen by the next
 forward.  :class:`StackedFaustLinear` holds ``n`` such projections of one
 layout stacked on a leading axis (musicgen's per-codebook heads, as the
 reference stacks them) and applies one of them at a time, each its own
-chain.  Sharded placement (the reference's ``FaustSpec.shard``) comes
-with the multi-GPU slice.
+chain.  A spec may carry a :class:`~repro_torch.api.operator.ShardSpec`
+(``FaustSpec.shard``, or ``shard=`` on a forward, which overrides it):
+every apply through the layer is then on the mesh (``fused_sharded``
+joins the dispatch candidates), each rank applying the layer to the same
+input and getting the whole result, and :func:`factorize_spec` places
+compressed layers.
 """
 from __future__ import annotations
 
@@ -31,11 +35,13 @@ from repro_torch.device import resolve_device
 @dataclasses.dataclass(frozen=True)
 class FaustSpec:
     """Static layout of a FAµST projection: ``n_factors`` J, square
-    ``block`` side, ``k`` kept blocks per output block-column per factor."""
+    ``block`` side, ``k`` kept blocks per output block-column per factor;
+    ``shard`` an optional mesh placement (a ``ShardSpec``)."""
 
     n_factors: int = 2
     block: int = 128
     k: int = 4
+    shard: object = None
 
     def chain_dims(self, in_dim: int, out_dim: int) -> list[int]:
         inner = min(in_dim, out_dim)
@@ -58,9 +64,11 @@ class FaustSpec:
 def factorize_spec(spec: FaustSpec, n_iter_two: int = 40, n_iter_global: int = 40):
     """The :class:`repro_torch.api.factorize.FactorizeSpec` that compresses
     a dense weight into this layer's chain layout (the block route with
-    ``k_first = k_mid = spec.k``)."""
+    ``k_first = k_mid = spec.k``), placed on ``spec.shard``'s mesh when it
+    has one."""
     from repro_torch.api.factorize import FactorizeSpec
 
+    sh = spec.shard
     return FactorizeSpec(
         strategy="hierarchical",
         n_factors=spec.n_factors,
@@ -69,6 +77,9 @@ def factorize_spec(spec: FaustSpec, n_iter_two: int = 40, n_iter_global: int = 4
         k_mid=spec.k,
         n_iter_two=n_iter_two,
         n_iter_global=n_iter_global,
+        mesh=sh.mesh if sh is not None else None,
+        data_axis=sh.data_axis if sh is not None else "data",
+        model_axis=sh.model_axis if sh is not None else "model",
     )
 
 
@@ -124,13 +135,16 @@ class FaustLinear(nn.Module):
             self.lam,
         )
 
-    def forward(self, x: torch.Tensor, backend: str | None = None) -> torch.Tensor:
-        return self._apply_chain(self.blockfaust(), x, backend)
+    def forward(self, x: torch.Tensor, backend: str | None = None, shard=None) -> torch.Tensor:
+        """``x @ W`` on ``backend`` (default: the layer's); ``shard``
+        overrides ``spec.shard`` for this call."""
+        return self._apply_chain(self.blockfaust(), x, backend, shard)
 
-    def _apply_chain(self, bf: BlockFaust, x: torch.Tensor, backend: str | None) -> torch.Tensor:
+    def _apply_chain(self, bf: BlockFaust, x: torch.Tensor, backend: str | None, shard=None) -> torch.Tensor:
         from repro_torch.api.operator import FaustOp
 
-        return FaustOp(bf).apply(x, backend or self.backend, device=x.device)
+        op = FaustOp(bf, shard=shard if shard is not None else self.spec.shard)
+        return op.apply(x, backend or self.backend, device=x.device)
 
 
 class StackedFaustLinear(FaustLinear):
@@ -175,5 +189,5 @@ class StackedFaustLinear(FaustLinear):
             self.lam[head],
         )
 
-    def forward(self, x: torch.Tensor, head: int, backend: str | None = None) -> torch.Tensor:
-        return self._apply_chain(self.blockfaust(head), x, backend)
+    def forward(self, x: torch.Tensor, head: int, backend: str | None = None, shard=None) -> torch.Tensor:
+        return self._apply_chain(self.blockfaust(head), x, backend, shard)

@@ -246,6 +246,7 @@ class EngineStats:
     tpot_s: dict = dataclasses.field(default_factory=dict)
     # parity with the old ServeStats surface
     faust_dispatch: Any = None  # last decision a forward recorded
+    mesh_axes: dict | None = None  # the executor's mesh, {axis: size} (None off a mesh)
 
     @property
     def tokens_per_s(self) -> float:
@@ -390,15 +391,28 @@ class LMExecutor:
     ``(1, nv, d)`` tensors on the device, on a first admission and on a
     re-prefill alike; every image position falls in the prefix it
     prefills whole (:func:`lm.prefill_length`).
+
+    ``mesh`` (a :class:`repro_torch.distributed.Mesh`): every rank of it
+    runs the same engine on the same requests.  A FAµST head whose spec
+    carries a ``ShardSpec`` (it must be on ``mesh``) applies through
+    ``fused_sharded`` and its logits come back whole on every rank, so
+    every rank samples the same token.  The other layers run whole on
+    every rank: the reference's decode policy (``use_rules``) only
+    constrains placement, never values, and comes with the model-wide
+    mesh.
     """
 
-    def __init__(self, model, max_len: int, n_slots: int):
+    def __init__(self, model, max_len: int, n_slots: int, mesh=None):
         import torch
 
         from repro_torch.models import lm
 
-        self.cfg, self.model = model.cfg, model
+        self.cfg, self.model, self.mesh = model.cfg, model, mesh
         self.max_len, self.n_slots = max_len, n_slots
+        head = _faust_head(model)
+        shard = None if head is None else head.spec.shard
+        if shard is not None and shard.mesh is not mesh:
+            raise ValueError("the FAµST head is sharded on another mesh than the executor's: pass that mesh")
         self._torch, self._lm = torch, lm
         self.device = model.embed.table.device
         self._act_dtype = lm.DTYPES[self.cfg.dtype]
@@ -414,10 +428,11 @@ class LMExecutor:
         from repro_torch.layers.faust_linear import StackedFaustLinear
 
         head = _faust_head(self.model)
-        if isinstance(head, StackedFaustLinear):  # per-codebook heads: query head 0
-            return FaustOp(head.blockfaust(0))
-        bf = self.unembed_blockfaust()
-        return None if bf is None else FaustOp(bf)
+        if head is None:
+            return None
+        # per-codebook heads: query head 0
+        bf = head.blockfaust(0) if isinstance(head, StackedFaustLinear) else self.unembed_blockfaust()
+        return FaustOp(bf, shard=head.spec.shard)
 
     def dispatch_for(self, batch: int):
         if self._faust_op is None:
@@ -574,6 +589,9 @@ class Engine:
         self.running: "OrderedDict[str, Request]" = OrderedDict()
         self.done: dict[str, Request] = {}
         self.stats = EngineStats()
+        mesh = getattr(executor, "mesh", None)  # LMExecutor(mesh=): the serving mesh's {axis: size}
+        if mesh is not None:
+            self.stats.mesh_axes = dict(mesh.shape)
         self._n = 0
         # -- supervision policy --
         if retry_budget is None:

@@ -14,8 +14,14 @@ FAµST projections run through ``FaustOp.apply(backend="auto")`` in every
 forward; the last decision a forward recorded (the unembedding's) is kept
 on :class:`ServeStats` (``faust_dispatch``).  ``tokens_decoded`` counts
 every sampled token, ``b · n_new_tokens``, including the token sampled
-from the prefill logits, and ``decode_s`` covers every sample.  There is
-no mesh: multi-GPU serving comes with a later slice.
+from the prefill logits, and ``decode_s`` covers every sample.
+
+``Server(model, max_len, mesh=mesh)`` serves on a mesh: every rank of it
+builds the same model (same config and seed) and calls ``generate`` with
+the same batch; a FAµST head whose spec carries a ``ShardSpec`` on
+``mesh`` applies through ``fused_sharded`` (:class:`LMExecutor`), every
+rank generates the same tokens, and ``ServeStats.mesh_axes`` is the
+mesh's ``{axis: size}``.
 """
 from __future__ import annotations
 
@@ -43,6 +49,8 @@ class ServeStats:
     retries: int = 0
     failed: int = 0
     demotions: int = 0  # always 0: the port has no ladder; kept for field parity with the reference
+    # the serving mesh's {axis: size} (None off a mesh)
+    mesh_axes: dict | None = None
 
     @property
     def tokens_per_s(self) -> float:
@@ -55,8 +63,8 @@ class Server:
     takes ``cfg`` and ``params``), caches of ``max_len`` tokens, on the
     model's device."""
 
-    def __init__(self, model, max_len: int):
-        self.cfg, self.model, self.max_len = model.cfg, model, max_len
+    def __init__(self, model, max_len: int, mesh=None):
+        self.cfg, self.model, self.max_len, self.mesh = model.cfg, model, max_len, mesh
         self._faust_dispatch = None  # kept across generate() calls
         self._executor: LMExecutor | None = None  # reused across generate()s
 
@@ -71,7 +79,7 @@ class Server:
     def _executor_for(self, b: int) -> LMExecutor:
         ex = self._executor
         if ex is None or ex.n_slots != b:
-            ex = LMExecutor(self.model, self.max_len, n_slots=b)
+            ex = LMExecutor(self.model, self.max_len, n_slots=b, mesh=self.mesh)
             self._executor = ex
         return ex
 
@@ -111,4 +119,6 @@ class Server:
         if ex.faust_dispatch is not None:
             self._faust_dispatch = ex.faust_dispatch
         stats.faust_dispatch = self._faust_dispatch
+        if self.mesh is not None:
+            stats.mesh_axes = dict(self.mesh.shape)
         return gen, stats

@@ -26,8 +26,13 @@ reference counts its trace-cache hits (one miss, then hits).  Sweep
 accounting (``sweeps_total``, per-record ``sweeps``) is the cost unit.
 The probes come from a ``torch.Generator`` seeded by ``(cfg.seed, step,
 salt)``, drawn on the CPU and moved to the target's device, so a run is
-deterministic on any device.  The reference's mesh placement of the
-refreshed operator waits for the multi-GPU slice.
+deterministic on any device.
+
+On a mesh (``spec.mesh``; every rank tracks the same targets) the refresh
+is placed as ``factorize`` places (``_shard_of``): rank 0's factors are
+broadcast, so every rank's tracker state and published operator are rank
+0's, and the controller reads rank 0's drift, so every rank takes the
+same action.
 """
 from __future__ import annotations
 
@@ -35,7 +40,7 @@ import dataclasses
 
 import torch
 
-from repro_torch.api.factorize import FactorizeSpec, TargetPrep, _finish, factorize
+from repro_torch.api.factorize import FactorizeSpec, TargetPrep, _finish, _shard_of, factorize
 from repro_torch.core.compress import BlockFaust, _faust_to_blockfaust
 from repro_torch.core.faust import Faust
 from repro_torch.core.hierarchical import CacheStats, HierarchicalSpec, _run_palm
@@ -150,7 +155,7 @@ class StreamingFaust:
         controller pick skip / incremental warm sweep / full hierarchical
         refactorization, refresh ``self.op``, and account the sweeps."""
         a_t = self._target(a_t)
-        drift = self.estimate_drift(a_t, salt=0)
+        drift = self._agreed(self.estimate_drift(a_t, salt=0))
         if drift <= self.cfg.skip_below:
             action, sweeps = SKIP, 0
         elif drift >= self.cfg.full_above:
@@ -158,11 +163,21 @@ class StreamingFaust:
         else:
             action, sweeps = SWEEP, self._warm_sweep(a_t)
         self.sweeps_total += sweeps
-        re_est = self.estimate_drift(a_t, salt=1)
+        re_est = self._agreed(self.estimate_drift(a_t, salt=1))
         rec = UpdateRecord(self._step, action, drift, re_est, sweeps)
         self.history.append(rec)
         self._step += 1
         return rec
+
+    def _agreed(self, value: float) -> float:
+        """Rank 0's ``value`` on every rank of the spec's mesh (``value``
+        itself off a mesh)."""
+        from repro_torch.distributed.mesh import Mesh, broadcast
+
+        mesh = self.spec.mesh
+        if not isinstance(mesh, Mesh):
+            return value
+        return float(broadcast(torch.tensor([value], dtype=torch.float64, device=mesh.device), 0))
 
     def _warm_sweep(self, a_t: torch.Tensor) -> int:
         """Incremental update: ``n_iter_update`` warm PALM sweeps on the
@@ -192,14 +207,15 @@ class StreamingFaust:
 
     def _publish(self, faust: Faust) -> None:
         """Rebuild ``self.op`` from refreshed factors in the frame
-        ``factorize`` used (the block re-pack included)."""
-        self.faust = faust
+        ``factorize`` used (the block re-pack and the mesh placement
+        included)."""
         bfs = None
         if self._block_route:
             bk = self.spec.block
             in_f, out_f = self.op.shape
             bfs = [_faust_to_blockfaust(faust, self.prep.transpose, bk, bk, in_f, out_f)]
-        self.op, _ = _finish(self.spec.strategy, False, [faust], blockfausts=bfs)
+        self.op, info = _finish(self.spec.strategy, False, [faust], blockfausts=bfs, shard=_shard_of(self.spec))
+        self.faust = info.fausts[0]
 
     # -- convenience --------------------------------------------------------
     @property

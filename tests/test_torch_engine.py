@@ -490,11 +490,12 @@ def test_sweep_matches_reference(sweep, seed):
 
 
 def test_port_engine_stats_fields():
-    """The port's ``EngineStats`` has the reference's fields but its mesh
-    record, and ``demotions`` stays 0 whatever the executor reports."""
+    """The port's ``EngineStats`` has the reference's fields (the mesh
+    record too, since the port serves on a mesh), and ``demotions`` stays
+    0 whatever the executor reports."""
     port = {f.name for f in dataclasses.fields(tengine.EngineStats)}
     ref = {f.name for f in dataclasses.fields(jengine.EngineStats)}
-    assert port == ref - {"mesh_axes"}
+    assert port == ref
     sim = SimExecutor(n_slots=1, max_len=16)
     sim.faust_dispatch = types.SimpleNamespace(backend="bsr", demoted_from="fused")
     engine = tengine.Engine(sim, clock=FakeClock(tick=0.001))

@@ -780,3 +780,40 @@ def test_every_codebook_head_matches_plain(dev, arch):
         assert (chain_dgrad.launches, chain_wgrad.launches) == (before[0] + 1, before[1] + 1)
         assert _rel(dx, chain_dgrad_plain(dy, values, dm, plan=plan)) <= TOL[torch.bfloat16]
         assert _rel(dv, chain_wgrad_plain(x, dy, values, wm, plan=plan)) <= TOL[torch.bfloat16]
+
+
+def test_sharded_apply_on_a_one_rank_nccl_mesh(dev, tmp_path):
+    """A 1 × 1 mesh over NCCL (world size 1): ``fused_sharded`` runs its
+    collectives for real at one rank, K1 forward and K2 + K3 backward,
+    each launched once and held against the plain versions on the same
+    card tensors."""
+    import torch.distributed as dist
+
+    from repro_torch.api.operator import ShardSpec
+    from repro_torch.distributed import make_debug_mesh
+
+    g = torch.Generator().manual_seed(13)
+    bf = BlockFaust(tuple(random_block_factor(i, o, 128, 128, 4, generator=g, device=dev)
+                          for i, o in ((1024, 1024), (1024, 4096))), torch.ones((), device=dev))
+    x = torch.randn((96, 1024), generator=g).to(dev)
+    dy = torch.randn((96, 4096), generator=g).to(dev)
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/rendezvous", rank=0, world_size=1)
+    try:
+        op = FaustOp(bf).with_sharding(ShardSpec(make_debug_mesh(1, 1, device=dev)))
+        grads = {}
+        for kernel in (True, False):
+            pc = pack_chain(bf)
+            leaf = pc.values.detach().clone().requires_grad_(True)
+            top = FaustOp(dataclasses.replace(pc, values=leaf), shard=op.shard)
+            xg = x.clone().requires_grad_(True)
+            chain_matmul.launches = chain_dgrad.launches = chain_wgrad.launches = 0
+            y = top.apply(xg, "fused_sharded", use_kernel=kernel)
+            (y * dy).sum().backward()
+            torch.cuda.synchronize()
+            grads[kernel] = (y.detach(), xg.grad, leaf.grad)
+            want = (1, 1, 1) if kernel else (0, 0, 0)
+            assert (chain_matmul.launches, chain_dgrad.launches, chain_wgrad.launches) == want
+        for got, ref in zip(grads[True], grads[False]):
+            assert _rel(got, ref) <= TOL[torch.float32]
+    finally:
+        dist.destroy_process_group()

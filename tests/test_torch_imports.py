@@ -40,7 +40,9 @@ def test_scan_sees_the_port():
                 "layers/moe.py", "layers/mamba2.py", "configs/mamba2_2p7b.py", "configs/zamba2_7b.py",
                 "configs/chatglm3_6b.py", "configs/nemotron4_15b.py", "configs/gemma3_27b.py",
                 "configs/granite_moe_3b.py", "configs/llama4_maverick.py", "examples/quickstart.py",
-                "examples/compress_operator.py", "examples/train_tiny_lm.py", "examples/serve_lm.py"):
+                "examples/compress_operator.py", "examples/train_tiny_lm.py", "examples/serve_lm.py",
+                "distributed/__init__.py", "distributed/mesh.py", "distributed/sharding.py",
+                "kernels/chain_sharded.py"):
         assert port / new in FILES
     assert _forbidden("repro.kernels.ops") and _forbidden("jax.numpy") and _forbidden("ml_dtypes")
     assert not _forbidden("repro_torch.kernels.ops")
