@@ -261,7 +261,30 @@ Phases, each fatal on failure (non-zero exit):
    rank's tokens equal; on rank 0, after every collective, the
    teacher-forced check (within 3e-2) that the planted run must fail, and
    the unsharded engine's tokens beside the sharded ones.  No time of the
-   four ranks is a multi-GPU number: they share one card.
+   four ranks is a multi-GPU number: they share one card;
+19. the language model trained on a mesh (slice 14): (a) a 1 × 1 NCCL mesh
+   in this process: gemma-2b at full width and depth through
+   ``Trainer(mesh=)`` with ``launch.train``'s ``--faust --steps 3 --batch 8
+   --seq 128`` (bf16, remat, the head forced onto ``fused``), beside the
+   unsharded ``Trainer`` on the same seed: the losses, step times, peak
+   memory, K1/K2/K3 a step (one each), collective calls by purpose; a
+   sharded save at step 2 restored into an unsharded ``Trainer`` that runs
+   step 3 to the mesh's loss; (b) four ranks spawned on this card over
+   ``gloo``, a 2 × 2 ``("data", "model")`` mesh, gemma-2b at full width cut
+   to ``MT_LAYERS`` layers under its ``CP_POLICY`` (rows over data, the
+   sequence over model): the state bytes a rank holds (about a quarter of
+   the whole); ``MT_STEPS`` steps with SIGTERM to rank 2 after step 1
+   (every rank saves step 1 and stops), the losses equal on every rank and within
+   ``MT_TOL`` of the unsharded trainer's (losses and gradient norms), run
+   in this process; that
+   checkpoint resumed on a 4 × 1 mesh and in this process unsharded, each
+   to the uninterrupted run's step-2 loss; one step in f32 within
+   ``MT_TOL`` of unsharded (the loss check holds the losses and the
+   gradient norms); a planted fault (keys and values not gathered over the
+   sequence, f32) that must fail it; (c) ``pipeline_apply`` on pod 4
+   × data 1 of those ranks (d 16, b 24, 6 microbatches) against the
+   sequential oracle.  The ranks start once (a)'s mesh run is over, and
+   run beside (a)'s restore and (b)'s unsharded runs in this process.
 
 Prints one JSON object per line; the last three lines are the kernels
 summary, the card's ``name, power.limit`` and ``{"ok": true, ...}``.
@@ -4491,6 +4514,344 @@ def mesh(card_line: str, dev, op) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Slice 14: the language model trained on a mesh (phase 19)
+# ---------------------------------------------------------------------------
+
+MT_ARGV = ("--arch", "gemma_2b", "--faust", "--steps", "3", "--batch", "8", "--seq", "128")
+MT_LAYERS = 2  # (b)'s depth (phase 14 (b)'s): every collective of the four ranks is host-staged
+MT_STEPS = 2  # (b)'s bf16 run: SIGTERM after step 1, the resumes run step 2 (each host-staged step ≈ 20 s)
+MT_MESH = (2, 2)
+# losses and gradient norms against the unsharded trainer's, relative (an H100: sound runs bf16 ≤ 1.1e-5,
+# f32 7.4e-8; the planted fault, run in f32, 1.35e-5): f32's limit lies about tenfold from both, bf16's
+# about thrice above its sound runs.  At random init attention adds little to a residual stream the
+# sqrt(d)-scaled embedding dominates, so in bf16 the fault moved the loss by 7e-6 only.
+MT_TOL = {"bfloat16": 3e-5, "float32": 1e-6}
+MT_TIMEOUT_S = 300  # a rank waiting in a collective longer than this fails
+MT_JOIN_S = 600
+MT_PIPE = (4, 16, 24, 6)  # stages, d, b, microbatches (tests/test_pipeline.py's sizes)
+MT_FOLDER = ROOT / "build" / "chip_smoke_mesh_train"
+
+
+def _mt_counts() -> dict:
+    from repro_torch.distributed.layout import COLLECTIVES
+
+    return {**_bwd_counts(), **{f"coll_{k}": v for k, v in COLLECTIVES.items()}}
+
+
+def _zero_mt_counts() -> None:
+    from repro_torch.distributed.layout import COLLECTIVES
+
+    _zero_counts()
+    COLLECTIVES.update(dict.fromkeys(COLLECTIVES, 0))
+
+
+def _mt_trainer(dev, mesh=None, n_layers=None, dtype=None, **tc):
+    """``launch.train``'s trainer for ``MT_ARGV`` (``tc``: TrainConfig
+    fields), cut to ``n_layers`` and cast to ``dtype`` where given, on
+    ``mesh``; and a model from seed 0 with its head forced onto ``fused``."""
+    import dataclasses
+
+    from repro_torch.launch import train
+    from repro_torch.models.lm import LM
+    from repro_torch.runtime.trainer import Trainer
+
+    base = train.build(train.parse_args(list(MT_ARGV)))
+    cfg = base.cfg
+    if n_layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers, stages=((n_layers, ("attn",)),))
+    if dtype is not None:
+        cfg = dataclasses.replace(cfg, dtype=dtype)
+    t = Trainer(cfg, base.data_cfg, base.opt_cfg, dataclasses.replace(base.tcfg, **{"checkpoint_every": 1000, **tc}),
+                mesh=mesh, device=dev)
+    model = LM(cfg, seed=0, device=dev)
+    model.unembed.faust.backend = "fused"  # one K1/K2/K3 a step, whatever a table says
+    return t, model
+
+
+def _mt_run(t, model, resume=False) -> dict:
+    """``t.run`` with the counts zeroed before and read after: losses,
+    step times, peak GB, counts, state bytes, saves."""
+    import torch
+
+    torch.cuda.reset_peak_memory_stats()
+    _zero_mt_counts()
+    t0 = time.perf_counter()
+    out = t.run(resume=resume, model=model)
+    torch.cuda.synchronize()
+    return {"wall_s": time.perf_counter() - t0, "losses": [h["loss"] for h in out["history"]],
+            "steps": [h["step"] for h in out["history"]], "step_time_s": [h["step_time_s"] for h in out["history"]],
+            "grad_norm": [h["grad_norm"] for h in out["history"]],
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9, "launches": _mt_counts(),
+            "state_bytes": t.state_bytes, "saves": t.saves, "resumed": t.resumed,
+            "write_s": t.ckpt.last_write_s}
+
+
+def _rel_diff(a, b) -> float:
+    return max(abs(x - y) / max(abs(y), 1e-30) for x, y in zip(a, b))
+
+
+def _check_diff(run: dict, plain: dict, steps: slice = slice(None)) -> float:
+    """The loss check: the larger relative difference of the losses and of
+    the gradient norms of ``run`` from ``plain``'s steps ``steps``."""
+    return max(_rel_diff(run["losses"], plain["losses"][steps]), _rel_diff(run["grad_norm"], plain["grad_norm"][steps]))
+
+
+def mesh_train_nccl(card_line: str, dev, after_mesh=lambda: None) -> dict:
+    """Phase 19 (a): gemma-2b at full width and depth, unsharded and then
+    on a 1 × 1 NCCL mesh in this process; then ``after_mesh()``; then the
+    mesh's step-2 checkpoint restored into an unsharded trainer for step
+    3."""
+    import shutil
+
+    import torch.distributed as dist
+
+    from repro_torch.distributed import make_debug_mesh
+
+    folder = MT_FOLDER / "a"
+    shutil.rmtree(folder, ignore_errors=True)
+    folder.mkdir(parents=True)
+    free = shutil.disk_usage(folder).free / 1e9
+    t, model = _mt_trainer(dev, checkpoint_dir=str(folder / "plain"))
+    plain = _mt_run(t, model)
+    del t, model
+    _free()
+    rdv = folder / "nccl_rendezvous"
+    dist.init_process_group("nccl", init_method=f"file://{rdv}", rank=0, world_size=1)
+    try:
+        mesh = make_debug_mesh(1, 1, device=dev)
+        t, model = _mt_trainer(dev, mesh=mesh, checkpoint_dir=str(folder / "mesh"), checkpoint_every=2,
+                               keep_checkpoints=1)
+        sharded = _mt_run(t, model)
+        del t, model
+        _free()
+    finally:
+        dist.destroy_process_group()
+    after_mesh()
+    t, model = _mt_trainer(dev, checkpoint_dir=str(folder / "mesh"))
+    resumed = _mt_run(t, model, resume=True)
+    del t, model
+    _free()
+    shutil.rmtree(folder, ignore_errors=True)
+    row = {"phase": "mesh_train_1x1", "card": card_line, "argv": list(MT_ARGV), "head": "fused", "disk_free_gb": free,
+           "unsharded": plain, "mesh": sharded, "resumed_unsharded": resumed,
+           "resume_timing": "after after_mesh(): beside phase 19 (b)'s four ranks",
+           "loss_rel_diff": _check_diff(sharded, plain),
+           "resume_rel_diff": _check_diff(resumed, sharded, slice(2, 3))}
+    log(row)
+    tol = MT_TOL["bfloat16"]
+    require(len(sharded["losses"]) == 3 and row["loss_rel_diff"] <= tol,
+            f"the 1 x 1 mesh's losses differ from the unsharded trainer's: {row['loss_rel_diff']}")
+    require(all(sharded["launches"][k] == 3 for k in ("chain_matmul", "chain_dgrad", "chain_wgrad")),
+            f"not one K1/K2/K3 a step on the mesh: {sharded['launches']}")
+    require([s["step"] for s in sharded["saves"]] == [2] and resumed["resumed"]["step"] == 2
+            and resumed["steps"] == [2] and row["resume_rel_diff"] <= tol,
+            f"the mesh's checkpoint did not resume unsharded to its step-3 loss: {row['resume_rel_diff']}")
+    return row
+
+
+def mesh_train_rank(rank: int, rendezvous: str, out_dir: str, card_line: str, device: str) -> None:
+    """One of phase 19's four ranks (a spawned process): (b) and (c) on
+    the parent's ``device``, the rows and results saved to
+    ``out_dir/rank{rank}.json`` for the parent."""
+    global _ROWS
+    import datetime
+    import signal
+    import traceback
+
+    import torch
+    import torch.distributed as dist
+
+    _ROWS = []
+    os.environ["REPRO_AUTOTUNE"] = "off"
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    dev = torch.device(device)
+    torch.cuda.set_device(dev)
+    torch.set_num_threads(max(1, (os.cpu_count() or 4) // math.prod(MT_MESH)))  # the staged collectives' host work
+    result: dict = {"rank": rank}
+    dist.init_process_group("gloo", init_method=f"file://{rendezvous}", rank=rank, world_size=math.prod(MT_MESH),
+                            timeout=datetime.timedelta(seconds=MT_TIMEOUT_S))
+    try:
+        from repro_torch.distributed import make_debug_mesh
+        from repro_torch.distributed.mesh import TRANSPORT, Mesh
+        from repro_torch.distributed.pipeline import pipeline_apply
+        from repro_torch.layers import attention
+
+        t0 = time.perf_counter()
+        mesh = make_debug_mesh(*MT_MESH, device=dev)
+        result["coord"] = dict(mesh.coord)
+        ckpt = str(Path(out_dir) / "b")
+        t, model = _mt_trainer(dev, mesh=mesh, n_layers=MT_LAYERS, checkpoint_dir=ckpt, steps=MT_STEPS)
+        beat = t._heartbeat
+
+        def preempt_after_step_1(step):
+            beat(step)
+            if step == 0 and rank == 2:
+                os.kill(os.getpid(), signal.SIGTERM)
+
+        t._heartbeat = preempt_after_step_1
+        result["bf16"] = _mt_run(t, model)
+        result["bf16"]["on_disk"] = t.ckpt.all_steps()
+        if rank == 0:  # every rank has returned from the save's collective finish
+            Path(out_dir, "saved").touch()
+        del t, model
+        _free()
+        t, model = _mt_trainer(dev, mesh=make_debug_mesh(4, 1, device=dev), n_layers=MT_LAYERS, checkpoint_dir=ckpt,
+                               steps=MT_STEPS)
+        result["resumed_4x1"] = _mt_run(t, model, resume=True)
+        del t, model
+        _free()
+        _wait_for(Path(out_dir) / "go")  # the parent's full-depth run is over: room on the card for f32
+        t, model = _mt_trainer(dev, mesh=mesh, n_layers=MT_LAYERS, dtype="float32", steps=1,
+                               checkpoint_dir=str(Path(out_dir) / "f32"))
+        result["f32"] = _mt_run(t, model)
+        del t, model
+        _free()
+        real = attention.gather_kv
+        attention.gather_kv = lambda k, v, seq: (k, v, seq.positions(k.device))  # each chunk attends to itself
+        try:
+            t, model = _mt_trainer(dev, mesh=mesh, n_layers=MT_LAYERS, dtype="float32", steps=1,
+                                   checkpoint_dir=str(Path(out_dir) / "planted"))
+            result["planted"] = _mt_run(t, model)
+        finally:
+            attention.gather_kv = real
+        del t, model
+        _free()
+        # (c) the pod pipeline
+        n_stages, d, b, n_micro = MT_PIPE
+        g = torch.Generator().manual_seed(7)
+        w = (torch.randn((n_stages, d, d), generator=g) / math.sqrt(d)).to(dev)
+        bias = (0.1 * torch.randn((n_stages, d), generator=g)).to(dev)
+        x = torch.randn((b, d), generator=g).to(dev)
+        pmesh = Mesh((n_stages, 1), ("pod", "data"), device=dev)
+        stage = lambda p, h: torch.tanh(h @ p["w"] + p["b"])  # noqa: E731
+        y = pipeline_apply(stage, {"w": w, "b": bias}, x, mesh=pmesh, axis="pod", n_microbatches=n_micro)
+        ref = x
+        for i in range(n_stages):
+            ref = stage({"w": w[i], "b": bias[i]}, ref)
+        result["pipeline"] = {"coord": dict(pmesh.coord), "max_abs_err": float((y - ref).abs().max()),
+                              "close": bool(torch.allclose(y, ref, rtol=2e-4, atol=2e-5))}
+        result["seconds"] = time.perf_counter() - t0
+        result["transport"] = dict(TRANSPORT)
+    except Exception:  # noqa: BLE001 — reported by the parent
+        result["error"] = traceback.format_exc()
+    finally:
+        result["rows"] = _ROWS
+        Path(out_dir, f"rank{rank}.json").write_text(json.dumps(result, default=str))
+        dist.destroy_process_group()
+
+
+def _wait_for(path: Path) -> None:
+    """Wait for another process of phase 19 to create ``path``."""
+    deadline = time.monotonic() + MT_TIMEOUT_S
+    while not path.exists():
+        require(time.monotonic() < deadline, f"{path.name} did not appear within {MT_TIMEOUT_S} s")
+        time.sleep(0.2)
+
+
+def mesh_train(card_line: str, dev) -> dict:
+    """Phase 19, slice 14 (module docstring): (a) in this process; once
+    its mesh run is over, four ranks spawned for (b) and (c), while this
+    process restores (a)'s checkpoint, runs the unsharded 2-layer
+    trainers (b) is held against and resumes (b)'s checkpoint unsharded
+    once the ranks have saved it.  The ranks start their f32 runs only
+    after (a) has left the card (the ``go`` file), so the card holds at
+    most (a)'s resume and the ranks' bf16 runs at once."""
+    import multiprocessing
+    import shutil
+
+    from repro_torch.kernels import build
+
+    t0 = time.perf_counter()
+    folder = MT_FOLDER / "b"
+    shutil.rmtree(folder, ignore_errors=True)
+    folder.mkdir(parents=True)
+    procs = []
+
+    def spawn():
+        build.build()  # already built: ranks must only load, never build at once
+        ctx = multiprocessing.get_context("spawn")
+        procs.extend(ctx.Process(target=mesh_train_rank, args=(r, str(folder / "rendezvous"), str(folder),
+                                                                card_line, str(dev)))
+                     for r in range(math.prod(MT_MESH)))
+        for p in procs:
+            p.start()
+
+    try:
+        out = {"a": mesh_train_nccl(card_line, dev, spawn)}
+        _free()
+        (folder / "go").touch()
+        t, model = _mt_trainer(dev, n_layers=MT_LAYERS, checkpoint_dir=str(folder / "plain"), steps=MT_STEPS)
+        plain = _mt_run(t, model)
+        del t, model
+        _free()
+        t, model = _mt_trainer(dev, n_layers=MT_LAYERS, dtype="float32", steps=1,
+                               checkpoint_dir=str(folder / "plain32"))
+        plain32 = _mt_run(t, model)
+        del t, model
+        _free()
+        _wait_for(folder / "saved")
+        t, model = _mt_trainer(dev, n_layers=MT_LAYERS, checkpoint_dir=str(folder / "b"), steps=MT_STEPS)
+        resumed = _mt_run(t, model, resume=True)
+        del t, model
+        _free()
+        deadline = time.monotonic() + MT_JOIN_S
+        for p in procs:
+            p.join(max(deadline - time.monotonic(), 1))
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join(10)
+    results = []
+    for r, p in enumerate(procs):
+        path = folder / f"rank{r}.json"
+        require(path.exists(), f"mesh-train rank {r} saved nothing (exit code {p.exitcode})")
+        res = json.loads(path.read_text())
+        require("error" not in res, f"mesh-train rank {r} failed:\n{res.get('error')}")
+        results.append(res)
+    first = results[0]
+    row = {"phase": "mesh_train", "card": card_line, "n_layers": MT_LAYERS, "mesh": list(MT_MESH),
+           "seconds": time.perf_counter() - t0, "rank_seconds": [r["seconds"] for r in results],
+           "coords": [r["coord"] for r in results], "unsharded": plain, "unsharded_f32": plain32,
+           "bf16": [r["bf16"] for r in results], "resumed_4x1": [r["resumed_4x1"] for r in results],
+           "resumed_unsharded": resumed, "f32": [r["f32"] for r in results],
+           "planted": first["planted"], "pipeline": [r["pipeline"] for r in results],
+           "transport": [r["transport"] for r in results],
+           "state_share": [r["bf16"]["state_bytes"]["rank"] / r["bf16"]["state_bytes"]["whole"] for r in results],
+           "timing": "four ranks share one card, beside this process's (a) restore and unsharded 2-layer runs: "
+                     "no time of (b) or (c) is a multi-GPU number"}
+    row["bf16_rel_diff"] = _check_diff(first["bf16"], plain, slice(0, 1))
+    row["resume_4x1_rel_diff"] = _check_diff(first["resumed_4x1"], plain, slice(1, 2))
+    row["resume_unsharded_rel_diff"] = _check_diff(resumed, plain, slice(1, 2))
+    row["f32_rel_diff"] = _check_diff(first["f32"], plain32)
+    row["planted_rel_diff"] = _check_diff(first["planted"], plain32)
+    log(row)
+    shutil.rmtree(folder, ignore_errors=True)
+    tol = MT_TOL["bfloat16"]
+    require(all(r["bf16"]["losses"] == first["bf16"]["losses"] for r in results)
+            and all(r["f32"]["losses"] == first["f32"]["losses"] for r in results),
+            "the ranks' losses differ")
+    require(all(r["bf16"]["steps"] == [0] and r["bf16"]["on_disk"] == [1] for r in results),
+            f"SIGTERM on rank 2 did not stop every rank after step 1: {[r['bf16']['steps'] for r in results]}")
+    require(row["bf16_rel_diff"] <= tol, f"the 2 x 2 mesh's losses differ from unsharded: {row['bf16_rel_diff']}")
+    require(all(r["resumed_4x1"]["resumed"]["step"] == 1 for r in results) and resumed["resumed"]["step"] == 1
+            and row["resume_4x1_rel_diff"] <= tol and row["resume_unsharded_rel_diff"] <= tol,
+            f"the resumes missed the step-2 loss: {row['resume_4x1_rel_diff']}, {row['resume_unsharded_rel_diff']}")
+    require(row["f32_rel_diff"] <= MT_TOL["float32"], f"the f32 step differs: {row['f32_rel_diff']}")
+    require(row["planted_rel_diff"] > MT_TOL["float32"],
+            f"the planted fault passed the loss check: {row['planted_rel_diff']}")
+    require(all(0.2 <= s <= 0.3 for s in row["state_share"]), f"a rank holds not a quarter: {row['state_share']}")
+    require(all(p["close"] for p in row["pipeline"]), f"pipeline_apply disagrees: {row['pipeline']}")
+    require(all(r["bf16"]["launches"][k] == 1 for r in results for k in ("chain_matmul", "chain_dgrad", "chain_wgrad")),
+            f"not one K1/K2/K3 a step a rank: {[r['bf16']['launches'] for r in results]}")
+    out["b"] = row
+    out["launches"] = {k: out["a"]["mesh"]["launches"][k] for k in ("chain_matmul", "chain_dgrad", "chain_wgrad")}
+    return out
+
+
 def _kernel_entry(name, source, replaces, launches, cases, checks, card_line, head) -> dict:
     first = next(r for r in cases if all(r.get(k) == v for k, v in head.items()))
     keys = ("chain", "quant", "dtype", "batch", "bt", "launches_per_apply", "max_abs_err", "ms", "cold_ms",
@@ -4547,6 +4908,7 @@ def main() -> int:
     ssm = ssm_archs(info["card"], dev)
     mod = modality(info["card"], dev)
     msh = mesh(info["card"], dev, op)
+    mtr = mesh_train(info["card"], dev)
 
     src = "src/repro_torch/kernels/csrc/"
     f32_b128 = {"dtype": "float32", "batch": 128}
@@ -4594,6 +4956,8 @@ def main() -> int:
         k["mesh_launches"] = msh["launches"][k["name"]]
         if k["name"] in msh["serve_launches"]:
             k["mesh_serve_launches"] = msh["serve_launches"][k["name"]]
+        if k["name"] in mtr["launches"]:  # slice 14: phase 19 (a), the trainer on the 1 x 1 mesh
+            k["mesh_train_launches"] = mtr["launches"][k["name"]]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(info["card"], flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

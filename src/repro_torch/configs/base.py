@@ -9,9 +9,12 @@ the reference.  Layer kinds: ``"attn"`` (global attention + FFN),
 every such position).  ``n_codebooks > 1`` (audio) sums that many token
 embeddings, adds sinusoidal positions and predicts each codebook with its
 own head; ``n_vision_tokens`` (vlm) replaces the first positions with
-precomputed patch embeddings.  The reference's sharding policies have no
-counterpart yet (multi-GPU is a later slice): :func:`check_supported`
-names what a config needs that the port does not have.
+precomputed patch embeddings.  ``policy`` (training and prefill) and
+``policy_decode`` are the reference's sharding policies
+(:class:`~repro_torch.distributed.sharding.ShardingPolicy`), with its
+common ones: :data:`TP_POLICY`, :data:`CP_POLICY`, :data:`DECODE_POLICY`,
+:data:`DECODE_LONG_POLICY`.  :func:`check_supported` names what a config
+needs that the port does not have.
 :func:`param_count` and :func:`active_param_count` are the reference's
 analytic counts: the projections, embeddings and routers, not the norms'
 vectors (but a mamba block's ``norm_w``, and not its ``conv_b``), the
@@ -23,6 +26,7 @@ from __future__ import annotations
 
 import dataclasses
 
+from repro_torch.distributed.sharding import ShardingPolicy
 from repro_torch.layers.faust_linear import FaustSpec
 from repro_torch.layers.mamba2 import Mamba2Spec
 from repro_torch.layers.moe import MoESpec
@@ -63,10 +67,12 @@ class ArchConfig:
     # the paper's technique
     faust_unembed: FaustSpec | None = None
     faust_mlp: FaustSpec | None = None
-    # numerics
+    # numerics / distribution
     dtype: str = "bfloat16"
     remat: bool = True
     attn_chunk: int = 512
+    policy: ShardingPolicy = dataclasses.field(default_factory=ShardingPolicy)
+    policy_decode: ShardingPolicy | None = None
     sub_quadratic: bool = False
 
     def layer_kinds(self) -> tuple[str, ...]:
@@ -76,6 +82,22 @@ class ArchConfig:
         if len(kinds) != self.n_layers:
             raise ValueError(f"{self.name}: stages give {len(kinds)} layers, n_layers is {self.n_layers}")
         return tuple(kinds)
+
+    def decode_policy(self) -> ShardingPolicy:
+        return self.policy_decode if self.policy_decode is not None else self.policy
+
+
+# --- common sharding policies ----------------------------------------------
+
+TP_POLICY = ShardingPolicy()  # heads/mlp/vocab on 'model', batch on pod+data
+
+# context-parallel: seq on 'model' (archs whose head counts don't divide 16)
+CP_POLICY = ShardingPolicy(seq="model", heads_act=None)
+
+# decode: KV-cache sequence on 'model' (SP decode), batch on data
+DECODE_POLICY = ShardingPolicy(batch=("pod", "data"), seq=None, heads_act=None, kv_seq="model")
+# long-context decode (batch=1): cache sequence over everything available
+DECODE_LONG_POLICY = ShardingPolicy(batch=None, seq=None, heads_act=None, kv_seq=("pod", "data", "model"))
 
 
 def check_supported(cfg: ArchConfig) -> None:

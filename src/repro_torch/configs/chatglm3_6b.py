@@ -6,7 +6,7 @@ d_ff 13696 SwiGLU, vocab 65024; rotary over half the head dim.
 """
 import dataclasses
 
-from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.base import ArchConfig, DECODE_POLICY, TP_POLICY
 
 CONFIG = ArchConfig(
     name="chatglm3-6b",
@@ -22,6 +22,8 @@ CONFIG = ArchConfig(
     norm="rms",
     stages=((28, ("attn",)),),
     rotary_pct=0.5,  # "RoPE 2d": rotary on half the channels
+    policy=TP_POLICY,
+    policy_decode=DECODE_POLICY,
 )
 
 

@@ -9,7 +9,7 @@ sqrt(d_model), attention scaled by (d_model / n_heads)^-0.5.  Its
 """
 import dataclasses
 
-from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.base import ArchConfig, DECODE_POLICY, TP_POLICY
 
 # 62 layers: [local×5, global] ×10, then 2 local tail layers
 STAGES = ((10, ("local",) * 5 + ("attn",)), (1, ("local", "local")))
@@ -34,6 +34,8 @@ CONFIG = ArchConfig(
     scale_embed=True,
     attn_scale=(5376 // 32) ** -0.5,  # query_pre_attn_scalar = d/H
     sub_quadratic=True,  # 52 of 62 layers window-bounded
+    policy=TP_POLICY,
+    policy_decode=DECODE_POLICY,
 )
 
 

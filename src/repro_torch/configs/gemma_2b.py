@@ -6,7 +6,7 @@ vocab 256000, tied embeddings scaled by sqrt(d_model).
 """
 import dataclasses
 
-from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.base import ArchConfig, CP_POLICY, DECODE_POLICY
 
 CONFIG = ArchConfig(
     name="gemma-2b",
@@ -23,6 +23,8 @@ CONFIG = ArchConfig(
     stages=((18, ("attn",)),),
     scale_embed=True,
     tie_embeddings=True,
+    policy=CP_POLICY,
+    policy_decode=DECODE_POLICY,
 )
 
 

@@ -8,8 +8,12 @@ routes as one token at a time does.
 """
 import dataclasses
 
-from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.base import ArchConfig, DECODE_POLICY
+from repro_torch.distributed.sharding import ShardingPolicy
 from repro_torch.layers.moe import MoESpec
+
+# context-parallel activations, the sequence gathered at the MoE boundary
+GRANITE_POLICY = ShardingPolicy(seq="model", heads_act=None, moe_gather_seq=True)
 
 CONFIG = ArchConfig(
     name="granite-moe-3b-a800m",
@@ -26,6 +30,8 @@ CONFIG = ArchConfig(
     stages=((32, ("moe",)),),
     tie_embeddings=True,
     moe=MoESpec(n_experts=40, top_k=8, d_ff=512, act="swiglu", capacity_factor=1.25),
+    policy=GRANITE_POLICY,
+    policy_decode=DECODE_POLICY,
 )
 
 

@@ -9,7 +9,7 @@ output), which replace the first ``n_vision_tokens`` positions.
 """
 import dataclasses
 
-from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.base import ArchConfig, DECODE_POLICY, TP_POLICY
 
 CONFIG = ArchConfig(
     name="internvl2-2b",
@@ -25,6 +25,8 @@ CONFIG = ArchConfig(
     norm="rms",
     stages=((24, ("attn",)),),
     n_vision_tokens=256,
+    policy=TP_POLICY,
+    policy_decode=DECODE_POLICY,
 )
 
 

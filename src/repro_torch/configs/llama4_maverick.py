@@ -9,7 +9,14 @@ tokens only.
 import dataclasses
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed.sharding import ShardingPolicy, default_param_rules
 from repro_torch.layers.moe import MoESpec
+
+# experts over 'model' take the per-expert ff dim off it: expert weights are
+# (experts→model × embed→data) 2-D sharded
+_PARAMS = {**default_param_rules(), "mlp": None}
+LLAMA4_POLICY = ShardingPolicy(seq="model", heads_act=None, params=_PARAMS)
+LLAMA4_DECODE = ShardingPolicy(batch=("pod", "data"), seq=None, heads_act=None, kv_seq="model", params=_PARAMS)
 
 CONFIG = ArchConfig(
     name="llama4-maverick-400b-a17b",
@@ -33,6 +40,8 @@ CONFIG = ArchConfig(
         capacity_factor=1.25,
         shared_expert_ff=8192,
     ),
+    policy=LLAMA4_POLICY,
+    policy_decode=LLAMA4_DECODE,
 )
 
 

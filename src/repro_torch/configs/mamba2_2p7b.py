@@ -7,7 +7,7 @@ Sub-quadratic: O(1) decode state.
 """
 import dataclasses
 
-from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.base import ArchConfig, DECODE_POLICY, TP_POLICY
 from repro_torch.layers.mamba2 import Mamba2Spec
 
 CONFIG = ArchConfig(
@@ -26,6 +26,8 @@ CONFIG = ArchConfig(
     ssm=Mamba2Spec(d_model=2560, d_state=128, headdim=64, expand=2, chunk=256),
     tie_embeddings=True,
     sub_quadratic=True,
+    policy=TP_POLICY,
+    policy_decode=DECODE_POLICY,
 )
 
 

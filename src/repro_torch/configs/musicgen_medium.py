@@ -9,7 +9,7 @@ as in the reference: the model takes the token ids.
 """
 import dataclasses
 
-from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.base import ArchConfig, CP_POLICY, DECODE_POLICY
 
 CONFIG = ArchConfig(
     name="musicgen-medium",
@@ -26,6 +26,8 @@ CONFIG = ArchConfig(
     stages=((48, ("attn",)),),
     rotary_pct=0.0,  # sinusoidal positions instead
     n_codebooks=4,
+    policy=CP_POLICY,
+    policy_decode=DECODE_POLICY,
 )
 
 

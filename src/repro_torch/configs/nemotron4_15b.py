@@ -7,7 +7,7 @@ rotary over half the head dim.
 """
 import dataclasses
 
-from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.base import ArchConfig, DECODE_POLICY, TP_POLICY
 
 CONFIG = ArchConfig(
     name="nemotron-4-15b",
@@ -23,6 +23,8 @@ CONFIG = ArchConfig(
     norm="ln1p",
     stages=((32, ("attn",)),),
     rotary_pct=0.5,
+    policy=TP_POLICY,
+    policy_decode=DECODE_POLICY,
 )
 
 

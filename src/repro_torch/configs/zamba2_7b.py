@@ -9,7 +9,7 @@ as in the reference).  vocab 32000.
 """
 import dataclasses
 
-from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.base import ArchConfig, DECODE_POLICY, TP_POLICY
 from repro_torch.layers.mamba2 import Mamba2Spec
 
 # 81 layers = 13 × (5 mamba + 1 shared) + a tail of 3 mamba
@@ -30,6 +30,8 @@ CONFIG = ArchConfig(
     stages=STAGES,
     ssm=Mamba2Spec(d_model=3584, d_state=64, headdim=64, expand=2, chunk=256),
     sub_quadratic=True,
+    policy=TP_POLICY,
+    policy_decode=DECODE_POLICY,
 )
 
 

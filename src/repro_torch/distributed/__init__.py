@@ -1,6 +1,7 @@
-"""Meshes over ``torch.distributed`` groups and the placement rules the
-sharded apply reads (counterparts of :mod:`repro.launch.mesh` and part of
-:mod:`repro.distributed.sharding`)."""
+"""Meshes over ``torch.distributed`` groups (:mod:`.mesh`, counterpart of
+:mod:`repro.launch.mesh`), the sharding policies and parameter specs
+(:mod:`.sharding`), what a rank holds and gathers when the model trains on
+a mesh (:mod:`.layout`), and the pod pipeline (:mod:`.pipeline`)."""
 from repro_torch.distributed.mesh import AbstractMesh, Mesh, make_debug_mesh, make_production_mesh
 
 __all__ = ["AbstractMesh", "Mesh", "make_debug_mesh", "make_production_mesh"]

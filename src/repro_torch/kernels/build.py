@@ -3,10 +3,12 @@
 Each source compiles with ``nvcc`` into its own shared library with a plain
 C interface, loaded with :mod:`ctypes` (no PyTorch headers, so a build
 takes seconds).  Libraries go to ``build/`` at the repository root, named
-by a digest of the sources and flags, so an edited source never loads a
-stale library.  Nothing builds at import: the first launch of a kernel
-builds it, or :func:`build` builds several at once, one ``nvcc`` each,
-all started together.  :func:`on_device` and :func:`stream_of` are what a
+by a digest of the sources, flags and parts, so an edited source never
+loads a stale library.  Nothing builds at import: the first launch of a
+kernel builds it, or :func:`build` builds several at once.  A source with
+several entry points compiles in :data:`PARTS` (``FAUST_PARTS`` in
+``pipeline.cuh``), one ``nvcc`` a part, every part of every source started
+together, and its parts link into its library.  :func:`on_device` and :func:`stream_of` are what a
 wrapper needs around its ctypes call, at a few microseconds less host time
 a launch than ``torch.cuda.device`` and ``current_stream()`` (at serving
 batch the wrappers' host time nears the kernels' own).
@@ -32,13 +34,14 @@ SOURCES = {
     "chain_dgrad": "chain_dgrad.cu",
     "chain_wgrad": "chain_wgrad.cu",
 }
+# Each part instantiates the templates of every PARTS-th of its source's
+# eight entry points: those instantiations set a source's build time.
+PARTS = {"chain_matmul": 2, "chain_dgrad": 2, "chain_wgrad": 4}
 # No -rdc: chain_matmul.cu's grid-wide barrier (cooperative_groups grid
 # sync, under a cooperative launch) needs no relocatable device code since
 # CUDA 11; it builds and runs without it on the card's CUDA 12.8.
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-)
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 
@@ -54,7 +57,7 @@ def _nvcc() -> str:
 
 
 def _digest() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256((" ".join(NVCC_FLAGS) + repr(sorted(PARTS.items()))).encode())
     for p in sorted(CSRC.iterdir()):
         if p.suffix in (".cu", ".cuh"):
             h.update(p.name.encode())
@@ -67,29 +70,42 @@ def library_path(name: str) -> Path:
 
 
 def build(names=tuple(SOURCES)) -> dict[str, str]:
-    """Build the named kernels that are not built yet, all in parallel.
-    Returns ``{name: compiler log}`` (``-Xptxas -v`` register and shared
-    memory lines) for every named kernel; raises if a build fails."""
+    """Build the named kernels that are not built yet: every part of
+    every source compiles at once, one ``nvcc`` each, then each source's
+    parts link into its library.  Returns ``{name: compiler log}``
+    (``-Xptxas -v`` register and shared memory lines) for every named
+    kernel; raises if a build fails."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    procs = {}
+    jobs = {}
     for name in names:
         target = library_path(name)
         if target.exists():
             continue
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC / SOURCES[name])]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                                        text=True), tmp, target)
+        work = Path(tempfile.mkdtemp(dir=BUILD_DIR))
+        n = PARTS.get(name, 1)
+        parts = []
+        for k in range(n):
+            obj = work / f"part{k}.o"
+            cmd = [_nvcc(), *NVCC_FLAGS, f"-DFAUST_PARTS={n}", f"-DFAUST_PART={k}", "-c", "-o", str(obj),
+                   str(CSRC / SOURCES[name])]
+            parts.append((subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), obj))
+        jobs[name] = (parts, work, target)
     failed = []
-    for name, (proc, tmp, target) in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            Path(tmp).unlink(missing_ok=True)
-            failed.append(f"{name}:\n{log}")
-            continue
-        target.with_suffix(".log").write_text(log)
-        os.replace(tmp, target)  # atomic: a concurrent loader sees all or nothing
+    for name, (parts, work, target) in jobs.items():
+        logs = [proc.communicate()[0] for proc, _ in parts]
+        ok = all(proc.returncode == 0 for proc, _ in parts)
+        if ok:
+            lib = work / "lib.so"
+            link = subprocess.run([_nvcc(), *ARCH, "-shared", "-o", str(lib), *(str(obj) for _, obj in parts)],
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            logs.append(link.stdout)
+            ok = link.returncode == 0
+        if ok:
+            target.with_suffix(".log").write_text("\n".join(logs))
+            os.replace(lib, target)  # atomic: a concurrent loader sees all or nothing
+        else:
+            failed.append(f"{name}:\n" + "\n".join(logs))
+        shutil.rmtree(work, ignore_errors=True)
     if failed:
         raise RuntimeError("CUDA kernel build failed\n" + "\n".join(failed))
     return {

@@ -185,13 +185,29 @@ extern "C" {
     return faust::bwd::ctas<T, V>(blkp, bt, smem_bytes);                                                 \
   }
 
+#if FAUST_IN_PART(0)
 FAUST_DGRAD(f32, float)
+#endif
+#if FAUST_IN_PART(1)
 FAUST_DGRAD(bf16, __nv_bfloat16)
+#endif
+#if FAUST_IN_PART(2)
 FAUST_DGRAD_Q(f32_int8, float, int8_t)
+#endif
+#if FAUST_IN_PART(3)
 FAUST_DGRAD_Q(f32_e4m3, float, __nv_fp8_e4m3)
+#endif
+#if FAUST_IN_PART(4)
 FAUST_DGRAD_Q(f32_e5m2, float, __nv_fp8_e5m2)
+#endif
+#if FAUST_IN_PART(5)
 FAUST_DGRAD_Q(bf16_int8, __nv_bfloat16, int8_t)
+#endif
+#if FAUST_IN_PART(6)
 FAUST_DGRAD_Q(bf16_e4m3, __nv_bfloat16, __nv_fp8_e4m3)
+#endif
+#if FAUST_IN_PART(7)
 FAUST_DGRAD_Q(bf16_e5m2, __nv_bfloat16, __nv_fp8_e5m2)
+#endif
 
 }  // extern "C"

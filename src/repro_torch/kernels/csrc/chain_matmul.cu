@@ -171,13 +171,29 @@ extern "C" {
     return faust::fwd::ctas<T, V>(blkp, bt, smem_bytes);                                             \
   }
 
+#if FAUST_IN_PART(0)
 FAUST_CHAIN_K1(f32, float)
+#endif
+#if FAUST_IN_PART(1)
 FAUST_CHAIN_K1(bf16, __nv_bfloat16)
+#endif
+#if FAUST_IN_PART(2)
 FAUST_CHAIN_K4(f32_int8, float, int8_t)
+#endif
+#if FAUST_IN_PART(3)
 FAUST_CHAIN_K4(f32_e4m3, float, __nv_fp8_e4m3)
+#endif
+#if FAUST_IN_PART(4)
 FAUST_CHAIN_K4(f32_e5m2, float, __nv_fp8_e5m2)
+#endif
+#if FAUST_IN_PART(5)
 FAUST_CHAIN_K4(bf16_int8, __nv_bfloat16, int8_t)
+#endif
+#if FAUST_IN_PART(6)
 FAUST_CHAIN_K4(bf16_e4m3, __nv_bfloat16, __nv_fp8_e4m3)
+#endif
+#if FAUST_IN_PART(7)
 FAUST_CHAIN_K4(bf16_e5m2, __nv_bfloat16, __nv_fp8_e5m2)
+#endif
 
 }  // extern "C"

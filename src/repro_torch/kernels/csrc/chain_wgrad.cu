@@ -521,13 +521,29 @@ extern "C" {
   }                                                                                                                 \
   int chain_wgrad_ctas_q_##suffix(int blkp, int bt, int* out) { return faust::wgrad::ctas<T, V>(blkp, bt, out); }
 
+#if FAUST_IN_PART(0)
 FAUST_WGRAD(f32, float)
+#endif
+#if FAUST_IN_PART(1)
 FAUST_WGRAD(bf16, __nv_bfloat16)
+#endif
+#if FAUST_IN_PART(2)
 FAUST_WGRAD_Q(f32_int8, float, int8_t)
+#endif
+#if FAUST_IN_PART(3)
 FAUST_WGRAD_Q(f32_e4m3, float, __nv_fp8_e4m3)
+#endif
+#if FAUST_IN_PART(4)
 FAUST_WGRAD_Q(f32_e5m2, float, __nv_fp8_e5m2)
+#endif
+#if FAUST_IN_PART(5)
 FAUST_WGRAD_Q(bf16_int8, __nv_bfloat16, int8_t)
+#endif
+#if FAUST_IN_PART(6)
 FAUST_WGRAD_Q(bf16_e4m3, __nv_bfloat16, __nv_fp8_e4m3)
+#endif
+#if FAUST_IN_PART(7)
 FAUST_WGRAD_Q(bf16_e5m2, __nv_bfloat16, __nv_fp8_e5m2)
+#endif
 
 }  // extern "C"

@@ -22,6 +22,17 @@
 #include <cstring>
 #include <type_traits>
 
+// A source may be compiled in parts, one nvcc each, all started together,
+// and linked into its one library (kernels/build.py, PARTS): part
+// FAUST_PART of FAUST_PARTS defines the entry points i with i % FAUST_PARTS
+// == FAUST_PART, so it instantiates only their kernels.  Without the flags
+// a source is one part.
+#ifndef FAUST_PARTS
+#define FAUST_PARTS 1
+#define FAUST_PART 0
+#endif
+#define FAUST_IN_PART(i) ((i) % FAUST_PARTS == FAUST_PART)
+
 namespace faust {
 
 constexpr int kThreads = 256;  // every kernel runs 8 warps a CTA

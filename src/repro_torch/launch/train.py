@@ -10,14 +10,21 @@ with the same flags.
 ``--faust-block``, ``--faust-k``) and unties it from the embedding.
 Checkpoints go to ``--checkpoint-dir`` every ``--checkpoint-every``
 steps; ``--resume`` restores the newest intact one; ``--compress-grads
-RATIO`` trains with EF top-k gradient compression.  ``--mesh`` and
-``--multi-pod`` come with the multi-GPU slice and raise.
+RATIO`` trains with EF top-k gradient compression.
+
+``--mesh`` trains on the reference's production mesh (``(16, 16)`` over
+``("data", "model")``; ``--multi-pod`` makes it ``(2, 16, 16)`` over ``("pod",
+"data", "model")``), one process a rank, started by a launcher that sets
+``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR`` and ``MASTER_PORT`` (``torchrun``):
+NCCL on the cards (each rank on ``LOCAL_RANK``'s), ``gloo`` with ``--device
+cpu``.  A group of another size raises the mesh's ``ValueError``.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
 import logging
+import os
 
 from repro_torch.configs import get_config, get_smoke
 from repro_torch.data.pipeline import DataConfig
@@ -50,10 +57,27 @@ def parse_args(argv=None) -> argparse.Namespace:
     return ap.parse_args(argv)
 
 
+def production_mesh(multi_pod: bool, device):
+    """The production mesh over the launcher's process group (joined here
+    when the launcher has not): NCCL with each rank on its
+    ``LOCAL_RANK`` card, ``gloo`` on the CPU."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.distributed import make_production_mesh
+
+    cpu = device is not None and torch.device(device).type == "cpu"
+    if not dist.is_initialized():
+        if not cpu:
+            torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", 0)))
+        dist.init_process_group("gloo" if cpu else "nccl", init_method="env://")
+    return make_production_mesh(multi_pod=multi_pod, device="cpu" if cpu else None)
+
+
 def build(args: argparse.Namespace) -> Trainer:
-    """The trainer the flags describe (raises for the multi-GPU flags)."""
-    if args.mesh or args.multi_pod:
-        raise NotImplementedError("--mesh/--multi-pod: multi-GPU training comes with a later slice of the port")
+    """The trainer the flags describe (``--mesh``: on the production mesh
+    of the launcher's process group)."""
+    mesh = production_mesh(args.multi_pod, args.device) if args.mesh else None
     cfg = get_smoke(args.arch) if args.smoke else get_config(args.arch)
     if args.faust:
         cfg = dataclasses.replace(
@@ -77,7 +101,7 @@ def build(args: argparse.Namespace) -> Trainer:
         checkpoint_dir=args.checkpoint_dir,
         compression=TopKConfig(args.compress_grads) if args.compress_grads else None,
     )
-    return Trainer(cfg, data_cfg, opt_cfg, tcfg, device=args.device)
+    return Trainer(cfg, data_cfg, opt_cfg, tcfg, mesh=mesh, device=args.device)
 
 
 def main(argv=None) -> dict:

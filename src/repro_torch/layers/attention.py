@@ -17,7 +17,9 @@ ring buffer (token ``p`` in slot ``p % capacity``).  The cache functions
 return new caches and leave their inputs as they were, as the reference's.
 A sliding window shorter than the sequence (the ``local`` layer kind) runs
 the banded form, each query chunk against its band of ``window + chunk``
-keys, in O(S·(window + chunk)).
+keys, in O(S·(window + chunk)).  On a mesh whose policy splits the
+sequence, a rank computes its chunk of the positions against the keys and
+values of all of them (:func:`gather_kv`), the window as a mask.
 """
 from __future__ import annotations
 
@@ -64,8 +66,8 @@ class Attention(nn.Module):
             self.q_norm = nn.Parameter(torch.zeros((d,), dtype=dtype, device=device))
             self.k_norm = nn.Parameter(torch.zeros((d,), dtype=dtype, device=device))
 
-    def forward(self, x: torch.Tensor, chunk: int = 512) -> torch.Tensor:
-        return attn_train(self, x, self.spec, chunk)
+    def forward(self, x: torch.Tensor, chunk: int = 512, seq=None) -> torch.Tensor:
+        return attn_train(self, x, self.spec, chunk, seq)
 
 
 def _mask_bias(q_pos: torch.Tensor, kv_pos: torch.Tensor, causal: bool, window: int | None) -> torch.Tensor:
@@ -282,24 +284,40 @@ def attn_qkv(p: Attention, x: torch.Tensor, spec: AttnSpec, positions: torch.Ten
     return q, k, v
 
 
-def _self_attention(p: Attention, x: torch.Tensor, spec: AttnSpec, chunk: int):
+def gather_kv(k: torch.Tensor, v: torch.Tensor, seq) -> tuple:
+    """Keys and values of the whole sequence from each rank's chunk
+    (``seq``, a :class:`~repro_torch.distributed.layout.SeqSplit`), and
+    their positions; the backward sums their cotangents over the sequence
+    group (a reduce-scatter)."""
+    return seq.gather(k, 1), seq.gather(v, 1), torch.arange(seq.length, device=k.device)
+
+
+def _self_attention(p: Attention, x: torch.Tensor, spec: AttnSpec, chunk: int, seq=None):
     """Causal self-attention over a whole sequence: ``(y, k, v)``; a window
     shorter than the sequence runs banded, any other through the chunked
-    softmax with the window's mask."""
+    softmax with the window's mask.  Under a sequence split (``seq``) ``x``
+    is this rank's chunk of positions: rope, the mask and the window at
+    its global positions, against the keys and values of every position
+    (:func:`gather_kv`), chunked as the whole sequence's."""
     b, s, _ = x.shape
-    positions = torch.arange(s, device=x.device)
+    positions = torch.arange(s, device=x.device) if seq is None else seq.positions(x.device)
     q, k, v = attn_qkv(p, x, spec, positions)
-    if spec.window is not None and spec.window < s:
+    kv_positions = positions
+    if seq is not None:
+        k, v, kv_positions = gather_kv(k, v, seq)
+    n = k.shape[1]
+    if spec.window is not None and spec.window < n and seq is None:
         o = banded_attention_ref(q, k, v, window=spec.window, scale=spec.scale, chunk=min(chunk, s))
     else:
-        o = flash_attention_ref(q, k, v, q_positions=positions, kv_positions=positions, causal=True,
-                                window=spec.window, scale=spec.scale, chunk=min(chunk, s))
+        o = flash_attention_ref(q, k, v, q_positions=positions, kv_positions=kv_positions, causal=True,
+                                window=spec.window, scale=spec.scale, chunk=min(chunk, n))
     return o.reshape(b, s, -1) @ p.wo, k, v
 
 
-def attn_train(p: Attention, x: torch.Tensor, spec: AttnSpec, chunk: int = 512) -> torch.Tensor:
-    """Causal self-attention over a full sequence."""
-    return _self_attention(p, x, spec, chunk)[0]
+def attn_train(p: Attention, x: torch.Tensor, spec: AttnSpec, chunk: int = 512, seq=None) -> torch.Tensor:
+    """Causal self-attention over a full sequence (``seq``: this rank's
+    chunk of it, :func:`_self_attention`)."""
+    return _self_attention(p, x, spec, chunk, seq)[0]
 
 
 def attn_prefill(p: Attention, x: torch.Tensor, spec: AttnSpec, cache: KVCache, chunk: int = 512):

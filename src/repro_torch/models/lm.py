@@ -40,6 +40,15 @@ Modality front ends, stubs as in the reference (no ViT, no EnCodec):
   ``concatenate`` lengthens it to nv positions instead (reference caveat
   R6 in ROADMAP.md).
 
+On a mesh (:meth:`LM.shard_`, then :meth:`LM.train_loss` inside
+:func:`~repro_torch.distributed.sharding.use_rules`): each rank keeps its
+block of every parameter, gathers each module's parameters whole just
+before it runs (:meth:`LM._call`, again in a remat recompute), and computes
+its rows and, where the policy's ``seq`` names a mesh axis, its chunk of
+the positions: attention gathers the keys and values of every position,
+rope, the mask and the audio sinusoid take global positions, a MoE layer
+routes whole rows; its share of the loss sums over the mesh to the loss.
+
 Serving: :func:`make_caches` gives one cache per layer in a list (the
 layers are unrolled, so there is no repeat axis): a :class:`MambaCache`
 for an ``"ssm"`` layer, a :class:`KVCache` for the others (each
@@ -58,10 +67,15 @@ import math
 
 import torch
 from torch import nn
+from torch.func import functional_call
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig, check_supported
 from repro_torch.device import resolve_device
+from repro_torch.distributed import sharding
+from repro_torch.distributed.layout import gather_param, seq_split, take_block
+from repro_torch.distributed.sharding import shard_act
+from repro_torch.layers.param import param_axes, param_shapes  # param_axes: the reference's lm.param_axes
 from repro_torch.layers.attention import Attention, AttnSpec, KVCache, attn_decode, attn_prefill, kv_cache_init
 from repro_torch.layers.embedding import Embedding, Unembed, unembed_apply
 from repro_torch.layers.mamba2 import Mamba2, MambaCache, mamba2_apply, mamba_cache_init
@@ -116,29 +130,37 @@ class Layer(nn.Module):
             self.mlp = MLP(cfg.d_model, cfg.d_ff, cfg.act, faust=cfg.faust_mlp, **kw)
 
     def forward(self, x: torch.Tensor, mode: str = TRAIN, cache: KVCache | None = None,
-                chunk: int | None = None):
+                chunk: int | None = None, seq=None):
         """``(x, aux, new cache)``: ``mode`` train (no cache), prefill
         (fills ``cache``) or decode (one token per row into ``cache``);
         ``aux`` is a MoE layer's weighted load-balancing loss, None for
-        the others."""
+        the others.  ``seq`` (train only): ``x`` is this rank's chunk of
+        the positions (a :class:`~repro_torch.distributed.layout.SeqSplit`)."""
         cfg = self.cfg
         chunk = cfg.attn_chunk if chunk is None else chunk
-        h = apply_norm(cfg.norm, self.norm1, x)
+        h = shard_act(apply_norm(cfg.norm, self.norm1, x), "batch", "seq", None)
         if mode == TRAIN:
-            y = self.attn(h, chunk)
+            y = self.attn(h, chunk, seq)
         elif mode == PREFILL:
             y, cache = attn_prefill(self.attn, h, self.attn.spec, cache, chunk)
         else:
             _check_mode(mode)
             y, cache = attn_decode(self.attn, h, self.attn.spec, cache)
-        x = x + y.to(x.dtype)
+        x = x + shard_act(y.to(x.dtype), "batch", "seq", None)
         h = apply_norm(cfg.norm, self.norm2, x)
         aux = None
-        if self.kind == "moe":
+        if self.kind == "moe" and seq is not None:
+            # routing and its capacity ceil(T·k/E·cf) count the whole row's
+            # T, so the MoE runs on whole rows under any sequence split,
+            # whatever the policy's moe_gather_seq says (llama4's policy
+            # splits the sequence without setting it)
+            y, aux = self.moe(seq.gather(h, 1))
+            y = seq.take(y, 1)
+        elif self.kind == "moe":
             y, aux = self.moe(h)
         else:
             y = self.mlp(h)
-        return x + y.to(x.dtype), aux, cache
+        return x + shard_act(y.to(x.dtype), "batch", "seq", None), aux, cache
 
 
 class SSMLayer(nn.Module):
@@ -153,9 +175,11 @@ class SSMLayer(nn.Module):
         self.mamba = Mamba2(cfg.ssm, generator=generator, dtype=dtype, device=device)
 
     def forward(self, x: torch.Tensor, mode: str = TRAIN, cache: MambaCache | None = None,
-                chunk: int | None = None):
+                chunk: int | None = None, seq=None):
         """``(x, None, new cache)`` as :meth:`Layer.forward`; ``chunk`` is
-        the SSD chunk (default ``cfg.ssm.chunk``)."""
+        the SSD chunk (default ``cfg.ssm.chunk``).  ``seq`` is always None:
+        the SSD's scan runs over whole sequences, and
+        :meth:`LM._mesh_train_loss` refuses a sequence split."""
         _check_mode(mode)
         h = apply_norm(self.cfg.norm, self.norm, x)
         y, cache = mamba2_apply(self.mamba, h, self.cfg.ssm, None if mode == TRAIN else cache, mode == DECODE,
@@ -193,22 +217,71 @@ class LM(nn.Module):
         if not cfg.tie_embeddings:
             self.unembed = Unembed(cfg.d_model, cfg.vocab, cfg.faust_unembed, n=cfg.n_codebooks, **kw)
 
+    # -- storage on a mesh -------------------------------------------------------
+    mesh = None  # set by shard_
+    blocks: dict | None = None  # {parameter name: Block} on a mesh
+
+    def shard_(self, mesh) -> dict:
+        """Keep only this rank's block of every parameter, in place, as
+        ``cfg.policy``'s parameter rules place it on ``mesh``
+        (:func:`~repro_torch.distributed.sharding.resolve_param_pspecs`
+        over :func:`param_axes`); the FAµST supports (buffers) stay whole.
+        Returns ``{name: Block}`` of the parameters.  From then on every
+        forward gathers each module's parameters whole just before it runs
+        (:meth:`_call`)."""
+        if self.blocks is not None:
+            raise ValueError("the model is sharded already")
+        shapes = param_shapes(self.cfg)
+        specs = sharding.resolve_param_pspecs(param_axes(self.cfg), shapes, mesh, self.cfg.policy)
+        blocks = sharding.tree_named_sharding(specs, shapes, mesh)
+        with torch.no_grad():
+            for name, p in self.named_parameters():
+                if not blocks[name].whole:
+                    p.data = take_block(p.data, blocks[name]).contiguous().clone()
+        self.mesh = mesh
+        self.blocks = {name: blocks[name] for name, _ in self.named_parameters()}
+        return self.blocks
+
+    def _gathered(self, module: nn.Module, prefix: str) -> dict:
+        return {n: gather_param(p, self.blocks[prefix + n], self.mesh) for n, p in module.named_parameters()}
+
+    def _call(self, module: nn.Module, prefix: str, *args):
+        """``module(*args)``; on a mesh with ``module``'s parameters
+        (state dict prefix ``prefix``) gathered whole for the call."""
+        if self.blocks is None:
+            return module(*args)
+        return functional_call(module, self._gathered(module, prefix), args)
+
+    def _param(self, name: str):
+        """The parameter (or a norm's parameter dict) ``name``, gathered
+        whole on a mesh."""
+        p = getattr(self, name) if "." not in name else self.get_parameter(name)
+        if self.blocks is None:
+            return p
+        if isinstance(p, nn.ParameterDict):
+            return {k: gather_param(v, self.blocks[f"{name}.{k}"], self.mesh) for k, v in p.items()}
+        return gather_param(p, self.blocks[name], self.mesh)
+
+    # -- forward -------------------------------------------------------------------
     def _embed_tokens(self, tokens: torch.Tensor, pos0=0) -> torch.Tensor:
         """``(B, S, d)`` in the activation dtype; with codebooks the summed
         embeddings plus the sinusoid at positions ``pos0 + [0, S)``
         (``pos0`` an int or per-row ``(B,)``)."""
         dt = DTYPES[self.cfg.dtype]
-        x = self.embed(tokens).to(dt)
+        x = self._call(self.embed, "embed.", tokens).to(dt)
         if self.cfg.n_codebooks > 1:
             return x + sinusoid(self.cfg.d_model, pos0, tokens.shape[-1], x.device).to(dt)
         if self.cfg.scale_embed:
             x = x * math.sqrt(self.cfg.d_model)  # a Python float keeps x's dtype
         return x
 
-    def _front(self, tokens: torch.Tensor, vision_embeds: torch.Tensor | None) -> torch.Tensor:
+    def _front(self, tokens: torch.Tensor, vision_embeds: torch.Tensor | None, seq=None) -> torch.Tensor:
         """The embedded sequence of train and prefill: positions from 0,
-        and ``vision_embeds (B, nv, d)`` in place of the first nv."""
-        x = self._embed_tokens(tokens)
+        and ``vision_embeds (B, nv, d)`` in place of the first nv.  Under a
+        sequence split ``tokens`` are this rank's chunk of the positions
+        (``seq``), embedded at their global positions."""
+        pos0 = 0 if seq is None else seq.start
+        x = self._embed_tokens(tokens, pos0)
         nv = self.cfg.n_vision_tokens
         if not nv:
             if vision_embeds is not None:
@@ -218,15 +291,19 @@ class LM(nn.Module):
             raise ValueError(f"{self.cfg.name} needs vision_embeds (B, {nv}, {self.cfg.d_model})")
         if tuple(vision_embeds.shape) != (x.shape[0], nv, x.shape[-1]):
             raise ValueError(f"vision_embeds {tuple(vision_embeds.shape)}, want {(x.shape[0], nv, x.shape[-1])}")
-        if x.shape[1] < nv:  # reference caveat R6: the reference lengthens the sequence to nv
-            raise ValueError(f"a sequence of {x.shape[1]} positions is shorter than the {nv} vision tokens")
-        return torch.cat([vision_embeds.to(x.dtype), x[:, nv:]], dim=1)
+        length = x.shape[1] if seq is None else seq.length
+        if length < nv:  # reference caveat R6: the reference lengthens the sequence to nv
+            raise ValueError(f"a sequence of {length} positions is shorter than the {nv} vision tokens")
+        here = min(max(nv - pos0, 0), x.shape[1])  # this chunk's image positions
+        return torch.cat([vision_embeds[:, pos0:pos0 + here].to(x.dtype), x[:, here:]], dim=1)
 
     def _logits(self, x: torch.Tensor) -> torch.Tensor:
         if self.cfg.n_codebooks > 1:  # (B, S, K, V): one head per codebook
-            return torch.stack([self.unembed(x, k) for k in range(self.cfg.n_codebooks)], dim=-2).float()
-        tied = self.embed.table if self.cfg.tie_embeddings else None
-        return unembed_apply(getattr(self, "unembed", None), x, tied).float()
+            return torch.stack([self._call(self.unembed, "unembed.", x, k) for k in range(self.cfg.n_codebooks)],
+                               dim=-2).float()
+        if self.cfg.tie_embeddings:
+            return unembed_apply(None, x, self._param("embed.table")).float()
+        return self._call(self.unembed, "unembed.", x).float()
 
     def forward_train(self, tokens: torch.Tensor, chunk: int | None = None,
                       vision_embeds: torch.Tensor | None = None) -> torch.Tensor:
@@ -238,32 +315,38 @@ class LM(nn.Module):
         chunk must be a multiple of it."""
         return self._forward_train(tokens, chunk, vision_embeds)[0]
 
-    def _layer(self, layer: nn.Module) -> nn.Module:
-        """The module that runs at ``layer``'s position."""
-        return self.shared if layer.kind == "shared" else layer
+    def _layer(self, i: int, layer: nn.Module) -> tuple[nn.Module, str]:
+        """The module that runs at position ``i`` (``layer``) and its state
+        dict prefix."""
+        return (self.shared, "shared.") if layer.kind == "shared" else (layer, f"layers.{i}.")
 
     def _forward_train(self, tokens: torch.Tensor, chunk: int | None = None,
-                       vision_embeds: torch.Tensor | None = None):
-        """The logits and the f32 sum of the MoE layers' aux losses."""
-        x = self._front(tokens, vision_embeds)
+                       vision_embeds: torch.Tensor | None = None, seq=None):
+        """The logits and the f32 sum of the MoE layers' aux losses (of
+        this rank's chunk of positions ``seq`` under a sequence split)."""
+        x = shard_act(self._front(tokens, vision_embeds, seq), "batch", "seq", None)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
-        for layer in self.layers:
-            layer = self._layer(layer)
+        for i, layer in enumerate(self.layers):
+            module, prefix = self._layer(i, layer)
+
+            def run(x, module=module, prefix=prefix):  # gathers inside: a remat recompute gathers again
+                return self._call(module, prefix, x, TRAIN, None, chunk, seq)
+
             if self.cfg.remat and torch.is_grad_enabled():
-                x, layer_aux, _ = checkpoint(layer, x, TRAIN, None, chunk, use_reentrant=False)
+                x, layer_aux, _ = checkpoint(run, x, use_reentrant=False)
             else:
-                x, layer_aux, _ = layer(x, TRAIN, None, chunk)
+                x, layer_aux, _ = run(x)
             if layer_aux is not None:
                 aux = aux + layer_aux
-        x = apply_norm(self.cfg.norm, self.final_norm, x)
+        x = apply_norm(self.cfg.norm, self._param("final_norm"), x)
         return self._logits(x), aux
 
     def _run(self, x: torch.Tensor, mode: str, caches: list[Cache]):
         new = []
-        for layer, cache in zip(self.layers, caches, strict=True):
-            x, _, cache = self._layer(layer)(x, mode, cache)
+        for i, (layer, cache) in enumerate(zip(self.layers, caches, strict=True)):
+            x, _, cache = self._call(*self._layer(i, layer), x, mode, cache)
             new.append(cache)
-        return apply_norm(self.cfg.norm, self.final_norm, x), new
+        return apply_norm(self.cfg.norm, self._param("final_norm"), x), new
 
     def prefill(self, tokens: torch.Tensor, caches: list[Cache], vision_embeds: torch.Tensor | None = None):
         """``tokens (B, S)`` (audio: ``(B, K, S)``; vision: with
@@ -287,7 +370,12 @@ class LM(nn.Module):
         """Mean next-token cross entropy (over every codebook's) plus the
         MoE layers' aux losses: ``(loss, {"loss", "ce", "aux"})``.
         ``batch`` holds ``tokens`` and, for a vision model,
-        ``vision_embeds``."""
+        ``vision_embeds``.  On a mesh (after :meth:`shard_`, inside
+        :func:`~repro_torch.distributed.sharding.use_rules`) ``batch`` is
+        the whole batch and each value is this rank's share: summed over
+        the mesh it is the loss (:meth:`_mesh_train_loss`)."""
+        if self.blocks is not None:
+            return self._mesh_train_loss(batch)
         tokens = batch["tokens"]
         logits, aux = self._forward_train(tokens, vision_embeds=batch.get("vision_embeds"))
         if self.cfg.n_codebooks > 1:
@@ -301,6 +389,64 @@ class LM(nn.Module):
         ce = torch.mean(lse - gold)
         loss = ce + aux
         return loss, {"loss": loss, "ce": ce, "aux": aux}
+
+    def _mesh_train_loss(self, batch: dict) -> tuple[torch.Tensor, dict]:
+        """This rank's share of the loss on the mesh of :meth:`shard_`.
+
+        The rank computes the rows of its coordinate over the policy's
+        batch axes (:func:`batch_axes`) and, where the policy's ``seq``
+        names a mesh axis (fitted as :func:`~repro_torch.distributed.
+        sharding.shard_act` fits it), its contiguous chunk of their
+        positions.  Labels are the whole rows' tokens at the chunk's global
+        positions + 1 (the last global position has none).  Its share is
+        the cross entropy summed over its positions over the global count,
+        plus the aux loss of its rows (the reference's mean over rows)
+        weighted by its rows' share; each divided by the number of ranks
+        that compute the same rows and positions, so the sum over the mesh
+        is the loss and the sum of the gradients its gradient."""
+        rules = sharding._current()
+        if rules is None or rules.mesh is not self.mesh:
+            raise RuntimeError("a sharded model trains inside use_rules(mesh, policy) of its own mesh")
+        mesh, policy, cfg = self.mesh, rules.policy, self.cfg
+        tokens, ve = batch["tokens"], batch.get("vision_embeds")
+        b, s = tokens.shape[0], tokens.shape[-1]
+        rows = batch_axes(policy, mesh)
+        n_rows = math.prod(mesh.shape[a] for a in rows)
+        if b % n_rows:
+            raise ValueError(f"a batch of {b} rows does not split over {rows} ({n_rows} ranks)")
+        seq_axes = sharding.axes_tuple(sharding._fit_axes(policy.seq, s, mesh))
+        if set(seq_axes) & set(rows):
+            raise ValueError(f"the policy splits rows over {rows} and positions over {seq_axes}")
+        seq = seq_split(mesh, seq_axes, s)
+        if seq is not None and "ssm" in cfg.layer_kinds():
+            raise NotImplementedError(f"{cfg.name}: the SSD runs whole sequences; a policy that splits "
+                                      f"the sequence over {seq_axes} is not supported")
+        n_seq = 1 if seq is None else seq.n
+        bl = b // n_rows
+        r0 = mesh.index(rows) * bl
+        tok = tokens[r0:r0 + bl]
+        s0, sl = (0, s) if seq is None else (seq.start, seq.local)
+        logits, aux = self._forward_train(tok[..., s0:s0 + sl], vision_embeds=None if ve is None else ve[r0:r0 + bl],
+                                          seq=seq)
+        labels = tok[..., s0 + 1:s0 + sl + 1].long()  # the last global position has none
+        n_lab = labels.shape[-1]
+        lg = logits[:, :n_lab]
+        if cfg.n_codebooks > 1:
+            lg = lg.transpose(1, 2)  # (B, K, n, V)
+        lg = shard_act(lg, *(("batch",) + (None,) * (lg.ndim - 2) + ("vocab_act",)))
+        lse = torch.logsumexp(lg, dim=-1)
+        gold = torch.gather(lg, -1, labels[..., None])[..., 0]
+        count = b * (s - 1) * cfg.n_codebooks
+        ce = torch.sum(lse - gold) / count / (mesh.size // (n_rows * n_seq))
+        aux = aux * (bl / b) / (mesh.size // n_rows)
+        loss = ce + aux
+        return loss, {"loss": loss, "ce": ce, "aux": aux}
+
+
+def batch_axes(policy, mesh) -> tuple[str, ...]:
+    """The mesh axes the rows split over: the policy's ``batch`` axes the
+    mesh has (the reference's ``runtime.trainer._fit_batch_axes``)."""
+    return tuple(a for a in sharding.axes_tuple(policy.batch) if a in mesh.shape)
 
 
 # ---------------------------------------------------------------------------

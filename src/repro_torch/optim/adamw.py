@@ -78,14 +78,18 @@ def global_norm(grads: dict) -> torch.Tensor:
 
 
 @torch.no_grad()
-def apply_updates(cfg: AdamWConfig, params: dict, grads: dict, state: AdamWState, ok=None) -> dict:
+def apply_updates(cfg: AdamWConfig, params: dict, grads: dict, state: AdamWState, ok=None,
+                  grad_norm: torch.Tensor | None = None) -> dict:
     """One step in place on ``params`` and ``state``; returns
     ``{"grad_norm", "lr"}``.  ``grads`` holds a gradient for every key of
     ``state.mu``.  ``ok`` (a 0-d bool tensor on the parameters' device,
     default true) applies the step only where it holds: otherwise the
     moments decay by 1 and take no gradient, the parameters move by 0 and
-    the step count stays, so every tensor keeps its bits."""
-    gnorm = global_norm({k: grads[k] for k in state.mu})
+    the step count stays, so every tensor keeps its bits.  ``grad_norm``
+    is the global norm to clip by (default: :func:`global_norm` of
+    ``grads``; a mesh passes the norm of the whole gradients, whose blocks
+    ``grads`` holds)."""
+    gnorm = global_norm({k: grads[k] for k in state.mu}) if grad_norm is None else grad_norm
     scale = torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-9), max=1.0)  # global-norm clipping
     dev = state.step.device
     ok = torch.ones((), dtype=torch.bool, device=dev) if ok is None else ok

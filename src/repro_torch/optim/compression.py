@@ -76,10 +76,56 @@ def topk_mask_flat(v: torch.Tensor, k: int) -> torch.Tensor:
     return (above | tie).to(torch.float32)
 
 
-def ef_topk_compress(cfg: TopKConfig, grads: dict, state: EFState, ok=None) -> tuple[dict, EFState, dict]:
+def topk_mask_sharded(v: torch.Tensor, k: int, block, mesh) -> torch.Tensor:
+    """:func:`topk_mask_flat`'s mask of the whole leaf, at this rank's
+    ``block`` of it (``v``: the block, flattened), on ``mesh``: the k-th
+    largest magnitude of the whole leaf from every rank's own k largest,
+    gathered over the axes the block is split over; the entries above it
+    counted over them; then the ties, in the whole leaf's row-major index
+    order, up to k (each rank offers its ``need`` first, the group keeps
+    the ``need`` lowest global indices).  A whole block is
+    :func:`topk_mask_flat` itself."""
+    from repro_torch.distributed import mesh as _mesh
+    from repro_torch.distributed.layout import COLLECTIVES
+
+    if not block.axes:
+        return topk_mask_flat(v, k)
+    group = mesh.group(block.axes)
+    a = v.abs()
+    if k >= math.prod(block.global_shape):
+        return torch.ones_like(a, dtype=torch.float32)
+    COLLECTIVES["sum"] += 3
+    cand = _mesh.all_gather(torch.topk(a, min(k, a.numel()), sorted=False).values, group, 0)
+    kth = torch.topk(cand, k, sorted=False).values.min()
+    above = a > kth
+    tie = a == kth
+    need = k - int(_mesh.all_reduce(above.sum(dtype=torch.int64), group))
+    if need <= 0:
+        return above.to(torch.float32)
+    local = torch.nonzero(tie).reshape(-1)  # ascending local, so ascending global index
+    gidx = torch.zeros_like(local)
+    stride = 1
+    for d in reversed(range(len(block.shape))):
+        coord = torch.div(local, math.prod(block.shape[d + 1:]), rounding_mode="floor") % block.shape[d]
+        gidx += (coord + block.offset[d]) * stride
+        stride *= block.global_shape[d]
+    offer = torch.full((need,), torch.iinfo(torch.int64).max, dtype=torch.int64, device=a.device)
+    offer[:min(need, gidx.numel())] = gidx[:need]
+    last = torch.sort(_mesh.all_gather(offer, group, 0)).values[need - 1]
+    keep = torch.zeros_like(tie)
+    keep[local[gidx <= last]] = True
+    return (above | keep).to(torch.float32)
+
+
+def ef_topk_compress(cfg: TopKConfig, grads: dict, state: EFState, ok=None,
+                     select=None) -> tuple[dict, EFState, dict]:
     """``(compressed grads, state, {"ef_residual_norm"})``; ``state``'s
     residuals are updated in place (kept as they were where ``ok`` is
-    false).  The norm is that of the new residuals, a device tensor."""
+    false).  The norm is that of the new residuals, a device tensor.
+    ``select(name, flat)`` gives the f32 mask of the entries kept of a
+    leaf's flattened accumulator (default: :func:`topk_mask_flat` of
+    :func:`n_kept` entries; a mesh selects over the whole leaf whose block
+    ``flat`` is)."""
     comp, sq = {}, []
     for name, g in grads.items():
         if not _is_float(g) or name not in state.residual:
@@ -87,7 +133,8 @@ def ef_topk_compress(cfg: TopKConfig, grads: dict, state: EFState, ok=None) -> t
             continue
         acc = g.float() + state.residual[name]
         flat = acc.view(-1)
-        kept = topk_mask_flat(flat, n_kept(flat.numel(), cfg.ratio)).mul_(flat)
+        mask = topk_mask_flat(flat, n_kept(flat.numel(), cfg.ratio)) if select is None else select(name, flat)
+        kept = mask.mul_(flat)
         comp[name] = kept.view(g.shape).to(g.dtype)
         resid = flat.sub_(kept).view(g.shape)  # acc − kept in f32, before the cast
         del kept

@@ -398,8 +398,8 @@ class LMExecutor:
     ``fused_sharded`` and its logits come back whole on every rank, so
     every rank samples the same token.  The other layers run whole on
     every rank: the reference's decode policy (``use_rules``) only
-    constrains placement, never values, and comes with the model-wide
-    mesh.
+    constrains placement, never values, and the engine does not place
+    its rows or its slot pool by it yet.
     """
 
     def __init__(self, model, max_len: int, n_slots: int, mesh=None):

@@ -26,7 +26,23 @@ Kept from the reference:
   and ``Trainer.faust_dispatch``: the FAµST backend decision of the first
   step, when it was priced for training (``DispatchReport.grad``).
 
-Meshes come with the multi-GPU slice and raise.
+**On a mesh** (``Trainer(mesh=)``, ``make_train_step(..., mesh)``): the
+model keeps only each rank's block of every parameter as ``cfg.policy``
+places it (:meth:`~repro_torch.models.lm.LM.shard_`), and so do the AdamW
+moments and the EF residual; the step counter and the FAµST supports are
+whole on every rank (the reference's ``_state_shardings``).  Each rank
+computes its rows and, under a sequence split, its positions
+(``LM._mesh_train_loss``), gathering each layer's parameters whole just
+before it runs; the gradients come back summed over the mesh, as blocks.
+Then, with the blocks: AdamW (elementwise); clipping by the norm of the
+whole gradients (squares summed over the mesh, a replicated leaf once);
+EF top-k selecting over each whole leaf
+(:func:`~repro_torch.optim.compression.topk_mask_sharded`); the NaN guard on
+the loss summed over the mesh, so every rank skips together.  A SIGTERM on
+any rank stops every rank after the same step (the flag is summed over the
+mesh once a step), and checkpoints are sharded (each rank writes its
+blocks: :mod:`repro_torch.checkpoint.manager`).  :attr:`Trainer.state_bytes`
+reports the train state a rank holds beside the whole.
 """
 from __future__ import annotations
 
@@ -44,10 +60,12 @@ from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.configs.base import ArchConfig
 from repro_torch.data.pipeline import DataConfig, DataIterator
 from repro_torch.device import resolve_device
+from repro_torch.distributed.layout import gather_param, sum_over
+from repro_torch.distributed.sharding import Block, use_rules
 from repro_torch.models.lm import LM
 from repro_torch.optim import adamw
 from repro_torch.optim.adamw import AdamWConfig, AdamWState
-from repro_torch.optim.compression import EFState, TopKConfig, ef_topk_compress, ef_topk_init
+from repro_torch.optim.compression import EFState, TopKConfig, ef_topk_compress, ef_topk_init, n_kept, topk_mask_sharded
 
 log = logging.getLogger("repro_torch.trainer")
 
@@ -74,16 +92,20 @@ class TrainConfig:
     recompress_cfg: Any = None  # StreamingConfig override
 
 
-def make_train_step(model: LM, opt_cfg: AdamWConfig, tcfg: TrainConfig):
+def make_train_step(model: LM, opt_cfg: AdamWConfig, tcfg: TrainConfig, mesh=None):
     """``step(batch, state, ef=None) -> metrics``: loss and gradients
     (accumulated in f32 over ``tcfg.microbatches``), EF top-k compression
     when ``ef`` is given, then :func:`guarded_update`.  ``batch`` holds
     ``tokens`` and any side input (``vision_embeds``); microbatches split
     every leaf along its rows, as the reference's.  The metrics are device
-    tensors."""
+    tensors.  With ``mesh`` the model must be sharded on it
+    (:meth:`LM.shard_`): ``batch`` is the whole batch on every rank, and
+    the loss is summed over the mesh (module docstring)."""
     params = {k: p for k, p in model.named_parameters()}
+    if mesh is not None and model.mesh is not mesh:
+        raise ValueError("make_train_step(mesh=): shard the model on that mesh first (LM.shard_)")
 
-    def step(batch: dict, state: AdamWState, ef: EFState | None = None) -> dict:
+    def grads_of(batch: dict):
         n = tcfg.microbatches
         tokens = batch["tokens"]
         if n > 1:
@@ -100,32 +122,53 @@ def make_train_step(model: LM, opt_cfg: AdamWConfig, tcfg: TrainConfig):
                 for k, p in params.items():
                     acc[k] += p.grad.float()
                 loss = loss + mb_loss.detach()
-            grads, loss = {k: a / n for k, a in acc.items()}, loss / n
-        else:
-            for p in params.values():
-                p.grad = None
-            loss, _ = model.train_loss(batch)
-            loss.backward()
-            loss = loss.detach()
-            grads = {k: p.grad for k, p in params.items()}
+            return {k: a / n for k, a in acc.items()}, loss / n
         for p in params.values():
             p.grad = None
-        metrics = {}
+        loss, _ = model.train_loss(batch)
+        loss.backward()
+        return {k: p.grad for k, p in params.items()}, loss.detach()
+
+    def step(batch: dict, state: AdamWState, ef: EFState | None = None) -> dict:
+        with use_rules(mesh, model.cfg.policy):
+            grads, loss = grads_of(batch)
+        for p in params.values():
+            p.grad = None
+        metrics, select = {}, None
+        if mesh is not None:
+            loss = sum_over(loss, mesh)  # every rank decides the NaN guard on the same loss
+            select = (lambda name, flat: topk_mask_sharded(
+                flat, n_kept(math.prod(model.blocks[name].global_shape), tcfg.compression.ratio),
+                model.blocks[name], mesh))
         if ef is not None:
-            grads, _, cm = ef_topk_compress(tcfg.compression, grads, ef, ok=torch.isfinite(loss))
+            grads, _, cm = ef_topk_compress(tcfg.compression, grads, ef, ok=torch.isfinite(loss), select=select)
+            if mesh is not None:
+                cm = {"ef_residual_norm": mesh_norm(ef.residual, model.blocks, mesh)}
             metrics.update(cm)
-        return {**metrics, **guarded_update(opt_cfg, params, grads, state, loss)}
+        gnorm = None if mesh is None else mesh_norm(grads, model.blocks, mesh)
+        return {**metrics, **guarded_update(opt_cfg, params, grads, state, loss, grad_norm=gnorm)}
 
     return step
 
 
+def mesh_norm(tensors: dict, blocks: dict, mesh) -> torch.Tensor:
+    """The global 2-norm of whole tensors of which ``tensors`` holds this
+    rank's ``blocks``: squares summed over the mesh, each block divided by
+    the number of ranks that hold it (a replicated leaf counts once)."""
+    sq = torch.zeros((), dtype=torch.float32, device=next(iter(tensors.values())).device)
+    for k, t in tensors.items():
+        reps = mesh.size // math.prod(mesh.shape[a] for a in blocks[k].axes)
+        sq = sq + torch.sum(torch.square(t.float())) / reps
+    return torch.sqrt(sum_over(sq, mesh))
+
+
 def guarded_update(opt_cfg: AdamWConfig, params: dict, grads: dict, state: AdamWState,
-                   loss: torch.Tensor) -> dict:
+                   loss: torch.Tensor, grad_norm: torch.Tensor | None = None) -> dict:
     """AdamW where ``loss`` is finite, nothing where it is not, decided on
     the device (no host sync).  Returns the metrics as device tensors,
     ``skipped`` 1.0 for a skipped update."""
     ok = torch.isfinite(loss)
-    metrics = {"loss": loss, **adamw.apply_updates(opt_cfg, params, grads, state, ok=ok)}
+    metrics = {"loss": loss, **adamw.apply_updates(opt_cfg, params, grads, state, ok=ok, grad_norm=grad_norm)}
     metrics["skipped"] = (~ok).to(torch.float32)
     return metrics
 
@@ -141,6 +184,41 @@ def state_tree(model: LM, opt: AdamWState, ef: EFState | None) -> dict:
     return tree
 
 
+def _whole(t: torch.Tensor) -> Block:
+    return Block((), tuple(t.shape), (0,) * t.ndim, tuple(t.shape))
+
+
+def state_shardings(model: LM, opt: AdamWState, ef: EFState | None) -> dict | None:
+    """:func:`state_tree`'s structure with each leaf's
+    :class:`~repro_torch.distributed.sharding.Block` on the model's mesh:
+    a parameter's, its moments' and its residual's the parameter's block;
+    the FAµST supports and the step count whole (the reference's
+    ``_state_shardings``).  None for a model that is not sharded."""
+    if model.blocks is None:
+        return None
+    sd = model.state_dict(keep_vars=True)
+    blocks = {k: model.blocks.get(k) or _whole(t) for k, t in sd.items()}
+    tree = {"params": blocks, "opt": {"mu": {k: blocks[k] for k in opt.mu}, "nu": {k: blocks[k] for k in opt.nu},
+                                      "step": _whole(opt.step)}}
+    if ef is not None:
+        tree["ef"] = {k: blocks[k] for k in ef.residual}
+    return tree
+
+
+def state_bytes(model: LM, opt: AdamWState, ef: EFState | None) -> dict:
+    """Bytes of the train state this rank holds, and of the whole state
+    (every leaf at its global shape)."""
+    from repro_torch.checkpoint.manager import _leaves
+
+    leaves = [t for _, t in _leaves(state_tree(model, opt, ef))]
+    blocks = state_shardings(model, opt, ef)
+    rank = sum(t.numel() * t.element_size() for t in leaves)
+    if blocks is None:
+        return {"rank": rank, "whole": rank}
+    whole = sum(math.prod(b.global_shape) * t.element_size() for t, (_, b) in zip(leaves, _leaves(blocks)))
+    return {"rank": rank, "whole": whole}
+
+
 def reference_name(key: str) -> str | None:
     """The reference's slash-joined tree path of the port's parameter
     ``key`` (``embed.table`` → ``embed/table``; zamba2's shared block,
@@ -154,7 +232,8 @@ def reference_name(key: str) -> str | None:
 
 class Trainer:
     """Trains ``LM(cfg)`` on the synthetic stream of ``data_cfg`` on
-    ``device`` (default: the CUDA card)."""
+    ``device`` (default: the CUDA card), on ``mesh`` when given (every
+    rank of its group runs the same trainer: module docstring)."""
 
     def __init__(
         self,
@@ -165,11 +244,11 @@ class Trainer:
         mesh=None,
         device=None,
     ):
-        if mesh is not None:
-            raise NotImplementedError("training on a mesh comes with the multi-GPU slice of the port")
         self.cfg, self.data_cfg, self.opt_cfg, self.tcfg = cfg, data_cfg, opt_cfg, tcfg
+        self.mesh = mesh
         self.device = resolve_device(device)
-        self.ckpt = CheckpointManager(tcfg.checkpoint_dir, keep=tcfg.keep_checkpoints)
+        self.ckpt = CheckpointManager(tcfg.checkpoint_dir, keep=tcfg.keep_checkpoints, mesh=mesh)
+        self.state_bytes: dict | None = None
         self._preempted = False
         self.history: list[dict] = []
         # the FAµST backend decision of the first step, when it was priced
@@ -209,14 +288,14 @@ class Trainer:
     # -- in-training recompression ---------------------------------------------
     def _recompress_weights(self, model: LM) -> dict:
         """Dense 2-D float parameters whose reference path contains a
-        selector, by that path."""
+        selector, by that path (on a mesh each gathered whole)."""
         out = {}
         for key, p in model.named_parameters():
             name = reference_name(key)
             if name is None or p.ndim != 2 or not p.is_floating_point():
                 continue
             if any(sub in name for sub in self.tcfg.recompress_targets):
-                out[name] = p
+                out[name] = p if model.blocks is None else gather_param(p.detach(), model.blocks[key], model.mesh)
         return out
 
     def _recompress(self, model: LM, step_idx: int) -> dict:
@@ -236,6 +315,8 @@ class Trainer:
                     strategy="hierarchical", n_factors=2, block=8,
                     k_first=4, k_mid=4, n_iter_two=8, n_iter_global=8,
                 )
+                if self.mesh is not None:  # rank 0 refreshes, every rank holds the chain placed
+                    spec = dataclasses.replace(spec, mesh=self.mesh)
                 sf = StreamingFaust.track(w32, spec, self.tcfg.recompress_cfg or StreamingConfig(n_iter_update=4),
                                           device=self.device)
                 self.streaming[name] = sf
@@ -258,15 +339,19 @@ class Trainer:
         try:
             if model is None:
                 model = LM(self.cfg, seed=self.tcfg.seed, device=self.device)
-            step_fn = make_train_step(model, self.opt_cfg, self.tcfg)
+            if self.mesh is not None and model.mesh is None:
+                model.shard_(self.mesh)
+            step_fn = make_train_step(model, self.opt_cfg, self.tcfg, self.mesh)
             params = dict(model.named_parameters())
             state = adamw.init_state(params)
             ef = ef_topk_init(params) if self.tcfg.compression is not None else None
+            self.state_bytes = state_bytes(model, state, ef)
             data = DataIterator(self.data_cfg)
             start_step = 0
             if resume:
                 t0 = time.perf_counter()
-                _, extra, latest = self.ckpt.restore_latest(state_tree(model, state, ef))
+                _, extra, latest = self.ckpt.restore_latest(state_tree(model, state, ef),
+                                                            state_shardings(model, state, ef))
                 if latest is not None:
                     data.restore_state(extra["data"])
                     start_step = latest
@@ -315,9 +400,12 @@ class Trainer:
             self._heartbeat(step_idx)
             if (step_idx + 1) % self.tcfg.log_every == 0:
                 log.info("step %d loss %.4f (%.0f ms)", step_idx, metrics["loss"], dt * 1e3)
+            if self.mesh is not None:  # a signal on any rank stops every rank after this step
+                self._preempted = bool(sum_over(torch.tensor(float(self._preempted), device=self.device), self.mesh))
             if (step_idx + 1) % self.tcfg.checkpoint_every == 0 or self._preempted:
                 cost = self.ckpt.save_async(step_idx + 1, state_tree(model, state, ef),
-                                            extra={"data": data.checkpoint_state()})
+                                            extra={"data": data.checkpoint_state()},
+                                            shardings=state_shardings(model, state, ef))
                 self.saves.append({"step": step_idx + 1, **cost})
             if self._preempted:
                 break

@@ -53,16 +53,13 @@ def _close(got, want, tol=TOL):
     assert rel_max_err(got, np.asarray(want)) <= tol
 
 
-_POLICIES = ("policy", "policy_decode")
-
-
 @pytest.mark.parametrize("arch", ARCHS)
 def test_configs_match_reference_field_for_field(arch):
     """``CONFIG`` and ``smoke_config()`` carry the reference's numbers in
-    every field but its sharding policies (multi-GPU comes later); the
+    every field, the sharding policies included; the
     registry resolves every alias."""
     for mine, ref in ((get_config(arch), jget_config(arch)), (get_smoke(arch), jget_smoke(arch))):
-        want = {k: v for k, v in dataclasses.asdict(ref).items() if k not in _POLICIES}
+        want = dataclasses.asdict(ref)
         assert dataclasses.asdict(mine) == want
         assert mine.layer_kinds() == ref.layer_kinds()
     from repro.configs import ALIASES as JALIASES

@@ -42,7 +42,7 @@ def test_scan_sees_the_port():
                 "configs/granite_moe_3b.py", "configs/llama4_maverick.py", "examples/quickstart.py",
                 "examples/compress_operator.py", "examples/train_tiny_lm.py", "examples/serve_lm.py",
                 "distributed/__init__.py", "distributed/mesh.py", "distributed/sharding.py",
-                "kernels/chain_sharded.py"):
+                "kernels/chain_sharded.py", "distributed/layout.py", "distributed/pipeline.py", "layers/param.py"):
         assert port / new in FILES
     assert _forbidden("repro.kernels.ops") and _forbidden("jax.numpy") and _forbidden("ml_dtypes")
     assert not _forbidden("repro_torch.kernels.ops")

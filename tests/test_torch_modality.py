@@ -58,9 +58,6 @@ jax.config.update("jax_platform_name", "cpu")
 CPU = "cpu"
 TOL = {"float32": 1e-5, "bfloat16": 3e-2}
 ARCHS = ["internvl2_2b", "musicgen_medium"]
-_POLICIES = ("policy", "policy_decode")
-
-
 @pytest.fixture(autouse=True)
 def _clean_reference_quarantine():
     """The reference's engine may demote a FAµST apply and quarantine its
@@ -160,13 +157,13 @@ def _close(got, want, tol):
 @pytest.mark.parametrize("arch", ARCHS)
 def test_configs_and_param_counts_match_reference(arch):
     """``CONFIG`` and ``smoke_config()`` carry the reference's numbers in
-    every field but its sharding policies; ``param_count`` is the
+    every field, the sharding policies included; ``param_count`` is the
     reference's (1,889,046,528 for internvl2-2b, 1,384,120,320 for
     musicgen-medium); a model's parameters but the norms' sum to its
     ``stored_param_count`` (K tables, K heads, a λ per FAµST head); the
     model with its FAµST heads moves with ``.to``."""
     for mine, ref in ((get_config(arch), jget_config(arch)), (get_smoke(arch), jget_smoke(arch))):
-        want = {k: v for k, v in dataclasses.asdict(ref).items() if k not in _POLICIES}
+        want = dataclasses.asdict(ref)
         assert dataclasses.asdict(mine) == want
     want = {"internvl2_2b": 1_889_046_528, "musicgen_medium": 1_384_120_320}[arch]
     assert base.param_count(get_config(arch)) == jbase.param_count(jget_config(arch)) == want

@@ -38,6 +38,7 @@ from repro_torch.checkpoint.manager import CheckpointManager, CorruptCheckpointE
 from repro_torch.configs import get_smoke
 from repro_torch.core.projections import _topk_mask_flat
 from repro_torch.data import pipeline
+from repro_torch.distributed.sharding import Block
 from repro_torch.launch import calibrate, roofline
 from repro_torch.launch import train as launch_train
 from repro_torch.layers.faust_linear import FaustSpec
@@ -283,8 +284,10 @@ def test_mismatched_manifest_raises_with_the_names(tmp_path):
         mgr.restore(1, {"params": {"v": torch.zeros(3)}, "opt": {"step": torch.zeros((), dtype=torch.int32)}})
     with pytest.raises(ValueError, match="params/w is float32"):
         mgr.restore(1, {"params": {"w": torch.zeros(4)}, "opt": {"step": torch.zeros((), dtype=torch.int32)}})
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        mgr.restore(1, {}, shardings={})
+    step = {"step": Block((), (), (), ())}
+    with pytest.raises(ValueError, match=r"params/w is float32\[3\] on disk, float32\[4\]"):
+        mgr.restore(1, {"params": {"w": torch.zeros(2)}, "opt": {"step": torch.zeros((), dtype=torch.int32)}},
+                    shardings={"params": {"w": Block(("model",), (4,), (0,), (2,))}, "opt": step})
 
 
 # ---------------------------------------------------------------------------
@@ -534,9 +537,9 @@ def test_launcher_resumes_and_compresses(tmp_path):
     assert len(out["history"]) == 2 and "ef_residual_norm" in out["history"][0]
     out = launch_train.main([*args, "--steps", "3", "--resume"])
     assert [h["step"] for h in out["history"]] == [2]
-    for flags in (["--mesh"], ["--multi-pod"]):
-        with pytest.raises(NotImplementedError, match="multi-GPU"):
-            launch_train.build(launch_train.parse_args([*args, *flags]))
+    with pytest.raises(ValueError, match="RANK"):  # --mesh joins the launcher's group: no launcher here
+        launch_train.build(launch_train.parse_args([*args, "--mesh"]))
+    assert launch_train.build(launch_train.parse_args([*args, "--multi-pod"])).mesh is None  # as the reference's
 
 
 # ---------------------------------------------------------------------------

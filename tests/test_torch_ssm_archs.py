@@ -64,9 +64,6 @@ from torch_parity import bf16_tree, caches_dict, rel_max_err, same_tree, to_np
 jax.config.update("jax_platform_name", "cpu")
 CPU = "cpu"
 TOL = 1e-5
-_POLICIES = ("policy", "policy_decode")
-
-
 @pytest.fixture(autouse=True)
 def _clean_reference_quarantine():
     """The reference's engine may demote a FAµST apply and quarantine its
@@ -103,7 +100,7 @@ def _jsteps(arch: str, attn_chunk: int | None = None):
 @pytest.mark.parametrize("arch", ARCHS)
 def test_configs_match_reference_field_for_field(arch):
     """``CONFIG`` and ``smoke_config()`` carry the reference's numbers in
-    every field but its sharding policies, the ``Mamba2Spec`` included;
+    every field, the sharding policies and the ``Mamba2Spec`` included;
     the registry serves both under their aliases, and every architecture
     of the reference is known (no ``LATER`` list is left)."""
     from repro.configs import ALIASES as JALIASES
@@ -112,7 +109,7 @@ def test_configs_match_reference_field_for_field(arch):
     from repro_torch.configs import ALIASES, ARCH_IDS
 
     for mine, ref in ((get_config(arch), jget_config(arch)), (get_smoke(arch), jget_smoke(arch))):
-        want = {k: v for k, v in dataclasses.asdict(ref).items() if k not in _POLICIES}
+        want = dataclasses.asdict(ref)
         assert dataclasses.asdict(mine) == want
         assert mine.layer_kinds() == ref.layer_kinds()
         assert mine.ssm.n_heads == ref.ssm.n_heads and mine.ssm.conv_dim == ref.ssm.conv_dim

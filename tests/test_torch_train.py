@@ -362,9 +362,10 @@ def test_grad_priced_choose_backend_matches_reference(same_constants, batch, sha
 
 
 def test_later_slices_raise():
-    """What the port does not run yet raises, one case each: a layer kind
-    the reference does not have, a mesh, and the launcher's multi-GPU
-    flags; an ``ssm`` layer without its ``Mamba2Spec`` is refused.  Every
+    """What the port does not run raises, one case each: a layer kind the
+    reference does not have, and the launcher's ``--mesh`` without a
+    launcher's process group (meshes train: ``tests/test_torch_mesh_train.py``);
+    an ``ssm`` layer without its ``Mamba2Spec`` is refused.  Every
     architecture of the reference is known (the registry has no ``LATER``
     list): the modality front ends run (``tests/test_torch_modality.py``),
     as do checkpoints, EF compression and recompression
@@ -385,12 +386,9 @@ def test_later_slices_raise():
         LM(dataclasses.replace(cfg, stages=((2, ("cross",)),)), device=CPU)
     with pytest.raises(ValueError, match="Mamba2Spec"):
         LM(dataclasses.replace(cfg, stages=((2, ("ssm",)),)), device=CPU)
-    data = pipeline.DataConfig(vocab=131, seq_len=8, global_batch=2)
-    with pytest.raises(NotImplementedError, match="mesh"):
-        trainer.Trainer(cfg, data, tcfg=trainer.TrainConfig(checkpoint_every=999), mesh=object(), device=CPU)
-    for flags in (["--mesh"], ["--multi-pod"]):
-        with pytest.raises(NotImplementedError):
-            launch_train.build(launch_train.parse_args(["--arch", "gemma_2b", "--smoke", "--device", "cpu", *flags]))
+    args = ["--arch", "gemma_2b", "--smoke", "--device", "cpu"]
+    with pytest.raises(ValueError, match="RANK"):  # --mesh joins the launcher's process group: none here
+        launch_train.build(launch_train.parse_args([*args, "--mesh"]))
 
 
 def test_launcher_runs_the_smoke_model_on_the_cpu(tmp_path):
