@@ -115,12 +115,22 @@ Phases, each fatal on failure (non-zero exit):
    and K6 against their plain versions, ``apply`` on every backend and
    ``auto``, the bound and ``torch.matmul`` on the dense head; the engine
    with the head forced to fused, bsr and dense (TPOT each, the first
-   decode step's logits against dense within 3e-2); (d) a FAµST MLP
-   (``FaustSpec(3, 128, 4)`` on every projection; 8 requests, prompts ≤
-   256, 32 tokens): teacher-forced check, K1/K6 launches per step, TPOT,
-   layer 0's ``w_up``/``w_gate``/``w_down`` chains through K1 and K6
-   against their plain versions at B = 1, 8 and the trace's longest
-   prompt (its prefill rows);
+   decode step's logits against dense within 3e-2); (d) compressed MLPs
+   (slice 15): the f32 model from seed 0 with its 12 MLP weights
+   compressed on the card by ``compress_model`` (block 128, J = 2, k 4,
+   ``STREAM_SWEEPS`` sweeps; one bucket of the 8 2048 × 16384 ``w_up``/
+   ``w_gate``, one of the 4 ``w_down``): seconds, seconds a matrix, peak
+   memory, each matrix's RE against its dense weight, ``s_tot`` and RCG;
+   ``layers.0.mlp.w_down`` compressed again alone (RE within the batched −
+   sequential limit 1e-3); the chains installed by
+   ``FaustLinear.from_blockfaust`` into that f32 model and its bf16 copy
+   (each layer's factors and ``todense()`` equal to its chain's, no dense
+   MLP key left); the bf16 model served (8 requests, prompts ≤ 256, 32
+   tokens, seed 4), every request ``done``, K1 launches required, every
+   served token within 3e-2·max|logits| of the f32 compressed copy's
+   maximum, K1/K6 launches per step, TPOT, layer 0's ``w_up``/``w_gate``/
+   ``w_down`` chains through K1 and K6 against their plain versions at B
+   = 1, 8 and the trace's longest prompt (its prefill rows);
    (e) streaming into (a)'s live engine: ``StreamingFaust.track`` of the
    head's f32 ``todense()`` (2048 × 256000) at 10/10 sweeps (the
    reference's defaults are 40/40), the tracked chain published, a 1 %
@@ -283,7 +293,10 @@ Phases, each fatal on failure (non-zero exit):
    gradient norms); a planted fault (keys and values not gathered over the
    sequence, f32) that must fail it; (c) ``pipeline_apply`` on pod 4
    × data 1 of those ranks (d 16, b 24, 6 microbatches) against the
-   sequential oracle.  The ranks start once (a)'s mesh run is over, and
+   sequential oracle, and its backward (the loss ``Σ y · gy``): every
+   rank's ``dx`` and its stage's parameter gradients within rtol 2e-4 /
+   atol 2e-5 of the sequential walk's under autograd on one rank, the
+   other stages' rows zero.  The ranks start once (a)'s mesh run is over, and
    run beside (a)'s restore and (b)'s unsharded runs in this process.
 
 Prints one JSON object per line; the last three lines are the kernels
@@ -2470,12 +2483,13 @@ def engine_report(name: str, card_line: str, engine, steps: int, counts: dict, w
 
 def serve_run(name: str, card_line: str, model, n_req: int, lengths: tuple, budgets: tuple, fixed: tuple = (),
               first: int | None = None, every=None, evict_step=None, seed: int = 0, check: bool = True,
-              kernels: bool = True, max_len: int = SERVE_MAX_LEN) -> dict:
+              kernels: bool = True, max_len: int = SERVE_MAX_LEN, exact=None) -> dict:
     """One engine over ``model`` (``SERVE_SLOTS`` slots of ``max_len``
     tokens): the trace of :func:`_trace` through :func:`drive` (a vision
     model's requests each with its own :func:`_vision_extras`), K1/K6
     counters zeroed before and read after, the report, and (``check``) the
-    teacher-forced check of every request."""
+    teacher-forced check of every request (against ``exact``, an f32 copy,
+    when given)."""
     import torch
 
     from repro_torch.runtime.engine import Engine, LMExecutor
@@ -2505,7 +2519,7 @@ def serve_run(name: str, card_line: str, model, n_req: int, lengths: tuple, budg
     if check:
         routes = ex.choices(max_len) if moe else None
         row["teacher_forced"] = teacher_forced(model, engine, rids, prompts, SERVE_TOL[model.cfg.dtype], routes,
-                                               extras=extras)
+                                               exact=exact, extras=extras)
     log(row)
     return {"row": row, "engine": engine, "rids": rids, "prompts": prompts, "extras": extras}
 
@@ -2786,7 +2800,6 @@ def serve_stream(card_line: str, dev, model, engine) -> dict:
 def serve(card_line: str, dev) -> dict:
     """Phase 13: serving and streaming refresh at gemma-2b's full width,
     ``SERVE_LAYERS`` deep (a–e, module docstring)."""
-    from repro_torch.layers.faust_linear import FaustSpec
     from repro_torch.models.lm import LM
     from repro_torch.runtime.engine import unembed_blockfaust
 
@@ -2813,8 +2826,13 @@ def serve(card_line: str, dev) -> dict:
                                    (1, 3, 8))
     del model
     _free()
-    model = LM(serve_config(faust_mlp=FaustSpec(3, 128, 4)), seed=0, device=dev)
-    d = serve_run("serve_engine_faust_mlp", card_line, model, 8, (32, 256), (32, 32), seed=4)["row"]
+    exact, model, out["compress"] = compressed_mlp(card_line, dev)
+    run = serve_run("serve_engine_faust_mlp", card_line, model, 8, (32, 256), (32, 32), seed=4, exact=exact)
+    d = run["row"]
+    tf = d["teacher_forced"]
+    require(tf["within_tol"] == tf["positions"],
+            f"a served token trails the f32 compressed copy's maximum by more than {SERVE_TOL['bfloat16']}: {tf}")
+    require(d["launches"]["chain_matmul"] > 0, f"the compressed model's serving launched no K1: {d['launches']}")
     # one layer's MLP chains at decode batches 1 and 8 and at the longest
     # prefill of the trace (one request's prompt rows)
     mlp = model.layers[0].mlp
@@ -2822,15 +2840,100 @@ def serve(card_line: str, dev) -> dict:
                                {f"layers.0.mlp.{w}": getattr(mlp, w).blockfaust() for w in ("w_up", "w_gate", "w_down")},
                                (1, 8, max(d["prompt_lengths"])))
     d["profile"] = profile_decode(card_line, model)
-    log({"phase": "serve_faust_mlp", "card": card_line, "tpot_p50_s": d["tpot_p50_s"],
+    log({"phase": "serve_faust_mlp", "card": card_line, "source": "compress_model", "tpot_p50_s": d["tpot_p50_s"],
          "engine_tpot_p50_s": out["engine"]["tpot_p50_s"],
          "dense_mlp_same_trace_tpot_p50_s": out["dense_mlp_short"]["tpot_p50_s"],
          "backend_counts": d["backend_counts"], "launches_per_step": d["profile"]["launches_per_step"],
          "step_s": d["profile"]["step_s"], "dense_mlp_step_s": out["profile"]["step_s"]})
     out["faust_mlp"] = d
-    del model
+    del model, exact, run
     _free()
     return out
+
+
+def _in_dtype(bf, dtype):
+    """``bf`` with its values and λ in ``dtype`` (what a layer of that dtype
+    built from it holds)."""
+    from repro_torch.core.compress import BlockFaust
+
+    return BlockFaust(tuple(f.to(dtype=dtype) for f in bf.factors), bf.lam.to(dtype))
+
+
+def compressed_mlp(card_line: str, dev):
+    """Phase 13 (d)'s model: the f32 ``serve_config`` LM from seed 0 with
+    every MLP weight compressed on the card by ``compress_model`` (block
+    128, J = 2, k 4, ``STREAM_SWEEPS`` sweeps: the reference's defaults are
+    40/40), the 12 chains installed by ``FaustLinear.from_blockfaust`` into
+    it and into its bf16 copy.  Logs the compression (seconds, peak memory,
+    each matrix's RE against its dense weight, ``s_tot`` and RCG), the
+    check of ``layers.0.mlp.w_down`` compressed again alone (the sequential
+    route, RE within ``BATCHED_RE_GAP``) and the installation (each layer's
+    factors and ``todense()`` equal to its chain's in the layer's dtype).
+    Returns (the f32 model, the bf16 model, the rows)."""
+    import torch
+
+    from repro_torch.core import compress_layers, compress_model
+    from repro_torch.layers.faust_linear import FaustLinear
+    from repro_torch.models.lm import LM
+
+    exact = LM(serve_config(dtype="float32"), seed=0, device=dev)
+    dense = {k: v.detach().clone() for k, v in exact.named_parameters() if ".mlp." in k}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    chains = compress_model(exact, select=lambda n: ".mlp." in n, n_iter_two=STREAM_SWEEPS,
+                            n_iter_global=STREAM_SWEEPS, device=dev)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    require(sorted(chains) == sorted(dense), f"compress_model chose {sorted(chains)}, want {sorted(dense)}")
+
+    def re(bf, w):
+        return float(torch.linalg.norm(w - bf.todense()) / torch.linalg.norm(w))
+
+    per = {n: {"shape": list(dense[n].shape), "re": re(bf, dense[n]), "s_tot": bf.s_tot, "rcg": bf.rcg(),
+               "k": [f.k for f in bf.factors]} for n, bf in chains.items()}
+    row = {"phase": "compress_model", "card": card_line, "matrices": len(chains), "sweeps": STREAM_SWEEPS,
+           "reference_sweeps": 40, "seconds": seconds, "seconds_per_matrix": seconds / len(chains),
+           "slice7_seconds_per_matrix_40_sweeps": 3.68, "max_memory_allocated_gb": peak,
+           "re_max": max(p["re"] for p in per.values()), "re_min": min(p["re"] for p in per.values()),
+           "chains": per}
+    log(row)
+    name = "layers.0.mlp.w_down"
+    t0 = time.perf_counter()
+    alone = compress_layers({name: dense[name]}, n_iter_two=STREAM_SWEEPS, n_iter_global=STREAM_SWEEPS,
+                            device=dev)[name]
+    torch.cuda.synchronize()
+    again = {"phase": "compress_model_alone", "card": card_line, "matrix": name, "seconds": time.perf_counter() - t0,
+             "re_alone": re(alone, dense[name]), "re_batched": per[name]["re"], "limit": BATCHED_RE_GAP}
+    again["gap"] = abs(again["re_alone"] - again["re_batched"])
+    log(again)
+    require(again["gap"] <= BATCHED_RE_GAP, f"{name} compressed alone: {again}")
+    del dense, alone
+    model = LM(serve_config(), device=dev)
+    model.load_state_dict({k: v.to(torch.bfloat16) if v.is_floating_point() else v
+                           for k, v in exact.state_dict().items()})
+    worst = 0.0
+    for n, bf in chains.items():
+        layer, _, w = n.split(".")[1:]
+        for m in (exact, model):
+            dtype = m.embed.table.dtype
+            mlp = m.layers[int(layer)].mlp
+            setattr(mlp, w, FaustLinear.from_blockfaust(bf, dtype=dtype))
+            want = _in_dtype(bf, dtype)
+            with torch.no_grad():
+                got = getattr(mlp, w).blockfaust()
+                same = all(torch.equal(a.values, b.values) and torch.equal(a.in_idx, b.in_idx)
+                           for a, b in zip(got.factors, want.factors)) and torch.equal(got.lam, want.lam)
+                diff = float((getattr(mlp, w).todense() - want.todense()).abs().max())
+            require(same and diff == 0.0, f"{n} installed in {dtype}: factors equal {same}, todense off by {diff}")
+            worst = max(worst, diff)
+    installed = {"phase": "compress_model_installed", "card": card_line, "layers": len(chains),
+                 "dtypes": ["float32", "bfloat16"], "todense_max_abs_diff": worst,
+                 "dense_mlp_keys_left": [k for k in model.state_dict() if k in per]}
+    log(installed)
+    require(not installed["dense_mlp_keys_left"], f"dense MLP weights left in the state dict: {installed}")
+    return exact, model, {"compress": row, "alone": again, "installed": installed}
 
 
 # ---------------------------------------------------------------------------
@@ -4725,14 +4828,29 @@ def mesh_train_rank(rank: int, rendezvous: str, out_dir: str, card_line: str, de
         w = (torch.randn((n_stages, d, d), generator=g) / math.sqrt(d)).to(dev)
         bias = (0.1 * torch.randn((n_stages, d), generator=g)).to(dev)
         x = torch.randn((b, d), generator=g).to(dev)
+        gy = torch.randn((b, d), generator=g).to(dev)  # the loss Σ y · gy, the same on every rank
         pmesh = Mesh((n_stages, 1), ("pod", "data"), device=dev)
         stage = lambda p, h: torch.tanh(h @ p["w"] + p["b"])  # noqa: E731
-        y = pipeline_apply(stage, {"w": w, "b": bias}, x, mesh=pmesh, axis="pod", n_microbatches=n_micro)
-        ref = x
+        leaves = [t.detach().clone().requires_grad_() for t in (w, bias, x)]
+        y = pipeline_apply(stage, {"w": leaves[0], "b": leaves[1]}, leaves[2], mesh=pmesh, axis="pod",
+                           n_microbatches=n_micro)
+        (y * gy).sum().backward()
+        seq = [t.detach().clone().requires_grad_() for t in (w, bias, x)]
+        ref = seq[2]
         for i in range(n_stages):
-            ref = stage({"w": w[i], "b": bias[i]}, ref)
-        result["pipeline"] = {"coord": dict(pmesh.coord), "max_abs_err": float((y - ref).abs().max()),
-                              "close": bool(torch.allclose(y, ref, rtol=2e-4, atol=2e-5))}
+            ref = stage({"w": seq[0][i], "b": seq[1][i]}, ref)
+        (ref * gy).sum().backward()
+        me = pmesh.coord["pod"]
+        grads = {"dx": (leaves[2].grad, seq[2].grad), "dw": (leaves[0].grad[me], seq[0].grad[me]),
+                 "db": (leaves[1].grad[me], seq[1].grad[me])}
+        others = [i for i in range(n_stages) if i != me]
+        y, ref = y.detach(), ref.detach()
+        result["pipeline"] = {
+            "coord": dict(pmesh.coord), "max_abs_err": float((y - ref).abs().max()),
+            "close": bool(torch.allclose(y, ref, rtol=2e-4, atol=2e-5)),
+            **{f"{k}_max_abs_err": float((a - r).abs().max()) for k, (a, r) in grads.items()},
+            "grads_close": all(bool(torch.allclose(a, r, rtol=2e-4, atol=2e-5)) for a, r in grads.values()),
+            "other_rows_zero": not (leaves[0].grad[others].any() or leaves[1].grad[others].any())}
         result["seconds"] = time.perf_counter() - t0
         result["transport"] = dict(TRANSPORT)
     except Exception:  # noqa: BLE001 — reported by the parent
@@ -4845,6 +4963,8 @@ def mesh_train(card_line: str, dev) -> dict:
             f"the planted fault passed the loss check: {row['planted_rel_diff']}")
     require(all(0.2 <= s <= 0.3 for s in row["state_share"]), f"a rank holds not a quarter: {row['state_share']}")
     require(all(p["close"] for p in row["pipeline"]), f"pipeline_apply disagrees: {row['pipeline']}")
+    require(all(p["grads_close"] and p["other_rows_zero"] for p in row["pipeline"]),
+            f"pipeline_apply's backward disagrees with the sequential walk: {row['pipeline']}")
     require(all(r["bf16"]["launches"][k] == 1 for r in results for k in ("chain_matmul", "chain_dgrad", "chain_wgrad")),
             f"not one K1/K2/K3 a step a rank: {[r['bf16']['launches'] for r in results]}")
     out["b"] = row
@@ -4945,6 +5065,8 @@ def main() -> int:
     for k in kernels:  # slice 8: the serving engine's counts (K4: the quantized refresh's applies)
         if k["name"] in serve_launches:
             k["serve_launches"] = serve_launches[k["name"]]
+        if k["name"] in srv["faust_mlp"]["launches"]:  # slice 15: phase 13 (d), the compressed MLPs served
+            k["compressed_mlp_serve_launches"] = srv["faust_mlp"]["launches"][k["name"]]
         if k["name"] in resilient_launches:
             k["train_resilient_launches"] = resilient_launches[k["name"]]
         if k["name"] in ("chain_matmul", "bsr_matmul", "chain_dgrad", "chain_wgrad"):  # slices 10-12: phases 15-17

@@ -25,7 +25,8 @@ compute on the same arrays:
                 dict (layers unstacked: ``stages/0/0/attn/wq[l]`` is
                 ``layers.{l}.attn.wq``; the shared block's ``shared/...``
                 is ``shared....``, and the empty dict the reference stacks
-                at each ``"shared"`` stage position has no keys)
+                at each ``"shared"`` stage position has no keys);
+                :func:`lm_key_to_name` maps one key path to its name
 * train state:  the reference trainer's ``{"params", "opt": AdamWState(mu,
                 nu, step), "ef": EFState(residual)}`` with numpy leaves,
                 mapped to and from the port's state dict, ``AdamWState``
@@ -40,6 +41,8 @@ converters run on ``device`` (default: the CUDA card; raises without
 one) and check index ranges, so a malformed table never reaches a kernel.
 """
 from __future__ import annotations
+
+import re
 
 import numpy as np
 import torch
@@ -208,6 +211,27 @@ def flatten_lm_tree(tree: dict, cfg) -> dict[str, np.ndarray]:
                 out.update(flatten_tree(tree["stages"][si][pos], f"layers.{layer}.", r))
                 layer += 1
     return out
+
+
+def lm_key_to_name(key: str, cfg) -> str:
+    """The port's name of a reference LM key path (``jax.tree_util.keystr``,
+    as the reference's ``compress_model`` names its chains), counting
+    layers as :func:`flatten_lm_tree` does: a stacked layer leaf's slice
+    ``['stages'][0][0]['mlp']['w_down'][3]`` is ``layers.3.mlp.w_down``,
+    ``['embed']['table']`` is ``embed.table`` and a stack's slice outside
+    the stages keeps its index, ``['unembed']['w'][1]`` is
+    ``unembed.w[1]`` (as the port's ``compress_model`` names it)."""
+    parts = [a if a else int(b) for a, b in re.findall(r"\['([^']*)'\]|\[(\d+)\]", key)]
+    if "".join(f"['{p}']" if isinstance(p, str) else f"[{p}]" for p in parts) != key:
+        raise ValueError(f"not a key path of string keys and indices: {key!r}")
+    if parts[0] != "stages":
+        *path, last = parts
+        return ".".join(str(p) for p in path) + (f"[{last}]" if isinstance(last, int) else f".{last}")
+    si, pos, *rest, r = parts[1:]
+    if not isinstance(r, int):
+        raise ValueError(f"{key!r} names a whole stacked leaf, not one layer's slice of it")
+    layer = sum(repeat * len(unit) for repeat, unit in cfg.stages[:si]) + r * len(cfg.stages[si][1]) + pos
+    return ".".join([f"layers.{layer}", *(str(p) for p in rest)])
 
 
 def lm_state_dict_from_numpy(tree: dict, cfg, *, dtype: str | None = None, device=None) -> dict[str, torch.Tensor]:

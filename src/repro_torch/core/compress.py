@@ -476,3 +476,159 @@ def _faust_to_blockfaust(
 def _max_blocks_per_outcol(f: torch.Tensor, bk: int, bn: int) -> int:
     _, energy = _outcol_block_energy(f, bk, bn)
     return max(int((energy > 0).sum(dim=1).max()), 1)
+
+
+# ---------------------------------------------------------------------------
+# The workload drivers: named dense weights → BlockFaust chains
+# ---------------------------------------------------------------------------
+
+_DEFAULT_BLOCK = 128  # the block side of the drivers' chains
+
+
+def _block_factorize_spec(n_factors: int, bk: int, bn: int, k_first: int, k_mid: int,
+                          k_resid: Sequence[int] | None, n_iter_two: int, n_iter_global: int):
+    """The :class:`repro_torch.api.factorize.FactorizeSpec` of one
+    block-route compression request (shared by the drivers below)."""
+    from repro_torch.api.factorize import FactorizeSpec
+
+    if bk != bn:
+        raise ValueError("the block route needs square blocks")
+    return FactorizeSpec(
+        strategy="hierarchical",
+        n_factors=n_factors,
+        block=bk,
+        k_first=k_first,
+        k_mid=k_mid,
+        k_resid=tuple(k_resid) if k_resid is not None else None,
+        n_iter_two=n_iter_two,
+        n_iter_global=n_iter_global,
+    )
+
+
+def _maybe_shard_batch(w: torch.Tensor, mesh, batch_axis: str) -> tuple[int, int] | None:
+    """The rows ``(lo, hi)`` of the stack ``w`` this rank solves when
+    ``mesh`` has ``batch_axis`` and its size divides the stack's batch into
+    slices of two or more (the layer-parallel mode), else None: one rank
+    solves the whole of it (an uneven bucket, a 2-D weight, a mesh without
+    the axis).  A slice of one would change the bits: torch multiplies a
+    batch of one matrix by a vector in another summation order than a
+    batch of several (the power iteration's matrix-vector products)."""
+    if mesh is None or w.ndim != 3 or batch_axis not in mesh.axis_names:
+        return None
+    n = mesh.shape[batch_axis]
+    if w.shape[0] % n or w.shape[0] < 2 * n:
+        return None
+    per = w.shape[0] // n
+    return mesh.coord[batch_axis] * per, (mesh.coord[batch_axis] + 1) * per
+
+
+def _solve(w: torch.Tensor, fspec, mesh, batch_axis: str, model_axis: str, device) -> list[BlockFaust]:
+    """The chains of a 2-D weight (one) or of a stack ``(B, in, out)`` (B,
+    in order).  On ``mesh`` each data rank solves its own slice of a stack
+    the batch axis divides and the slices are gathered over that axis;
+    otherwise rank 0 solves the whole and broadcasts it (``FactorizeSpec
+    (mesh=)``).  Every rank's chains come back placed for
+    ``fused_sharded``."""
+    import torch.distributed as dist
+
+    from repro_torch.api.factorize import _moved, factorize
+    from repro_torch.kernels.chain_sharded import place_blockfaust
+
+    if mesh is None:
+        return factorize(w, fspec, device=device)[1].blockfausts
+    rows = _maybe_shard_batch(w, mesh, batch_axis)
+    if rows is None:
+        spec = dataclasses.replace(fspec, mesh=mesh, data_axis=batch_axis, model_axis=model_axis)
+        return factorize(w, spec, device=mesh.device)[1].blockfausts
+    mine = factorize(w[rows[0]:rows[1]], fspec, device=mesh.device)[1].blockfausts
+    parts = [None] * mesh.shape[batch_axis]
+    dist.all_gather_object(parts, _moved(mine, "cpu"), group=mesh.group(batch_axis))
+    return [place_blockfaust(bf, mesh, model_axis) for part in parts for bf in part]
+
+
+def compress_layers(
+    weights: dict[str, torch.Tensor],
+    n_factors: int = 2,
+    bk: int = _DEFAULT_BLOCK,
+    bn: int = _DEFAULT_BLOCK,
+    k_first: int = 4,
+    k_mid: int = 4,
+    k_resid: Sequence[int] | None = None,
+    n_iter_two: int = 40,
+    n_iter_global: int = 40,
+    mesh=None,
+    batch_axis: str = "data",
+    model_axis: str = "model",
+    *,
+    device=None,
+) -> dict[str, BlockFaust]:
+    """Compress named dense weights ``(in, out)`` into :class:`BlockFaust`
+    chains, batching same-shaped weights.
+
+    A value is a 2-D weight or a 3-D ``(L, in, out)`` stack; a stack is
+    solved as one batch and comes back as ``name[i]``.  2-D weights are
+    bucketed by (shape, dtype): a bucket of two or more is one batched
+    :func:`repro_torch.api.factorize` call, a singleton a sequential one.
+    Names are taken in sorted order and buckets in the order of their first
+    name.  Batched PALM solves each matrix on its own, so a chain depends on
+    the bucket it was solved in only by rounding.
+
+    ``mesh`` (a :class:`repro_torch.distributed.Mesh`; every rank calls with
+    the same weights): a stack or bucket that ``batch_axis`` divides into
+    slices of two or more is solved slice by slice on the data ranks and
+    gathered, any other on rank 0 and broadcast (on CPU ranks every chain is
+    then the unsharded call's bit for bit), and every rank's chains come back placed
+    (:func:`repro_torch.kernels.chain_sharded.place_blockfaust` over
+    ``model_axis``) for ``fused_sharded``.  The solves run on ``device``
+    (default: the CUDA card; the mesh's device on a mesh).
+    """
+    fspec = _block_factorize_spec(n_factors, bk, bn, k_first, k_mid, k_resid, n_iter_two, n_iter_global)
+
+    def solve(w):
+        return _solve(w, fspec, mesh, batch_axis, model_axis, device)
+
+    weights = {name: torch.as_tensor(w).detach() for name, w in weights.items()}
+    out: dict[str, BlockFaust] = {}
+    buckets: dict[tuple, list[str]] = {}
+    for name, w in sorted(weights.items()):
+        if w.ndim == 3:  # a stack (L, in, out): already the batch layout
+            out.update((f"{name}[{i}]", bf) for i, bf in enumerate(solve(w)))
+            continue
+        if w.ndim != 2:
+            raise ValueError(f"{name}: expected a 2-D or (L, in, out) weight, got {tuple(w.shape)}")
+        buckets.setdefault((tuple(w.shape), str(w.dtype)), []).append(name)
+    for names in sorted(buckets.values(), key=lambda names: names[0]):
+        stack = weights[names[0]] if len(names) == 1 else torch.stack([weights[n] for n in names])
+        out.update(zip(names, solve(stack)))
+    return out
+
+
+def compress_model(model, min_dim: int | None = None, select=None, **kw) -> dict[str, BlockFaust]:
+    """Compress every eligible weight of a model with
+    :func:`compress_layers`.
+
+    ``model`` is an ``nn.Module`` (its ``named_parameters()``) or a ``{name:
+    tensor}`` dict of the port's state-dict names.  A per-layer parameter
+    (``layers.{l}.…``) is eligible when it is 2-D with both dims ≥
+    ``min_dim`` (default: the block side); a per-layer 3-D one (a MoE
+    layer's experts ``(E, in, out)``) is not.  A top-level 2-D parameter is
+    eligible likewise, and a top-level 3-D one whose last two dims both are
+    goes through as a stack (``unembed.w[k]``).  Integer tensors (FAµST
+    supports) are not weights.  ``select`` filters by name (e.g. ``lambda
+    n: ".mlp." in n``).  This is the reference's choice over its stacked
+    tree, where each layer's weights sit on a leading ``L`` axis, so its
+    stacked experts are 4-D; weights of one shape from several layers share
+    one bucket.  Returns ``{name: BlockFaust}``.
+    """
+    if min_dim is None:
+        min_dim = kw.get("bk", _DEFAULT_BLOCK)
+    params = model.named_parameters() if isinstance(model, torch.nn.Module) else model.items()
+    weights: dict[str, torch.Tensor] = {}
+    for name, p in params:
+        per_layer = name.startswith("layers.")
+        if not p.is_floating_point() or p.ndim not in ((2,) if per_layer else (2, 3)):
+            continue
+        if min(p.shape[-2:]) < min_dim or (select is not None and not select(name)):
+            continue
+        weights[name] = p.detach()
+    return compress_layers(weights, **kw)

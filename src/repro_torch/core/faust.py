@@ -117,3 +117,8 @@ def default_init(
 def faust_flops(faust: Faust, batch: int = 1) -> int:
     """Flop count of ``apply`` on a ``batch`` of vectors: 2·s_tot·batch."""
     return 2 * faust.s_tot * batch
+
+
+def dense_flops(shape: tuple[int, int], batch: int = 1) -> int:
+    """Flop count of a dense ``(m, n)`` matrix on a ``batch`` of vectors."""
+    return 2 * int(shape[0]) * int(shape[1]) * batch

@@ -38,3 +38,12 @@ def spectral_norm(a: torch.Tensor, iters: int = 32) -> torch.Tensor:
 def spectral_norm_sq(a: torch.Tensor, iters: int = 32) -> torch.Tensor:
     s = spectral_norm(a, iters=iters)
     return s * s
+
+
+def spectral_norm_batched(a: torch.Tensor, iters: int = 32) -> torch.Tensor:
+    """``(B, m, n) → (B,)``: the largest singular value of each matrix, all
+    B iterates advancing in lockstep (:func:`spectral_norm` of each slice,
+    to rounding)."""
+    if a.ndim != 3:
+        raise ValueError(f"expected a stack (B, m, n); got {tuple(a.shape)}")
+    return spectral_norm(a, iters=iters)

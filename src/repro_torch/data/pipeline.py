@@ -1,6 +1,6 @@
 """Deterministic synthetic token stream.  Counterpart of
 :mod:`repro.data.pipeline` (``DataConfig``, ``global_batch``,
-``DataIterator``).
+``host_slice``, ``DataIterator``).
 
 Batch ``i`` is a pure function of ``(seed, i)``: the same numpy generator,
 draws and bigram mixing as the reference, so the port's batches equal the
@@ -63,6 +63,15 @@ def global_batch(cfg: DataConfig, step: int) -> dict[str, np.ndarray]:
         embeds = rng.standard_normal((cfg.global_batch, cfg.n_vision_tokens, cfg.d_model), dtype=np.float32)
         batch["vision_embeds"] = embeds * np.float32(0.02)
     return batch
+
+
+def host_slice(cfg: DataConfig, step: int, host_index: int, n_hosts: int) -> dict[str, np.ndarray]:
+    """Host ``host_index``'s contiguous slice of the global batch of
+    ``step`` (batch-major, ``global_batch // n_hosts`` rows)."""
+    full = global_batch(cfg, step)
+    per = cfg.global_batch // n_hosts
+    lo, hi = host_index * per, (host_index + 1) * per
+    return {k: v[lo:hi] for k, v in full.items()}
 
 
 class DataIterator:

@@ -90,6 +90,14 @@ class _Factor(nn.Module):
         self.register_buffer("in_idx", in_idx)
         self.in_features, self.out_features = in_features, out_features
 
+    @classmethod
+    def copy_of(cls, f: BlockSparseFactor, dtype: torch.dtype, device) -> "_Factor":
+        """A factor holding new tensors with ``f``'s values (in ``dtype``) and
+        support (int32), on ``device``: nothing of ``f`` is shared."""
+        values = f.values.detach().to(device=device, dtype=dtype).clone()
+        in_idx = f.in_idx.detach().to(device=device, dtype=torch.int32).clone()
+        return cls(values, in_idx, f.in_features, f.out_features)
+
 
 def _supports_generator(generator: torch.Generator) -> torch.Generator:
     """A CPU generator seeded from ``generator``: the supports are drawn on the CPU."""
@@ -128,12 +136,42 @@ class FaustLinear(nn.Module):
         self.factors = nn.ModuleList(factors)
         self.lam = nn.Parameter(torch.ones((), dtype=dtype, device=dev))
 
+    @classmethod
+    def from_blockfaust(cls, bf: BlockFaust, *, backend: str = "auto", spec: FaustSpec | None = None,
+                        dtype: torch.dtype | None = None, device=None) -> "FaustLinear":
+        """The layer of a computed chain (a compressed weight): each factor
+        keeps the chain's own ``k``, inner dims and support, and λ is
+        ``bf.lam``; the counterpart of the reference's
+        ``blockfaust_to_params``.  The layer holds new tensors in ``dtype``
+        (default: the chain's values' dtype; λ too) on ``device`` (default:
+        the chain's), so training it leaves ``bf`` as it was.  ``spec``
+        (default: the chain's J and block, ``k`` its largest factor's)
+        carries the layer's mesh placement (``spec.shard``)."""
+        blk = bf.factors[0].bk
+        if spec is None:
+            spec = FaustSpec(len(bf.factors), blk, max(f.k for f in bf.factors))
+        elif (spec.n_factors, spec.block) != (len(bf.factors), blk):
+            raise ValueError(f"spec {spec} does not describe a {len(bf.factors)}-factor chain of block {blk}")
+        dtype = bf.factors[0].values.dtype if dtype is None else dtype
+        device = bf.device if device is None else device
+        layer = cls.__new__(cls)
+        nn.Module.__init__(layer)
+        layer.in_dim, layer.out_dim, layer.spec, layer.backend = bf.in_features, bf.out_features, spec, backend
+        layer.factors = nn.ModuleList(_Factor.copy_of(f, dtype, device) for f in bf.factors)
+        lam = torch.as_tensor(bf.lam).detach().to(device=device, dtype=dtype).clone()
+        layer.lam = nn.Parameter(lam.reshape(()))
+        return layer
+
     def blockfaust(self) -> BlockFaust:
         """The chain on the live parameters (no copy)."""
         return BlockFaust(
             tuple(BlockSparseFactor(f.values, f.in_idx, f.in_features, f.out_features) for f in self.factors),
             self.lam,
         )
+
+    def todense(self) -> torch.Tensor:
+        """``W = λ · F_1 ⋯ F_J`` materialized, ``(in_dim, out_dim)``."""
+        return self.blockfaust().todense()
 
     def forward(self, x: torch.Tensor, backend: str | None = None, shard=None) -> torch.Tensor:
         """``x @ W`` on ``backend`` (default: the layer's); ``shard``
@@ -145,6 +183,16 @@ class FaustLinear(nn.Module):
 
         op = FaustOp(bf, shard=shard if shard is not None else self.spec.shard)
         return op.apply(x, backend or self.backend, device=x.device)
+
+
+def blockfaust_to_state_dict(bf: BlockFaust) -> dict[str, torch.Tensor]:
+    """``bf`` as the state dict of :meth:`FaustLinear.from_blockfaust`'s
+    layer, in its order: ``lam``, ``factors.{i}.values``,
+    ``factors.{i}.in_idx`` (the chain's own tensors, no copy)."""
+    sd = {"lam": torch.as_tensor(bf.lam)}
+    for i, f in enumerate(bf.factors):
+        sd[f"factors.{i}.values"], sd[f"factors.{i}.in_idx"] = f.values, f.in_idx
+    return sd
 
 
 class StackedFaustLinear(FaustLinear):
@@ -188,6 +236,9 @@ class StackedFaustLinear(FaustLinear):
                   for f in self.factors),
             self.lam[head],
         )
+
+    def todense(self, head: int) -> torch.Tensor:
+        return self.blockfaust(head).todense()
 
     def forward(self, x: torch.Tensor, head: int, backend: str | None = None, shard=None) -> torch.Tensor:
         return self._apply_chain(self.blockfaust(head), x, backend, shard)

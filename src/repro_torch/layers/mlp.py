@@ -27,7 +27,8 @@ def _act(kind: str, x: torch.Tensor) -> torch.Tensor:
 
 class MLP(nn.Module):
     """``w_up``/``w_gate``/``w_down``: dense ``(in, out)`` parameters, or
-    :class:`FaustLinear` layers when ``faust`` is given."""
+    :class:`FaustLinear` layers when ``faust`` is given or one is assigned
+    over a dense projection."""
 
     def __init__(self, d_model: int, d_ff: int, act: str, *, generator, dtype, device,
                  faust: FaustSpec | None = None):
@@ -41,6 +42,14 @@ class MLP(nn.Module):
                 setattr(self, name, dense_param(i, o, generator=generator, dtype=dtype, device=device))
             else:
                 setattr(self, name, FaustLinear(i, o, faust, generator=generator, dtype=dtype, device=device))
+
+    def __setattr__(self, name: str, value) -> None:
+        """A module assigned over a dense projection replaces it (``mlp.w_up
+        = FaustLinear.from_blockfaust(bf)`` installs a compressed chain):
+        the dense parameter leaves the state dict."""
+        if isinstance(value, nn.Module) and name in self.__dict__.get("_parameters", {}):
+            del self._parameters[name]
+        super().__setattr__(name, value)
 
     def _proj(self, name: str, x: torch.Tensor) -> torch.Tensor:
         w = getattr(self, name)

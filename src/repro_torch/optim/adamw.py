@@ -26,6 +26,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+from collections.abc import Mapping
 
 import torch
 
@@ -74,7 +75,35 @@ def schedule(cfg: AdamWConfig, step) -> torch.Tensor:
 
 
 def global_norm(grads: dict) -> torch.Tensor:
-    return torch.sqrt(sum(torch.sum(torch.square(g.float())) for g in grads.values()))
+    """The f32 norm of every floating tensor of ``grads`` together."""
+    return torch.sqrt(sum(torch.sum(torch.square(g.float())) for g in grads.values() if g.is_floating_point()))
+
+
+class _Scaled(Mapping):
+    """``grads`` with each floating tensor times ``scale``, multiplied when
+    it is read: one clipped gradient is alive at a time."""
+
+    def __init__(self, grads: dict, scale: torch.Tensor):
+        self._grads, self._scale = grads, scale
+
+    def __getitem__(self, key):
+        g = self._grads[key]
+        return g * self._scale.to(g.dtype) if g.is_floating_point() else g
+
+    def __iter__(self):
+        return iter(self._grads)
+
+    def __len__(self) -> int:
+        return len(self._grads)
+
+
+def clip_by_global_norm(grads: dict, max_norm: float, norm: torch.Tensor | None = None) -> tuple[Mapping, torch.Tensor]:
+    """``(grads · min(1, max_norm / ‖grads‖), ‖grads‖)``: non-floating
+    tensors pass through untouched.  ``norm`` is the global norm to clip by
+    (default: :func:`global_norm` of ``grads``).  The clipped gradients are
+    a read-only mapping that scales each tensor as it is read."""
+    norm = global_norm(grads) if norm is None else norm
+    return _Scaled(grads, torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)), norm
 
 
 @torch.no_grad()
@@ -89,8 +118,7 @@ def apply_updates(cfg: AdamWConfig, params: dict, grads: dict, state: AdamWState
     is the global norm to clip by (default: :func:`global_norm` of
     ``grads``; a mesh passes the norm of the whole gradients, whose blocks
     ``grads`` holds)."""
-    gnorm = global_norm({k: grads[k] for k in state.mu}) if grad_norm is None else grad_norm
-    scale = torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-9), max=1.0)  # global-norm clipping
+    clipped, gnorm = clip_by_global_norm({k: grads[k] for k in state.mu}, cfg.grad_clip, grad_norm)
     dev = state.step.device
     ok = torch.ones((), dtype=torch.bool, device=dev) if ok is None else ok
 
@@ -106,7 +134,7 @@ def apply_updates(cfg: AdamWConfig, params: dict, grads: dict, state: AdamWState
     d1, c1, d2, c2 = pick(cfg.b1, 1.0), pick(1 - cfg.b1, 0.0), pick(cfg.b2, 1.0), pick(1 - cfg.b2, 0.0)
     lr_eff = torch.where(ok, lr, 0.0)
     for k in state.mu:
-        g = grads[k] * scale.to(grads[k].dtype)  # clipped, one parameter at a time
+        g = clipped[k]  # clipped, one parameter at a time
         flat = params[k].view(-1), state.mu[k].view(-1), state.nu[k].view(-1), g.reshape(-1)
         for a in range(0, flat[0].numel(), UPDATE_SLICE):
             p, mu, nu, gs = (t[a:a + UPDATE_SLICE] for t in flat)

@@ -343,23 +343,18 @@ def swap_unembed(model, bf) -> None:
     fused layout) from the new tensors, whether the support moved or not.
     Stacked per-codebook heads raise ``NotImplementedError``, as the
     reference's swap does."""
-    import torch
+    from repro_torch.layers.faust_linear import FaustLinear
 
     head = _single_head(model, "hot-swap")
     if head is None:
         raise ValueError("model has no FAµST unembedding to swap")
     if len(bf.factors) != len(head.factors):
         raise ValueError(f"swap_unembed: {len(bf.factors)} factors for a {len(head.factors)}-factor head")
-
-    def param(t, like):
-        t = torch.as_tensor(t).detach().to(like.device, like.dtype).clone()
-        return torch.nn.Parameter(t, requires_grad=like.requires_grad)
-
-    for mod, f in zip(head.factors, bf.factors):
-        mod.values = param(f.values, mod.values)
-        mod.in_idx = f.in_idx.detach().to(mod.in_idx.device, torch.int32).clone()
-        mod.in_features, mod.out_features = f.in_features, f.out_features
-    head.lam = param(bf.lam, head.lam)
+    new = FaustLinear.from_blockfaust(bf, dtype=head.lam.dtype, device=head.lam.device)
+    for old, f in zip(head.factors, new.factors):
+        f.values.requires_grad_(old.values.requires_grad)
+    new.lam.requires_grad_(head.lam.requires_grad)
+    head.factors, head.lam = new.factors, new.lam
 
 
 class LMExecutor:

@@ -22,7 +22,9 @@ sharded checkpoints, ``launch/train.py --mesh`` and
 * The pipeline: eight processes, pod 4 × data 2, against the sequential
   oracle and the reference's ``pipeline_apply`` (a subprocess on eight
   host devices, as ``tests/test_pipeline.py`` runs it) at ``rtol=2e-4,
-  atol=2e-5``.
+  atol=2e-5``; its backward (``dx`` and each stage's parameter gradients)
+  against ``jax.grad`` of the sequential oracle and the port's sequential
+  walk under ``torch.autograd``, at the same tolerances.
 """
 import dataclasses
 import json
@@ -567,7 +569,8 @@ def pipe_run(tmp_path_factory):
     n_stages, d, b = 4, 16, 24
     inp = {"w": (rng.standard_normal((n_stages, d, d)) / np.sqrt(d)).astype(np.float32),
            "b": (0.1 * rng.standard_normal((n_stages, d))).astype(np.float32),
-           "x": rng.standard_normal((b, d)).astype(np.float32), "n_micro": np.int64(6)}
+           "x": rng.standard_normal((b, d)).astype(np.float32), "n_micro": np.int64(6),
+           "gy": rng.standard_normal((b, d)).astype(np.float32)}
     np.savez(folder / "inputs.npz", **inp)
     procs = _spawn(worker.run_pipeline, PIPE_WORLD, folder, folder / "inputs.npz")
     try:
@@ -592,6 +595,49 @@ def test_pipeline_matches_oracle_and_reference(pipe_run):
     for r in results:
         np.testing.assert_allclose(r["y"], oracle, rtol=2e-4, atol=2e-5)
         np.testing.assert_allclose(r["y"], ref, rtol=2e-4, atol=2e-5)
+
+
+def _stage(w, b, h, tanh):
+    return tanh(h @ w + b)
+
+
+def test_pipeline_backward_matches_jax_grad(pipe_run):
+    """The backward of ``Σ y · gy`` on every rank: ``dx`` and the rank's stage
+    row of ``dw``/``db`` (the other rows zero), the rows gathered over pod,
+    against ``jax.grad`` of the reference's sequential oracle."""
+    inp, results, _ = pipe_run
+
+    def loss(w, b, x):
+        for s in range(4):
+            x = _stage(w[s], b[s], x, jnp.tanh)
+        return jnp.sum(x * inp["gy"])
+
+    dw, db, dx = jax.grad(loss, argnums=(0, 1, 2))(jnp.asarray(inp["w"]), jnp.asarray(inp["b"]), jnp.asarray(inp["x"]))
+    for r in results:
+        pod = r["coord"]["pod"]
+        np.testing.assert_allclose(r["dx"], np.asarray(dx), rtol=2e-4, atol=2e-5)
+        others = [s for s in range(4) if s != pod]
+        assert not r["dw"][others].any() and not r["db"][others].any()
+    gathered = {k: np.stack([next(r[k][s] for r in results if r["coord"]["pod"] == s) for s in range(4)])
+                for k in ("dw", "db")}
+    np.testing.assert_allclose(gathered["dw"], np.asarray(dw), rtol=2e-4, atol=2e-5)
+    np.testing.assert_allclose(gathered["db"], np.asarray(db), rtol=2e-4, atol=2e-5)
+
+
+def test_pipeline_backward_matches_sequential_walk(pipe_run):
+    """The same gradients against the port's sequential stage walk under
+    ``torch.autograd`` in one process, f32."""
+    inp, results, _ = pipe_run
+    w, b, x = (torch.as_tensor(inp[k]).requires_grad_() for k in ("w", "b", "x"))
+    h = x
+    for s in range(4):
+        h = _stage(w[s], b[s], h, torch.tanh)
+    (h * torch.as_tensor(inp["gy"])).sum().backward()
+    for r in results:
+        pod = r["coord"]["pod"]
+        np.testing.assert_allclose(r["dx"], x.grad.numpy(), rtol=2e-4, atol=2e-5)
+        np.testing.assert_allclose(r["dw"][pod], w.grad[pod].numpy(), rtol=2e-4, atol=2e-5)
+        np.testing.assert_allclose(r["db"][pod], b.grad[pod].numpy(), rtol=2e-4, atol=2e-5)
 
 
 def test_bubble_fraction():

@@ -251,7 +251,9 @@ def run(rank: int, world: int, rendezvous: str, inputs: str, out_dir: str) -> No
 
 def run_pipeline(rank: int, world: int, rendezvous: str, inputs: str, out_dir: str) -> None:
     """One rank of the pipeline's group: ``pipeline_apply`` on a pod 4 ×
-    data 2 mesh, the result saved to ``out_dir/pipe{rank}.pt``."""
+    data 2 mesh, then its backward for the loss ``Σ y · gy``: the result,
+    ``dx`` and the stage parameters' gradients saved to
+    ``out_dir/pipe{rank}.pt``."""
     _join(rank, world, rendezvous)
     results: dict = {}
     try:
@@ -260,10 +262,13 @@ def run_pipeline(rank: int, world: int, rendezvous: str, inputs: str, out_dir: s
 
         inp = np.load(inputs)
         mesh = Mesh((4, 2), ("pod", "data"))
-        params = {"w": torch.as_tensor(inp["w"]), "b": torch.as_tensor(inp["b"])}
-        y = pipeline_apply(lambda p, h: torch.tanh(h @ p["w"] + p["b"]), params, torch.as_tensor(inp["x"]),
+        params = {"w": torch.as_tensor(inp["w"]).requires_grad_(), "b": torch.as_tensor(inp["b"]).requires_grad_()}
+        x = torch.as_tensor(inp["x"]).requires_grad_()
+        y = pipeline_apply(lambda p, h: torch.tanh(h @ p["w"] + p["b"]), params, x,
                            mesh=mesh, axis="pod", n_microbatches=int(inp["n_micro"]))
-        results = {"y": _np(y), "coord": dict(mesh.coord)}
+        (y * torch.as_tensor(inp["gy"])).sum().backward()
+        results = {"y": _np(y), "coord": dict(mesh.coord), "dx": _np(x.grad),
+                   "dw": _np(params["w"].grad), "db": _np(params["b"].grad)}
     except Exception:  # noqa: BLE001 — saved for the test module to report
         results["error"] = traceback.format_exc()
     finally:
