@@ -174,13 +174,14 @@ Phases, each fatal on failure (non-zero exit):
    global), ``launch.train --faust --steps 3 --batch 1 --seq 2048`` (the
    local layers run banded: window 1024 < 2048), then served (8 slots of
    2112 tokens; prompts 64, 200, 512, 1024, 1536, 2048, budgets 16-48:
-   banded prefills, ring caches that wrap); (b) granite-moe-3b at full
-   depth, ``launch.train --faust --steps 3 --batch 8 --seq 128`` at the
+   banded prefills, ring caches that wrap); (b) granite-moe-3b,
+   ``launch.train --faust --steps 3 --batch 8 --seq 128`` cut to
+   ``GRANITE_TRAIN_LAYERS`` = 8 of its 32 layers at the
    published capacity factor 1.25 (cross entropy and aux loss of the
    trained model; the MoE layers' share of the step's device time,
    estimated from one layer's timed forward and backward), then served
-   (8 requests, prompts 32-512) drop-free at capacity factor E/k = 5 with
-   the teacher-forced check, and again at 1.25 with its prefills' drop
+   at full depth (8 requests, prompts 32-512) drop-free at capacity
+   factor E/k = 5 with the teacher-forced check, and again at 1.25 with its prefills' drop
    share and the tokens it shares with the drop-free run; (c)
    llama4-maverick cut to one MoE layer (34.7 GB), drop-free: prefill of
    256 tokens and a decode step at B = 1 and 8 beside two bounds (every
@@ -194,11 +195,12 @@ Phases, each fatal on failure (non-zero exit):
 16. the mamba2 (SSD) and zamba2 (shared block) architectures (slice 11)
    at their published widths, bf16, the same FAµST unembedding untied, on
    a fresh read-only autotune table, with the same counts, parameter and
-   kernel checks as phase 15: (a) mamba2-2.7b at full depth (64 layers),
+   kernel checks as phase 15: (a) mamba2-2.7b cut to
+   ``MAMBA2_TRAIN_LAYERS`` = 16 of its 64 layers,
    ``launch.train --faust --steps 3 --batch 4 --seq 1024`` (four SSD chunks
-   a sequence: the inter-chunk loop runs); (b) zamba2-7b cut to six whole
-   units of five ssm layers and the shared block (36 layers, ≈ 2.7 G
-   parameters: the full 5.74 G's AdamW state does not fit), same flags;
+   a sequence: the inter-chunk loop runs); (b) zamba2-7b cut to two whole
+   units of five ssm layers and the shared block (12 layers: the full
+   5.74 G's AdamW state does not fit), same flags;
    (c) both at full depth (zamba2: 81 layers) served, 8 slots of 1160
    tokens, 10 requests: prompts 300, 200, 256, 480, 512, 700, 1024 and
    three uniform over 32-256, budgets 16-48, one eviction at step 6 (of
@@ -223,13 +225,15 @@ Phases, each fatal on failure (non-zero exit):
    seconds, launches, busy time and idle share beside the bound of the
    weights read once and the state read and written;
 17. the modality front ends (slice 12) at their published widths and full
-   depth, bf16, the same FAµST unembedding untied, on a fresh read-only
-   autotune table, with phase 15's counts, parameter and kernel checks:
+   depth (musicgen's trainer cut), bf16, the same FAµST unembedding
+   untied, on a fresh read-only autotune table, with phase 15's counts,
+   parameter and kernel checks:
    (a) internvl2-2b (24 layers), ``launch.train --faust --steps 3 --batch
    4 --seq 1024`` (two attention chunks and 256 image positions a row,
    ``vision_embeds`` from the data pipeline), K1, K2 and K3 each launched
-   exactly once a step; (b) musicgen-medium (48 layers), ``--batch 8 --seq
-   1024`` (tokens ``(8, 4, 1024)``), each launched four times a step, once
+   exactly once a step; (b) musicgen-medium cut to
+   ``MUSICGEN_TRAIN_LAYERS`` = 12 of its 48 layers (full depth until PR
+   27), ``--batch 8 --seq 1024`` (tokens ``(8, 4, 1024)``), each launched four times a step, once
    per codebook's head, every head's K2 and K3 against their plain
    versions at the trainer's 8192 rows; (c) both served, 8 slots of 1088
    tokens, 8 requests, budgets 16-32, one eviction at step 4: internvl2's
@@ -263,23 +267,37 @@ Phases, each fatal on failure (non-zero exit):
    block 16, k 4, bf16) as a ``FaustLinear`` with ``shard``: each segment's
    K1 at B = 1 and 8 and K2/K3 at 1024 rows at the rank's plan against the
    plain versions, the sharded head against the unsharded one; (c) gemma-2b
-   at full width, ``SERVE_LAYERS`` deep, with that head sharded (forced
-   onto ``fused_sharded``), ``Engine`` + ``LMExecutor(mesh=)`` over 8 slots
-   on 8 requests (prompts 32–512 from numpy seed 0, budgets 16–32), every
-   request ``done``, and ``Server(mesh=)``; a planted fault (each crossing
-   reads only the rank's block, no all-gather) on two requests; every
-   rank's tokens equal; on rank 0, after every collective, the
-   teacher-forced check (within 3e-2) that the planted run must fail, and
-   the unsharded engine's tokens beside the sharded ones.  No time of the
+   at full width, ``SERVE_LAYERS`` deep, split by ``LM.shard_`` and served
+   under its decode policy (slice 16: the pool's rows over data, each
+   cache's positions over model, every module's weights gathered just
+   before it runs, the embedding table read in place), with that head
+   sharded (forced onto ``fused_sharded``): ``Engine`` +
+   ``LMExecutor(mesh=)`` over 4 slots on 4 requests (a 509-token prompt
+   evicted at step 4, its re-prefill replaying across the positions'
+   split, and three over 32–256 from numpy seed 0; budgets 4–8), every
+   request ``done``, each rank's pool bytes (a quarter of the
+   global-attention K/V), the bytes each decode step moves, and
+   ``Server(mesh=)``; two planted faults on two requests each: each
+   crossing reading only the rank's block (no all-gather), and each rank
+   attending over its own block of the positions (the merge skipped);
+   every rank's tokens equal; on rank 0, after every collective and on a
+   whole copy of the model, the teacher-forced check (within 3e-2) and
+   the unsharded engine's tokens, which the sound run must match and
+   each planted run must fail (the skipped merge: either); (e), after
+   (d) on the same 1 × 1 NCCL mesh: gemma-2b at full width,
+   ``SERVE_LAYERS`` deep, split by ``LM.shard_`` and served on phase 13
+   (d)'s trace beside the unsharded engine on it: the same tokens, TTFT,
+   TPOT and peak memory, K1 launched, no collective.  No time of the
    four ranks is a multi-GPU number: they share one card;
 19. the language model trained on a mesh (slice 14): (a) a 1 × 1 NCCL mesh
-   in this process: gemma-2b at full width and depth through
-   ``Trainer(mesh=)`` with ``launch.train``'s ``--faust --steps 3 --batch 8
-   --seq 128`` (bf16, remat, the head forced onto ``fused``), beside the
-   unsharded ``Trainer`` on the same seed: the losses, step times, peak
-   memory, K1/K2/K3 a step (one each), collective calls by purpose; a
-   sharded save at step 2 restored into an unsharded ``Trainer`` that runs
-   step 3 to the mesh's loss; (b) four ranks spawned on this card over
+   in this process: gemma-2b at full width cut to ``MT_NCCL_LAYERS`` = 4
+   of its 18 layers through ``Trainer(mesh=)``
+   with ``launch.train``'s ``--faust --steps 3 --batch 8 --seq 128``
+   (bf16, remat, the head forced onto ``fused``), beside the unsharded
+   ``Trainer`` on the same seed: the losses, step times, peak memory,
+   K1/K2/K3 a step (one each), collective calls by purpose; a sharded save
+   at step 2 restored into an unsharded ``Trainer`` that runs step 3 to
+   the mesh's loss; (b) four ranks spawned on this card over
    ``gloo``, a 2 × 2 ``("data", "model")`` mesh, gemma-2b at full width cut
    to ``MT_LAYERS`` layers under its ``CP_POLICY`` (rows over data, the
    sequence over model): the state bytes a rank holds (about a quarter of
@@ -2483,13 +2501,13 @@ def engine_report(name: str, card_line: str, engine, steps: int, counts: dict, w
 
 def serve_run(name: str, card_line: str, model, n_req: int, lengths: tuple, budgets: tuple, fixed: tuple = (),
               first: int | None = None, every=None, evict_step=None, seed: int = 0, check: bool = True,
-              kernels: bool = True, max_len: int = SERVE_MAX_LEN, exact=None) -> dict:
+              kernels: bool = True, max_len: int = SERVE_MAX_LEN, exact=None, mesh=None) -> dict:
     """One engine over ``model`` (``SERVE_SLOTS`` slots of ``max_len``
-    tokens): the trace of :func:`_trace` through :func:`drive` (a vision
-    model's requests each with its own :func:`_vision_extras`), K1/K6
-    counters zeroed before and read after, the report, and (``check``) the
-    teacher-forced check of every request (against ``exact``, an f32 copy,
-    when given)."""
+    tokens, on ``mesh`` when given): the trace of :func:`_trace` through
+    :func:`drive` (a vision model's requests each with its own
+    :func:`_vision_extras`), K1/K6 counters zeroed before and read after,
+    the report, and (``check``) the teacher-forced check of every request
+    (against ``exact``, an f32 copy, when given)."""
     import torch
 
     from repro_torch.runtime.engine import Engine, LMExecutor
@@ -2498,7 +2516,7 @@ def serve_run(name: str, card_line: str, model, n_req: int, lengths: tuple, budg
     prompts, budget = _trace(n_req, seed, lengths, budgets, fixed, cfg.vocab, cfg.n_codebooks)
     extras = _vision_extras(cfg, n_req, seed + 1000)
     torch.cuda.reset_peak_memory_stats()
-    ex = LMExecutor(model, max_len, SERVE_SLOTS)
+    ex = LMExecutor(model, max_len, SERVE_SLOTS, mesh=mesh)
     moe = check and model.cfg.moe is not None
     if moe:  # the MoE reference replays the served expert choices (teacher_forced)
         ex = RoutedExecutor(ex, prompts)
@@ -3294,6 +3312,10 @@ ARCH_HEAD = (2, 16, 4)  # the trainer's --faust defaults: factors, block, k
 GEMMA3_UNIT = ("local",) * 5 + ("attn",)  # gemma3's stage unit (src/repro/configs/gemma3_27b.py)
 GEMMA3_TRAIN_ARGV = ("--arch", "gemma3_27b", "--faust", "--steps", "3", "--batch", "1", "--seq", "2048")
 GRANITE_TRAIN_ARGV = ("--arch", "granite_moe_3b", "--faust", "--steps", "3", "--batch", "8", "--seq", "128")
+# the trainers' depths, cut (granite's from its full 32, mamba2's from 64,
+# zamba2's from 36, musicgen's from 48) to make room for phase 18 (c)'s
+# sharded serving; the served models stay at full depth
+GRANITE_TRAIN_LAYERS = 8
 GEMMA3_PROMPTS = (64, 200, 512, 1024, 1536, 2048)  # above attn_chunk 512 only multiples of it: no replay
 ARCH_MAX_LEN = 2112  # gemma3's longest prompt and 48 new tokens, with room
 LLAMA4_PROMPT = 256  # prefill and decode at B = 1 and 8
@@ -3665,7 +3687,7 @@ def archs(card_line: str, dev) -> dict:
     with _fresh_tables("chip_smoke_archs_autotune"):
         # gemma3-27b: one stage unit (five local layers, one global) at seq 2048, so the local layers run banded
         out["gemma3_train"] = arch_train(card_line, "gemma3", GEMMA3_TRAIN_ARGV, 6, GEMMA3_UNIT)
-        out["granite_train"] = arch_train(card_line, "granite", GRANITE_TRAIN_ARGV)
+        out["granite_train"] = arch_train(card_line, "granite", GRANITE_TRAIN_ARGV, GRANITE_TRAIN_LAYERS, ("moe",))
         model = _lm(arch_config("gemma3_27b", 6, GEMMA3_UNIT), dev)
         res = arch_serve(card_line, dev, "gemma3", model, len(GEMMA3_PROMPTS), (64, 64), (16, 48),
                          fixed=GEMMA3_PROMPTS, seed=21, max_len=ARCH_MAX_LEN)
@@ -3728,7 +3750,8 @@ def archs(card_line: str, dev) -> dict:
 MAMBA2_TRAIN_ARGV = ("--arch", "mamba2_2p7b", "--faust", "--steps", "3", "--batch", "4", "--seq", "1024")
 ZAMBA2_TRAIN_ARGV = ("--arch", "zamba2_7b", "--faust", "--steps", "3", "--batch", "4", "--seq", "1024")
 ZAMBA2_UNIT = ("ssm",) * 5 + ("shared",)  # zamba2's stage unit (src/repro/configs/zamba2_7b.py)
-ZAMBA2_TRAIN_LAYERS = 36  # six whole units: ≈ 2.7 G parameters, whose AdamW state fits the card
+ZAMBA2_TRAIN_LAYERS = 12  # two whole units (the full 81's AdamW state does not fit the card)
+MAMBA2_TRAIN_LAYERS = 16  # of 64
 # 300 and 480 lie in the band the reference's SSD rejects (above ssm.chunk 256, below attn_chunk 512);
 # 300 first: the eviction takes the lowest slot's request, so its re-prefill lands in the band too
 SSM_PROMPTS = (300, 200, 256, 480, 512, 700, 1024)
@@ -3971,7 +3994,7 @@ def ssm_archs(card_line: str, dev) -> dict:
 
     out = {}
     with _fresh_tables("chip_smoke_ssm_autotune"):
-        out["mamba2_train"] = arch_train(card_line, "mamba2", MAMBA2_TRAIN_ARGV)
+        out["mamba2_train"] = arch_train(card_line, "mamba2", MAMBA2_TRAIN_ARGV, MAMBA2_TRAIN_LAYERS, ("ssm",))
         out["zamba2_train"] = arch_train(card_line, "zamba2", ZAMBA2_TRAIN_ARGV, ZAMBA2_TRAIN_LAYERS, ZAMBA2_UNIT)
         model = _lm(arch_config("mamba2_2p7b"), dev)
         exact = exact_copy(model)
@@ -4016,6 +4039,7 @@ def ssm_archs(card_line: str, dev) -> dict:
 
 INTERNVL2_TRAIN_ARGV = ("--arch", "internvl2_2b", "--faust", "--steps", "3", "--batch", "4", "--seq", "1024")
 MUSICGEN_TRAIN_ARGV = ("--arch", "musicgen_medium", "--faust", "--steps", "3", "--batch", "8", "--seq", "1024")
+MUSICGEN_TRAIN_LAYERS = 12  # of 48
 # served prompts: above attn_chunk 512 only the 600s are ragged (512 prefilled, 88 replayed); internvl2's
 # hold its 256 image positions, its three random ones stay within 256-512 so that they prefill whole
 INTERNVL2_PROMPTS = (256, 300, 512, 600, 1024)
@@ -4077,7 +4101,8 @@ def modality(card_line: str, dev) -> dict:
     out = {}
     with _fresh_tables("chip_smoke_modality_autotune"):
         out["internvl2_train"] = arch_train(card_line, "internvl2", INTERNVL2_TRAIN_ARGV, per_step=1)
-        out["musicgen_train"] = arch_train(card_line, "musicgen", MUSICGEN_TRAIN_ARGV, per_step=4)
+        out["musicgen_train"] = arch_train(card_line, "musicgen", MUSICGEN_TRAIN_ARGV, MUSICGEN_TRAIN_LAYERS, ("attn",),
+                                           per_step=4)
         serving = (("internvl2_2b", "internvl2", INTERNVL2_PROMPTS, INTERNVL2_LENGTHS, 31, "vision_ignored",
                     INTERNVL2_TRAIN_ARGV),
                    ("musicgen_medium", "musicgen", MUSICGEN_PROMPTS, MUSICGEN_LENGTHS, 32, "sinusoid_at_zero",
@@ -4108,9 +4133,25 @@ def modality(card_line: str, dev) -> dict:
 MESH = (2, 2)  # ("data", "model"): four ranks sharing the one card over gloo
 MESH_TIMEOUT_S = 240  # a rank waiting in a collective longer than this fails
 MESH_JOIN_S = 900  # the whole 4-rank run
-MESH_REQUESTS, MESH_LENGTHS, MESH_BUDGETS = 8, (32, 512), (16, 32)
-MESH_PLANTED_PROMPTS = (64, 128)
-MESH_MAX_LEN = 576  # the longest prompt and 32 new tokens, with room
+# (c): four ranks gather every layer's weights through host memory each
+# forward (≈ 2 s a forward on one card), so the trace is short: 4
+# requests over 4 slots (two rows a data rank), budgets 4-8, the first a
+# fixed 509-token prompt with 8 tokens, evicted at step 4: its re-prefill
+# (509 + 5) prefills 512 positions split over the model ranks at 288 and
+# replays 2 through the split cache's decode.  The planted faults run 2
+# requests of 4 tokens: the skipped boundary gather on prompts 64 and 128,
+# the skipped merge on 320 and 400 (positions in both blocks)
+MESH_REQUESTS, MESH_LENGTHS, MESH_BUDGETS, MESH_SLOTS = 4, (32, 256), (4, 8), 4
+MESH_FIXED, MESH_FIRST_BUDGET, MESH_EVICT_STEP = (509,), 8, 4
+MESH_PLANTED_PROMPTS, MESH_MERGE_PLANTED_PROMPTS, MESH_PLANTED_BUDGET = (64, 128), (320, 400), 4
+MESH_SERVER_TOKENS = 2  # Server(mesh=): two 32-token prompts
+# the skipped merge's runs scale every layer's attention values and output
+# (wv, wo) by this, on the sharded model and on rank 0's whole copy: at
+# random init attention moves the residual stream too little for a wrong
+# one to move a greedy token or the teacher-forced gap (unscaled on the
+# card: 8 of 8 positions exact with the merge skipped)
+MESH_PLANTED_GAIN = 8.0
+MESH_MAX_LEN = 576  # the longest prompt and its tokens, with room; 288 positions a model rank
 MESH_UP = ((2048, 16384), 128)  # (a): phase 3's up-projection and block
 MESH_BATCHES = (128, 4096)
 MESH_ODD_BLOCKS = 127  # (a)'s replicated chain: out-blocks that do not divide the model axis
@@ -4394,77 +4435,194 @@ def boundary_gather_skipped():
         cs._BoundaryGather.apply = real
 
 
-def _mesh_engine(name: str, card_line: str, model, mesh, prompts, budgets) -> dict:
+def _layout_counts() -> dict:
+    """The model's collectives since the last call (``distributed/layout``:
+    calls and bytes by purpose), zeroed."""
+    from repro_torch.distributed.layout import BYTES, COLLECTIVES
+
+    out = {"calls": dict(COLLECTIVES), "bytes": dict(BYTES)}
+    for d in (COLLECTIVES, BYTES):
+        d.update(dict.fromkeys(d, 0))
+    return out
+
+
+def pool_bytes(ex) -> dict:
+    """The bytes of an executor's slot pool on this rank: the K/V of the
+    caches a decode policy splits (``lm.SPLIT_KV_KINDS``), the same K/V
+    whole (every slot, every position), and the rest."""
+    from repro_torch.models.lm import SPLIT_KV_KINDS
+
+    cfg = ex.cfg
+    kinds = cfg.layer_kinds()
+    nbytes = lambda ts: sum(t.numel() * t.element_size() for t in ts)  # noqa: E731
+    kv = nbytes(t for kind, c in zip(kinds, ex.pool) if kind in SPLIT_KV_KINDS for t in (c.k, c.v))
+    n_split = sum(kind in SPLIT_KV_KINDS for kind in kinds)
+    whole = 2 * n_split * ex.n_slots * cfg.n_kv_heads * ex.max_len * cfg.head_dim * ex.pool[0].k.element_size()
+    return {"split_kv": kv, "split_kv_whole": whole, "rest": nbytes(t for c in ex.pool for t in c) - kv}
+
+
+def _mesh_engine(name: str, card_line: str, model, mesh, prompts, budgets, evict_step: int | None = None) -> dict:
+    """``Engine(LMExecutor(model, MESH_MAX_LEN, MESH_SLOTS, mesh=))`` on the
+    trace (one eviction at ``evict_step``): the report with the kernels'
+    and both collectives' counts (the sharded head's, the model's calls and
+    bytes by purpose), this rank's pool bytes and idle steps."""
     import torch
 
     from repro_torch.runtime.engine import Engine, LMExecutor
 
     torch.cuda.reset_peak_memory_stats()
-    engine = Engine(LMExecutor(model, MESH_MAX_LEN, SERVE_SLOTS, mesh=mesh))
+    ex = LMExecutor(model, MESH_MAX_LEN, MESH_SLOTS, mesh=mesh)
+    engine = Engine(ex)
     _zero_mesh_counts()
+    _layout_counts()
     t0 = time.perf_counter()
-    rids, steps = drive(engine, prompts, budgets, len(prompts))
+    rids, steps = drive(engine, prompts, budgets, len(prompts), evict_step=evict_step)
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
     counts = _mesh_counts()
     row = engine_report(name, card_line, engine, steps, counts, wall_s)
+    model_coll = _layout_counts()
+    forwards = engine.stats.steps + engine.stats.admitted
+    row.update(model_collectives=model_coll, pool_bytes=pool_bytes(ex), idle_steps=ex.idle_steps,
+               rows_axes=list(ex.rows), kv_block=None if ex.kv is None else [ex.kv.start, ex.kv.local],
+               bytes_per_decode_step={k: v / max(engine.stats.steps, 1) for k, v in model_coll["bytes"].items()
+                                      if k in ("kv_merge", "row_gather")},
+               param_gather_bytes_per_forward=model_coll["bytes"]["param_gather"] / max(forwards, 1))
+    if evict_step is not None:
+        require(engine.stats.evicted == 1, f"{name}: {engine.stats.evicted} evictions, want 1")
     tokens = [engine.result(r).tolist() for r in rids]
     row["tokens_digest"] = _digest([torch.as_tensor(sum(tokens, []))])
     return {"row": row, "engine": engine, "rids": rids, "tokens": tokens}
 
 
+def _louder(model) -> None:
+    """Scale every layer's attention ``wv`` and ``wo`` (this rank's blocks
+    of them on a mesh) by ``MESH_PLANTED_GAIN``, in place."""
+    import torch
+
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.endswith(("attn.wv", "attn.wo")):
+                p.mul_(MESH_PLANTED_GAIN)
+
+
+@contextlib.contextmanager
+def merge_skipped():
+    """While it runs, each rank of a split KV cache attends over its own
+    block of the positions only: the blocks' log-sum-exp merge over the
+    ``kv_seq`` group is skipped."""
+    from repro_torch.layers import attention
+
+    real = attention.merge_blocks
+    attention.merge_blocks = lambda t, seq, op="sum": t
+    try:
+        yield
+    finally:
+        attention.merge_blocks = real
+
+
 def mesh_serve(card_line: str, dev, mesh) -> dict:
     """Phase 18 (c) on one rank: gemma-2b at full width, ``SERVE_LAYERS``
-    deep, its FAµST head sharded (forced onto ``fused_sharded``), served
-    through ``Engine`` + ``LMExecutor(mesh=)`` (8 slots) and through
-    ``Server(mesh=)``; then the planted fault; rank 0 alone, after every
-    collective: the teacher-forced checks and the unsharded engine."""
+    deep, split by ``LM.shard_`` and served under its decode policy (the
+    pool's rows over data, the caches' positions over model, the weights
+    gathered a module at a time), its FAµST head sharded too (forced onto
+    ``fused_sharded``), through ``Engine`` + ``LMExecutor(mesh=)`` (4 slots)
+    and ``Server(mesh=)``; then the two planted faults; rank 0 alone, after
+    every collective: the teacher-forced checks and the unsharded engine
+    on a whole copy of the model."""
     import dataclasses
 
     import numpy as np
     import torch
 
     from repro_torch.api.operator import ShardSpec
+    from repro_torch.distributed.layout import sum_over
     from repro_torch.models.lm import LM
     from repro_torch.runtime.server import Server
 
     cfg = serve_config()
     cfg = dataclasses.replace(cfg, faust_unembed=dataclasses.replace(cfg.faust_unembed, shard=ShardSpec(mesh)))
+    plain = LM(cfg, seed=0, device=dev) if mesh.rank == 0 else None  # the unsharded engine's and the reference
     model = LM(cfg, seed=0, device=dev)
-    prompts, budgets = _trace(MESH_REQUESTS, 0, MESH_LENGTHS, MESH_BUDGETS, (), cfg.vocab)
-    planted_prompts, _ = _trace(2, 27, MESH_LENGTHS, (32, 32), MESH_PLANTED_PROMPTS, cfg.vocab)
-    out = {}
+    model.shard_(mesh)
+    _free()
+    prompts, budgets = _trace(MESH_REQUESTS, 0, MESH_LENGTHS, MESH_BUDGETS, MESH_FIXED, cfg.vocab)
+    budgets[0] = MESH_FIRST_BUDGET
+    planted_prompts, _ = _trace(2, 27, MESH_LENGTHS, MESH_BUDGETS, MESH_PLANTED_PROMPTS, cfg.vocab)
+    merge_prompts, _ = _trace(2, 28, MESH_LENGTHS, MESH_BUDGETS, MESH_MERGE_PLANTED_PROMPTS, cfg.vocab)
+    planted_budgets = [MESH_PLANTED_BUDGET] * 2
+    t0 = time.perf_counter()
+    sum_over(torch.ones((), device=dev), mesh)  # every rank has built its model
+    out = {"skew_s": time.perf_counter() - t0}
     with faust_backend(model, "fused_sharded", head_only=True):
-        run = _mesh_engine("mesh_serve_engine", card_line, model, mesh, prompts, budgets)
-        srv_tokens = np.stack([p[:MESH_LENGTHS[0]] for p in prompts[:2]])
-        gen, stats = Server(model, 64, mesh=mesh).generate({"tokens": srv_tokens}, 4)
+        run = _mesh_engine("mesh_serve_engine", card_line, model, mesh, prompts, budgets,
+                           evict_step=MESH_EVICT_STEP)
+        srv_tokens = np.stack([p[:MESH_LENGTHS[0]] for p in prompts[1:3]])
+        _zero_mesh_counts()
+        gen, stats = Server(model, 64, mesh=mesh).generate({"tokens": srv_tokens}, MESH_SERVER_TOKENS)
+        server_launches = _mesh_counts()
         with boundary_gather_skipped():
-            bad = _mesh_engine("mesh_serve_planted", card_line, model, mesh, planted_prompts, [32, 32])
+            bad = _mesh_engine("mesh_serve_planted", card_line, model, mesh, planted_prompts, planted_budgets)
+        _louder(model)
+        with merge_skipped():
+            bad_merge = _mesh_engine("mesh_serve_planted_merge", card_line, model, mesh, merge_prompts,
+                                     planted_budgets)
     row = run["row"]
     row["prompt_lengths"] = [len(p) for p in prompts]
-    row["server"] = {"mesh_axes": stats.mesh_axes, "tokens": gen.tolist(),
-                     "faust_dispatch": stats.faust_dispatch.backend}
+    row["server"] = {"mesh_axes": stats.mesh_axes, "tokens": gen.tolist(), "faust_dispatch": stats.faust_dispatch.backend,
+                     "launches": server_launches}
+    row["skew_s"] = out["skew_s"]
     require(row["launches"]["chain_matmul"] > 0 and row["launches"]["coll_boundary_gather"] > 0,
             f"the sharded head never ran: {row['launches']}")
     require(stats.mesh_axes == dict(mesh.shape) and stats.faust_dispatch.backend == "fused_sharded",
             f"Server(mesh=): {row['server']}")
-    out.update(tokens=run["tokens"], planted_tokens=bad["tokens"], server_tokens=gen.tolist(),
-               launches=row["launches"])
+    pb = row["pool_bytes"]
+    require(4 * pb["split_kv"] == pb["split_kv_whole"],
+            f"a rank of 2 x 2 holds {pb['split_kv']} of {pb['split_kv_whole']} global-attention K/V bytes, want 1/4")
+    coll = row["model_collectives"]["calls"]
+    require(coll["param_gather"] > 0 and coll["kv_merge"] > 0 and coll["row_gather"] > 0,
+            f"the decode policy's placement never ran: {coll}")
+    out.update(tokens=run["tokens"], planted_tokens=bad["tokens"], planted_merge_tokens=bad_merge["tokens"],
+               server_tokens=gen.tolist(), launches=row["launches"], pool_bytes=pb, idle_steps=row["idle_steps"],
+               bytes_per_decode_step=row["bytes_per_decode_step"],
+               param_gather_bytes_per_forward=row["param_gather_bytes_per_forward"])
+    del model
+    _free()
     if mesh.rank == 0:
-        row["teacher_forced"] = teacher_forced(model, run["engine"], run["rids"], prompts, SERVE_TOL["bfloat16"])
-        tf = teacher_forced(model, bad["engine"], bad["rids"], planted_prompts, SERVE_TOL["bfloat16"], enforce=False)
-        log({"phase": "mesh_serve_planted_fault", "card": card_line, "fault": "boundary_gather_skipped",
-             "teacher_forced": tf, "engine": {k: bad["row"][k] for k in ("wall_s", "tokens_decoded", "launches")}})
-        require(not tf["passed"], f"the planted fault passed the teacher-forced check: {tf}")
-        with faust_backend(model, "fused", head_only=True):
-            plain = _mesh_engine("mesh_serve_unsharded", card_line, model, mesh, prompts, budgets)
-        same = sum(int(a == b) for p, q in zip(run["tokens"], plain["tokens"]) for a, b in zip(p, q))
+        row["teacher_forced"] = teacher_forced(plain, run["engine"], run["rids"], prompts, SERVE_TOL["bfloat16"])
+        with faust_backend(plain, "fused", head_only=True):
+            whole = _mesh_engine("mesh_serve_unsharded", card_line, plain, mesh, prompts, budgets,
+                                 evict_step=MESH_EVICT_STEP)
+        same = sum(int(a == b) for p, q in zip(run["tokens"], whole["tokens"]) for a, b in zip(p, q))
         row["tokens_equal_unsharded"] = {"equal": same, "of": sum(len(p) for p in run["tokens"])}
-        row["unsharded_wall_s"] = plain["row"]["wall_s"]
-        row["unsharded_tpot_p50_s"] = plain["row"]["tpot_p50_s"]
+        require(run["tokens"] == whole["tokens"], f"the sharded engine's tokens differ from the unsharded engine's: "
+                                                  f"{row['tokens_equal_unsharded']}")
+        # the sound run is held to the teacher-forced check and to the
+        # unsharded engine's tokens; a skipped boundary gather must fail the
+        # former; a skipped merge (on the louder weights, where the
+        # unsharded engine's run passes the teacher-forced check) either
+        tol = SERVE_TOL["bfloat16"]
+        tf_gather = teacher_forced(plain, bad["engine"], bad["rids"], planted_prompts, tol, enforce=False)
+        _louder(plain)
+        with faust_backend(plain, "fused", head_only=True):
+            whole_merge = _mesh_engine("mesh_serve_unsharded_louder", card_line, plain, mesh, merge_prompts,
+                                       planted_budgets)
+        row["louder_unsharded_teacher_forced"] = teacher_forced(plain, whole_merge["engine"], whole_merge["rids"],
+                                                                merge_prompts, tol)
+        tf_merge = teacher_forced(plain, bad_merge["engine"], bad_merge["rids"], merge_prompts, tol, enforce=False)
+        equal = bad_merge["tokens"] == whole_merge["tokens"]
+        for fault, res, tf, same_tokens, failed in (
+                ("boundary_gather_skipped", bad, tf_gather, None, not tf_gather["passed"]),
+                ("merge_skipped", bad_merge, tf_merge, equal, not (tf_merge["passed"] and equal))):
+            log({"phase": "mesh_serve_planted_fault", "card": card_line, "fault": fault, "teacher_forced": tf,
+                 "tokens_equal_unsharded": same_tokens,
+                 "engine": {k: res["row"][k] for k in ("wall_s", "tokens_decoded", "launches")}})
+            require(failed, f"the planted fault {fault} passed the check: {tf}, tokens equal: {same_tokens}")
+        row["unsharded"] = {k: whole["row"][k] for k in ("wall_s", "prefill_s", "decode_s", "ttft_p50_s",
+                                                         "tpot_p50_s", "max_memory_allocated_gb")}
     row["timing"] = "one card shared by four ranks (not a multi-GPU number)"
     log(row)
-    del model
+    del plain
     _free()
     return out
 
@@ -4556,9 +4714,46 @@ def mesh_nccl(card_line: str, dev, op) -> dict:
                         f"the 1 x 1 mesh: {row}")
         log({"phase": "mesh_nccl_transport", "card": card_line, "transport": dict(TRANSPORT),
              "backend": dist.get_backend()})
+        serve_row = mesh_serve_1x1(card_line, dev, mesh)
     finally:
         dist.destroy_process_group()
-    return {"rows": rows}
+    return {"rows": rows, "serve": serve_row}
+
+
+def mesh_serve_1x1(card_line: str, dev, mesh) -> dict:
+    """Phase 18 (e): gemma-2b at full width, ``SERVE_LAYERS`` deep, served
+    on phase 13 (d)'s trace (8 requests, prompts 32–256 from numpy seed 4,
+    32 tokens) unsharded, then split by ``LM.shard_`` on the 1 × 1 NCCL
+    ``mesh`` and served through ``Engine(LMExecutor(mesh=))`` under its
+    decode policy: the same tokens, TTFT, TPOT and peak memory beside the
+    unsharded run's, K1 launched (counts zeroed before each run)."""
+    from repro_torch.models.lm import LM
+
+    model = LM(serve_config(), seed=0, device=dev)
+    trace = dict(n_req=8, lengths=(32, 256), budgets=(32, 32), seed=4, check=False)
+    # a first run loads the model's kernels (lazily, on first use), so
+    # neither timed run pays for it
+    serve_run("mesh_serve_1x1_warmup", card_line, model, 2, (32, 256), (4, 4), seed=5, check=False)
+    whole = serve_run("mesh_serve_1x1_unsharded", card_line, model, **trace)
+    model.shard_(mesh)
+    _layout_counts()
+    run = serve_run("mesh_serve_1x1", card_line, model, **trace, mesh=mesh)
+    tokens = [run["engine"].result(r).tolist() for r in run["rids"]]
+    want = [whole["engine"].result(r).tolist() for r in whole["rids"]]
+    keys = ("prefill_s", "decode_s", "wall_s", "ttft_p50_s", "ttft_p90_s", "tpot_p50_s", "tpot_p90_s",
+            "max_memory_allocated_gb")
+    row = {"phase": "mesh_serve_1x1_summary", "card": card_line, "mesh": dict(mesh.shape),
+           "tokens_equal_unsharded": tokens == want, "tokens": sum(len(t) for t in tokens),
+           "launches": run["row"]["launches"], "unsharded_launches": whole["row"]["launches"],
+           "model_collectives": _layout_counts()["calls"], "sharded": {k: run["row"][k] for k in keys},
+           "unsharded": {k: whole["row"][k] for k in keys}}
+    log(row)
+    require(row["tokens_equal_unsharded"], f"the 1 x 1 mesh's tokens differ from the unsharded engine's: {row}")
+    require(run["row"]["launches"]["chain_matmul"] > 0, f"the 1 x 1 mesh's serving launched no K1: {row}")
+    require(not any(row["model_collectives"].values()), f"a collective ran over a one-rank axis: {row}")
+    del model, whole, run
+    _free()
+    return row
 
 
 def mesh(card_line: str, dev, op) -> dict:
@@ -4601,19 +4796,28 @@ def mesh(card_line: str, dev, op) -> dict:
         require("error" not in res, f"mesh rank {r} failed:\n{res.get('error')}")
         results.append(res)
     same = {k: len({json.dumps(res["serve"][k]) for res in results}) == 1
-            for k in ("tokens", "planted_tokens", "server_tokens")}
+            for k in ("tokens", "planted_tokens", "planted_merge_tokens", "server_tokens")}
     same["chain_digest"] = len({res["operator"]["chain_digest"] for res in results}) == 1
     row = {"phase": "mesh", "card": card_line, "seconds": time.perf_counter() - t0,
            "rank_seconds": [res["seconds"] for res in results], "coords": [res["coord"] for res in results],
            "same_on_every_rank": same, "transport": [res["transport"] for res in results],
            "operator_launches": [res["operator"]["launches"] for res in results],
            "serve_launches": [res["serve"]["launches"] for res in results],
+           "serve_pool_bytes": [res["serve"]["pool_bytes"] for res in results],
+           "serve_idle_steps": [res["serve"]["idle_steps"] for res in results],
+           "serve_skew_s": [res["serve"]["skew_s"] for res in results],
+           "serve_bytes_per_decode_step": [res["serve"]["bytes_per_decode_step"] for res in results],
+           "serve_param_gather_bytes_per_forward": [res["serve"]["param_gather_bytes_per_forward"]
+                                                    for res in results],
            "head_checks": [[c["rel_err"] for c in res["head"]["checks"]] for res in results],
            "timing": "four ranks share one card: no time of this phase is a multi-GPU number"}
     log(row)
     require(all(same.values()), f"the ranks disagree: {same}")
     launches = {k: results[0]["operator"]["launches"][k] for k in results[0]["operator"]["launches"]}
-    out.update(results=results, launches=launches, serve_launches=results[0]["serve"]["launches"])
+    # the kernels line's mesh_serve_launches: (c) on rank 0 and (e)
+    one = out["nccl"]["serve"]["launches"]
+    serve = {k: v + one.get(k, 0) for k, v in results[0]["serve"]["launches"].items()}
+    out.update(results=results, launches=launches, serve_launches=serve)
     return out
 
 
@@ -4623,6 +4827,7 @@ def mesh(card_line: str, dev, op) -> dict:
 
 MT_ARGV = ("--arch", "gemma_2b", "--faust", "--steps", "3", "--batch", "8", "--seq", "128")
 MT_LAYERS = 2  # (b)'s depth (phase 14 (b)'s): every collective of the four ranks is host-staged
+MT_NCCL_LAYERS = 4  # (a)'s depth: at 18 its 25.2 GB save and restore took ≈ 50 s
 MT_STEPS = 2  # (b)'s bf16 run: SIGTERM after step 1, the resumes run step 2 (each host-staged step ≈ 20 s)
 MT_MESH = (2, 2)
 # losses and gradient norms against the unsharded trainer's, relative (an H100: sound runs bf16 ≤ 1.1e-5,
@@ -4701,7 +4906,7 @@ def _check_diff(run: dict, plain: dict, steps: slice = slice(None)) -> float:
 
 
 def mesh_train_nccl(card_line: str, dev, after_mesh=lambda: None) -> dict:
-    """Phase 19 (a): gemma-2b at full width and depth, unsharded and then
+    """Phase 19 (a): gemma-2b at full width, ``MT_NCCL_LAYERS`` deep, unsharded and then
     on a 1 × 1 NCCL mesh in this process; then ``after_mesh()``; then the
     mesh's step-2 checkpoint restored into an unsharded trainer for step
     3."""
@@ -4715,7 +4920,7 @@ def mesh_train_nccl(card_line: str, dev, after_mesh=lambda: None) -> dict:
     shutil.rmtree(folder, ignore_errors=True)
     folder.mkdir(parents=True)
     free = shutil.disk_usage(folder).free / 1e9
-    t, model = _mt_trainer(dev, checkpoint_dir=str(folder / "plain"))
+    t, model = _mt_trainer(dev, n_layers=MT_NCCL_LAYERS, checkpoint_dir=str(folder / "plain"))
     plain = _mt_run(t, model)
     del t, model
     _free()
@@ -4723,15 +4928,15 @@ def mesh_train_nccl(card_line: str, dev, after_mesh=lambda: None) -> dict:
     dist.init_process_group("nccl", init_method=f"file://{rdv}", rank=0, world_size=1)
     try:
         mesh = make_debug_mesh(1, 1, device=dev)
-        t, model = _mt_trainer(dev, mesh=mesh, checkpoint_dir=str(folder / "mesh"), checkpoint_every=2,
-                               keep_checkpoints=1)
+        t, model = _mt_trainer(dev, mesh=mesh, n_layers=MT_NCCL_LAYERS, checkpoint_dir=str(folder / "mesh"),
+                               checkpoint_every=2, keep_checkpoints=1)
         sharded = _mt_run(t, model)
         del t, model
         _free()
     finally:
         dist.destroy_process_group()
     after_mesh()
-    t, model = _mt_trainer(dev, checkpoint_dir=str(folder / "mesh"))
+    t, model = _mt_trainer(dev, n_layers=MT_NCCL_LAYERS, checkpoint_dir=str(folder / "mesh"))
     resumed = _mt_run(t, model, resume=True)
     del t, model
     _free()
@@ -5074,7 +5279,8 @@ def main() -> int:
             k["ssm_archs_launches"] = ssm["launches"][k["name"]]
             k["modality_launches"] = mod["launches"][k["name"]]
         # slice 13: phase 18 (a), rank 0's counts on the mesh (every kernel
-        # of the sharded path), and (c)'s serving
+        # of the sharded path); slices 13 and 16: (c)'s serving on rank 0
+        # and (e)'s on the 1 x 1 mesh
         k["mesh_launches"] = msh["launches"][k["name"]]
         if k["name"] in msh["serve_launches"]:
             k["mesh_serve_launches"] = msh["serve_launches"][k["name"]]

@@ -17,9 +17,16 @@ collectives that move it, as autograd Functions.
   input); its backward is a reduce-scatter (sum) over the sequence group.
 * :func:`sum_over` is an all-reduce of a value every rank computed a part
   of (the loss, squared norms, counts), outside autograd.
+* Serving (``runtime/engine.py`` ``LMExecutor`` on a mesh): :func:`reduce_over`
+  merges the blocks of a split KV cache (``"kv_merge"``: a max, then a
+  sum) and gathers each step's sampled tokens and finite flags over the
+  rows' axes (``"row_gather"``); :func:`embed_lookup` looks tokens up in
+  an embedding table split by vocabulary and features without gathering
+  it (``"embed_lookup"``).
 
-:data:`COLLECTIVES` counts the calls by purpose; tests and
-``chip_smoke.py`` read it.  The transport is :mod:`repro_torch.distributed.
+:data:`COLLECTIVES` counts the calls by purpose and :data:`BYTES` the
+bytes of their results on the rank (a gathered parameter whole, a reduced
+tensor once); tests and ``chip_smoke.py`` read them.  The transport is :mod:`repro_torch.distributed.
 mesh`'s (NCCL on cards, ``gloo`` on the CPU or staged through host memory).
 """
 from __future__ import annotations
@@ -37,7 +44,15 @@ from repro_torch.distributed.sharding import Block, axes_tuple
 # MoE layer's input) and their reduce-scatters; the scalar sums (loss,
 # norms, EF's selection, the preemption flag)
 COLLECTIVES = dict.fromkeys(
-    ("param_gather", "grad_reduce_scatter", "grad_all_reduce", "seq_gather", "seq_reduce_scatter", "sum"), 0)
+    ("param_gather", "grad_reduce_scatter", "grad_all_reduce", "seq_gather", "seq_reduce_scatter", "sum",
+     "kv_merge", "row_gather", "embed_lookup"), 0)
+BYTES = dict.fromkeys(COLLECTIVES, 0)
+_OPS = {"sum": torch.distributed.ReduceOp.SUM, "max": torch.distributed.ReduceOp.MAX}
+
+
+def _count(purpose: str, t: torch.Tensor) -> None:
+    COLLECTIVES[purpose] += 1
+    BYTES[purpose] += t.numel() * t.element_size()
 
 
 def _ordered(mesh, ax) -> tuple[str, ...]:
@@ -79,8 +94,8 @@ class _GatherParam(torch.autograd.Function):
         axes, _, order = _layout(block, mesh)
         if not axes:
             return t.view_as(t)
-        COLLECTIVES["param_gather"] += 1
         parts = _mesh.all_gather(t.contiguous().reshape(1, -1), mesh.group(axes), 0)
+        _count("param_gather", parts)
         tiles = parts.reshape(*[mesh.shape[a] for a in axes], *block.shape)
         return tiles.permute(order).reshape(block.global_shape)
 
@@ -167,9 +182,14 @@ def seq_split(mesh, axes, length: int) -> SeqSplit | None:
 def sum_over(t: torch.Tensor, mesh, axes=None) -> torch.Tensor:
     """``t`` summed over the ranks of ``axes`` (default: the whole mesh),
     outside autograd."""
-    COLLECTIVES["sum"] += 1
-    group = mesh.group(tuple(mesh.axis_names) if axes is None else axes)
-    return _mesh.all_reduce(t.detach().contiguous(), group)
+    return reduce_over(t, mesh.group(tuple(mesh.axis_names) if axes is None else axes))
+
+
+def reduce_over(t: torch.Tensor, group, op: str = "sum", purpose: str = "sum") -> torch.Tensor:
+    """``t`` reduced by ``op`` (``"sum"`` or ``"max"``) over the ranks of
+    ``group``, outside autograd, counted under ``purpose``."""
+    _count(purpose, t)
+    return _mesh.all_reduce(t.detach().contiguous(), group, _OPS[op])
 
 
 def take_block(t: torch.Tensor, block: Block) -> torch.Tensor:
@@ -178,3 +198,44 @@ def take_block(t: torch.Tensor, block: Block) -> torch.Tensor:
         if n != t.shape[dim]:
             t = t.narrow(dim, o, n)
     return t
+
+
+def embed_lookup(tokens: torch.Tensor, t: torch.Tensor, block: Block, mesh) -> torch.Tensor:
+    """``table[tokens]`` (``tokens`` any shape, the result ``(*tokens.shape,
+    d)``) from this rank's ``block`` ``t`` of a 2-D ``(vocab, d)`` table
+    split by vocabulary (``block.spec[0]``) and features
+    (``block.spec[1]``), outside autograd, without gathering the table:
+
+    1. every rank's tokens are gathered over the table's axes (ranks may
+       hold other rows or positions, and other counts of them);
+    2. each rank looks them up in its vocabulary block, zeros for a token
+       outside it, and the rows are summed over the vocabulary axes: one
+       value and zeros, so each is the table's entry bit for bit;
+    3. the feature blocks are gathered and the rank keeps its tokens' rows.
+
+    Moves every rank's token ids and their rows of ``d`` features, where
+    :func:`gather_param` moves the whole table."""
+    vocab = tuple(a for a in _ordered(mesh, block.spec[0]) if mesh.shape[a] > 1)
+    feats = tuple(a for a in _ordered(mesh, block.spec[1]) if mesh.shape[a] > 1)
+    axes = tuple(a for a in mesh.axis_names if a in vocab + feats)
+    ids = tokens.reshape(-1).long()
+    n = ids.shape[0]
+    if axes:
+        group = mesh.group(axes)
+        sizes = _mesh.all_gather(torch.tensor([n], device=ids.device), group, 0)
+        _count("embed_lookup", sizes)
+        width = int(sizes.max())
+        ids = _mesh.all_gather(torch.nn.functional.pad(ids, (0, width - n), value=-1)[None], group, 0).reshape(-1)
+        _count("embed_lookup", ids)
+    local = ids - block.offset[0]
+    inside = (local >= 0) & (local < t.shape[0])
+    rows = torch.where(inside[:, None], t[local.clamp(0, t.shape[0] - 1)], torch.zeros((), dtype=t.dtype, device=t.device))
+    if vocab:
+        rows = reduce_over(rows, mesh.group(vocab), "sum", "embed_lookup")
+    if feats:
+        rows = _mesh.all_gather(rows.contiguous(), mesh.group(feats), 1)
+        _count("embed_lookup", rows)
+    if axes:
+        start = mesh.index(axes) * width
+        rows = rows[start:start + n]
+    return rows.reshape(*tokens.shape, rows.shape[-1])

@@ -20,6 +20,17 @@ the banded form, each query chunk against its band of ``window + chunk``
 keys, in O(S·(window + chunk)).  On a mesh whose policy splits the
 sequence, a rank computes its chunk of the positions against the keys and
 values of all of them (:func:`gather_kv`), the window as a mask.
+
+Served on a mesh whose decode policy splits the cache's positions
+(``kv_seq``), a rank's :class:`KVCache` holds only its block of them, the
+positions ``[seq.start, seq.start + seq.local)`` of the whole capacity
+``seq.length`` (``seq`` a :class:`~repro_torch.distributed.layout.
+SeqSplit`; such a cache is never a ring).  A prefill keeps the block's
+part of the sequence, a decode step writes the new token only on the rank
+whose block holds its position, and :func:`decode_attention_split`
+attends over the block and merges the blocks by log-sum-exp over the
+group (:func:`merge_blocks`); :func:`decode_attention`, over the whole
+cache, is its plain version.
 """
 from __future__ import annotations
 
@@ -189,16 +200,67 @@ def decode_attention(
     b, sq, h, d = q.shape
     _, kh, l, _ = k_cache.shape
     g = h // kh
+    s = _decode_scores(q, k_cache, kv_positions, q_position, window, scale)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    p = (p / p.sum(dim=-1, keepdim=True)).to(v_cache.dtype)
+    o = torch.matmul(p.reshape(b, kh, g * sq, l), v_cache)  # (B,KH,G·Sq,D)
+    o = o.reshape(b, kh, g, sq, d).permute(0, 3, 1, 2, 4)
+    return o.reshape(b, sq, h, d).to(q.dtype)
+
+
+def _decode_scores(q, k_cache, kv_positions, q_position, window, scale):
+    """The f32 scores ``(B,KH,G,Sq,L)`` of one decode step, masked: the
+    dot in the cache dtype, then f32, as the reference."""
+    b, sq, h, d = q.shape
+    _, kh, l, _ = k_cache.shape
+    g = h // kh
     scale = d**-0.5 if scale is None else scale
     qg = q.reshape(b, sq, kh, g, d).permute(0, 2, 3, 1, 4).reshape(b, kh, g * sq, d).to(k_cache.dtype)
     s = torch.matmul(qg, k_cache.transpose(-1, -2))  # (B,KH,G·Sq,L) in the cache dtype
     s = s.float().reshape(b, kh, g, sq, l) * scale
     bias = _mask_bias(q_position, kv_positions, True, window)  # ([B,]Sq,L)
-    s = s + (bias[:, None, None] if bias.ndim == 3 else bias)
-    m = s.amax(dim=-1, keepdim=True)
+    return s + (bias[:, None, None] if bias.ndim == 3 else bias)
+
+
+def merge_blocks(t: torch.Tensor, seq, op: str = "sum") -> torch.Tensor:
+    """One step of the blocks' merge in :func:`decode_attention_split`:
+    ``t`` reduced by ``op`` over ``seq``'s group (a narrow float summed in
+    f32)."""
+    from repro_torch.distributed.layout import reduce_over
+
+    return reduce_over(t, seq.group, op, "kv_merge")
+
+
+def decode_attention_split(
+    q: torch.Tensor,
+    k_block: torch.Tensor,
+    v_block: torch.Tensor,
+    *,
+    q_position: torch.Tensor,
+    kv_positions: torch.Tensor,
+    seq,
+    window: int | None = None,
+    scale: float | None = None,
+) -> torch.Tensor:
+    """:func:`decode_attention` over a cache whose positions are split
+    over ``seq``'s group, this rank holding the block ``(B,KH,L/n,D)`` at
+    global positions ``kv_positions``; every rank of the group returns the
+    whole cache's attention.  The blocks merge by log-sum-exp
+    (:func:`merge_blocks`): the row max over every block, each block's
+    exponentials against it and their sum over every block; ``p`` is
+    normalised by that sum and cast to the values' dtype before its dot
+    with the block, as the whole function rounds it, and the blocks'
+    ``p·V`` are summed.  A block none of whose positions a row may see
+    adds zeros."""
+    b, sq, h, d = q.shape
+    _, kh, l, _ = k_block.shape
+    g = h // kh
+    s = _decode_scores(q, k_block, kv_positions, q_position, window, scale)
+    m = merge_blocks(s.amax(dim=-1, keepdim=True), seq, "max")
     p = torch.exp(s - m)
-    p = (p / p.sum(dim=-1, keepdim=True)).to(v_cache.dtype)
-    o = torch.matmul(p.reshape(b, kh, g * sq, l), v_cache)  # (B,KH,G·Sq,D)
+    p = (p / merge_blocks(p.sum(dim=-1, keepdim=True), seq)).to(v_block.dtype)
+    o = merge_blocks(torch.matmul(p.reshape(b, kh, g * sq, l), v_block), seq)  # (B,KH,G·Sq,D)
     o = o.reshape(b, kh, g, sq, d).permute(0, 3, 1, 2, 4)
     return o.reshape(b, sq, h, d).to(q.dtype)
 
@@ -222,12 +284,24 @@ def kv_cache_init(b: int, capacity: int, kh: int, d: int, dtype=torch.bfloat16, 
     return KVCache(z, z.clone(), torch.zeros((b,), dtype=torch.int32, device=device))
 
 
-def kv_cache_update_decode(cache: KVCache, k_new: torch.Tensor, v_new: torch.Tensor) -> KVCache:
-    """Insert one token ``(B,1,KH,D)`` at each row's ``pos % capacity``."""
-    idx = (cache.pos % cache.capacity).long()
+def kv_cache_update_decode(cache: KVCache, k_new: torch.Tensor, v_new: torch.Tensor, seq=None) -> KVCache:
+    """Insert one token ``(B,1,KH,D)`` at each row's ``pos % capacity``.
+    ``seq``: the cache is this rank's block of the positions (module
+    docstring); a row whose position lies outside it keeps its block."""
     k_t = k_new.to(cache.k.dtype).transpose(1, 2)  # (B,KH,1,D)
     v_t = v_new.to(cache.v.dtype).transpose(1, 2)
     k, v = cache.k.clone(), cache.v.clone()
+    if seq is not None:
+        # written where the block holds the position: the old entry is
+        # written back elsewhere (no host sync on which rows those are)
+        at = (cache.pos % seq.length).long() - seq.start
+        here = ((at >= 0) & (at < seq.local)).reshape(-1, 1, 1)
+        at = at.clamp(0, seq.local - 1).expand(k.shape[0])
+        rows = torch.arange(k.shape[0], device=k.device)
+        k[rows, :, at] = torch.where(here, k_t[:, :, 0], k[rows, :, at])
+        v[rows, :, at] = torch.where(here, v_t[:, :, 0], v[rows, :, at])
+        return KVCache(k, v, cache.pos + 1)
+    idx = (cache.pos % cache.capacity).long()
     if idx.ndim == 0:  # one shared position: one slice for every row
         k[:, :, idx] = k_t[:, :, 0]
         v[:, :, idx] = v_t[:, :, 0]
@@ -238,13 +312,14 @@ def kv_cache_update_decode(cache: KVCache, k_new: torch.Tensor, v_new: torch.Ten
     return KVCache(k, v, cache.pos + 1)
 
 
-def kv_cache_positions(cache: KVCache) -> torch.Tensor:
+def kv_cache_positions(cache: KVCache, seq=None) -> torch.Tensor:
     """Global position of each cache slot's entry: ``(B, capacity)`` for a
     per-row ``pos``, ``(capacity,)`` for a shared one.  Slots not yet
     written get a position past ``pos``, so causality masks them; a reused
-    pool row's stale entries sit there too until they are overwritten."""
-    cap = cache.capacity
-    slots = torch.arange(cap, device=cache.pos.device)
+    pool row's stale entries sit there too until they are overwritten.
+    ``seq``: the slots of this rank's block of the whole capacity."""
+    cap = cache.capacity if seq is None else seq.length
+    slots = torch.arange(cap, device=cache.pos.device) if seq is None else seq.positions(cache.pos.device)
     pos = cache.pos[..., None].long()  # (B,1), or (1,) for a shared pos
     n_wraps = torch.div(pos, cap, rounding_mode="floor")
     base = slots + (n_wraps - 1) * cap
@@ -253,12 +328,22 @@ def kv_cache_positions(cache: KVCache) -> torch.Tensor:
     return torch.where(positions >= 0, positions, pos + 1 + slots)
 
 
-def kv_cache_prefill(cache: KVCache, k_seq: torch.Tensor, v_seq: torch.Tensor) -> KVCache:
+def kv_cache_prefill(cache: KVCache, k_seq: torch.Tensor, v_seq: torch.Tensor, seq=None) -> KVCache:
     """Fill from a whole prefill sequence ``(B,S,KH,D)``; a ring buffer
-    keeps the last ``capacity`` tokens, laid out so that slot = pos % capacity."""
+    keeps the last ``capacity`` tokens, laid out so that slot = pos % capacity.
+    ``seq``: the cache is this rank's block of the positions, which keeps
+    the sequence's part in it."""
     s, cap = k_seq.shape[1], cache.capacity
     pos = torch.full(cache.pos.shape, s, dtype=torch.int32, device=cache.pos.device)
     k_t, v_t = k_seq.transpose(1, 2), v_seq.transpose(1, 2)  # (B,KH,S,D)
+    if seq is not None:
+        if s > seq.length:
+            raise ValueError(f"a prefill of {s} positions into a split cache of {seq.length}")
+        n = min(max(s - seq.start, 0), seq.local)
+        k, v = cache.k.clone(), cache.v.clone()
+        k[:, :, :n] = k_t[:, :, seq.start:seq.start + n]
+        v[:, :, :n] = v_t[:, :, seq.start:seq.start + n]
+        return KVCache(k, v, pos)
     if s <= cap:
         k, v = cache.k.clone(), cache.v.clone()
         k[:, :, :s] = k_t
@@ -320,19 +405,25 @@ def attn_train(p: Attention, x: torch.Tensor, spec: AttnSpec, chunk: int = 512, 
     return _self_attention(p, x, spec, chunk, seq)[0]
 
 
-def attn_prefill(p: Attention, x: torch.Tensor, spec: AttnSpec, cache: KVCache, chunk: int = 512):
-    """The train path's attention that also fills the cache: ``(y, cache)``."""
+def attn_prefill(p: Attention, x: torch.Tensor, spec: AttnSpec, cache: KVCache, chunk: int = 512, seq=None):
+    """The train path's attention that also fills the cache: ``(y, cache)``
+    (``seq``: the cache is this rank's block of the positions)."""
     y, k, v = _self_attention(p, x, spec, chunk)
-    return y, kv_cache_prefill(cache, k, v)
+    return y, kv_cache_prefill(cache, k, v, seq)
 
 
-def attn_decode(p: Attention, x: torch.Tensor, spec: AttnSpec, cache: KVCache):
+def attn_decode(p: Attention, x: torch.Tensor, spec: AttnSpec, cache: KVCache, seq=None):
     """One decode step of ``x (B,1,d)``: each row at its cache's ``pos``
-    (rope and mask positions ``(B,S)``; a shared ``pos`` gives ``(S,)``)."""
+    (rope and mask positions ``(B,S)``; a shared ``pos`` gives ``(S,)``).
+    ``seq``: the cache is this rank's block of the positions, and the
+    blocks' attention is merged over its group."""
     b, s, _ = x.shape
     positions = cache.pos[..., None].long() + torch.arange(s, device=x.device)
     q, k, v = attn_qkv(p, x, spec, positions)
-    cache = kv_cache_update_decode(cache, k, v)
-    o = decode_attention(q, cache.k, cache.v, q_position=positions, kv_positions=kv_cache_positions(cache),
-                         window=spec.window, scale=spec.scale)
+    cache = kv_cache_update_decode(cache, k, v, seq)
+    kw = dict(q_position=positions, kv_positions=kv_cache_positions(cache, seq), window=spec.window, scale=spec.scale)
+    if seq is None:
+        o = decode_attention(q, cache.k, cache.v, **kw)
+    else:
+        o = decode_attention_split(q, cache.k, cache.v, seq=seq, **kw)
     return o.reshape(b, s, -1) @ p.wo, cache

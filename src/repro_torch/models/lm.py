@@ -59,7 +59,10 @@ caches have it at axis 1 (``_CACHE_BATCH_AXIS``).  :meth:`LM.prefill`
 returns the last position's logits and the filled caches; a prompt must
 be a length every chunked path accepts (:func:`prefill_length`).
 :meth:`LM.decode_step` feeds one token per row, each row at its own cache
-position.
+position.  Served on a mesh (``runtime/engine.py`` ``LMExecutor``), the
+caches of :data:`SPLIT_KV_KINDS` hold a rank's block of the positions
+(``kv``, ``layers/attention.py``), and outside autograd a split embedding
+table is read in place (:meth:`LM._lookup`).
 """
 from __future__ import annotations
 
@@ -73,7 +76,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ArchConfig, check_supported
 from repro_torch.device import resolve_device
 from repro_torch.distributed import sharding
-from repro_torch.distributed.layout import gather_param, seq_split, take_block
+from repro_torch.distributed.layout import embed_lookup, gather_param, seq_split, take_block
 from repro_torch.distributed.sharding import shard_act
 from repro_torch.layers.param import param_axes, param_shapes  # param_axes: the reference's lm.param_axes
 from repro_torch.layers.attention import Attention, AttnSpec, KVCache, attn_decode, attn_prefill, kv_cache_init
@@ -86,6 +89,10 @@ from repro_torch.layers.norms import apply_norm, norm_params
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 TRAIN, PREFILL, DECODE = "train", "prefill", "decode"
 Cache = KVCache | MambaCache
+# the layer kinds whose cache (a global-attention KVCache) a decode policy's
+# kv_seq splits by position; a "local" ring and a MambaCache stay whole
+# (ROADMAP caveat R11)
+SPLIT_KV_KINDS = ("attn", "moe", "shared")
 
 
 def _check_mode(mode: str) -> None:
@@ -134,18 +141,20 @@ class Layer(nn.Module):
         """``(x, aux, new cache)``: ``mode`` train (no cache), prefill
         (fills ``cache``) or decode (one token per row into ``cache``);
         ``aux`` is a MoE layer's weighted load-balancing loss, None for
-        the others.  ``seq`` (train only): ``x`` is this rank's chunk of
-        the positions (a :class:`~repro_torch.distributed.layout.SeqSplit`)."""
+        the others.  ``seq`` (a :class:`~repro_torch.distributed.layout.
+        SeqSplit`): in train ``x`` is this rank's chunk of the positions;
+        in prefill and decode ``cache`` is this rank's block of the
+        cache's positions (``layers/attention.py``)."""
         cfg = self.cfg
         chunk = cfg.attn_chunk if chunk is None else chunk
         h = shard_act(apply_norm(cfg.norm, self.norm1, x), "batch", "seq", None)
         if mode == TRAIN:
             y = self.attn(h, chunk, seq)
         elif mode == PREFILL:
-            y, cache = attn_prefill(self.attn, h, self.attn.spec, cache, chunk)
+            y, cache = attn_prefill(self.attn, h, self.attn.spec, cache, chunk, seq)
         else:
             _check_mode(mode)
-            y, cache = attn_decode(self.attn, h, self.attn.spec, cache)
+            y, cache = attn_decode(self.attn, h, self.attn.spec, cache, seq)
         x = x + shard_act(y.to(x.dtype), "batch", "seq", None)
         h = apply_norm(cfg.norm, self.norm2, x)
         aux = None
@@ -262,13 +271,24 @@ class LM(nn.Module):
             return {k: gather_param(v, self.blocks[f"{name}.{k}"], self.mesh) for k, v in p.items()}
         return gather_param(p, self.blocks[name], self.mesh)
 
+    def _lookup(self, tokens: torch.Tensor) -> torch.Tensor:
+        """The embedding table's rows of ``tokens``.  On a mesh outside
+        autograd (serving) a split 2-D table is read in place
+        (:func:`~repro_torch.distributed.layout.embed_lookup`: the rows of
+        the tokens move, not the table); under autograd it is gathered
+        whole, as every module's weights."""
+        block = None if self.blocks is None else self.blocks["embed.table"]
+        if block is None or block.whole or torch.is_grad_enabled() or self.embed.table.ndim != 2:
+            return self._call(self.embed, "embed.", tokens)
+        return embed_lookup(tokens, self.embed.table, block, self.mesh)
+
     # -- forward -------------------------------------------------------------------
     def _embed_tokens(self, tokens: torch.Tensor, pos0=0) -> torch.Tensor:
         """``(B, S, d)`` in the activation dtype; with codebooks the summed
         embeddings plus the sinusoid at positions ``pos0 + [0, S)``
         (``pos0`` an int or per-row ``(B,)``)."""
         dt = DTYPES[self.cfg.dtype]
-        x = self._call(self.embed, "embed.", tokens).to(dt)
+        x = self._lookup(tokens).to(dt)
         if self.cfg.n_codebooks > 1:
             return x + sinusoid(self.cfg.d_model, pos0, tokens.shape[-1], x.device).to(dt)
         if self.cfg.scale_embed:
@@ -341,29 +361,34 @@ class LM(nn.Module):
         x = apply_norm(self.cfg.norm, self._param("final_norm"), x)
         return self._logits(x), aux
 
-    def _run(self, x: torch.Tensor, mode: str, caches: list[Cache]):
+    def _run(self, x: torch.Tensor, mode: str, caches: list[Cache], kv=None):
         new = []
         for i, (layer, cache) in enumerate(zip(self.layers, caches, strict=True)):
-            x, _, cache = self._call(*self._layer(i, layer), x, mode, cache)
+            split = kv if layer.kind in SPLIT_KV_KINDS else None
+            x, _, cache = self._call(*self._layer(i, layer), x, mode, cache, None, split)
             new.append(cache)
         return apply_norm(self.cfg.norm, self._param("final_norm"), x), new
 
-    def prefill(self, tokens: torch.Tensor, caches: list[Cache], vision_embeds: torch.Tensor | None = None):
+    def prefill(self, tokens: torch.Tensor, caches: list[Cache], vision_embeds: torch.Tensor | None = None,
+                kv=None):
         """``tokens (B, S)`` (audio: ``(B, K, S)``; vision: with
         ``vision_embeds``) through the model into ``caches``: the last
         position's f32 logits ``(B, 1, vocab)`` (audio: ``(B, 1, K,
         vocab)``) and the filled caches.  ``S`` must be a length every
         chunked path takes whole (:func:`prefill_length`), or the SSD or
-        attention raises."""
-        x, new = self._run(self._front(tokens, vision_embeds), PREFILL, caches)
+        attention raises.  ``kv`` (a :class:`~repro_torch.distributed.
+        layout.SeqSplit`): the caches of :data:`SPLIT_KV_KINDS` hold this
+        rank's block of the positions (:func:`make_caches` with ``kv``)."""
+        x, new = self._run(self._front(tokens, vision_embeds), PREFILL, caches, kv)
         return self._logits(x[:, -1:]), new
 
-    def decode_step(self, tokens: torch.Tensor, caches: list[Cache]):
+    def decode_step(self, tokens: torch.Tensor, caches: list[Cache], kv=None):
         """One token per row, ``tokens (B, 1)`` (audio: ``(B, K, 1)``), each
         row at its cache's position (the first layer's ``pos``, which the
         audio sinusoid reads): f32 logits ``(B, 1, vocab)`` (audio: ``(B,
-        1, K, vocab)``) and the new caches."""
-        x, new = self._run(self._embed_tokens(tokens, caches[0].pos), DECODE, caches)
+        1, K, vocab)``) and the new caches.  ``kv`` as in :meth:`prefill`:
+        each split cache's attention is merged over its group."""
+        x, new = self._run(self._embed_tokens(tokens, caches[0].pos), DECODE, caches, kv)
         return self._logits(x), new
 
     def train_loss(self, batch: dict) -> tuple[torch.Tensor, dict]:
@@ -462,15 +487,24 @@ def cache_capacity(cfg: ArchConfig, kind: str, cache_len: int) -> int:
     return cache_len
 
 
-def make_caches(cfg: ArchConfig, batch: int, cache_len: int, dtype=torch.bfloat16, device=None) -> list[Cache]:
+def make_caches(cfg: ArchConfig, batch: int, cache_len: int, dtype=torch.bfloat16, device=None,
+                kv=None) -> list[Cache]:
     """One empty cache of ``batch`` rows per layer on ``device`` (default:
     the CUDA card): a :class:`MambaCache` (conv history in ``dtype``, f32
     state) for an ``"ssm"`` layer, else a :class:`KVCache` of capacity
-    :func:`cache_capacity`."""
+    :func:`cache_capacity`.  ``kv`` (a :class:`~repro_torch.distributed.
+    layout.SeqSplit` of ``cache_len`` positions): a layer of
+    :data:`SPLIT_KV_KINDS` holds only this rank's block of them."""
     check_supported(cfg)
     dev = resolve_device(device)
+    if kv is not None and kv.length != cache_len:
+        raise ValueError(f"a split of {kv.length} positions for caches of {cache_len}")
+
+    def capacity(kind):
+        return kv.local if kv is not None and kind in SPLIT_KV_KINDS else cache_capacity(cfg, kind, cache_len)
+
     return [mamba_cache_init(batch, cfg.ssm, dtype, dev) if kind == "ssm" else
-            kv_cache_init(batch, cache_capacity(cfg, kind, cache_len), cfg.n_kv_heads, cfg.head_dim, dtype, dev)
+            kv_cache_init(batch, capacity(kind), cfg.n_kv_heads, cfg.head_dim, dtype, dev)
             for kind in cfg.layer_kinds()]
 
 

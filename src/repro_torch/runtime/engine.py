@@ -84,6 +84,7 @@ scheduler itself is testable with a pure-numpy deterministic model
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import heapq
 import os
@@ -357,6 +358,48 @@ def swap_unembed(model, bf) -> None:
     head.factors, head.lam = new.factors, new.lam
 
 
+class RowLogits:
+    """One decode step's logits on a mesh whose decode policy splits the
+    slot pool's rows: this rank's rows ``local`` ``(b, 1, V)`` / ``(b, 1,
+    K, V)``, at the positions ``rows`` (a ``(b,)`` tensor) of the step's
+    ``n`` live rows.  :meth:`picks` gathers every row's greedy token and
+    finite flag over ``group`` (the rows' axes) once, never the logits: one
+    all-reduce of ``n·(K + 1)`` int32 (:func:`repro_torch.distributed.
+    layout.reduce_over`, purpose ``"row_gather"``)."""
+
+    def __init__(self, local, rows, n: int, group):
+        self.local, self.rows, self.n, self.group = local, rows, n, group
+        self._picks = None
+
+    def picks(self) -> tuple[np.ndarray, np.ndarray]:
+        """Every live row's greedy tokens ``(n,)`` / ``(n, K)`` (int32) and
+        finite flag ``(n,)`` (bool), the same on every rank."""
+        if self._picks is None:
+            import torch
+
+            from repro_torch.distributed.layout import reduce_over
+            from repro_torch.models.lm import greedy_token
+
+            step = self.local[:, -1]
+            tok = greedy_token(step)  # (b,) or (b, K)
+            k = 1 if tok.ndim == 1 else tok.shape[1]
+            buf = torch.zeros((self.n, k + 1), dtype=torch.int32, device=step.device)
+            buf[self.rows, :k] = tok.reshape(-1, k)
+            buf[self.rows, k] = torch.isfinite(step.float()).flatten(1).all(dim=-1).to(torch.int32)
+            buf = reduce_over(buf, self.group, "sum", "row_gather").cpu().numpy()
+            self._picks = (buf[:, :k].reshape((self.n,) + tuple(tok.shape[1:])), buf[:, k].astype(bool))
+        return self._picks
+
+
+def _split_axes(ax, n: int, mesh) -> tuple[str, ...]:
+    """The mesh axes of more than one rank that split a dimension of ``n``
+    under a policy's ``ax`` (:func:`~repro_torch.distributed.sharding.
+    _fit_axes`: absent axes dropped, whole where they do not divide it)."""
+    from repro_torch.distributed.sharding import _fit_axes, axes_tuple
+
+    return tuple(a for a in axes_tuple(_fit_axes(ax, n, mesh)) if mesh.shape[a] > 1)
+
+
 class LMExecutor:
     """The real model behind the engine: a slot-paged cache pool plus
     prefill and decode over :class:`repro_torch.models.lm.LM`.
@@ -388,18 +431,44 @@ class LMExecutor:
     prefills whole (:func:`lm.prefill_length`).
 
     ``mesh`` (a :class:`repro_torch.distributed.Mesh`): every rank of it
-    runs the same engine on the same requests.  A FAµST head whose spec
-    carries a ``ShardSpec`` (it must be on ``mesh``) applies through
-    ``fused_sharded`` and its logits come back whole on every rank, so
-    every rank samples the same token.  The other layers run whole on
-    every rank: the reference's decode policy (``use_rules``) only
-    constrains placement, never values, and the engine does not place
-    its rows or its slot pool by it yet.
+    runs the same engine on the same requests (SPMD), so the scheduler is
+    the same on every rank.  A FAµST head whose spec carries a
+    ``ShardSpec`` (it must be on ``mesh``) applies through
+    ``fused_sharded``.  A model that :meth:`LM.shard_` split (on ``mesh``;
+    another mesh raises ``ValueError``) is served under the config's
+    decode policy (``use_rules(mesh, cfg.decode_policy())``), as the
+    reference's executor, and placed by it as the reference's
+    ``launch/steps.py`` ``cache_shardings`` places a decode step's state:
+
+    * each module's weights stay in their blocks and are gathered whole
+      just before it runs (:meth:`LM._call`);
+    * the pool's rows split over the policy's ``batch`` axes where they
+      divide ``n_slots`` (:data:`rows`; else whole, ``_fit_axes``'s rule):
+      a rank holds slots ``[r·n/nd, (r+1)·n/nd)`` of its index ``r`` over
+      them.  A prefill (one row, replicated) runs on every rank and only
+      the owner writes its row; a decode step computes the live rows a
+      rank owns, and :class:`RowLogits` gathers their tokens and finite
+      flags.  A rank with no live row in a step runs one idle row (a blank
+      cache of its own), so it joins every collective of the step, and
+      drops its result.  A sharded head then splits out-blocks over its
+      model axis only, its batch being the rank's rows already;
+    * every global-attention cache (:data:`lm.SPLIT_KV_KINDS`) keeps only
+      the rank's block of the ``max_len`` positions over the policy's
+      ``kv_seq`` axes (:data:`kv`), and decode attention merges the blocks
+      over them (``layers/attention.py``).  A sliding-window ring and a
+      :class:`MambaCache` stay whole on every rank of their rows (ROADMAP
+      caveat R11).
+
+    An unsharded model on a mesh runs every layer whole on every rank
+    with the whole pool; only a sharded head splits.
     """
 
     def __init__(self, model, max_len: int, n_slots: int, mesh=None):
+        import math
+
         import torch
 
+        from repro_torch.distributed.layout import seq_split
         from repro_torch.models import lm
 
         self.cfg, self.model, self.mesh = model.cfg, model, mesh
@@ -408,10 +477,32 @@ class LMExecutor:
         shard = None if head is None else head.spec.shard
         if shard is not None and shard.mesh is not mesh:
             raise ValueError("the FAµST head is sharded on another mesh than the executor's: pass that mesh")
+        if model.blocks is not None and model.mesh is not mesh:
+            raise ValueError("the model is sharded on another mesh than the executor's: pass that mesh")
         self._torch, self._lm = torch, lm
         self.device = model.embed.table.device
         self._act_dtype = lm.DTYPES[self.cfg.dtype]
-        self.pool = lm.make_caches(self.cfg, n_slots, max_len, dtype=self._act_dtype, device=self.device)
+        # the placement of a sharded model (class docstring); none otherwise
+        self.policy = None if model.blocks is None else self.cfg.decode_policy()
+        self.rows: tuple[str, ...] = ()  # the mesh axes the pool's rows split over
+        self.kv = None  # this rank's block of the global caches' positions (a SeqSplit)
+        self._lo, self.n_local = 0, n_slots
+        self._head_shard = None  # the head's placement while the rows are split
+        if self.policy is not None:
+            self.rows = _split_axes(self.policy.batch, n_slots, mesh)
+            kv_axes = _split_axes(self.policy.kv_seq, max_len, mesh)
+            if set(self.rows) & set(kv_axes):
+                raise ValueError(f"the decode policy splits rows over {self.rows} and positions over {kv_axes}")
+            self.kv = seq_split(mesh, kv_axes, max_len)
+            if self.rows:
+                self.n_local = n_slots // math.prod(mesh.shape[a] for a in self.rows)
+                self._lo = mesh.index(self.rows) * self.n_local
+                if shard is not None and shard.data_axis in self.rows:
+                    self._head_shard = dataclasses.replace(shard, data_axis=None)
+        caches = dict(dtype=self._act_dtype, device=self.device, kv=self.kv)
+        self.pool = lm.make_caches(self.cfg, self.n_local, max_len, **caches)
+        self._idle = lm.make_caches(self.cfg, 1, max_len, **caches) if self.rows else None
+        self.idle_steps = 0  # decode steps in which this rank had no live row
         self.faust_dispatch = None  # last decision a forward recorded
         self._faust_op = self._build_faust_op()
 
@@ -462,6 +553,23 @@ class LMExecutor:
         if self.device.type == "cuda":
             self._torch.cuda.synchronize(self.device)
 
+    @contextlib.contextmanager
+    def _forward(self):
+        """A forward: no autograd; for a sharded model the decode policy's
+        rules, and a sharded head's batch split off while the rows are."""
+        from repro_torch.distributed.sharding import use_rules
+
+        head = _faust_head(self.model)
+        spec = None if head is None else head.spec
+        with self._torch.no_grad(), use_rules(self.mesh if self.policy is not None else None, self.policy):
+            if self._head_shard is not None:
+                head.spec = dataclasses.replace(spec, shard=self._head_shard)
+            try:
+                yield
+            finally:
+                if self._head_shard is not None:
+                    head.spec = spec
+
     def prefill_forward(self, slot: int, prompt: np.ndarray, extras: dict):
         from repro_torch.api import dispatch as _dispatch
 
@@ -479,34 +587,48 @@ class LMExecutor:
         head, tail = prompt[..., :aligned], prompt[..., aligned:]
         side = {k: torch.as_tensor(np.asarray(v), device=self.device)[None] for k, v in extras.items()}
         mark = _dispatch.last_report()
-        with torch.no_grad():
-            caches = lm.make_caches(self.cfg, 1, self.max_len, dtype=self._act_dtype, device=self.device)
-            logits, caches = self.model.prefill(self._tokens(head)[None], caches, **side)
-            for p, c in zip(self.pool, caches):
-                for dst, src in zip(p, c):
-                    dst[slot:slot + 1] = src
-            slot_idx = torch.tensor([slot], device=self.device)
+        with self._forward():
+            caches = lm.make_caches(self.cfg, 1, self.max_len, dtype=self._act_dtype, device=self.device, kv=self.kv)
+            logits, caches = self.model.prefill(self._tokens(head)[None], caches, kv=self.kv, **side)
+            row = slot - self._lo
+            if 0 <= row < self.n_local:  # the rank that holds the slot's row keeps it
+                for p, c in zip(self.pool, caches):
+                    for dst, src in zip(p, c):
+                        dst[row:row + 1] = src
             for i in range(tail.shape[-1]):
-                logits = self._decode(self._tokens(tail[..., i:i + 1])[None], slot_idx)
+                logits = self._decode([slot], tail[None, ..., i:i + 1])
         self._sync()
         self._capture_dispatch(mark)
         return logits
 
-    def _decode(self, tokens, slot_idx):
-        lm = self._lm
-        caches = lm.gather_cache_slots(self.pool, slot_idx)
-        logits, caches = self.model.decode_step(tokens, caches)
-        lm.scatter_cache_slots(self.pool, caches, slot_idx)
-        return logits
+    def _decode(self, slots: list[int], tokens: np.ndarray):
+        """One decode step of the live ``slots`` (global) fed ``tokens``:
+        the logits, or this rank's rows of them (:class:`RowLogits`)."""
+        torch, lm = self._torch, self._lm
+        mine = [i for i, s in enumerate(slots) if 0 <= s - self._lo < self.n_local]
+        if mine:
+            slot_idx = torch.as_tensor([slots[i] - self._lo for i in mine], device=self.device)
+            caches = lm.gather_cache_slots(self.pool, slot_idx)
+            logits, caches = self.model.decode_step(self._tokens(tokens[mine]), caches, kv=self.kv)
+            lm.scatter_cache_slots(self.pool, caches, slot_idx)
+        else:  # no live row here: an idle row joins the step's collectives
+            self.idle_steps += 1
+            logits = self.model.decode_step(self._tokens(np.zeros_like(tokens[:1])), self._idle, kv=self.kv)[0][:0]
+        if not self.rows:
+            return logits
+        rows = torch.as_tensor(mine, dtype=torch.int64, device=self.device)
+        return RowLogits(logits, rows, len(slots), self.mesh.group(self.rows))
 
     def decode_forward(self, slots: Sequence[int], tokens: np.ndarray):
+        """One decode step of the live ``slots``: the logits ``(B, 1, V)`` /
+        ``(B, 1, K, V)``, or this rank's rows of them (:class:`RowLogits`)
+        where the pool's rows are split; :meth:`sample` and
+        :meth:`row_finite` take either."""
         from repro_torch.api import dispatch as _dispatch
 
-        torch = self._torch
         mark = _dispatch.last_report()
-        with torch.no_grad():
-            slot_idx = torch.as_tensor(np.asarray(slots, np.int64), device=self.device)
-            logits = self._decode(self._tokens(tokens), slot_idx)
+        with self._forward():
+            logits = self._decode([int(s) for s in slots], np.asarray(tokens))
         self._sync()
         self._capture_dispatch(mark)  # the decode step's: the steady-state path
         return logits
@@ -514,7 +636,10 @@ class LMExecutor:
     def sample(self, logits) -> np.ndarray:
         """Greedy argmax of the last position — same slicing contract as
         ``Server._sample`` (the sequence axis is axis 1): ``(B, 1)``, or
-        ``(B, K, 1)`` for K codebooks."""
+        ``(B, K, 1)`` for K codebooks; every live row's on every rank."""
+        if isinstance(logits, RowLogits):
+            tok = logits.picks()[0]
+            return tok.reshape(*tok.shape, 1)
         tok = self._lm.greedy_token(logits[:, -1])  # (B,) or (B, K)
         return tok.reshape(*tok.shape, 1).cpu().numpy()
 
@@ -522,6 +647,8 @@ class LMExecutor:
         """Per-row all-finite mask of the last position, ``(B,)`` bool —
         the engine's NaN guard.  Reduced on the device so the guard moves B
         bools per step instead of the ``(B, V)`` logits."""
+        if isinstance(logits, RowLogits):
+            return logits.picks()[1]
         step = logits[:, -1].float()
         return self._torch.isfinite(step).reshape(step.shape[0], -1).all(dim=-1).cpu().numpy()
 

@@ -18,10 +18,14 @@ from the prefill logits, and ``decode_s`` covers every sample.
 
 ``Server(model, max_len, mesh=mesh)`` serves on a mesh: every rank of it
 builds the same model (same config and seed) and calls ``generate`` with
-the same batch; a FAµST head whose spec carries a ``ShardSpec`` on
-``mesh`` applies through ``fused_sharded`` (:class:`LMExecutor`), every
-rank generates the same tokens, and ``ServeStats.mesh_axes`` is the
-mesh's ``{axis: size}``.
+the same batch, every rank generates the same tokens, and
+``ServeStats.mesh_axes`` is the mesh's ``{axis: size}``.  A model split by
+``model.shard_(mesh)`` is served under its config's decode policy (the
+batch's rows over the policy's batch axes where they divide it, each
+global-attention cache's positions over ``kv_seq``, each module's weights
+gathered just before it runs: :class:`LMExecutor`); a FAµST head whose
+spec carries a ``ShardSpec`` on ``mesh`` applies through
+``fused_sharded``.
 """
 from __future__ import annotations
 

@@ -1,6 +1,6 @@
 """The port stands alone: nothing under ``src/repro_torch`` and nothing in
-its root scripts ``chip_smoke.py``, ``dgrad_probe.py`` and
-``dispatch_probe.py`` imports JAX, the JAX package ``repro`` or
+its root scripts ``chip_smoke.py``, ``dgrad_probe.py``,
+``dispatch_probe.py`` and ``mesh_serve_probe.py`` imports JAX, the JAX package ``repro`` or
 ``ml_dtypes`` (the card's machine has none: bf16 crosses as ``uint16``
 bits)."""
 import ast
@@ -10,7 +10,7 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py", ROOT / "dgrad_probe.py", ROOT / "dispatch_probe.py"
+    ROOT / "chip_smoke.py", ROOT / "dgrad_probe.py", ROOT / "dispatch_probe.py", ROOT / "mesh_serve_probe.py"
 ]
 
 
@@ -44,5 +44,6 @@ def test_scan_sees_the_port():
                 "distributed/__init__.py", "distributed/mesh.py", "distributed/sharding.py",
                 "kernels/chain_sharded.py", "distributed/layout.py", "distributed/pipeline.py", "layers/param.py"):
         assert port / new in FILES
+    assert ROOT / "mesh_serve_probe.py" in FILES
     assert _forbidden("repro.kernels.ops") and _forbidden("jax.numpy") and _forbidden("ml_dtypes")
     assert not _forbidden("repro_torch.kernels.ops")
