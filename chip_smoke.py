@@ -201,8 +201,10 @@ Phases, each fatal on failure (non-zero exit):
    a sequence: the inter-chunk loop runs); (b) zamba2-7b cut to two whole
    units of five ssm layers and the shared block (12 layers: the full
    5.74 G's AdamW state does not fit), same flags;
-   (c) both at full depth (zamba2: 81 layers) served, 8 slots of 1160
-   tokens, 10 requests: prompts 300, 200, 256, 480, 512, 700, 1024 and
+   (c) both served, cut to ``MAMBA2_SERVE_LAYERS`` = 16 of mamba2's 64
+   layers and ``ZAMBA2_SERVE_LAYERS`` = 18 of zamba2's 81 (three units;
+   ``ssm_serve_probe.py`` runs them at both depths), 8 slots of
+   1160 tokens, 10 requests: prompts 300, 200, 256, 480, 512, 700, 1024 and
    three uniform over 32-256, budgets 16-48, one eviction at step 6 (of
    the 300-token request: its re-prefill is ragged and replays too); each prefill's split recorded (the prefix every
    chunked path takes, ``lm.prefill_length``: 300 and 480 are the band
@@ -212,8 +214,8 @@ Phases, each fatal on failure (non-zero exit):
    row's maximum, or a tie at bf16's resolution (its gap at most twice the
    bf16 model's own one-pass error on that row, such ties at most 5 % of
    the positions: over 64-81 random layers bf16 rounding alone moves the
-   logits by several 1e-2); zamba2's pool 68
-   ``MambaCache`` and 13 ``KVCache``; two faults planted in zamba2's
+   logits by several 1e-2); zamba2's pool one ``MambaCache`` an ssm layer
+   and one ``KVCache`` a shared position (15 and 3); two faults planted in zamba2's
    serving path (every mamba state zeroed after each prefill; each shared
    occurrence decoding against the next one's ``KVCache``), two requests
    each (prompts 256 and 512, 32 tokens), which that bf16 check must fail; (d) both
@@ -315,7 +317,23 @@ Phases, each fatal on failure (non-zero exit):
    rank's ``dx`` and its stage's parameter gradients within rtol 2e-4 /
    atol 2e-5 of the sequential walk's under autograd on one rank, the
    other stages' rows zero.  The ranks start once (a)'s mesh run is over, and
-   run beside (a)'s restore and (b)'s unsharded runs in this process.
+   run beside (a)'s restore and (b)'s unsharded runs in this process;
+20. the report (slice 17): (a) ``launch.dryrun`` of gemma-2b × train_4k,
+   prefill_32k and decode_32k on the 16 × 16 mesh and of its ``faust``
+   variant × train_4k, four processes on the CPU (fake tensors, no card)
+   beside (b)-(d): each record's roofline terms at the H100 constants,
+   its peak GB a rank and its seconds; (b) the dry run of phase 19 (a)'s
+   configuration (4 layers, 8 × 128, bf16, the head forced fused) on a
+   1 × 1 mesh (like (c)'s, in a CPU process of its own beside the card
+   work), logged before the real step, then one step of that model
+   on a 1 × 1 NCCL mesh: ``FlopCounterMode``'s flops must equal the
+   predicted matmul flops, K1/K2/K3 the predicted launches (one each),
+   ``max_memory_allocated`` within ``REPORT_MEM_TOL`` = 10 % of the
+   predicted peak; (c) the dry run of phase 19 (b)'s configuration on
+   each rank of a fake 2 × 2 mesh: its collectives by purpose (calls and
+   bytes, ``distributed/layout.py``) must equal what each of phase 19
+   (b)'s ranks counted in its first step; (d) a planted fault, the
+   kernels' flop formulas removed, must fail (b)'s flop check.
 
 Prints one JSON object per line; the last three lines are the kernels
 summary, the card's ``name, power.limit`` and ``{"ok": true, ...}``.
@@ -3752,6 +3770,11 @@ ZAMBA2_TRAIN_ARGV = ("--arch", "zamba2_7b", "--faust", "--steps", "3", "--batch"
 ZAMBA2_UNIT = ("ssm",) * 5 + ("shared",)  # zamba2's stage unit (src/repro/configs/zamba2_7b.py)
 ZAMBA2_TRAIN_LAYERS = 12  # two whole units (the full 81's AdamW state does not fit the card)
 MAMBA2_TRAIN_LAYERS = 16  # of 64
+# (c)-(e)'s served depths: at full depth (64 and 81 layers) the replay-bound serving took 131-158 s a
+# model, most of the script's time limit (PERF.md); three of zamba2's units keep its shared block at three
+# positions, each with its own KVCache
+MAMBA2_SERVE_LAYERS = 16
+ZAMBA2_SERVE_LAYERS = 18
 # 300 and 480 lie in the band the reference's SSD rejects (above ssm.chunk 256, below attn_chunk 512);
 # 300 first: the eviction takes the lowest slot's request, so its re-prefill lands in the band too
 SSM_PROMPTS = (300, 200, 256, 480, 512, 700, 1024)
@@ -3996,33 +4019,7 @@ def ssm_archs(card_line: str, dev) -> dict:
     with _fresh_tables("chip_smoke_ssm_autotune"):
         out["mamba2_train"] = arch_train(card_line, "mamba2", MAMBA2_TRAIN_ARGV, MAMBA2_TRAIN_LAYERS, ("ssm",))
         out["zamba2_train"] = arch_train(card_line, "zamba2", ZAMBA2_TRAIN_ARGV, ZAMBA2_TRAIN_LAYERS, ZAMBA2_UNIT)
-        model = _lm(arch_config("mamba2_2p7b"), dev)
-        exact = exact_copy(model)
-        out["mamba2_serve"] = ssm_serve(card_line, dev, "mamba2", model, exact)["row"]
-        out["mamba2_decode"] = [ssm_decode(card_line, model, b) for b in (1, 8)]
-        del model
-        _free()
-        # the f32 model served: prefill, replays, recurrent decode and eviction against one chunked pass at 1e-4
-        out["mamba2_serve_f32"] = ssm_serve_f32(card_line, "mamba2", exact)
-        del exact
-        _free()
-        model = _lm(arch_config("zamba2_7b"), dev)
-        exact = exact_copy(model)
-        res = ssm_serve(card_line, dev, "zamba2", model, exact)
-        out["zamba2_serve"] = res["row"]
-        pool = res["engine"].executor.pool
-        kinds = {"MambaCache": sum(isinstance(c, MambaCache) for c in pool),
-                 "KVCache": sum(isinstance(c, KVCache) for c in pool)}
-        log({"phase": "zamba2_pool", "card": card_line, "caches": kinds, "layers": len(pool)})
-        require(kinds == {"MambaCache": 68, "KVCache": 13}, f"zamba2's pool holds {kinds}")
-        del res, pool
-        out["zamba2_planted"] = [planted_serve(card_line, "zamba2", model, exact, kind)
-                                 for kind in ("ssm_state_zeroed", "kv_of_next_occurrence")]
-        del model
-        _free()
-        out["zamba2_serve_f32"] = ssm_serve_f32(card_line, "zamba2", exact)
-        del exact
-        _free()
+        out.update(ssm_serving(card_line, dev, MAMBA2_SERVE_LAYERS, ZAMBA2_SERVE_LAYERS))
     launches = {}
     for row in (out["mamba2_train"], out["zamba2_train"], out["mamba2_serve"], out["mamba2_serve_f32"],
                 out["zamba2_serve"], out["zamba2_serve_f32"]):
@@ -4030,6 +4027,52 @@ def ssm_archs(card_line: str, dev) -> dict:
             launches[k] = launches.get(k, 0) + v
     out["launches"] = launches
     log({"phase": "ssm_archs", "card": card_line, "launches": launches})
+    return out
+
+
+def ssm_serving(card_line: str, dev, mamba_layers: int | None, zamba_layers: int | None) -> dict:
+    """Phase 16 (c)-(e): mamba2 cut to ``mamba_layers`` and zamba2 to
+    ``zamba_layers`` (whole units; ``None``: full depth) served, bf16 and
+    f32, zamba2's two planted faults, mamba2's decode step; the rows and
+    the seconds it took."""
+    from repro_torch.configs import get_config
+    from repro_torch.layers.attention import KVCache
+    from repro_torch.layers.mamba2 import MambaCache
+
+    t0 = time.perf_counter()
+    out = {}
+    model = _lm(arch_config("mamba2_2p7b", mamba_layers, ("ssm",)), dev)
+    exact = exact_copy(model)
+    out["mamba2_serve"] = ssm_serve(card_line, dev, "mamba2", model, exact)["row"]
+    out["mamba2_decode"] = [ssm_decode(card_line, model, b) for b in (1, 8)]
+    del model
+    _free()
+    # the f32 model served: prefill, replays, recurrent decode and eviction against one chunked pass at 1e-4
+    out["mamba2_serve_f32"] = ssm_serve_f32(card_line, "mamba2", exact)
+    del exact
+    _free()
+    model = _lm(arch_config("zamba2_7b", zamba_layers, ZAMBA2_UNIT), dev)
+    exact = exact_copy(model)
+    res = ssm_serve(card_line, dev, "zamba2", model, exact)
+    out["zamba2_serve"] = res["row"]
+    pool = res["engine"].executor.pool
+    kinds = {"MambaCache": sum(isinstance(c, MambaCache) for c in pool),
+             "KVCache": sum(isinstance(c, KVCache) for c in pool)}
+    log({"phase": "zamba2_pool", "card": card_line, "caches": kinds, "layers": len(pool)})
+    want = {"MambaCache": model.cfg.layer_kinds().count("ssm"), "KVCache": model.cfg.layer_kinds().count("shared")}
+    require(kinds == want and (zamba_layers is not None or want == {"MambaCache": 68, "KVCache": 13}),
+            f"zamba2's pool holds {kinds}, want {want}")
+    del res, pool
+    out["zamba2_planted"] = [planted_serve(card_line, "zamba2", model, exact, kind)
+                             for kind in ("ssm_state_zeroed", "kv_of_next_occurrence")]
+    del model
+    _free()
+    out["zamba2_serve_f32"] = ssm_serve_f32(card_line, "zamba2", exact)
+    del exact
+    _free()
+    layers = {"mamba2": mamba_layers or get_config("mamba2_2p7b").n_layers,
+              "zamba2": zamba_layers or get_config("zamba2_7b").n_layers}
+    log({"phase": "ssm_serving", "card": card_line, "layers": layers, "seconds": time.perf_counter() - t0})
     return out
 
 
@@ -4854,15 +4897,12 @@ def _zero_mt_counts() -> None:
     COLLECTIVES.update(dict.fromkeys(COLLECTIVES, 0))
 
 
-def _mt_trainer(dev, mesh=None, n_layers=None, dtype=None, **tc):
-    """``launch.train``'s trainer for ``MT_ARGV`` (``tc``: TrainConfig
-    fields), cut to ``n_layers`` and cast to ``dtype`` where given, on
-    ``mesh``; and a model from seed 0 with its head forced onto ``fused``."""
+def _mt_config(n_layers=None, dtype=None):
+    """``launch.train``'s run of ``MT_ARGV`` and its config, cut to
+    ``n_layers`` and cast to ``dtype`` where given."""
     import dataclasses
 
     from repro_torch.launch import train
-    from repro_torch.models.lm import LM
-    from repro_torch.runtime.trainer import Trainer
 
     base = train.build(train.parse_args(list(MT_ARGV)))
     cfg = base.cfg
@@ -4870,10 +4910,27 @@ def _mt_trainer(dev, mesh=None, n_layers=None, dtype=None, **tc):
         cfg = dataclasses.replace(cfg, n_layers=n_layers, stages=((n_layers, ("attn",)),))
     if dtype is not None:
         cfg = dataclasses.replace(cfg, dtype=dtype)
+    return base, cfg
+
+
+def _fused_head(model) -> None:
+    model.unembed.faust.backend = "fused"  # one K1/K2/K3 a step, whatever a table says
+
+
+def _mt_trainer(dev, mesh=None, n_layers=None, dtype=None, **tc):
+    """``launch.train``'s trainer for ``MT_ARGV`` (``tc``: TrainConfig
+    fields), cut to ``n_layers`` and cast to ``dtype`` where given, on
+    ``mesh``; and a model from seed 0 with its head forced onto ``fused``."""
+    import dataclasses
+
+    from repro_torch.models.lm import LM
+    from repro_torch.runtime.trainer import Trainer
+
+    base, cfg = _mt_config(n_layers, dtype)
     t = Trainer(cfg, base.data_cfg, base.opt_cfg, dataclasses.replace(base.tcfg, **{"checkpoint_every": 1000, **tc}),
                 mesh=mesh, device=dev)
     model = LM(cfg, seed=0, device=dev)
-    model.unembed.faust.backend = "fused"  # one K1/K2/K3 a step, whatever a table says
+    _fused_head(model)
     return t, model
 
 
@@ -4893,6 +4950,38 @@ def _mt_run(t, model, resume=False) -> dict:
             "peak_gb": torch.cuda.max_memory_allocated() / 1e9, "launches": _mt_counts(),
             "state_bytes": t.state_bytes, "saves": t.saves, "resumed": t.resumed,
             "write_s": t.ckpt.last_write_s}
+
+
+@contextlib.contextmanager
+def first_step_collectives():
+    """The model's collectives by purpose (``distributed/layout.py``: calls
+    and bytes) in the first call of every train step the trainer makes
+    meanwhile (``runtime/trainer.py`` ``make_train_step``), in the dict
+    yielded: the step alone, without the loop's preemption flag or saves."""
+    from repro_torch.distributed import layout
+    from repro_torch.runtime import trainer
+
+    real, seen = trainer.make_train_step, {}
+
+    def making(*args, **kw):
+        step = real(*args, **kw)
+
+        def counted(*a, **k):
+            if seen:
+                return step(*a, **k)
+            calls, moved = dict(layout.COLLECTIVES), dict(layout.BYTES)
+            out = step(*a, **k)
+            seen.update({p: {"count": layout.COLLECTIVES[p] - calls[p], "bytes": layout.BYTES[p] - moved[p]}
+                         for p in calls if layout.COLLECTIVES[p] != calls[p]})
+            return out
+
+        return counted
+
+    trainer.make_train_step = making
+    try:
+        yield seen
+    finally:
+        trainer.make_train_step = real
 
 
 def _rel_diff(a, b) -> float:
@@ -5000,8 +5089,10 @@ def mesh_train_rank(rank: int, rendezvous: str, out_dir: str, card_line: str, de
                 os.kill(os.getpid(), signal.SIGTERM)
 
         t._heartbeat = preempt_after_step_1
-        result["bf16"] = _mt_run(t, model)
+        with first_step_collectives() as first:
+            result["bf16"] = _mt_run(t, model)
         result["bf16"]["on_disk"] = t.ckpt.all_steps()
+        result["bf16"]["step_collectives"] = first  # phase 20 (c) holds the dry run to them
         if rank == 0:  # every rank has returned from the save's collective finish
             Path(out_dir, "saved").touch()
         del t, model
@@ -5174,6 +5265,236 @@ def mesh_train(card_line: str, dev) -> dict:
             f"not one K1/K2/K3 a step a rank: {[r['bf16']['launches'] for r in results]}")
     out["b"] = row
     out["launches"] = {k: out["a"]["mesh"]["launches"][k] for k in ("chain_matmul", "chain_dgrad", "chain_wgrad")}
+    out["step_collectives"] = [r["bf16"]["step_collectives"] for r in results]
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Slice 17: the report (phase 20)
+# ---------------------------------------------------------------------------
+
+# (a)'s dry runs on the 16 x 16 mesh: (arch, cell, variant), one process each
+REPORT_CELLS = (("gemma_2b", "train_4k", None), ("gemma_2b", "prefill_32k", None), ("gemma_2b", "decode_32k", None),
+                ("gemma_2b", "train_4k", "faust"))
+REPORT_MEM_TOL = 0.10  # (b): the real step's peak within this share of the prediction
+REPORT_TIMEOUT_S = 300
+_FLOP_OPS = ("chain_matmul", "chain_dgrad", "chain_wgrad", "bsr_matmul")
+
+
+REPORT_FOLDER = ROOT / "build" / "chip_smoke_report"
+
+
+def _report_cell():
+    from repro_torch.configs.base import ShapeCell
+
+    batch_n, seq = int(MT_ARGV[MT_ARGV.index("--batch") + 1]), int(MT_ARGV[MT_ARGV.index("--seq") + 1])
+    return ShapeCell("phase19", "train", seq, batch_n)
+
+
+def report_prediction(which: str, path: str) -> None:
+    """Phase 20's predictions, written to ``path`` as JSON (run in a process
+    of its own, beside the card work): ``"b"``, the dry run of phase 19
+    (a)'s configuration on a 1 × 1 mesh; ``"c"``, phase 19 (b)'s on each
+    rank of a 2 × 2 mesh, its collectives by purpose.  The process sees no
+    card: its ``MT_ARGV`` ends in ``--device cpu`` (the config is the same)."""
+    from repro_torch.launch.dryrun import dry_run
+    from repro_torch.launch.mesh import abstract_rank, release
+
+    if which == "b":
+        _, cfg = _mt_config(MT_NCCL_LAYERS)
+        out = dry_run(cfg, _report_cell(), abstract_rank((1, 1), ("data", "model"), 0), prepare=_fused_head)
+        release()
+    else:
+        _, cfg = _mt_config(MT_LAYERS)
+        out = []
+        for r in range(math.prod(MT_MESH)):
+            out.append(dry_run(cfg, _report_cell(), abstract_rank(MT_MESH, ("data", "model"), r),
+                               prepare=_fused_head)["collectives"]["by_purpose"])
+            release()
+    Path(path).write_text(json.dumps(out))
+
+
+def report_start() -> dict:
+    """Phase 20's processes started (no card: fake tensors on the CPU):
+    (a)'s dry runs, one each, writing ``build/dryrun/``, and the
+    predictions of (b) and (c) (:func:`report_prediction`)."""
+    import shutil
+
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src"), "CUDA_VISIBLE_DEVICES": ""}
+    shutil.rmtree(REPORT_FOLDER, ignore_errors=True)
+    REPORT_FOLDER.mkdir(parents=True)
+
+    def start(argv):
+        return subprocess.Popen(argv, cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+    procs = {"a": []}
+    for arch, cell, variant in REPORT_CELLS:
+        procs["a"].append(start([sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch, "--cell", cell,
+                                 "--mesh", "single", "--force"] + (["--variant", variant] if variant else [])))
+    for which in ("b", "c"):
+        code = (f"import sys; sys.path[:0] = [{str(ROOT)!r}]; import chip_smoke as cs; "
+                f"cs.MT_ARGV, cs.MT_NCCL_LAYERS, cs.MT_LAYERS, cs.MT_MESH = "
+                f"{(tuple(MT_ARGV) + ('--device', 'cpu'), MT_NCCL_LAYERS, MT_LAYERS, tuple(MT_MESH))!r}; "
+                f"cs.report_prediction({which!r}, {str(REPORT_FOLDER / which)!r})")
+        procs[which] = start([sys.executable, "-c", code])
+    return procs
+
+
+def _report_wait(procs: dict, which: str):
+    """Phase 20's prediction ``which``, once its process has ended."""
+    p = procs[which]
+    out, _ = p.communicate(timeout=REPORT_TIMEOUT_S)
+    require(p.returncode == 0, f"phase 20's prediction {which} failed:\n{out[-3000:]}")
+    return json.loads((REPORT_FOLDER / which).read_text())
+
+
+def report_collect(card_line: str, procs: list) -> list:
+    """Phase 20 (a): wait for the dry runs and print each record's roofline
+    terms (the H100 data sheet's constants, or a calibration's), its peak
+    GB a rank and its seconds."""
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.roofline import roofline_constants, roofline_terms
+
+    rows = []
+    consts, source = roofline_constants()
+    for (arch, cell, variant), p in zip(REPORT_CELLS, procs["a"], strict=True):
+        out, _ = p.communicate(timeout=REPORT_TIMEOUT_S)
+        require(p.returncode == 0, f"dry run {arch} x {cell} x {variant} failed:\n{out[-3000:]}")
+        rec = json.loads(Path(dryrun.result_path(arch, cell, False, variant)).read_text())
+        terms = roofline_terms(rec, consts)
+        row = {"phase": "report_dryrun", "card": card_line, "arch": arch, "cell": cell, "variant": variant,
+               "mesh": rec["mesh"], "terms": terms, "constants": source,
+               "peak_gb_per_rank": rec["memory"]["peak_bytes"] / 1e9, "fits_card": rec["memory"]["fits_card"],
+               "flops": rec["cost"]["flops"], "bytes": rec["cost"]["bytes"], "launches": rec["launches"],
+               "collective_bytes": rec["collectives"]["total_bytes"], "trace_s": rec["trace_s"]}
+        log(row)
+        rows.append(row)
+    return rows
+
+
+def _flop_formulas(on: bool, saved: dict) -> None:
+    """Remove the kernels' flop formulas (``on=False``, kept in ``saved``)
+    or put them back: (d)'s planted fault."""
+    import torch
+    from torch.utils.flop_counter import flop_registry
+
+    for name in _FLOP_OPS:
+        packet = getattr(torch.ops.repro_torch, name)
+        if on:
+            flop_registry[packet] = saved[name]
+        else:
+            saved[name] = flop_registry.pop(packet)
+
+
+def report_real_step(model, opt, mesh, batch) -> dict:
+    """One train step of ``model`` on ``mesh`` counted: FlopCounterMode's
+    flops, K1-K6 launches, peak memory allocated over the step."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.launch.steps import make_sharded_train_step
+    from repro_torch.optim.adamw import AdamWConfig
+
+    step = make_sharded_train_step(model, AdamWConfig(), mesh)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    with FlopCounterMode(display=False) as fc:
+        step(batch, opt)
+    torch.cuda.synchronize()
+    c = _bwd_counts()
+    return {"flops": fc.get_total_flops(), "peak_bytes": torch.cuda.max_memory_allocated(),
+            "launches": {"K1": c["chain_matmul"], "K2": c["chain_dgrad"], "K3": c["chain_wgrad"],
+                         "K4": c["chain_matmul_q"], "K5": c["chain_dgrad_q"] + c["chain_wgrad_q"],
+                         "K6": c["bsr_matmul"]}}
+
+
+def report_predicted(card_line: str, dev, mtr: dict, procs: dict) -> dict:
+    """Phase 20 (b)-(d): the dry run's predictions (``procs``' processes)
+    held against real steps."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.distributed import make_debug_mesh
+    from repro_torch.launch.dryrun import model_priced
+    from repro_torch.models.lm import LM
+    from repro_torch.optim import adamw
+
+    cell = _report_cell()
+    batch_n, seq = cell.global_batch, cell.seq_len
+    # (b) phase 19 (a)'s model on its 1 x 1 NCCL mesh while the prediction
+    # runs; the prediction logged before the step
+    _, cfg = _mt_config(MT_NCCL_LAYERS)
+    folder = MT_FOLDER / "report"
+    folder.mkdir(parents=True, exist_ok=True)
+    rdv = folder / "nccl_rendezvous"
+    rdv.unlink(missing_ok=True)
+    dist.init_process_group("nccl", init_method=f"file://{rdv}", rank=0, world_size=1)
+    try:
+        mesh = make_debug_mesh(1, 1, device=dev)
+        with model_priced():
+            model = LM(cfg, seed=0, device=dev)
+            _fused_head(model)
+            model.shard_(mesh)
+            opt = adamw.init_state(dict(model.named_parameters()))
+            g = torch.Generator().manual_seed(0)
+            batch = {"tokens": torch.randint(0, cfg.vocab, (batch_n, seq), generator=g, dtype=torch.int32).to(dev)}
+            pred = _report_wait(procs, "b")
+            log({"phase": "report_prediction", "card": card_line, "argv": list(MT_ARGV),
+                 "n_layers": MT_NCCL_LAYERS, "mesh": [1, 1], "matmul_flops": pred["cost"]["matmul_flops"],
+                 "launches": pred["launches"], "peak_bytes": pred["memory"]["peak_bytes"],
+                 "argument_bytes": pred["memory"]["argument_bytes"], "trace_s": pred["trace_s"]})
+            real = report_real_step(model, opt, mesh, batch)
+            saved: dict = {}
+            _flop_formulas(False, saved)
+            try:  # (d) the planted fault: the kernels' flop formula removed
+                planted = report_real_step(model, opt, mesh, batch)
+            finally:
+                _flop_formulas(True, saved)
+        del model, opt
+        _free()
+    finally:
+        dist.destroy_process_group()
+    mem_err = abs(real["peak_bytes"] - pred["memory"]["peak_bytes"]) / pred["memory"]["peak_bytes"]
+    want_launches = {k: pred["launches"].get(k, 0) for k in real["launches"]}
+    row_b = {"phase": "report_step", "card": card_line, "predicted_flops": pred["cost"]["matmul_flops"],
+             "counted_flops": real["flops"], "predicted_launches": want_launches, "launches": real["launches"],
+             "predicted_peak_bytes": pred["memory"]["peak_bytes"], "peak_bytes": real["peak_bytes"],
+             "peak_rel_err": mem_err, "planted_flops": planted["flops"],
+             "planted_kernel_flops_missing": pred["cost"]["matmul_flops"] - planted["flops"]}
+    log(row_b)
+    require(real["flops"] == pred["cost"]["matmul_flops"],
+            f"(b) counted flops {real['flops']} != predicted {pred['cost']['matmul_flops']}")
+    require(real["launches"] == want_launches and want_launches["K1"] == want_launches["K2"] == want_launches["K3"] == 1,
+            f"(b) launches {real['launches']} != predicted {want_launches}")
+    require(mem_err <= REPORT_MEM_TOL, f"(b) peak {real['peak_bytes']} is {mem_err:.3f} off the predicted "
+                                       f"{pred['memory']['peak_bytes']}")
+    require(planted["flops"] != pred["cost"]["matmul_flops"], "(d) the planted fault passed the flop check")
+    # (c) phase 19 (b)'s four ranks: each one's first step's collectives by purpose
+    got = mtr["step_collectives"]
+    preds = _report_wait(procs, "c")
+    row_c = {"phase": "report_collectives", "card": card_line, "mesh": list(MT_MESH), "n_layers": MT_LAYERS,
+             "predicted": preds, "counted": got, "equal": preds == got}
+    log(row_c)
+    require(preds == got, f"(c) the ranks' collectives by purpose differ from the dry run's: {preds} vs {got}")
+    return {"b": row_b, "c": row_c, "launches": real["launches"]}
+
+
+def report(card_line: str, dev, mtr: dict) -> dict:
+    """Phase 20, slice 17: (a)'s dry runs and (b)'s and (c)'s predictions in
+    processes of their own on the CPU while (b)-(d) run on the card."""
+    t0 = time.perf_counter()
+    procs = report_start()
+    try:
+        out = report_predicted(card_line, dev, mtr, procs)
+        out["a"] = report_collect(card_line, procs)
+    finally:
+        for p in (*procs["a"], procs["b"], procs["c"]):
+            if p.poll() is None:
+                p.kill()
+                p.wait(10)
+    out["seconds"] = time.perf_counter() - t0
+    log({"phase": "report", "card": card_line, "seconds": out["seconds"]})
     return out
 
 
@@ -5234,6 +5555,7 @@ def main() -> int:
     mod = modality(info["card"], dev)
     msh = mesh(info["card"], dev, op)
     mtr = mesh_train(info["card"], dev)
+    rep = report(info["card"], dev, mtr)
 
     src = "src/repro_torch/kernels/csrc/"
     f32_b128 = {"dtype": "float32", "batch": 128}
@@ -5286,6 +5608,9 @@ def main() -> int:
             k["mesh_serve_launches"] = msh["serve_launches"][k["name"]]
         if k["name"] in mtr["launches"]:  # slice 14: phase 19 (a), the trainer on the 1 x 1 mesh
             k["mesh_train_launches"] = mtr["launches"][k["name"]]
+        report_names = {"chain_matmul": "K1", "chain_dgrad": "K2", "chain_wgrad": "K3"}
+        if k["name"] in report_names:  # slice 17: phase 20 (b)'s real step, held against the dry run
+            k["report_launches"] = rep["launches"][report_names[k["name"]]]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(info["card"], flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

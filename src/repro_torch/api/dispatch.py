@@ -84,6 +84,19 @@ def _dtype_name(dtype: torch.dtype) -> str:
 BSR_BWD_LAUNCHES = 8
 
 
+# flop passes over a chain's stored entries of each fused kernel: the
+# forward (K1/K4) and dgrad (K2/K5) one each, the wgrad (K3/K5) three (its
+# recompute, walk and emission)
+CHAIN_PASSES = {"forward": 1, "dgrad": 1, "wgrad": 3}
+
+
+def chain_flops(batch: int, s_tot: int, kernel: str = "forward") -> float:
+    """The flops the model prices one ``kernel`` launch at, 2·b·s_tot a
+    pass; also the kernels' flop formula (``kernels/library.py``), K6's
+    being one forward pass over its factor's entries."""
+    return CHAIN_PASSES[kernel] * 2.0 * batch * s_tot
+
+
 def _bsr_bwd_bytes(b: int, gather: int) -> float:
     """Device-memory bytes of the bsr backward's f32 intermediates: the
     gathered x blocks and the per-block dx contributions, ``b·gather``
@@ -213,8 +226,8 @@ def choose_backend(
     if not grad:
         est = {
             "dense": roofline_us(2.0 * b * m * n + build_flops, elt * (2 * m * n + edge), n_factors),
-            "bsr": roofline_us(2.0 * b * s_tot, w_stream + elt * (edge + inner), n_factors),
-            "fused": roofline_us(2.0 * b * s_tot, w_stream + elt * edge, 1),
+            "bsr": roofline_us(chain_flops(b, s_tot), w_stream + elt * (edge + inner), n_factors),
+            "fused": roofline_us(chain_flops(b, s_tot), w_stream + elt * edge, 1),
         }
     else:
         # the weight cotangent: f32 for codes (wrt the dequantized values)
@@ -229,7 +242,7 @@ def choose_backend(
                 (1 + BSR_BWD_LAUNCHES) * n_factors if bsr_gather else 3 * n_factors,
             ),
             "fused": roofline_us(
-                5 * 2.0 * b * s_tot,
+                sum(chain_flops(b, s_tot, k) for k in CHAIN_PASSES),
                 3 * w_stream + dv_bytes + elt * 3 * edge + _wgrad_workspace_bytes(b, inner_dims),
                 4 if inner_dims else 3,
             ),

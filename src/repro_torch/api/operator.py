@@ -59,6 +59,7 @@ from repro_torch.core.compress import (
 )
 from repro_torch.core.faust import Faust
 from repro_torch.device import resolve_device
+from repro_torch.kernels.ops import on_card
 
 _LEAF_REPS = (Faust, BlockFaust, PackedChain)
 _FORMATS = ("faust", "block", "packed")
@@ -346,8 +347,8 @@ class FaustOp:
                 "move them with .to() / FaustOp.wrap(..., device=)"
             )
         if use_kernel is None:
-            use_kernel = dev.type == "cuda"
-        elif use_kernel and dev.type != "cuda":
+            use_kernel = on_card(x)
+        elif use_kernel and not on_card(x):
             raise ValueError("use_kernel=True needs a CUDA device")
         if x.shape[-1] != self.shape[0]:
             raise ValueError(f"apply expects x (..., {self.shape[0]}); got {tuple(x.shape)}")

@@ -20,7 +20,10 @@ analytic counts: the projections, embeddings and routers, not the norms'
 vectors (but a mamba block's ``norm_w``, and not its ``conv_b``), the
 shared block once, a FAµST projection (``faust_unembed``, ``faust_mlp``)
 counted as the dense matrix it stands for.  :func:`stored_param_count`
-counts what the port's model stores but the norms.
+counts what the port's model stores but the norms.  :data:`SHAPES` and
+:func:`cells_for` are the reference's shape cells (train_4k, prefill_32k,
+decode_32k, and long_500k for a ``sub_quadratic`` arch), which the dry run
+(``launch/dryrun.py``) runs every arch at.
 """
 from __future__ import annotations
 
@@ -85,6 +88,34 @@ class ArchConfig:
 
     def decode_policy(self) -> ShardingPolicy:
         return self.policy_decode if self.policy_decode is not None else self.policy
+
+
+# --- shape cells (assigned to every LM arch) -------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeCell:
+    name: str
+    kind: str  # train | prefill | decode
+    seq_len: int
+    global_batch: int
+
+
+SHAPES: dict[str, ShapeCell] = {
+    "train_4k": ShapeCell("train_4k", "train", 4096, 256),
+    "prefill_32k": ShapeCell("prefill_32k", "prefill", 32768, 32),
+    "decode_32k": ShapeCell("decode_32k", "decode", 32768, 128),
+    "long_500k": ShapeCell("long_500k", "decode", 524288, 1),
+}
+
+
+def cells_for(cfg: ArchConfig) -> list[str]:
+    """The shape cells of ``cfg``: train, prefill and decode, and
+    ``long_500k`` for a ``sub_quadratic`` arch."""
+    cells = ["train_4k", "prefill_32k", "decode_32k"]
+    if cfg.sub_quadratic:
+        cells.append("long_500k")
+    return cells
 
 
 # --- common sharding policies ----------------------------------------------

@@ -38,6 +38,7 @@ import torch
 
 from repro_torch.distributed import mesh as _mesh
 from repro_torch.distributed.sharding import Block, axes_tuple
+from repro_torch.kernels import library
 
 # collective calls by purpose: a parameter's gather, its gradient's
 # reduce-scatter and all-reduce; the sequence gathers (attention's K/V, a
@@ -106,12 +107,12 @@ class _GatherParam(torch.autograd.Function):
         if axes:
             back = [order.index(j) for j in range(len(order))]
             tiles = g.reshape(dims).permute(back).reshape(math.prod(mesh.shape[a] for a in axes), -1)
-            COLLECTIVES["grad_reduce_scatter"] += 1
             g = _mesh.reduce_scatter(tiles.contiguous(), mesh.group(axes), 0).reshape(block.shape)
+            _count("grad_reduce_scatter", g)
         rest = tuple(a for a in mesh.axis_names if a not in axes and mesh.shape[a] > 1)
         if rest:
-            COLLECTIVES["grad_all_reduce"] += 1
             g = _mesh.all_reduce(g.contiguous(), mesh.group(rest))
+            _count("grad_all_reduce", g)
         return g, None, None
 
 
@@ -125,13 +126,15 @@ class _SeqGather(torch.autograd.Function):
     @staticmethod
     def forward(ctx, t, group, dim):
         ctx.group, ctx.dim = group, dim
-        COLLECTIVES["seq_gather"] += 1
-        return _mesh.all_gather(t.contiguous(), group, dim)
+        out = _mesh.all_gather(t.contiguous(), group, dim)
+        _count("seq_gather", out)
+        return out
 
     @staticmethod
     def backward(ctx, g):
-        COLLECTIVES["seq_reduce_scatter"] += 1
-        return _mesh.reduce_scatter(g.contiguous(), ctx.group, ctx.dim), None, None
+        g = _mesh.reduce_scatter(g.contiguous(), ctx.group, ctx.dim)
+        _count("seq_reduce_scatter", g)
+        return g, None, None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -224,7 +227,9 @@ def embed_lookup(tokens: torch.Tensor, t: torch.Tensor, block: Block, mesh) -> t
         group = mesh.group(axes)
         sizes = _mesh.all_gather(torch.tensor([n], device=ids.device), group, 0)
         _count("embed_lookup", sizes)
-        width = int(sizes.max())
+        # a dry run's fake sizes hold no data; its ranks all hold the cell's rows
+        widest = sizes.max()
+        width = n if library.faking() else int(widest)
         ids = _mesh.all_gather(torch.nn.functional.pad(ids, (0, width - n), value=-1)[None], group, 0).reshape(-1)
         _count("embed_lookup", ids)
     local = ids - block.offset[0]

@@ -171,9 +171,12 @@ def all_gather(t: torch.Tensor, group, dim: int) -> torch.Tensor:
     order.  Moves bits only."""
     wire = _as_wire(t, group)
     bits = _bits(wire)
-    parts = [torch.empty_like(bits) for _ in range(dist.get_world_size(group))]
-    dist.all_gather(parts, bits, group=group)
-    out = torch.cat(parts, dim=dim)
+    n = dist.get_world_size(group)
+    flat = torch.empty((n * bits.numel(),), dtype=bits.dtype, device=bits.device)
+    dist.all_gather_into_tensor(flat, bits.reshape(-1), group=group)  # one flat buffer (gloo's layout)
+    flat = flat.view(n, *bits.shape)
+    d = dim % bits.ndim
+    out = flat.movedim(0, d).reshape(*bits.shape[:d], n * bits.shape[d], *bits.shape[d + 1:])
     return out.view(t.dtype).to(t.device) if bits is not wire else out.to(t.device)
 
 

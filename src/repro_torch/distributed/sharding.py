@@ -181,7 +181,10 @@ def tree_named_sharding(pspecs: dict, shapes: dict, mesh) -> dict:
     """``{name: spec}`` → ``{name: Block}`` of this rank of ``mesh`` (a
     :class:`~repro_torch.distributed.mesh.Mesh`): a dimension split over
     axes ``(a, b)`` is cut in ``|a|·|b|`` parts and the rank holds part
-    ``mesh.index((a, b))``, row-major over those axes in the spec's order."""
+    ``mesh.index((a, b))``, row-major over those axes in the spec's order.
+    On an :class:`~repro_torch.distributed.mesh.AbstractMesh` the blocks
+    are rank 0's."""
+    coord = getattr(mesh, "coord", None) or dict.fromkeys(mesh.shape, 0)
     out = {}
     for name, spec in pspecs.items():
         shape = tuple(shapes[name])
@@ -191,7 +194,7 @@ def tree_named_sharding(pspecs: dict, shapes: dict, mesh) -> dict:
         for ax, n in zip(spec, bshape):
             idx = 0
             for a in axes_tuple(ax):
-                idx = idx * mesh.shape[a] + mesh.coord[a]
+                idx = idx * mesh.shape[a] + coord[a]
             offset.append(idx * n)
         out[name] = Block(spec, shape, tuple(offset), bshape)
     return out

@@ -3,16 +3,18 @@ kernel ``csrc/bsr_matmul.cu``, and its plain PyTorch version.
 
 Replaces ``repro/kernels/bsr_matmul.py:63 bsr_matmul`` (Pallas, TPU).  A
 CUDA tensor launches the kernel, or raises; a CPU tensor runs the plain
-version.  ``bsr_matmul.launches`` counts kernel launches.
+version, through the operator ``repro_torch::bsr_matmul`` while a
+dispatch mode counts or fakes the call (:mod:`repro_torch.kernels.library`).  ``bsr_matmul.launches`` counts kernel launches.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
+import math
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, library
 from repro_torch.kernels.chain import DTYPES, SUPPORTED_BT
 from repro_torch.kernels.ref import bsr_matmul_ref
 
@@ -87,10 +89,31 @@ def bsr_matmul(
     x: torch.Tensor, values: torch.Tensor, in_idx: torch.Tensor, *, bt: int = BSR_BT
 ) -> torch.Tensor:
     """``y = x @ F`` for ``x (B, IB·bk)``, ``values (O, K, bk, bn)``,
-    ``in_idx (O, K)`` int32.  Returns ``(B, O·bn)`` in x.dtype."""
-    if not x.is_cuda:
-        return bsr_matmul_plain(x, values, in_idx)
-    _check(x, values, in_idx, bt)
+    ``in_idx (O, K)`` int32.  Returns ``(B, O·bn)`` in x.dtype.  Runs the
+    operator ``repro_torch::bsr_matmul`` (``kernels/library.py``)."""
+    if x.is_cuda:
+        _check(x, values, in_idx, bt)
+    if library.dispatching():
+        return _OP(x, values, in_idx, bt)
+    return (_launch if x.is_cuda else _plain)(x, values, in_idx, bt)
+
+
+def _plain(x, values, in_idx, bt):
+    return bsr_matmul_plain(x, values, in_idx)
+
+
+def _fake(x, values, in_idx, bt):
+    return x.new_empty((x.shape[0], values.shape[0] * values.shape[3]))
+
+
+def _flops(x_shape, values_shape, idx_shape, bt, *, out_shape=None, **_):
+    from repro_torch.api.dispatch import chain_flops
+
+    return int(chain_flops(x_shape[0], math.prod(values_shape)))
+
+
+def _launch(x, values, in_idx, bt):
+    """K6's launch (the operator's CUDA implementation)."""
     b, in_w = x.shape
     o, k, bk, bn = values.shape
     out = torch.empty((b, o * bn), dtype=x.dtype, device=x.device)
@@ -106,6 +129,8 @@ def bsr_matmul(
     return out
 
 
+_OP = library.define("bsr_matmul", "(Tensor x, Tensor values, Tensor in_idx, int bt) -> Tensor",
+                     kernels=("K6", "K6"), cpu=_plain, cuda=_launch, fake=_fake, flops=_flops)
 bsr_matmul.launches = 0
 
 

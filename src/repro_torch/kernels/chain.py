@@ -25,7 +25,8 @@ blocks), item i being batch tile ``i % n_tiles`` of column group
 blocks, slots, column groups).
 
 A CUDA tensor launches the kernel, or raises; a CPU tensor runs the plain
-version.  ``chain_matmul.launches`` counts K1 launches and
+version, through the operator ``repro_torch::chain_matmul`` while a
+dispatch mode counts or fakes the call (:mod:`repro_torch.kernels.library`).  ``chain_matmul.launches`` counts K1 launches and
 ``chain_matmul.q_launches`` K4 launches.
 """
 from __future__ import annotations
@@ -33,11 +34,12 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
+import math
 
 import torch
 
 from repro_torch.core.compress import ChainPlan
-from repro_torch.kernels import build
+from repro_torch.kernels import build, library
 from repro_torch.kernels.ref import packed_chain_q_ref, packed_chain_ref
 
 META_COLS = 7
@@ -230,13 +232,34 @@ def chain_matmul(
     caller's.  With ``scales (S, blk)`` f32, ``values`` are int8/fp8 codes
     and block row r of step s is ``values[s, r]·scales[s, r]`` (K4); with
     ``scales (S,)`` f32, one scale per block (per-block quantization: the
-    kernel scales each block's MMA partial instead of the activations)."""
-    if not x.is_cuda:
-        if scales is None:
-            return chain_matmul_plain(x, values, meta, plan=plan)
-        return chain_matmul_q_plain(x, values, scales, meta, plan=plan)
-    _check_device(x, values, meta, scales)
-    _check(x, values, meta, plan, bt, scales)
+    kernel scales each block's MMA partial instead of the activations).
+    Runs the operator ``repro_torch::chain_matmul`` (``kernels/library.py``)."""
+    if x.is_cuda:
+        _check_device(x, values, meta, scales)
+        _check(x, values, meta, plan, bt, scales)
+    if library.dispatching():
+        return _OP(x, values, meta, scales, library.plan_id(plan), bt)
+    return (_launch if x.is_cuda else _plain)(x, values, meta, scales, plan, bt)
+
+
+def _plain(x, values, meta, scales, plan, bt):
+    if scales is None:
+        return chain_matmul_plain(x, values, meta, plan=plan)
+    return chain_matmul_q_plain(x, values, scales, meta, plan=plan)
+
+
+def _fake(x, values, meta, scales, plan, bt):
+    return x.new_empty((x.shape[0], plan.out_blocks[-1] * plan.block))
+
+
+def _flops(x_shape, values_shape, meta_shape, scales_shape, pid, bt, *, out_shape=None, **_):
+    from repro_torch.api.dispatch import chain_flops
+
+    return int(chain_flops(x_shape[0], math.prod(values_shape)))
+
+
+def _launch(x, values, meta, scales, plan, bt):
+    """K1/K4's launch (the operator's CUDA implementation)."""
     b, blk = x.shape[0], plan.block
     out_w = plan.out_blocks[-1] * blk
     out = torch.empty((b, out_w), dtype=x.dtype, device=x.device)
@@ -264,5 +287,9 @@ def chain_matmul(
     return out
 
 
+_OP = library.define(
+    "chain_matmul", "(Tensor x, Tensor values, Tensor meta, Tensor? scales, int plan, int bt) -> Tensor",
+    kernels=("K1", "K4"), cpu=library.by_plan(_plain), cuda=library.by_plan(_launch), fake=library.by_plan(_fake),
+    flops=_flops)
 chain_matmul.launches = 0
 chain_matmul.q_launches = 0

@@ -30,7 +30,9 @@ state of ``in_idx`` (data pointer and version counter) and reused.
 
 A CUDA tensor launches the kernel, or raises; a CPU tensor runs the plain
 version (``chain_dgrad_plain``/``chain_wgrad_plain``: the reference's
-``chain_bwd_ref`` walk in f32).  ``chain_dgrad.launches`` /
+``chain_bwd_ref`` walk in f32), through the operators
+``repro_torch::chain_dgrad``/``chain_wgrad`` while a dispatch mode counts
+or fakes the call (:mod:`repro_torch.kernels.library`).  ``chain_dgrad.launches`` /
 ``chain_dgrad.q_launches`` count K2 / K5 dgrad calls,
 ``chain_wgrad.launches`` / ``chain_wgrad.q_launches`` K3 / K5 wgrad calls
 (one count per call; a wgrad call of a chain with J > 1 launches its
@@ -43,12 +45,13 @@ import collections
 import ctypes
 import dataclasses
 import functools
+import math
 
 import numpy as np
 import torch
 
 from repro_torch.core.compress import ChainPlan
-from repro_torch.kernels import build
+from repro_torch.kernels import build, library
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels.chain import (
     DGRAD_BT,
@@ -156,10 +159,18 @@ def _block_base(plan: ChainPlan) -> np.ndarray:
     return np.repeat(_act_offsets(plan)[:-1], np.diff(plan.offsets)).astype(np.int64)
 
 
-@functools.lru_cache(maxsize=64)
-def _static_on(plan: ChainPlan, device: torch.device, kind: str) -> torch.Tensor:
+def _static_table(plan: ChainPlan, device: torch.device, kind: str) -> torch.Tensor:
     table = {"dgrad": _dgrad_meta_static, "wgrad": _wgrad_meta_static, "block_base": _block_base}[kind]
     return torch.from_numpy(table(plan)).to(device)
+
+
+_static_cached = functools.lru_cache(maxsize=64)(_static_table)
+
+
+def _static_on(plan: ChainPlan, device: torch.device, kind: str) -> torch.Tensor:
+    """A static table on ``device``, uploaded once per plan (every time on
+    fake tensors: the cache holds no fake tensor)."""
+    return (_static_table if library.faking() else _static_cached)(plan, device, kind)
 
 
 _MEMO_MAX = 16
@@ -172,6 +183,8 @@ def _memo(memo: collections.OrderedDict, plan: ChainPlan, t: torch.Tensor, build
     """``build()`` once per plan and state of ``t``: keyed by its data
     pointer, layout and version counter (an in-place update rebuilds); the
     entry holds ``t``, so its memory is not reused while the entry lives."""
+    if library.faking():  # a fake tensor has no data pointer to key on
+        return build()
     key = (plan, t.device, t.data_ptr(), tuple(t.shape), t.stride(), t._version)
     hit = memo.get(key)
     if hit is None:
@@ -623,11 +636,19 @@ def chain_dgrad(
     :func:`dgrad_meta` table.  Returns ``(B, IB_1·blk)`` in dy's dtype.
     With ``scales (S, blk)`` f32, ``values`` are codes (K5).  One
     cooperative launch; a grid that cannot be resident raises."""
-    if not dy.is_cuda:
-        return chain_dgrad_plain(dy, values, meta, plan=plan, scales=scales)
-    _edges(plan, None, dy)
-    _check_device("chain_dgrad", (dy, values, meta) + (() if scales is None else (scales,)))
-    _check("chain_dgrad", (dy,), values, meta, plan, bt, scales, plan.n_steps, DGRAD_META_COLS)
+    if dy.is_cuda:
+        _edges(plan, None, dy)
+        _check_device("chain_dgrad", (dy, values, meta) + (() if scales is None else (scales,)))
+        _check("chain_dgrad", (dy,), values, meta, plan, bt, scales, plan.n_steps, DGRAD_META_COLS)
+    if library.dispatching():
+        return _DGRAD(dy, values, meta, scales, library.plan_id(plan), bt)
+    if dy.is_cuda:
+        return _dgrad_launch(dy, values, meta, scales, plan, bt)
+    return chain_dgrad_plain(dy, values, meta, plan=plan, scales=scales)
+
+
+def _dgrad_launch(dy, values, meta, scales, plan, bt):
+    """K2/K5-dgrad's launch (the operator's CUDA implementation)."""
     if scales is not None:
         scales = _row_scales_for(plan, scales)
     gather = _gather_for(plan, meta)
@@ -678,14 +699,23 @@ def chain_wgrad(
     per block row) or ``(S,)`` (one per block) f32, ``values`` are codes and
     the gradient is wrt the dequantized values (K5).  ``bt`` is the
     recompute's and the walk's batch tile."""
-    if not x.is_cuda:
-        return chain_wgrad_plain(x, dy, values, meta, plan=plan, scales=scales)
-    _edges(plan, x, dy)
     s_pre = plan.offsets[plan.n_factors - 1]
-    _check_device("chain_wgrad", (x, dy, values, meta) + (() if scales is None else (scales,)))
-    _check("chain_wgrad", (x, dy), values, meta, plan, bt, scales, s_pre + plan.n_steps, WGRAD_META_COLS)
-    if plan.n_factors > MAX_FACTORS:
-        raise ValueError(f"chain_wgrad: at most {MAX_FACTORS} factors; got {plan.n_factors}")
+    if x.is_cuda:
+        _edges(plan, x, dy)
+        _check_device("chain_wgrad", (x, dy, values, meta) + (() if scales is None else (scales,)))
+        _check("chain_wgrad", (x, dy), values, meta, plan, bt, scales, s_pre + plan.n_steps, WGRAD_META_COLS)
+        if plan.n_factors > MAX_FACTORS:
+            raise ValueError(f"chain_wgrad: at most {MAX_FACTORS} factors; got {plan.n_factors}")
+    if library.dispatching():
+        return _WGRAD(x, dy, values, meta, scales, library.plan_id(plan), bt)
+    if x.is_cuda:
+        return _wgrad_launch(x, dy, values, meta, scales, plan, bt)
+    return chain_wgrad_plain(x, dy, values, meta, plan=plan, scales=scales)
+
+
+def _wgrad_launch(x, dy, values, meta, scales, plan, bt):
+    """K3/K5-wgrad's launches (the operator's CUDA implementation)."""
+    s_pre = plan.offsets[plan.n_factors - 1]
     b, blk, s = x.shape[0], plan.block, plan.n_steps
     dvalues = torch.empty((s, blk, blk), dtype=torch.float32, device=x.device)
     if b == 0:
@@ -728,5 +758,26 @@ def chain_wgrad(
     return dvalues
 
 
+def _flops(kernel: str, batch: int, values_shape) -> int:
+    from repro_torch.api.dispatch import chain_flops
+
+    return int(chain_flops(batch, math.prod(values_shape), kernel))
+
+
+_DGRAD = library.define(
+    "chain_dgrad", "(Tensor dy, Tensor values, Tensor meta, Tensor? scales, int plan, int bt) -> Tensor",
+    kernels=("K2", "K5"), cuda=library.by_plan(_dgrad_launch),
+    cpu=library.by_plan(lambda dy, values, meta, scales, plan, bt: chain_dgrad_plain(
+        dy, values, meta, plan=plan, scales=scales)),
+    fake=library.by_plan(lambda dy, values, meta, scales, plan, bt: dy.new_empty(
+        (dy.shape[0], plan.in_blocks[0] * plan.block))),
+    flops=lambda dy, values, *args, out_shape=None, **_: _flops("dgrad", dy[0], values))
+_WGRAD = library.define(
+    "chain_wgrad", "(Tensor x, Tensor dy, Tensor values, Tensor meta, Tensor? scales, int plan, int bt) -> Tensor",
+    kernels=("K3", "K5"), cuda=library.by_plan(_wgrad_launch),
+    cpu=library.by_plan(lambda x, dy, values, meta, scales, plan, bt: chain_wgrad_plain(
+        x, dy, values, meta, plan=plan, scales=scales)),
+    fake=lambda x, dy, values, meta, scales, pid, bt: values.new_empty(values.shape, dtype=torch.float32),
+    flops=lambda x, dy, values, *args, out_shape=None, **_: _flops("wgrad", x[0], values))
 chain_dgrad.launches = chain_dgrad.q_launches = 0
 chain_wgrad.launches = chain_wgrad.q_launches = 0

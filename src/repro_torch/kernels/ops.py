@@ -31,6 +31,7 @@ from repro_torch.core.compress import (
     ChainPlan,
     PackedChain,
 )
+from repro_torch.kernels import library
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels.bsr_matmul import bsr_matmul
 from repro_torch.kernels.chain import DGRAD_BT, FORWARD_BT, META_COLS, SUPPORTED_BT, WGRAD_BT, chain_matmul
@@ -44,10 +45,17 @@ from repro_torch.kernels.chain_bwd import (
 )
 
 
+def on_card(x: torch.Tensor) -> bool:
+    """Whether ``x`` takes the card's path: a CUDA tensor, or any tensor
+    of a dry run (fake tensors, ``launch/dryrun.py``), whose kernels run as
+    their operators' fake implementations."""
+    return x.is_cuda or library.faking()
+
+
 def _want_kernel(x: torch.Tensor, use_kernel: bool | None) -> bool:
     if use_kernel is None:
-        return x.is_cuda
-    if use_kernel and not x.is_cuda:
+        return on_card(x)
+    if use_kernel and not on_card(x):
         raise ValueError(
             "use_kernel=True needs a CUDA tensor: the CUDA kernels do not run "
             "on the CPU (use_kernel=None runs the plain version there)"
@@ -137,8 +145,16 @@ def _chain_meta_static(plan: ChainPlan) -> np.ndarray:
 
 
 @functools.lru_cache(maxsize=64)
-def _chain_meta_static_on(plan: ChainPlan, device: torch.device) -> torch.Tensor:
+def _chain_meta_static_cached(plan: ChainPlan, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(_chain_meta_static(plan)).to(device)
+
+
+def _chain_meta_static_on(plan: ChainPlan, device: torch.device) -> torch.Tensor:
+    """The static columns on ``device``, uploaded once per plan (every time
+    on fake tensors: the cache holds no fake tensor)."""
+    if library.faking():
+        return torch.from_numpy(_chain_meta_static(plan)).to(device)
+    return _chain_meta_static_cached(plan, device)
 
 
 def chain_meta(plan: ChainPlan, in_idx: torch.Tensor) -> torch.Tensor:

@@ -1,6 +1,10 @@
-"""Roofline constants of one NVIDIA H100 SXM, for the dispatch cost model.
-Counterpart of ``load_roofline``/``roofline_constants``/``reload`` in
-:mod:`repro.launch.roofline`; the port prices with its own card's numbers.
+"""Roofline constants of one NVIDIA H100 SXM, for the dispatch cost model
+and the dry run's report.  Counterpart of ``load_roofline``/
+``roofline_constants``/``reload``, ``collective_stats`` and
+``roofline_terms`` in :mod:`repro.launch.roofline`; the port prices with
+its own card's numbers.  The reference's HLO text parsers have no input
+in eager PyTorch: :mod:`repro_torch.launch.step_cost` counts a step as it
+runs instead.
 
 Builtin constants:
 
@@ -110,3 +114,56 @@ def reload() -> tuple[dict, str]:
     """Drop the cached constants and read the cache now."""
     _STATE["stamp"] = None
     return roofline_constants()
+
+
+# ---------------------------------------------------------------------------
+# A dry-run record's collectives and roofline terms (launch/dryrun.py)
+# ---------------------------------------------------------------------------
+
+COLLECTIVE_OPS = ("all-gather", "reduce-scatter", "all-reduce")
+
+
+def collective_stats(counted: dict) -> dict:
+    """The collectives of a rank's step in the reference's form,
+    ``{"total_bytes", "by_op", "count"}``, from what
+    :class:`~repro_torch.launch.step_cost.StepCost` counted (its
+    ``record()["counted"]``): the bytes of each call's result on the rank
+    by operator, and ``by_purpose``, the model's own count
+    (``distributed/layout.py``: calls and bytes by purpose).  Where the
+    reference parses them out of the partitioned HLO, the port counts the
+    calls as they run."""
+    by_op = dict.fromkeys(COLLECTIVE_OPS, 0)
+    for k, v in counted.get("by_op", {}).items():
+        by_op[k] = by_op.get(k, 0) + int(v)
+    return {
+        "total_bytes": int(sum(by_op.values())),
+        "by_op": by_op,
+        "count": int(sum(counted.get("count", {}).values())),
+        "by_purpose": counted.get("by_purpose", {}),
+    }
+
+
+def roofline_terms(record: dict, consts: dict | None = None) -> dict:
+    """The three terms of a dry-run record, a rank's seconds at the card's
+    peaks (:func:`roofline_constants` unless ``consts`` is given):
+
+        compute    = flops / peak (bf16 tensor cores; f32 FFMA for an f32 model)
+        memory     = bytes / HBM bandwidth
+        collective = collective bytes / link bandwidth (NVLink, each way)
+
+    with the dominant one, the bound (the largest) and the roofline
+    fraction (the dominant term over their sum: an overlap-optimistic
+    model), as the reference's ``roofline_terms``."""
+    if consts is None:
+        consts, _ = roofline_constants()
+    peak = consts["peak_flops"]
+    if record.get("dtype") == "float32":
+        peak = consts.get("peak_flops_f32", peak)
+    terms = {
+        "compute_s": record["cost"]["flops"] / peak,
+        "memory_s": record["cost"]["bytes"] / consts["hbm_bw"],
+        "collective_s": record["collectives"]["total_bytes"] / consts["link_bw"],
+    }
+    dominant = max(terms, key=lambda k: terms[k])
+    bound, total = max(terms.values()), sum(terms.values())
+    return {**terms, "dominant": dominant, "bound_s": bound, "roofline_fraction": bound / total if total else 0.0}

@@ -158,11 +158,12 @@ class Layer(nn.Module):
         x = x + shard_act(y.to(x.dtype), "batch", "seq", None)
         h = apply_norm(cfg.norm, self.norm2, x)
         aux = None
-        if self.kind == "moe" and seq is not None:
+        if self.kind == "moe" and seq is not None and mode == TRAIN:
             # routing and its capacity ceil(T·k/E·cf) count the whole row's
             # T, so the MoE runs on whole rows under any sequence split,
             # whatever the policy's moe_gather_seq says (llama4's policy
-            # splits the sequence without setting it)
+            # splits the sequence without setting it).  In prefill and
+            # decode ``seq`` splits the cache, not ``h``: its rows are whole
             y, aux = self.moe(seq.gather(h, 1))
             y = seq.take(y, 1)
         elif self.kind == "moe":

@@ -375,20 +375,27 @@ class RowLogits:
         """Every live row's greedy tokens ``(n,)`` / ``(n, K)`` (int32) and
         finite flag ``(n,)`` (bool), the same on every rank."""
         if self._picks is None:
-            import torch
-
-            from repro_torch.distributed.layout import reduce_over
-            from repro_torch.models.lm import greedy_token
-
-            step = self.local[:, -1]
-            tok = greedy_token(step)  # (b,) or (b, K)
-            k = 1 if tok.ndim == 1 else tok.shape[1]
-            buf = torch.zeros((self.n, k + 1), dtype=torch.int32, device=step.device)
-            buf[self.rows, :k] = tok.reshape(-1, k)
-            buf[self.rows, k] = torch.isfinite(step.float()).flatten(1).all(dim=-1).to(torch.int32)
-            buf = reduce_over(buf, self.group, "sum", "row_gather").cpu().numpy()
-            self._picks = (buf[:, :k].reshape((self.n,) + tuple(tok.shape[1:])), buf[:, k].astype(bool))
+            buf = self.gathered().cpu().numpy()
+            shape = tuple(self.local.shape[2:-1])  # () or (K,)
+            k = buf.shape[1] - 1
+            self._picks = (buf[:, :k].reshape((self.n,) + shape), buf[:, k].astype(bool))
         return self._picks
+
+    def gathered(self):
+        """The device side of :meth:`picks`: ``(n, K + 1)`` int32, every
+        row's tokens and finite flag, summed over the rows' group."""
+        import torch
+
+        from repro_torch.distributed.layout import reduce_over
+        from repro_torch.models.lm import greedy_token
+
+        step = self.local[:, -1]
+        tok = greedy_token(step)  # (b,) or (b, K)
+        k = 1 if tok.ndim == 1 else tok.shape[1]
+        buf = torch.zeros((self.n, k + 1), dtype=torch.int32, device=step.device)
+        buf[self.rows, :k] = tok.reshape(-1, k)
+        buf[self.rows, k] = torch.isfinite(step.float()).flatten(1).all(dim=-1).to(torch.int32)
+        return reduce_over(buf, self.group, "sum", "row_gather")
 
 
 def _split_axes(ax, n: int, mesh) -> tuple[str, ...]:
