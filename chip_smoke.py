@@ -65,12 +65,13 @@ Phases, each fatal on failure (non-zero exit):
    ``torch.profiler``: device busy time and idle share, device time by
    kernel family (K1/K4, K2, K3 and its three launches, dense matmul,
    elementwise, other);
-8. the batched factorizer at workload scale: gemma-2b's 18 MLP
-   up-projections as one stack ``(18, 2048, 16384)`` f32 through
-   ``factorize`` (slice 1's spec, one solve per step for the stack):
-   seconds, each matrix's RE, peak memory; matrices 0 and 17 again through
-   the sequential route (RE within 1e-3); each of the 18 operators through
-   ``apply("fused")`` against ``x @ todense()``, 18 K1 launches;
+8. the batched factorizer at workload scale: ``BATCHED_STACK``, 9 of
+   gemma-2b's 18 MLP up-projections (the script's time limit), as one stack
+   ``(9, 2048, 16384)`` f32 through ``factorize`` (slice 1's spec, one
+   solve per step for the stack): seconds, each matrix's RE, peak memory;
+   the first and last matrix again through the sequential route (RE
+   within 1e-3); each operator through ``apply("fused")`` against ``x @
+   todense()``, one K1 launch each;
 9. the other strategies: ``"meg"`` on a 204 × 8193 synthetic gain matrix
    (J = 4, k = 10, s = 816), ``"dictionary"`` on 10,000 8×8 patches of a
    noisy 512 × 512 image (a 64 × 128 MOD dictionary, J = 4, k = 4), flat
@@ -292,7 +293,7 @@ Phases, each fatal on failure (non-zero exit):
    TPOT and peak memory, K1 launched, no collective.  No time of the
    four ranks is a multi-GPU number: they share one card;
 19. the language model trained on a mesh (slice 14): (a) a 1 × 1 NCCL mesh
-   in this process: gemma-2b at full width cut to ``MT_NCCL_LAYERS`` = 4
+   in this process: gemma-2b at full width cut to ``MT_NCCL_LAYERS`` = 2
    of its 18 layers through ``Trainer(mesh=)``
    with ``launch.train``'s ``--faust --steps 3 --batch 8 --seq 128``
    (bf16, remat, the head forced onto ``fused``), beside the unsharded
@@ -323,7 +324,7 @@ Phases, each fatal on failure (non-zero exit):
    variant × train_4k, four processes on the CPU (fake tensors, no card)
    beside (b)-(d): each record's roofline terms at the H100 constants,
    its peak GB a rank and its seconds; (b) the dry run of phase 19 (a)'s
-   configuration (4 layers, 8 × 128, bf16, the head forced fused) on a
+   configuration (2 layers, 8 × 128, bf16, the head forced fused) on a
    1 × 1 mesh (like (c)'s, in a CPU process of its own beside the card
    work), logged before the real step, then one step of that model
    on a 1 × 1 NCCL mesh: ``FlopCounterMode``'s flops must equal the
@@ -333,7 +334,32 @@ Phases, each fatal on failure (non-zero exit):
    each rank of a fake 2 × 2 mesh: its collectives by purpose (calls and
    bytes, ``distributed/layout.py``) must equal what each of phase 19
    (b)'s ranks counted in its first step; (d) a planted fault, the
-   kernels' flop formulas removed, must fail (b)'s flop check.
+   kernels' flop formulas removed, must fail (b)'s flop check;
+21. tensor parallelism on the model axis (slice 18): gemma3-27b at full
+   width (d 5376, 32 query and 16 KV heads, ff 21504, vocabulary 262,144,
+   ``launch.train``'s ``--faust`` head), cut to one local and one global
+   layer (``TP_UNIT``), ``--batch 8 --seq 128``: (a) the unsharded
+   trainer in bf16 (its first step's flops by module under
+   ``FlopCounterMode``), and in f32 at the smoke width, in this process;
+   (b) the bf16 trainer on a 1 × 1 NCCL mesh (nothing splits on one rank)
+   within ``MT_TOL`` of (a); (c) four ranks spawned on this card over
+   ``gloo``, a 2 × 2 ``("data", "model")`` mesh under ``TP_POLICY``:
+   attention on the rank's heads, the MLP on its hidden columns, the
+   FAµST head on its out-blocks (K1 forward, K2 and K3 backward, one
+   launch a segment a step, the count the plan gives), the
+   vocab-parallel cross entropy; a bf16 step, and an f32 step at the
+   smoke width, each within ``MT_TOL`` of (a)'s (losses and gradient
+   norms), the losses equal on every rank; a rank's flops of attention
+   and the MLP half the gathered path's (the unsharded step's over the
+   data axis); its first step's collectives by purpose equal to the dry
+   run's on each rank of a fake 2 × 2 (a CPU process of its own,
+   ``tp_prediction``, beside (a)-(c), which also prices the gathered
+   path), and its peak GB within ``REPORT_MEM_TOL`` of that dry run's
+   with the collectives staged in host memory as gloo stages them
+   (``host_staged_wire``); a planted fault at the smoke width (the
+   column-parallel input's backward all-reduce dropped, f32) that must
+   fail the loss check; step seconds logged (four ranks share the card:
+   no multi-GPU time).
 
 Prints one JSON object per line; the last three lines are the kernels
 summary, the card's ``name, power.limit`` and ``{"ok": true, ...}``.
@@ -1807,6 +1833,7 @@ def measure_unembed(card_line: str, dev, b: int = 1024, dims=(2048, 2048, 256000
 # ---------------------------------------------------------------------------
 
 GEMMA_UP = (18, 2048, 16384)  # gemma-2b: n_layers, d_model, d_ff (src/repro/configs/gemma_2b.py)
+BATCHED_STACK = (9,) + GEMMA_UP[1:]  # phase 8's stack: 9 of the 18 up-projections (all 18 take ≈ 67 s on the H100)
 BATCHED_RE_GAP = 1e-3  # batched against sequential RE on the card: bmm and mm sum in other orders
 
 
@@ -1821,8 +1848,9 @@ def _free() -> None:
 
 
 def factorize_batched(dev, shape=GEMMA_UP, block: int = 128, batch: int = 128, check=(0, -1)) -> dict:
-    """Phase 8: every MLP up-projection of gemma-2b as one stack ``(18,
-    2048, 16384)`` f32 (seed 0, /√2048) through ``factorize(ws, spec)``
+    """Phase 8: gemma-2b's MLP up-projections as one stack ``shape``
+    (default all 18, ``(18, 2048, 16384)``) f32 (seed 0, /√2048) through
+    ``factorize(ws, spec)``
     with slice 1's spec (block 128, k 4, J = 3, 40/40 sweeps): the batched
     route's seconds, each matrix's RE and the peak memory; the sequential
     route on the first and last matrix, whose RE must lie within 1e-3 of
@@ -4457,21 +4485,22 @@ def mesh_head(card_line: str, dev, mesh) -> dict:
 
 @contextlib.contextmanager
 def boundary_gather_skipped():
-    """While it runs, a model-mode apply skips each crossing all-gather and
-    reads only this rank's block of the activation (zeros elsewhere)."""
+    """While it runs, a model-mode apply (``fused_sharded``, or a head split
+    by vocabulary) skips each crossing all-gather and reads only this
+    rank's block of the activation (zeros elsewhere)."""
     import torch
 
     from repro_torch.kernels import chain_sharded as cs
 
     real = cs._BoundaryGather.apply
 
-    def local_only(y, group):
+    def local_only(y, group, purpose=None):
         n, p = torch.distributed.get_world_size(group), torch.distributed.get_rank(group)
         out = y.new_zeros((y.shape[0], y.shape[1] * n))
         out[:, p * y.shape[1]:(p + 1) * y.shape[1]] = y
         return out
 
-    cs._BoundaryGather.apply = local_only
+    cs._BoundaryGather.apply = local_only  # the sharded apply's and a split head's
     try:
         yield
     finally:
@@ -4567,9 +4596,11 @@ def merge_skipped():
 def mesh_serve(card_line: str, dev, mesh) -> dict:
     """Phase 18 (c) on one rank: gemma-2b at full width, ``SERVE_LAYERS``
     deep, split by ``LM.shard_`` and served under its decode policy (the
-    pool's rows over data, the caches' positions over model, the weights
-    gathered a module at a time), its FAµST head sharded too (forced onto
-    ``fused_sharded``), through ``Engine`` + ``LMExecutor(mesh=)`` (4 slots)
+    pool's rows over data, the caches' positions over model, the MLP's
+    hidden columns and the vocabulary computed in blocks over model since
+    slice 18, the other weights gathered a module at a time; the FAµST
+    head, ``ShardSpec``'d and forced onto ``fused_sharded``, computes the
+    rank's out-blocks), through ``Engine`` + ``LMExecutor(mesh=)`` (4 slots)
     and ``Server(mesh=)``; then the two planted faults; rank 0 alone, after
     every collective: the teacher-forced checks and the unsharded engine
     on a whole copy of the model."""
@@ -4612,12 +4643,16 @@ def mesh_serve(card_line: str, dev, mesh) -> dict:
                                      planted_budgets)
     row = run["row"]
     row["prompt_lengths"] = [len(p) for p in prompts]
-    row["server"] = {"mesh_axes": stats.mesh_axes, "tokens": gen.tolist(), "faust_dispatch": stats.faust_dispatch.backend,
-                     "launches": server_launches}
+    row["server"] = {"mesh_axes": stats.mesh_axes, "tokens": gen.tolist(),
+                     "faust_dispatch": getattr(stats.faust_dispatch, "backend", None), "launches": server_launches}
     row["skew_s"] = out["skew_s"]
-    require(row["launches"]["chain_matmul"] > 0 and row["launches"]["coll_boundary_gather"] > 0,
-            f"the sharded head never ran: {row['launches']}")
-    require(stats.mesh_axes == dict(mesh.shape) and stats.faust_dispatch.backend == "fused_sharded",
+    # the decode policy splits the vocabulary: the head computes the rank's
+    # out-blocks (kernels/chain_sharded.py split_chain_apply), one K1 a
+    # segment, without dispatch
+    require(row["launches"]["chain_matmul"] > 0 and row["launches"]["coll_boundary_gather"] > 0
+            and row["model_collectives"]["calls"]["head_boundary_gather"] > 0,
+            f"the split head never ran: {row['launches']}")
+    require(stats.mesh_axes == dict(mesh.shape) and server_launches["coll_boundary_gather"] > 0,
             f"Server(mesh=): {row['server']}")
     pb = row["pool_bytes"]
     require(4 * pb["split_kv"] == pb["split_kv_whole"],
@@ -4625,6 +4660,8 @@ def mesh_serve(card_line: str, dev, mesh) -> dict:
     coll = row["model_collectives"]["calls"]
     require(coll["param_gather"] > 0 and coll["kv_merge"] > 0 and coll["row_gather"] > 0,
             f"the decode policy's placement never ran: {coll}")
+    require(coll["tp_output"] > 0 and coll["vocab_pick"] > 0,
+            f"the decode policy's MLP and vocabulary split never ran: {coll}")
     out.update(tokens=run["tokens"], planted_tokens=bad["tokens"], planted_merge_tokens=bad_merge["tokens"],
                server_tokens=gen.tolist(), launches=row["launches"], pool_bytes=pb, idle_steps=row["idle_steps"],
                bytes_per_decode_step=row["bytes_per_decode_step"],
@@ -4870,7 +4907,7 @@ def mesh(card_line: str, dev, op) -> dict:
 
 MT_ARGV = ("--arch", "gemma_2b", "--faust", "--steps", "3", "--batch", "8", "--seq", "128")
 MT_LAYERS = 2  # (b)'s depth (phase 14 (b)'s): every collective of the four ranks is host-staged
-MT_NCCL_LAYERS = 4  # (a)'s depth: at 18 its 25.2 GB save and restore took ≈ 50 s
+MT_NCCL_LAYERS = 2  # (a)'s depth: at 18 its 25.2 GB save and restore took ≈ 50 s
 MT_STEPS = 2  # (b)'s bf16 run: SIGTERM after step 1, the resumes run step 2 (each host-staged step ≈ 20 s)
 MT_MESH = (2, 2)
 # losses and gradient norms against the unsharded trainer's, relative (an H100: sound runs bf16 ≤ 1.1e-5,
@@ -5498,6 +5535,384 @@ def report(card_line: str, dev, mtr: dict) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Slice 18: tensor parallelism on the model axis (phase 21)
+# ---------------------------------------------------------------------------
+
+TP_ARGV = ("--arch", "gemma3_27b", "--faust", "--steps", "2", "--batch", "8", "--seq", "128")
+TP_UNIT = ("local", "attn")  # the depth: one local layer and one global, at full width
+TP_MESH = (2, 2)
+TP_STEPS = 1  # every run's steps: a host-staged bf16 step takes ≈ 20 s, the first ≈ 40 s
+# the f32 runs, the planted fault's among them: the smoke width (a
+# host-staged step of well under a second, where the full width's took
+# 21-34 s), its vocabulary one that splits into whole FAµST blocks
+TP_SMALL_VOCAB = 256
+TP_TIMEOUT_S = 300  # a rank waiting in a collective longer than this fails
+TP_JOIN_S = 600
+TP_FOLDER = ROOT / "build" / "chip_smoke_tp"
+# a rank's flops of attention and the MLP against the gathered path's (the
+# unsharded step's over the data axis, each rank computing its rows with
+# whole weights): half on 2 x 2, the heads and hidden columns split over
+# model (exactly 0.5 in the CPU rehearsal)
+TP_FLOP_SHARE = (0.49, 0.51)
+_TP_MODULES = {"attention": "Layer.attn", "mlp": "Layer.mlp", "head": "Unembed"}
+
+
+def _tp_config(dtype=None, gathered: bool = False, small: bool = False):
+    """``launch.train``'s run of ``TP_ARGV`` and its config cut to
+    ``TP_UNIT``, cast to ``dtype`` where given; ``gathered``: under a
+    policy whose activations name no axis (every module gathered whole,
+    the path before slice 18); ``small``: at the smoke width, with a
+    vocabulary of ``TP_SMALL_VOCAB``."""
+    import dataclasses
+
+    from repro_torch.launch import train
+
+    base = train.build(train.parse_args(list(TP_ARGV) + (["--smoke"] if small else [])))
+    cfg = dataclasses.replace(base.cfg, n_layers=len(TP_UNIT), stages=((1, TP_UNIT),))
+    if small:
+        cfg = dataclasses.replace(cfg, vocab=TP_SMALL_VOCAB)
+    if dtype is not None:
+        cfg = dataclasses.replace(cfg, dtype=dtype)
+    if gathered:
+        cfg = dataclasses.replace(cfg, policy=dataclasses.replace(cfg.policy, heads_act=None, mlp_act=None,
+                                                                  vocab_act=None))
+    return base, cfg
+
+
+def _tp_trainer(dev, mesh=None, dtype=None, small: bool = False, **tc):
+    """``launch.train``'s trainer for ``TP_ARGV`` cut to ``TP_UNIT`` (at the
+    smoke width with ``small``) on ``mesh`` and a model from seed 0 (an
+    unsplit head forced onto ``fused``)."""
+    import dataclasses
+
+    from repro_torch.models.lm import LM
+    from repro_torch.runtime.trainer import Trainer
+
+    base, cfg = _tp_config(dtype, small=small)
+    data_cfg = dataclasses.replace(base.data_cfg, vocab=cfg.vocab)
+    t = Trainer(cfg, data_cfg, base.opt_cfg, dataclasses.replace(base.tcfg, **{"checkpoint_every": 1000, **tc}),
+                mesh=mesh, device=dev)
+    model = LM(cfg, seed=0, device=dev)
+    _fused_head(model)
+    return t, model
+
+
+@contextlib.contextmanager
+def first_step_flops():
+    """``FlopCounterMode``'s flops of the first train step the trainer
+    makes meanwhile (forward and backward), by module (``_TP_MODULES``)
+    and in all, in the dict yielded."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.runtime import trainer
+
+    real, seen = trainer.make_train_step, {}
+
+    def making(*args, **kw):
+        step = real(*args, **kw)
+
+        def counted(*a, **k):
+            if seen:
+                return step(*a, **k)
+            with FlopCounterMode(display=False) as fc:
+                out = step(*a, **k)
+            counts = fc.get_flop_counts()
+            seen.update({name: sum(counts.get(mod, {}).values()) for name, mod in _TP_MODULES.items()})
+            seen["total"] = fc.get_total_flops()
+            return out
+
+        return counted
+
+    trainer.make_train_step = making
+    try:
+        yield seen
+    finally:
+        trainer.make_train_step = real
+
+
+def _tp_run(t, model, flops: bool = False) -> dict:
+    """:func:`_mt_run` with the first step's collectives by purpose, and
+    with ``flops`` its flops by module."""
+    with contextlib.ExitStack() as stack:
+        coll = stack.enter_context(first_step_collectives())
+        fl = stack.enter_context(first_step_flops()) if flops else None
+        out = _mt_run(t, model)
+    out["step_collectives"] = coll
+    if fl is not None:
+        out["flops"] = fl
+    return out
+
+
+@contextlib.contextmanager
+def host_staged_wire():
+    """While it runs, the model's collectives (``distributed/mesh.py``)
+    allocate their results alone where the step runs: a dry run's peak
+    for ranks whose collectives a gloo group stages through host memory
+    (phase 21's), where a gather's buffer and a bf16 reduction's f32
+    accumulator lie on the host.  Without it the dry run places them
+    beside the tensors, as NCCL does on a card (the report's model).  No
+    data moves and no ``c10d`` call is made; the model's own counts by
+    purpose (``distributed/layout.py``) are counted as ever."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.distributed import mesh as _mesh
+
+    def all_gather(t, group, dim):
+        shape = list(t.shape)
+        shape[dim % t.ndim] *= dist.get_world_size(group)
+        return t.new_empty(shape)
+
+    def reduce_scatter(t, group, dim):
+        shape = list(t.shape)
+        shape[dim % t.ndim] //= dist.get_world_size(group)
+        return t.new_empty(shape)
+
+    real = _mesh.all_gather, _mesh.all_reduce, _mesh.reduce_scatter
+    _mesh.all_gather, _mesh.reduce_scatter = all_gather, reduce_scatter
+    _mesh.all_reduce = lambda t, group, op=None: torch.empty_like(t)
+    try:
+        yield
+    finally:
+        _mesh.all_gather, _mesh.all_reduce, _mesh.reduce_scatter = real
+
+
+def tp_prediction(path: str) -> None:
+    """Phase 21's predictions, written to ``path`` as JSON (a process of
+    its own on the CPU, beside the card work): the dry run of the bf16
+    configuration on each rank of a fake 2 × 2 mesh, its collectives host
+    staged as the ranks' are (:func:`host_staged_wire`: collectives by
+    purpose, peak, flops), rank 0's with them on the card, and rank 0's
+    of the gathered path."""
+    from repro_torch.launch.dryrun import dry_run
+    from repro_torch.launch.mesh import abstract_rank, release
+
+    cell = _tp_cell()
+    out = {"ranks": []}
+    _, cfg = _tp_config()
+    with host_staged_wire():
+        for r in range(math.prod(TP_MESH)):
+            rec = dry_run(cfg, cell, abstract_rank(TP_MESH, ("data", "model"), r))
+            release()
+            out["ranks"].append({"by_purpose": rec["collectives"]["by_purpose"],
+                                 "peak_bytes": rec["memory"]["peak_bytes"], "flops": rec["cost"]["flops"],
+                                 "launches": rec["launches"]})
+    rec = dry_run(cfg, cell, abstract_rank(TP_MESH, ("data", "model"), 0))
+    release()
+    out["peak_bytes_on_card_wire"] = rec["memory"]["peak_bytes"]
+    _, cfg = _tp_config(gathered=True)
+    with host_staged_wire():
+        rec = dry_run(cfg, cell, abstract_rank(TP_MESH, ("data", "model"), 0), prepare=_fused_head)
+    release()
+    out["gathered"] = {"by_purpose": rec["collectives"]["by_purpose"], "peak_bytes": rec["memory"]["peak_bytes"],
+                       "flops": rec["cost"]["flops"], "launches": rec["launches"]}
+    Path(path).write_text(json.dumps(out))
+
+
+def _tp_cell():
+    from repro_torch.configs.base import ShapeCell
+
+    return ShapeCell("phase21", "train", int(TP_ARGV[TP_ARGV.index("--seq") + 1]),
+                     int(TP_ARGV[TP_ARGV.index("--batch") + 1]))
+
+
+def tp_rank(rank: int, rendezvous: str, out_dir: str, card_line: str, device: str) -> None:
+    """One of phase 21's four ranks (a spawned process) on the parent's
+    ``device``: the bf16 run (its first step's collectives and flops), and
+    at the smoke width the f32 run and the planted fault's (f32); saved to
+    ``out_dir/rank{rank}.json``."""
+    global _ROWS
+    import datetime
+    import traceback
+
+    import torch
+    import torch.distributed as dist
+
+    _ROWS = []
+    os.environ["REPRO_AUTOTUNE"] = "off"
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    dev = torch.device(device)
+    torch.cuda.set_device(dev)
+    torch.set_num_threads(max(1, (os.cpu_count() or 4) // math.prod(TP_MESH)))
+    result: dict = {"rank": rank}
+    dist.init_process_group("gloo", init_method=f"file://{rendezvous}", rank=rank, world_size=math.prod(TP_MESH),
+                            timeout=datetime.timedelta(seconds=TP_TIMEOUT_S))
+    try:
+        from repro_torch.distributed import layout, make_debug_mesh
+        from repro_torch.distributed.mesh import TRANSPORT
+        from repro_torch.kernels.chain_sharded import split_plan
+
+        t0 = time.perf_counter()
+        mesh = make_debug_mesh(*TP_MESH, device=dev)
+        result["coord"] = dict(mesh.coord)
+        t, model = _tp_trainer(dev, mesh=mesh, steps=TP_STEPS, checkpoint_dir=str(Path(out_dir) / f"bf16_{rank}"))
+        result["bf16"] = _tp_run(t, model, flops=True)
+        result["segments"] = len(split_plan(model.unembed.faust.blockfaust(), mesh, "model").segments)
+        result["state_bytes"] = t.state_bytes
+        del t, model
+        _free()
+        t, model = _tp_trainer(dev, mesh=mesh, dtype="float32", small=True, steps=1,
+                               checkpoint_dir=str(Path(out_dir) / f"f32_{rank}"))
+        result["f32"] = _mt_run(t, model)
+        del t, model
+        real = layout._EnterSplit.backward
+        layout._EnterSplit.backward = staticmethod(lambda ctx, g: (g, None))  # the input's gradient blocks not summed
+        try:
+            t, model = _tp_trainer(dev, mesh=mesh, dtype="float32", small=True, steps=1,
+                                   checkpoint_dir=str(Path(out_dir) / f"planted_{rank}"))
+            result["planted"] = _mt_run(t, model)
+        finally:
+            layout._EnterSplit.backward = real
+        del t, model
+        _free()
+        result["seconds"] = time.perf_counter() - t0
+        result["transport"] = dict(TRANSPORT)
+    except Exception:  # noqa: BLE001 — reported by the parent
+        result["error"] = traceback.format_exc()
+    finally:
+        result["rows"] = _ROWS
+        Path(out_dir, f"rank{rank}.json").write_text(json.dumps(result, default=str))
+        dist.destroy_process_group()
+
+
+def tp_nccl(card_line: str, dev, plain: dict) -> dict:
+    """Phase 21 (b): the bf16 trainer on a 1 × 1 NCCL mesh in this
+    process (nothing splits on one rank), held to the unsharded run."""
+    import torch.distributed as dist
+
+    from repro_torch.distributed import make_debug_mesh
+
+    folder = TP_FOLDER / "nccl"
+    folder.mkdir(parents=True, exist_ok=True)
+    rdv = folder / "rendezvous"
+    rdv.unlink(missing_ok=True)
+    dist.init_process_group("nccl", init_method=f"file://{rdv}", rank=0, world_size=1)
+    try:
+        t, model = _tp_trainer(dev, mesh=make_debug_mesh(1, 1, device=dev), steps=TP_STEPS,
+                               checkpoint_dir=str(folder / "ckpt"))
+        run = _tp_run(t, model)
+        del t, model
+        _free()
+    finally:
+        dist.destroy_process_group()
+    row = {"phase": "tp_train_1x1", "card": card_line, "argv": list(TP_ARGV), "unit": list(TP_UNIT), "mesh": run,
+           "loss_rel_diff": _check_diff(run, plain)}
+    log(row)
+    require(row["loss_rel_diff"] <= MT_TOL["bfloat16"],
+            f"the 1 x 1 mesh's losses differ from the unsharded trainer's: {row['loss_rel_diff']}")
+    return row
+
+
+def tensor_parallel(card_line: str, dev) -> dict:
+    """Phase 21, slice 18 (module docstring): the prediction in a CPU
+    process of its own; (a) the unsharded trainers and (b) the 1 × 1 NCCL
+    run in this process; then (c) four ranks spawned on 2 × 2 under
+    ``TP_POLICY``."""
+    import multiprocessing
+    import shutil
+
+    from repro_torch.kernels import build
+
+    t0 = time.perf_counter()
+    shutil.rmtree(TP_FOLDER, ignore_errors=True)
+    TP_FOLDER.mkdir(parents=True)
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src"), "CUDA_VISIBLE_DEVICES": ""}
+    code = (f"import sys; sys.path[:0] = [{str(ROOT)!r}]; import chip_smoke as cs; "
+            f"cs.TP_ARGV = {tuple(TP_ARGV) + ('--device', 'cpu')!r}; "
+            f"cs.TP_UNIT, cs.TP_MESH = {TP_UNIT!r}, {TP_MESH!r}; "
+            f"cs.tp_prediction({str(TP_FOLDER / 'prediction')!r})")
+    pred_proc = subprocess.Popen([sys.executable, "-c", code], cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                                 stderr=subprocess.STDOUT, text=True)
+    procs = []
+    try:
+        t, model = _tp_trainer(dev, steps=TP_STEPS, checkpoint_dir=str(TP_FOLDER / "plain"))
+        plain = _tp_run(t, model, flops=True)
+        del t, model
+        _free()
+        t, model = _tp_trainer(dev, dtype="float32", small=True, steps=1, checkpoint_dir=str(TP_FOLDER / "plain32"))
+        plain32 = _mt_run(t, model)
+        del t, model
+        nccl = tp_nccl(card_line, dev, plain)
+        build.build()  # already built: ranks must only load, never build at once
+        ctx = multiprocessing.get_context("spawn")
+        procs.extend(ctx.Process(target=tp_rank, args=(r, str(TP_FOLDER / "rendezvous"), str(TP_FOLDER), card_line,
+                                                        str(dev)))
+                     for r in range(math.prod(TP_MESH)))
+        for p in procs:
+            p.start()
+        out, _ = pred_proc.communicate(timeout=TP_JOIN_S)
+        require(pred_proc.returncode == 0, f"phase 21's prediction failed:\n{out[-3000:]}")
+        pred = json.loads((TP_FOLDER / "prediction").read_text())
+        deadline = time.monotonic() + TP_JOIN_S
+        for p in procs:
+            p.join(max(deadline - time.monotonic(), 1))
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join(10)
+        if pred_proc.poll() is None:
+            pred_proc.kill()
+            pred_proc.wait(10)
+    results = []
+    for r, p in enumerate(procs):
+        path = TP_FOLDER / f"rank{r}.json"
+        require(path.exists(), f"tensor-parallel rank {r} saved nothing (exit code {p.exitcode})")
+        res = json.loads(path.read_text())
+        require("error" not in res, f"tensor-parallel rank {r} failed:\n{res.get('error')}")
+        results.append(res)
+    first = results[0]
+    gathered_rank = {k: v / TP_MESH[0] for k, v in plain["flops"].items()}  # the unsharded step's over the data axis
+    row = {"phase": "tp_train", "card": card_line, "argv": list(TP_ARGV), "unit": list(TP_UNIT), "mesh": list(TP_MESH),
+           "seconds": time.perf_counter() - t0, "rank_seconds": [r["seconds"] for r in results],
+           "coords": [r["coord"] for r in results], "unsharded": plain, "unsharded_f32": plain32,
+           "bf16": [r["bf16"] for r in results], "f32": [r["f32"] for r in results], "planted": first["planted"],
+           "segments": [r["segments"] for r in results], "transport": [r["transport"] for r in results],
+           "state_share": [r["state_bytes"]["rank"] / r["state_bytes"]["whole"] for r in results],
+           "flops_gathered_path_per_rank": gathered_rank,
+           "flop_share": [{k: r["bf16"]["flops"][k] / max(gathered_rank[k], 1) for k in _TP_MODULES}
+                          for r in results],
+           "prediction": pred,
+           "param_gather_bytes": [r["bf16"]["step_collectives"].get("param_gather", {}).get("bytes") for r in results],
+           "param_gather_bytes_gathered_path": pred["gathered"]["by_purpose"]["param_gather"]["bytes"],
+           "peak_gb": [r["bf16"]["peak_gb"] for r in results],
+           "predicted_peak_gb": [p["peak_bytes"] / 1e9 for p in pred["ranks"]],
+           "predicted_peak_gb_on_card_wire": pred["peak_bytes_on_card_wire"] / 1e9,
+           "timing": "four ranks share one card over host-staged gloo: no time here is a multi-GPU number"}
+    row["bf16_rel_diff"] = _check_diff(first["bf16"], plain)
+    row["f32_rel_diff"] = _check_diff(first["f32"], plain32)
+    row["planted_rel_diff"] = _check_diff(first["planted"], plain32)
+    row["peak_rel_err"] = [abs(g - p) / p for g, p in zip(row["peak_gb"], row["predicted_peak_gb"])]
+    log(row)
+    shutil.rmtree(TP_FOLDER, ignore_errors=True)
+    require(all(r["bf16"]["losses"] == first["bf16"]["losses"] for r in results)
+            and all(r["f32"]["losses"] == first["f32"]["losses"] for r in results), "the ranks' losses differ")
+    require(row["bf16_rel_diff"] <= MT_TOL["bfloat16"], f"the 2 x 2 split's losses differ from unsharded: "
+                                                         f"{row['bf16_rel_diff']}")
+    require(row["f32_rel_diff"] <= MT_TOL["float32"], f"the f32 split step differs: {row['f32_rel_diff']}")
+    require(row["planted_rel_diff"] > MT_TOL["float32"],
+            f"the planted fault passed the loss check: {row['planted_rel_diff']}")
+    require(max(row["peak_rel_err"]) <= REPORT_MEM_TOL, f"a rank's peak is off the host-staged dry run's: "
+                                                         f"{row['peak_gb']} GB read, {row['predicted_peak_gb']} "
+                                                         f"predicted")
+    for r in results:
+        want = r["segments"] * TP_STEPS
+        got = {k: r["bf16"]["launches"][k] for k in ("chain_matmul", "chain_dgrad", "chain_wgrad")}
+        require(all(v == want for v in got.values()), f"rank {r['rank']}: K1/K2/K3 {got}, the plan's {want}")
+    predicted = [p["by_purpose"] for p in pred["ranks"]]
+    counted = [r["bf16"]["step_collectives"] for r in results]
+    require(predicted == counted, f"the ranks' collectives by purpose differ from the dry run's: {predicted} vs "
+                                  f"{counted}")
+    require(all(TP_FLOP_SHARE[0] <= share[k] <= TP_FLOP_SHARE[1] for share in row["flop_share"]
+                for k in ("attention", "mlp")), f"a rank's attention or MLP flops are not 1/{TP_MESH[1]} of the "
+                                                 f"gathered path's: {row['flop_share']}")
+    return {"row": row, "nccl": nccl, "launches": {k: v for k, v in first["bf16"]["launches"].items()
+                                                   if not k.startswith("coll_")}}
+
+
 def _kernel_entry(name, source, replaces, launches, cases, checks, card_line, head) -> dict:
     first = next(r for r in cases if all(r.get(k) == v for k, v in head.items()))
     keys = ("chain", "quant", "dtype", "batch", "bt", "launches_per_apply", "max_abs_err", "ms", "cold_ms",
@@ -5538,7 +5953,7 @@ def main() -> int:
     _, train_counts = training_path(ops, info["card"])
     lm = train_lm(info["card"])
     resilient = train_resilient(info["card"])
-    batched = factorize_batched(dev)
+    batched = factorize_batched(dev, shape=BATCHED_STACK)
     strategies(dev, batched["ops"][0].todense())
     compose(batched["ops"][:2])
     grad_dispatch(ops, info["card"])
@@ -5556,6 +5971,7 @@ def main() -> int:
     msh = mesh(info["card"], dev, op)
     mtr = mesh_train(info["card"], dev)
     rep = report(info["card"], dev, mtr)
+    tp = tensor_parallel(info["card"], dev)
 
     src = "src/repro_torch/kernels/csrc/"
     f32_b128 = {"dtype": "float32", "batch": 128}
@@ -5611,6 +6027,8 @@ def main() -> int:
         report_names = {"chain_matmul": "K1", "chain_dgrad": "K2", "chain_wgrad": "K3"}
         if k["name"] in report_names:  # slice 17: phase 20 (b)'s real step, held against the dry run
             k["report_launches"] = rep["launches"][report_names[k["name"]]]
+        # slice 18: phase 21 (c), rank 0's bf16 run (K1/K2/K3 one a segment of the split head a step)
+        k["tp_launches"] = tp["launches"][k["name"]]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(info["card"], flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -404,15 +404,23 @@ def random_block_factor(
 ) -> BlockSparseFactor:
     """Prescribed-support init: k distinct random input blocks per output
     block, values with std ``scale/sqrt(k·bk)`` (the sparse fan-in).
-    ``generator`` is a CPU generator; the result moves to ``device``."""
+    ``generator`` is a CPU generator; the result is copied to ``device``.
+    Both are drawn on the host for real even inside a ``FakeTensorMode``,
+    so a dry run's model (``launch/dryrun.py``) holds real supports, drawn
+    as a real run's from the generator: a sharded apply plans its
+    collectives from them (``kernels/chain_sharded.py``).  Its values
+    become fake as they are copied."""
+    from torch.utils._python_dispatch import _disable_current_modes
+
     ib, ob = -(-in_features // bk), -(-out_features // bn)
     k = min(k, ib)
-    idx = torch.stack([torch.randperm(ib, generator=generator)[:k] for _ in range(ob)])
-    idx = torch.sort(idx, dim=1).values.to(torch.int32)
-    std = scale / (k * bk) ** 0.5
-    values = torch.randn((ob, k, bk, bn), generator=generator, dtype=torch.float32) * std
+    with _disable_current_modes():
+        idx = torch.stack([torch.randperm(ib, generator=generator)[:k] for _ in range(ob)])
+        idx = torch.sort(idx, dim=1).values.to(torch.int32)
+        std = scale / (k * bk) ** 0.5
+        values = torch.randn((ob, k, bk, bn), generator=generator, dtype=torch.float32) * std
     return BlockSparseFactor(
-        values.to(device=device, dtype=dtype), idx.to(device), in_features, out_features
+        values.to(device=device, dtype=dtype, copy=True), idx.to(device), in_features, out_features
     )
 
 

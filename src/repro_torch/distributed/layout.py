@@ -15,6 +15,17 @@ collectives that move it, as autograd Functions.
   contiguous chunk of every row's positions.  :meth:`SeqSplit.gather`
   rebuilds the whole sequence (attention's keys and values, a MoE layer's
   input); its backward is a reduce-scatter (sum) over the sequence group.
+* **Tensor parallelism** (:class:`TPSplit`): where the policy computes a
+  module in blocks over axes ``A`` (:func:`~repro_torch.distributed.
+  sharding.compute_axes`), the ranks on ``A`` hold the same rows and each
+  computes its block of heads, hidden columns or vocabulary with its
+  parameter blocks (:func:`gather_param` with ``keep=A``).  The module's
+  input enters through :meth:`TPSplit.enter` (identity forward; the
+  gradient's blocks summed over ``A`` backward), a row-parallel
+  projection's partial output leaves through :meth:`TPSplit.reduce`
+  (summed over ``A`` forward, identity backward); the logits stay split:
+  :func:`vocab_cross_entropy`, :func:`vocab_argmax` and
+  :func:`vocab_lookup` work on the blocks.
 * :func:`sum_over` is an all-reduce of a value every rank computed a part
   of (the loss, squared norms, counts), outside autograd.
 * Serving (``runtime/engine.py`` ``LMExecutor`` on a mesh): :func:`reduce_over`
@@ -43,10 +54,15 @@ from repro_torch.kernels import library
 # collective calls by purpose: a parameter's gather, its gradient's
 # reduce-scatter and all-reduce; the sequence gathers (attention's K/V, a
 # MoE layer's input) and their reduce-scatters; the scalar sums (loss,
-# norms, EF's selection, the preemption flag)
+# norms, EF's selection, the preemption flag); serving's merges and
+# gathers; a tensor-parallel split's (TPSplit): the column-parallel input's
+# backward all-reduce, the row-parallel output's all-reduce, the
+# vocab-parallel cross entropy's and greedy pick's all-reduces, and a split
+# FAµST head's boundary all-gathers and their backward reduce-scatters
 COLLECTIVES = dict.fromkeys(
     ("param_gather", "grad_reduce_scatter", "grad_all_reduce", "seq_gather", "seq_reduce_scatter", "sum",
-     "kv_merge", "row_gather", "embed_lookup"), 0)
+     "kv_merge", "row_gather", "embed_lookup", "tp_input_grad", "tp_output", "vocab_ce", "vocab_pick",
+     "head_boundary_gather", "head_boundary_reduce_scatter"), 0)
 BYTES = dict.fromkeys(COLLECTIVES, 0)
 _OPS = {"sum": torch.distributed.ReduceOp.SUM, "max": torch.distributed.ReduceOp.MAX}
 
@@ -65,13 +81,14 @@ def _ordered(mesh, ax) -> tuple[str, ...]:
     return ax_t
 
 
-def _layout(block: Block, mesh) -> tuple:
-    """How the blocks of a parameter tile it: the mesh axes of more than
-    one rank it is split over (mesh order: the rank order of their group),
-    the whole tensor's dimensions cut into (those axes' sizes in each
+def _layout(block: Block, mesh, keep) -> tuple:
+    """How the blocks of a parameter tile what a rank computes with: the
+    mesh axes of more than one rank it is gathered over (those its spec
+    names less ``keep``, in mesh order: the rank order of their group),
+    the gathered tensor's dimensions cut into (those axes' sizes in each
     dimension's spec entry, the block's extent), and the permutation that
     takes the gathered ``(axis sizes..., block dims...)`` to that cut."""
-    axes = tuple(a for a in mesh.axis_names if a in block.axes and mesh.shape[a] > 1)
+    axes = tuple(a for a in mesh.axis_names if a in block.axes and mesh.shape[a] > 1 and a not in keep)
     dims, order = [], []
     for i, ax in enumerate(block.spec):
         for a in _ordered(mesh, ax):
@@ -84,42 +101,63 @@ def _layout(block: Block, mesh) -> tuple:
 
 
 class _GatherParam(torch.autograd.Function):
-    """A parameter's block → the whole parameter (module docstring): one
-    all-gather of the flat block over the group of every axis its spec
-    names, the blocks tiled on the device; the backward's reduce-scatter
-    takes the whole gradient cut the same way."""
+    """A parameter's block → what the rank computes with (module
+    docstring): one all-gather of the flat block over the group of the
+    axes its spec names less ``keep``, the blocks tiled on the device.
+    The backward sums the gradient over the ranks that computed with the
+    same tensor on other rows, positions or heads, and keeps the rank's
+    block: a reduce-scatter over the gathered axes, an all-reduce over the
+    axes the spec does not name.  Over ``whole`` (the axes whose ranks
+    cooperate on one computation, each holding this parameter's whole
+    gradient already) it sums nothing: a gathered axis there takes the
+    rank's tile."""
 
     @staticmethod
-    def forward(ctx, t, block: Block, mesh):
-        ctx.block, ctx.mesh = block, mesh
-        axes, _, order = _layout(block, mesh)
+    def forward(ctx, t, block: Block, mesh, keep, whole):
+        ctx.block, ctx.mesh, ctx.keep, ctx.whole = block, mesh, keep, whole
+        axes, _, order = _layout(block, mesh, keep)
         if not axes:
             return t.view_as(t)
         parts = _mesh.all_gather(t.contiguous().reshape(1, -1), mesh.group(axes), 0)
         _count("param_gather", parts)
         tiles = parts.reshape(*[mesh.shape[a] for a in axes], *block.shape)
-        return tiles.permute(order).reshape(block.global_shape)
+        shape = [n * math.prod(mesh.shape[a] for a in axes_tuple(ax) if a in axes)
+                 for n, ax in zip(block.shape, block.spec)]
+        return tiles.permute(order).reshape(shape)
 
     @staticmethod
     def backward(ctx, g):
-        block, mesh = ctx.block, ctx.mesh
-        axes, dims, order = _layout(block, mesh)
+        block, mesh, keep, whole = ctx.block, ctx.mesh, ctx.keep, ctx.whole
+        axes, dims, order = _layout(block, mesh, keep)
         if axes:
             back = [order.index(j) for j in range(len(order))]
-            tiles = g.reshape(dims).permute(back).reshape(math.prod(mesh.shape[a] for a in axes), -1)
-            g = _mesh.reduce_scatter(tiles.contiguous(), mesh.group(axes), 0).reshape(block.shape)
-            _count("grad_reduce_scatter", g)
-        rest = tuple(a for a in mesh.axis_names if a not in axes and mesh.shape[a] > 1)
+            tiles = g.reshape(dims).permute(back)  # (gathered axes' sizes..., block dims...)
+            for j in reversed(range(len(axes))):
+                if axes[j] in whole:  # every rank holds the whole gradient: its tile, no sum
+                    tiles = tiles.select(j, mesh.coord[axes[j]])
+            summed = tuple(a for a in axes if a not in whole)
+            if summed:
+                tiles = tiles.reshape(math.prod(mesh.shape[a] for a in summed), -1).contiguous()
+                g = _mesh.reduce_scatter(tiles, mesh.group(summed), 0).reshape(block.shape)
+                _count("grad_reduce_scatter", g)
+            else:
+                g = tiles.reshape(block.shape)
+        rest = tuple(a for a in mesh.axis_names if a not in block.axes and a not in whole and mesh.shape[a] > 1)
         if rest:
             g = _mesh.all_reduce(g.contiguous(), mesh.group(rest))
             _count("grad_all_reduce", g)
-        return g, None, None
+        return g, None, None, None, None
 
 
-def gather_param(t: torch.Tensor, block: Block, mesh) -> torch.Tensor:
-    """The whole parameter of which ``t`` is this rank's ``block``; its
-    gradient summed over the mesh, this rank's block kept."""
-    return _GatherParam.apply(t, block, mesh)
+def gather_param(t: torch.Tensor, block: Block, mesh, keep=(), whole=()) -> torch.Tensor:
+    """The parameter of which ``t`` is this rank's ``block``, gathered
+    over every axis its spec names but ``keep`` (the axes the rank
+    computes its block over: :func:`~repro_torch.distributed.sharding.
+    compute_axes`); its gradient summed over the mesh but ``whole`` (the
+    axes of a tensor-parallel computation over which this parameter's
+    gradient is whole on every rank, :class:`TPSplit`), this rank's block
+    kept."""
+    return _GatherParam.apply(t, block, mesh, tuple(keep), tuple(whole))
 
 
 class _SeqGather(torch.autograd.Function):
@@ -193,6 +231,196 @@ def reduce_over(t: torch.Tensor, group, op: str = "sum", purpose: str = "sum") -
     ``group``, outside autograd, counted under ``purpose``."""
     _count(purpose, t)
     return _mesh.all_reduce(t.detach().contiguous(), group, _OPS[op])
+
+
+class _EnterSplit(torch.autograd.Function):
+    """The column-parallel input: identity forward; every rank's block of
+    the input's gradient summed over the split's group backward."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = _mesh.all_reduce(g.contiguous(), ctx.group)
+        _count("tp_input_grad", g)
+        return g, None
+
+
+class _LeaveSplit(torch.autograd.Function):
+    """The row-parallel output: the partial products summed over the
+    split's group forward (in f32 for a narrower float); identity
+    backward (every rank holds the whole cotangent)."""
+
+    @staticmethod
+    def forward(ctx, y, group):
+        y = _mesh.all_reduce(y.contiguous(), group)
+        _count("tp_output", y)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def _partial_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` of narrow floats, its result in f32: one f32-accumulating
+    matmul on the card (``mm`` with ``out_dtype``, which has no
+    derivative), the narrow values' products in f32 elsewhere."""
+    if x.is_cuda or library.faking():
+        y = torch.ops.aten.mm.dtype(x.reshape(-1, x.shape[-1]), w, torch.float32)
+        return y.reshape(*x.shape[:-1], w.shape[-1])
+    return x.float() @ w.float()
+
+
+@dataclasses.dataclass(frozen=True)
+class TPSplit:
+    """A module computed in blocks over the mesh axes ``axes`` of ``mesh``
+    (module docstring): ``n`` ranks (group ``group``), this one's block
+    ``index``."""
+
+    mesh: object
+    axes: tuple
+    group: object
+    n: int
+    index: int
+
+    def enter(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` as the input of column-parallel projections."""
+        return _EnterSplit.apply(x, self.group)
+
+    def reduce(self, y: torch.Tensor) -> torch.Tensor:
+        """A row-parallel projection's partial output, summed."""
+        return _LeaveSplit.apply(y, self.group)
+
+    def project(self, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+        """The row-parallel projection ``x @ w`` (this rank's columns of
+        ``x``, rows of ``w``) summed over the split.  Outside autograd
+        (serving) a narrower float's partial products stay in f32
+        (:func:`_partial_f32`) and the caller rounds their sum once, as
+        the whole product rounds: a bf16 model split over the hidden width
+        serves the whole model's greedy tokens.  Under autograd each
+        partial rounds to the activations' dtype before the sum (``mm``
+        with ``out_dtype`` has no derivative)."""
+        if not torch.is_grad_enabled() and x.is_floating_point() and x.element_size() < 4:
+            return self.reduce(_partial_f32(x, w))
+        return self.reduce(x @ w)
+
+
+def tp_split(mesh, axes) -> TPSplit:
+    """The split over ``axes`` of ``mesh`` (on an
+    :class:`~repro_torch.distributed.mesh.AbstractMesh`, rank 0's, with no
+    group)."""
+    axes = _ordered(mesh, axes_tuple(axes))
+    ranks = isinstance(mesh, _mesh.Mesh)
+    return TPSplit(mesh, axes, mesh.group(axes) if ranks else None, math.prod(mesh.shape[a] for a in axes),
+                   mesh.index(axes) if ranks else 0)
+
+
+class _ShareValue(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, n):
+        return t / n
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def share_value(t: torch.Tensor, n: int) -> torch.Tensor:
+    """A loss share that every rank of a split computes whole: its value
+    divided by the split's ``n`` ranks (so the sum over the mesh counts it
+    once), its gradient the share's own (each rank backpropagates into its
+    own blocks)."""
+    return _ShareValue.apply(t, n)
+
+
+class _VocabCE(torch.autograd.Function):
+    """Cross entropy over logits split by vocabulary: ``lse - gold`` of
+    every position, the same on every rank of the split.  Forward: the
+    block's max, all-reduced (max); the block's sum of exponentials and
+    the gold logit (where the label falls in the block, else 0), one
+    all-reduce (sum).  Backward: ``g · (softmax − one-hot)`` on the
+    block, its exponentials recomputed against the saved log-sum-exp."""
+
+    @staticmethod
+    def forward(ctx, lg, labels, start, group):
+        m = reduce_over(lg.amax(dim=-1), group, "max", "vocab_ce")
+        local = labels - start
+        inside = (local >= 0) & (local < lg.shape[-1])
+        idx = local.clamp(0, lg.shape[-1] - 1)
+        gold = torch.where(inside, torch.gather(lg, -1, idx[..., None])[..., 0], torch.zeros((), dtype=lg.dtype,
+                                                                                            device=lg.device))
+        se = torch.exp(lg - m[..., None]).sum(dim=-1)
+        both = reduce_over(torch.stack([se, gold]), group, "sum", "vocab_ce")
+        lse = m + torch.log(both[0])
+        ctx.save_for_backward(lg, lse, idx, inside)
+        return lse - both[1]
+
+    @staticmethod
+    def backward(ctx, g):
+        lg, lse, idx, inside = ctx.saved_tensors
+        d = torch.exp(lg - lse[..., None])
+        d = d - torch.zeros_like(d).scatter_(-1, idx[..., None], inside[..., None].to(d.dtype))
+        return d * g[..., None], None, None, None
+
+
+def vocab_cross_entropy(lg: torch.Tensor, labels: torch.Tensor, start: int, split: TPSplit) -> torch.Tensor:
+    """``logsumexp − gold`` of every position of logits ``lg (..., V/n)``,
+    this rank's vocabulary block ``[start, start + V/n)`` of ``split``,
+    against ``labels (...)``: the whole row's cross entropy on every rank
+    of the split, and the block's gradient."""
+    return _VocabCE.apply(lg, labels, start, split.group)
+
+
+def vocab_argmax(logits: torch.Tensor, start: int, split: TPSplit) -> torch.Tensor:
+    """``argmax`` over the last dimension of logits split by vocabulary
+    (this rank's block starts at ``start``), the same on every rank of
+    ``split``: the max over the split, then the lowest index holding it,
+    so ties resolve as ``torch.argmax`` over the whole row does."""
+    local = logits.argmax(dim=-1)
+    best = torch.gather(logits, -1, local[..., None])[..., 0]
+    top = reduce_over(best, split.group, "max", "vocab_pick")
+    big = torch.iinfo(torch.int64).max
+    cand = torch.where(best == top, local + start, torch.full_like(local, big))
+    return -reduce_over(-cand, split.group, "max", "vocab_pick")
+
+
+class _VocabLookup(torch.autograd.Function):
+    """Rows of a table split by vocabulary: the block's rows of the tokens
+    inside it, zeros for the others, summed over the split (each token's
+    row comes from one rank, bit for bit); the backward scatters the
+    whole cotangent into the block's rows."""
+
+    @staticmethod
+    def forward(ctx, table, ids, start, group):
+        local = ids - start
+        inside = (local >= 0) & (local < table.shape[0])
+        idx = local.clamp(0, table.shape[0] - 1)
+        ctx.save_for_backward(idx, inside)
+        ctx.rows = table.shape[0]
+        rows = torch.where(inside[..., None], table[idx], torch.zeros((), dtype=table.dtype, device=table.device))
+        out = _mesh.all_reduce(rows.contiguous(), group)
+        _count("tp_output", out)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        idx, inside = ctx.saved_tensors
+        g = torch.where(inside[..., None], g, torch.zeros((), dtype=g.dtype, device=g.device))
+        grad = torch.zeros((ctx.rows, g.shape[-1]), dtype=g.dtype, device=g.device)
+        grad.index_add_(0, idx.reshape(-1), g.reshape(-1, g.shape[-1]))
+        return grad, None, None, None
+
+
+def vocab_lookup(table: torch.Tensor, tokens: torch.Tensor, start: int, split: TPSplit) -> torch.Tensor:
+    """``table[tokens]`` (``(*tokens.shape, d)``) from this rank's
+    vocabulary block ``table`` (rows ``[start, start + len)``, whole
+    features) of ``split``, under autograd: the row-parallel output of a
+    one-hot product (module docstring)."""
+    return _VocabLookup.apply(table, tokens.long(), start, split.group)
 
 
 def take_block(t: torch.Tensor, block: Block) -> torch.Tensor:

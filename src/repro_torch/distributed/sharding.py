@@ -19,8 +19,11 @@ wins).
 keeps only these blocks (``repro_torch.runtime.trainer``).
 
 The policy's activation names decide, on a mesh, which rows
-(``batch``) and which positions (``seq``) a rank computes; the model
-gathers what a layer needs whole (``repro_torch.models.lm``).
+(``batch``) and which positions (``seq``) a rank computes, and which
+output dimensions a module computes in blocks (:func:`compute_axes`: the
+reference's GSPMD computes each projection on the block its ``heads_act``,
+``mlp_act`` or ``vocab_act`` names); the model gathers the rest of what a
+layer needs whole (``repro_torch.models.lm``).
 Outside a :func:`use_rules` context :func:`shard_act` is the identity, so
 the model runs unchanged on one device.
 """
@@ -111,6 +114,35 @@ def _fit_axes(ax: MeshAxes, dim_size: int, mesh) -> MeshAxes:
     if dim_size % n != 0:
         return None
     return ax_t if len(ax_t) > 1 else ax_t[0]
+
+
+# the activation name each parameter's output dimension answers to: the
+# query and KV heads, the FFN's hidden width, the vocabulary (a FAµST
+# head's out-blocks are its vocabulary's)
+TP_ACTS = {"heads_flat": "heads_act", "kv_flat": "heads_act", "mlp": "mlp_act", "vocab": "vocab_act",
+           "blocks": "vocab_act"}
+
+
+def compute_axes(logical: str, spec_entry: MeshAxes, act_size: int, policy: ShardingPolicy, mesh,
+                 avoid=()) -> tuple[str, ...]:
+    """The mesh axes a parameter computes over: those its spec places its
+    output dimension on (logical name ``logical``, spec entry
+    ``spec_entry``), when the policy's activation name for that dimension
+    (:data:`TP_ACTS`), fitted to ``act_size`` as :func:`_fit_axes` fits it
+    (the heads' count, the hidden width, the vocabulary), names the same
+    axes and they share none with ``avoid`` (the fitted ``seq`` and
+    ``batch`` axes: ranks that compute other rows or positions do not
+    cooperate on one).  ``()`` otherwise, and where those axes hold one
+    rank: the parameter is then gathered whole."""
+    act = TP_ACTS.get(logical)
+    have = axes_tuple(spec_entry)
+    if act is None or not have:
+        return ()
+    if have != axes_tuple(_fit_axes(policy.act_axes(act), act_size, mesh)) or set(have) & set(avoid):
+        return ()
+    if all(mesh.shape[a] == 1 for a in have):
+        return ()
+    return have
 
 
 def axes_tuple(ax: MeshAxes) -> tuple[str, ...]:

@@ -46,6 +46,16 @@ collectives implicitly; here each is explicit:
 * ``lam`` scales every rank's part of the result: its gradient is summed
   over the mesh.
 
+**Split by vocabulary** (:func:`split_chain_apply`, a FAµST head that a
+policy's ``vocab_act`` computes in blocks, ``models/lm.py``): each rank
+holds only its out-block range of every factor (the parameter blocks
+``LM.shard_`` keeps), applies the plan's segments to its rows, and keeps
+its out-blocks of the result: the contiguous vocabulary block a dense
+head's rank would hold, as the reference's ``P(data, model)`` result.
+There is no output gather, and the values' gradients stay the rank's
+blocks; the input's gradient is summed by the caller's split
+(``distributed/layout.py`` ``TPSplit.enter``).
+
 **What the apply returns, and what a rank holds** (``ROADMAP.md`` caveat
 R7).  The reference returns one global array sharded ``P(data, model)``.
 The port gathers the result whole on every rank (over the model group,
@@ -185,8 +195,13 @@ def _mesh_shape(mesh) -> tuple[tuple[str, int], ...]:
 
 
 def _idx(bf: BlockFaust) -> list[np.ndarray]:
-    """Each factor's ``in_idx`` on the host."""
-    return [f.in_idx.detach().cpu().numpy() for f in bf.factors]
+    """Each factor's ``in_idx`` on the host, read outside any dispatch mode:
+    planning data, not a step's operator (a dry run's supports are real
+    too: ``core/compress.py`` ``random_block_factor``)."""
+    from torch.utils._python_dispatch import _disable_current_modes
+
+    with _disable_current_modes():
+        return [f.in_idx.cpu().numpy() for f in bf.factors]
 
 
 def _model_blockers(bf: BlockFaust, n_model: int) -> str | None:
@@ -382,18 +397,31 @@ class _Rows(torch.autograd.Function):
 
 class _BoundaryGather(torch.autograd.Function):
     """All-gather of the activation along features over the model group;
-    the backward reduce-scatters (sums) the boundary cotangent."""
+    the backward reduce-scatters (sums) the boundary cotangent.  With a
+    ``purpose``, each is also counted with the model's collectives
+    (``distributed/layout.py``: ``{purpose}_gather`` and
+    ``{purpose}_reduce_scatter``, calls and bytes)."""
 
     @staticmethod
-    def forward(ctx, y, group):
-        ctx.group = group
+    def forward(ctx, y, group, purpose=None):
+        ctx.group, ctx.purpose = group, purpose
         COLLECTIVES["boundary_gather"] += 1
-        return _mesh.all_gather(y.contiguous(), group, 1)
+        out = _mesh.all_gather(y.contiguous(), group, 1)
+        if purpose is not None:
+            from repro_torch.distributed import layout
+
+            layout._count(f"{purpose}_gather", out)
+        return out
 
     @staticmethod
     def backward(ctx, g):
         COLLECTIVES["boundary_reduce_scatter"] += 1
-        return _mesh.reduce_scatter(g.contiguous(), ctx.group, 1), None
+        g = _mesh.reduce_scatter(g.contiguous(), ctx.group, 1)
+        if ctx.purpose is not None:
+            from repro_torch.distributed import layout
+
+            layout._count(f"{ctx.purpose}_reduce_scatter", g)
+        return g, None, None
 
 
 class _OutputGather(torch.autograd.Function):
@@ -594,6 +622,54 @@ def _apply_replicated(x2, bf, mesh, plan, b_loc, bt, kernel, fac_scales):
             y = bsr_apply(y, dataclasses.replace(f, values=v), use_kernel=kernel)
     gathers = [(axes, 0)] if axes is not None else []
     return _scaled_and_gathered(y, bf.lam, mesh, axes, gathers)
+
+
+def split_plan(bf: BlockFaust, mesh, model_axis: str) -> ShardPlan:
+    """:func:`plan_shard` of a chain whose factors hold a rank's out-block
+    range of their values over ``model_axis`` (and their whole supports),
+    planned on the whole chain's shapes; raises unless the out-blocks
+    partition (``"model"`` mode) into contiguous vocabulary blocks of
+    ``out / n`` columns each."""
+    n = int(mesh.shape[model_axis])
+    whole = BlockFaust(tuple(dataclasses.replace(f, values=f.in_idx[..., None, None].expand(
+        f.in_idx.shape[0], f.in_idx.shape[1], f.values.shape[2], f.values.shape[3])) for f in bf.factors), bf.lam)
+    for f, w in zip(bf.factors, whole.factors):
+        if f.values.shape[0] * n != w.n_out_blocks:
+            raise ValueError(f"a factor's {f.values.shape[0]} out-blocks are not 1/{n} of its {w.n_out_blocks}")
+    last = bf.factors[-1]
+    if last.out_features % (last.bn * n):
+        raise ValueError(f"{last.out_features} columns in blocks of {last.bn} do not split into {n} whole-block ranges")
+    plan = plan_shard(whole, mesh, None, model_axis)
+    if plan.mode != "model":
+        raise ValueError(f"the head does not split by out-block over {model_axis!r}: {plan.reason}")
+    return plan
+
+
+def split_chain_apply(x: torch.Tensor, bf: BlockFaust, mesh, model_axis: str) -> torch.Tensor:
+    """``λ · x @ F_1 ⋯ F_J`` restricted to this rank's out-blocks of the
+    last factor (module docstring, split by vocabulary): ``x (..., in)``
+    the rank's rows, ``bf`` whose factors hold the rank's out-block range
+    of their values over ``model_axis`` and whole supports; returns ``(...,
+    out / n)``, the rank's contiguous block of the columns.  Each segment
+    of :func:`split_plan` is one fused launch (K1; K2 + K3 backward)."""
+    from repro_torch.kernels.ops import _want_kernel
+
+    plan = split_plan(bf, mesh, model_axis)
+    kernel = _want_kernel(x, None)
+    blk = bf.factors[0].bk
+    in_pad = -(-bf.factors[0].in_features // blk) * blk
+    batch_shape = x.shape[:-1]
+    if x.shape[-1] != in_pad:
+        x = torch.nn.functional.pad(x, (0, in_pad - x.shape[-1]))
+    y = x.reshape(math.prod(batch_shape), in_pad)
+    group, p = mesh.group(model_axis), mesh.coord[model_axis]
+    for seg in plan.segments:
+        if seg.gather_in:
+            y = _BoundaryGather.apply(y, group, "head_boundary")
+        vals = torch.cat([bf.factors[j].values.reshape(-1, blk, blk) for j in seg.factors])
+        y = _segment_apply(y, vals, segment_idx(bf, seg, p), seg.plan, FORWARD_BT, kernel)
+    y = bf.lam.to(y.dtype) * y
+    return y.reshape(*batch_shape, -1)
 
 
 # ---------------------------------------------------------------------------

@@ -159,20 +159,22 @@ def make_sharded_decode(model: lm.LM, mesh, cell: ShapeCell):
     """``decode(tokens, pool) -> gathered``: one step of every slot of the
     rank's pool (:func:`decode_pool`), ``tokens`` its rows' ``(b, 1)``
     (``(b, K, 1)``): the rows gathered from the pool, stepped and
-    scattered back, then every row's token and finite flag gathered over
-    the rows' axes (``LMExecutor._decode`` and ``RowLogits``); returns the
-    logits where the rows are not split."""
+    scattered back, then every row's token (picked over a split
+    vocabulary) and finite flag gathered over the rows' axes
+    (``LMExecutor._decode`` and ``RowLogits``); returns the logits where
+    neither the rows nor the vocabulary are split."""
     policy, rows, kv = _decode_placement(model, mesh, cell)
 
     def decode(tokens: torch.Tensor, pool: list):
         with torch.no_grad(), sharding.use_rules(mesh, policy):
+            plan = model.split_plan()
             idx = torch.arange(tokens.shape[0], device=tokens.device)
             caches = lm.gather_cache_slots(pool, idx)
             logits, caches = model.decode_step(tokens.long(), caches, kv=kv)
             lm.scatter_cache_slots(pool, caches, idx)
-            if not rows:
+            if not rows and not (plan is not None and plan.head):
                 return logits
             return RowLogits(logits, idx + mesh.index(rows) * tokens.shape[0], cell.global_batch,
-                             mesh.group(rows)).gathered()
+                             mesh.group(rows) if rows else None, plan).gathered()
 
     return decode

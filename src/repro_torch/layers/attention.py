@@ -31,6 +31,14 @@ whose block holds its position, and :func:`decode_attention_split`
 attends over the block and merges the blocks by log-sum-exp over the
 group (:func:`merge_blocks`); :func:`decode_attention`, over the whole
 cache, is its plain version.
+
+Split over the heads (:class:`HeadSplit`, training under a policy whose
+``heads_act`` names the axes the projections' heads lie on): a rank
+computes its ``h/n`` query heads with its columns of ``wq`` and the KV
+heads they read, either its columns of ``wk``/``wv`` (``n`` divides the KV
+heads) or, by GQA's group map, the one KV head its query heads share,
+from the whole projection; its rows of ``wo`` give a partial output that
+the split sums (``distributed/layout.py`` :class:`TPSplit`).
 """
 from __future__ import annotations
 
@@ -60,6 +68,20 @@ class AttnSpec:
     use_rope: bool = True
 
 
+@dataclasses.dataclass(frozen=True)
+class HeadSplit:
+    """A rank's heads (module docstring): the split ``tp`` (a
+    :class:`~repro_torch.distributed.layout.TPSplit`), its ``heads`` query
+    heads from ``heads · tp.index``, its ``kv`` KV heads from ``kv_lo``,
+    and whether ``wk``/``wv`` hold just those (``kv_kept``) or whole."""
+
+    tp: object
+    heads: int
+    kv_lo: int
+    kv: int
+    kv_kept: bool
+
+
 class Attention(nn.Module):
     """``wq``/``wk``/``wv``/``wo`` as ``(in, out)`` parameters (the
     reference's layout), plus ``q_norm``/``k_norm`` with ``qk_norm``."""
@@ -77,8 +99,8 @@ class Attention(nn.Module):
             self.q_norm = nn.Parameter(torch.zeros((d,), dtype=dtype, device=device))
             self.k_norm = nn.Parameter(torch.zeros((d,), dtype=dtype, device=device))
 
-    def forward(self, x: torch.Tensor, chunk: int = 512, seq=None) -> torch.Tensor:
-        return attn_train(self, x, self.spec, chunk, seq)
+    def forward(self, x: torch.Tensor, chunk: int = 512, seq=None, heads: HeadSplit | None = None) -> torch.Tensor:
+        return attn_train(self, x, self.spec, chunk, seq, heads)
 
 
 def _mask_bias(q_pos: torch.Tensor, kv_pos: torch.Tensor, causal: bool, window: int | None) -> torch.Tensor:
@@ -355,12 +377,20 @@ def kv_cache_prefill(cache: KVCache, k_seq: torch.Tensor, v_seq: torch.Tensor, s
     return KVCache(k, v, pos)
 
 
-def attn_qkv(p: Attention, x: torch.Tensor, spec: AttnSpec, positions: torch.Tensor):
+def attn_qkv(p: Attention, x: torch.Tensor, spec: AttnSpec, positions: torch.Tensor, heads: HeadSplit | None = None):
+    """Queries, keys and values of ``x`` (``heads``: this rank's, from its
+    blocks of the projections)."""
     b, s, _ = x.shape
     h, kh, d = spec.n_heads, spec.n_kv_heads, spec.head_dim
+    wk, wv = p.wk, p.wv
+    if heads is not None:
+        x = heads.tp.enter(x)
+        h, kh = heads.heads, heads.kv
+        if not heads.kv_kept:  # the KV heads this rank's query heads read, of the whole projection
+            wk, wv = (w.narrow(1, heads.kv_lo * d, kh * d) for w in (wk, wv))
     q = (x @ p.wq).reshape(b, s, h, d)
-    k = (x @ p.wk).reshape(b, s, kh, d)
-    v = (x @ p.wv).reshape(b, s, kh, d)
+    k = (x @ wk).reshape(b, s, kh, d)
+    v = (x @ wv).reshape(b, s, kh, d)
     if spec.qk_norm:
         q, k = rmsnorm(p.q_norm, q), rmsnorm(p.k_norm, k)
     if spec.use_rope:
@@ -377,16 +407,19 @@ def gather_kv(k: torch.Tensor, v: torch.Tensor, seq) -> tuple:
     return seq.gather(k, 1), seq.gather(v, 1), torch.arange(seq.length, device=k.device)
 
 
-def _self_attention(p: Attention, x: torch.Tensor, spec: AttnSpec, chunk: int, seq=None):
+def _self_attention(p: Attention, x: torch.Tensor, spec: AttnSpec, chunk: int, seq=None,
+                    heads: HeadSplit | None = None):
     """Causal self-attention over a whole sequence: ``(y, k, v)``; a window
     shorter than the sequence runs banded, any other through the chunked
     softmax with the window's mask.  Under a sequence split (``seq``) ``x``
     is this rank's chunk of positions: rope, the mask and the window at
     its global positions, against the keys and values of every position
-    (:func:`gather_kv`), chunked as the whole sequence's."""
+    (:func:`gather_kv`), chunked as the whole sequence's.  Split over the
+    heads (``heads``): this rank's heads, their output summed over the
+    split."""
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device) if seq is None else seq.positions(x.device)
-    q, k, v = attn_qkv(p, x, spec, positions)
+    q, k, v = attn_qkv(p, x, spec, positions, heads)
     kv_positions = positions
     if seq is not None:
         k, v, kv_positions = gather_kv(k, v, seq)
@@ -396,13 +429,15 @@ def _self_attention(p: Attention, x: torch.Tensor, spec: AttnSpec, chunk: int, s
     else:
         o = flash_attention_ref(q, k, v, q_positions=positions, kv_positions=kv_positions, causal=True,
                                 window=spec.window, scale=spec.scale, chunk=min(chunk, n))
-    return o.reshape(b, s, -1) @ p.wo, k, v
+    o = o.reshape(b, s, -1)
+    return (o @ p.wo if heads is None else heads.tp.project(o, p.wo)), k, v
 
 
-def attn_train(p: Attention, x: torch.Tensor, spec: AttnSpec, chunk: int = 512, seq=None) -> torch.Tensor:
+def attn_train(p: Attention, x: torch.Tensor, spec: AttnSpec, chunk: int = 512, seq=None,
+               heads: HeadSplit | None = None) -> torch.Tensor:
     """Causal self-attention over a full sequence (``seq``: this rank's
-    chunk of it, :func:`_self_attention`)."""
-    return _self_attention(p, x, spec, chunk, seq)[0]
+    chunk of it; ``heads``: this rank's heads, :func:`_self_attention`)."""
+    return _self_attention(p, x, spec, chunk, seq, heads)[0]
 
 
 def attn_prefill(p: Attention, x: torch.Tensor, spec: AttnSpec, cache: KVCache, chunk: int = 512, seq=None):

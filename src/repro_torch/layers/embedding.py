@@ -1,7 +1,9 @@
 """Token embedding and the unembedding (dense, FAµST or tied).
 Counterpart of :mod:`repro.layers.embedding`, with the reference's
 per-codebook stacking (``repro.models.lm._init_annotated``): ``n`` tables
-``(n, vocab, d_model)`` and ``n`` heads, each applied on its own."""
+``(n, vocab, d_model)`` and ``n`` heads, each applied on its own.  On a
+mesh whose policy splits the vocabulary a head computes its rank's block
+of the logits (:meth:`Unembed.forward` ``split=``)."""
 from __future__ import annotations
 
 import math
@@ -60,9 +62,15 @@ class Unembed(nn.Module):
             self.faust = StackedFaustLinear(d_model, vocab, faust, n, generator=generator, dtype=dtype,
                                             device=device)
 
-    def forward(self, x: torch.Tensor, head: int | None = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, head: int | None = None, split=None) -> torch.Tensor:
+        """Logits of ``x`` (``head``: one of ``n`` heads).  ``split`` (a
+        :class:`~repro_torch.distributed.layout.TPSplit`): the parameters
+        are this rank's vocabulary block, and so are the logits."""
         if self.n > 1:
             return self.faust(x, head) if hasattr(self, "faust") else x @ self.w[head]
+        if split is not None:
+            x = split.enter(x)
+            return self.faust(x, split=split) if hasattr(self, "faust") else x @ self.w
         if hasattr(self, "faust"):
             return self.faust(x)
         return x @ self.w

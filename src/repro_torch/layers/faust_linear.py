@@ -19,7 +19,8 @@ chain.  A spec may carry a :class:`~repro_torch.api.operator.ShardSpec`
 every apply through the layer is then on the mesh (``fused_sharded``
 joins the dispatch candidates), each rank applying the layer to the same
 input and getting the whole result, and :func:`factorize_spec` places
-compressed layers.
+compressed layers.  A head that a policy splits by vocabulary holds a
+rank's out-blocks and applies with ``split=`` (``models/lm.py``).
 """
 from __future__ import annotations
 
@@ -173,9 +174,19 @@ class FaustLinear(nn.Module):
         """``W = λ · F_1 ⋯ F_J`` materialized, ``(in_dim, out_dim)``."""
         return self.blockfaust().todense()
 
-    def forward(self, x: torch.Tensor, backend: str | None = None, shard=None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, backend: str | None = None, shard=None, split=None) -> torch.Tensor:
         """``x @ W`` on ``backend`` (default: the layer's); ``shard``
-        overrides ``spec.shard`` for this call."""
+        overrides ``spec.shard`` for this call.  ``split`` (a
+        :class:`~repro_torch.distributed.layout.TPSplit` over one mesh axis
+        of ``split.mesh``): the factors hold this rank's out-block range of
+        their values, and the result is this rank's block of the columns
+        (:func:`~repro_torch.kernels.chain_sharded.split_chain_apply`, the
+        fused chain kernels a segment, no dispatch)."""
+        if split is not None:
+            from repro_torch.kernels.chain_sharded import split_chain_apply
+
+            (axis,) = split.axes
+            return split_chain_apply(x, self.blockfaust(), split.mesh, axis)
         return self._apply_chain(self.blockfaust(), x, backend, shard)
 
     def _apply_chain(self, bf: BlockFaust, x: torch.Tensor, backend: str | None, shard=None) -> torch.Tensor:

@@ -2,7 +2,13 @@
 dense or FAµST.  Counterpart of :mod:`repro.layers.mlp`.
 
 The GELU is the tanh approximation (``jax.nn.gelu(approximate=True)``),
-not torch's default erf form."""
+not torch's default erf form.
+
+Split over the hidden width (``tp``, a :class:`~repro_torch.distributed.
+layout.TPSplit`: a dense MLP under a policy whose ``mlp_act`` names the
+axes its hidden width lies on): ``w_up`` and ``w_gate`` hold the rank's
+columns and ``w_down`` its rows; the partial output is summed over the
+split (``TPSplit.project``)."""
 from __future__ import annotations
 
 import torch
@@ -55,10 +61,14 @@ class MLP(nn.Module):
         w = getattr(self, name)
         return w(x) if isinstance(w, FaustLinear) else x @ w
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, tp=None) -> torch.Tensor:
+        if tp is not None:
+            x = tp.enter(x)
         up = self._proj("w_up", x)
         if self.act in GLU_KINDS:
             h = _act(self.act, self._proj("w_gate", x)) * up
         else:
             h = _act(self.act, up)
-        return self._proj("w_down", h)
+        if tp is None:
+            return self._proj("w_down", h)
+        return tp.project(h, self.w_down)

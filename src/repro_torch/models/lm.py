@@ -48,6 +48,14 @@ its rows and, where the policy's ``seq`` names a mesh axis, its chunk of
 the positions: attention gathers the keys and values of every position,
 rope, the mask and the audio sinusoid take global positions, a MoE layer
 routes whole rows; its share of the loss sums over the mesh to the loss.
+Where the policy's ``heads_act``, ``mlp_act`` or ``vocab_act`` names the
+axes a module's output lies on (:func:`split_plan`), the ranks on those
+axes compute the module in blocks instead (tensor parallelism): each
+keeps its block of the projections' columns (and the partner's rows),
+attention its heads, the MLP its hidden columns, the head and a
+vocab-parallel embedding lookup its vocabulary block; the logits stay
+split, and the loss is a vocab-parallel cross entropy
+(``distributed/layout.py``).
 
 Serving: :func:`make_caches` gives one cache per layer in a list (the
 layers are unrolled, so there is no repeat axis): a :class:`MambaCache`
@@ -66,6 +74,8 @@ table is read in place (:meth:`LM._lookup`).
 """
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import math
 
 import torch
@@ -75,11 +85,12 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig, check_supported
 from repro_torch.device import resolve_device
-from repro_torch.distributed import sharding
+from repro_torch.distributed import layout, sharding
 from repro_torch.distributed.layout import embed_lookup, gather_param, seq_split, take_block
 from repro_torch.distributed.sharding import shard_act
 from repro_torch.layers.param import param_axes, param_shapes  # param_axes: the reference's lm.param_axes
-from repro_torch.layers.attention import Attention, AttnSpec, KVCache, attn_decode, attn_prefill, kv_cache_init
+from repro_torch.layers.attention import (Attention, AttnSpec, HeadSplit, KVCache, attn_decode, attn_prefill,
+                                          kv_cache_init)
 from repro_torch.layers.embedding import Embedding, Unembed, unembed_apply
 from repro_torch.layers.mamba2 import Mamba2, MambaCache, mamba2_apply, mamba_cache_init
 from repro_torch.layers.mlp import MLP
@@ -137,19 +148,25 @@ class Layer(nn.Module):
             self.mlp = MLP(cfg.d_model, cfg.d_ff, cfg.act, faust=cfg.faust_mlp, **kw)
 
     def forward(self, x: torch.Tensor, mode: str = TRAIN, cache: KVCache | None = None,
-                chunk: int | None = None, seq=None):
+                chunk: int | None = None, seq=None, split: LayerSplit | None = None):
         """``(x, aux, new cache)``: ``mode`` train (no cache), prefill
         (fills ``cache``) or decode (one token per row into ``cache``);
         ``aux`` is a MoE layer's weighted load-balancing loss, None for
         the others.  ``seq`` (a :class:`~repro_torch.distributed.layout.
         SeqSplit`): in train ``x`` is this rank's chunk of the positions;
         in prefill and decode ``cache`` is this rank's block of the
-        cache's positions (``layers/attention.py``)."""
+        cache's positions (``layers/attention.py``).  ``split``: the
+        attention's heads and the MLP's hidden columns this rank computes
+        (:func:`split_plan`); its parameters are those blocks."""
         cfg = self.cfg
         chunk = cfg.attn_chunk if chunk is None else chunk
+        heads = None if split is None else split.heads
+        if heads is not None and mode != TRAIN:
+            raise NotImplementedError(f"{cfg.name}: a cache of the rank's KV heads is not supported; serve under "
+                                      f"a policy whose heads_act splits no heads (the decode policies)")
         h = shard_act(apply_norm(cfg.norm, self.norm1, x), "batch", "seq", None)
         if mode == TRAIN:
-            y = self.attn(h, chunk, seq)
+            y = self.attn(h, chunk, seq, heads)
         elif mode == PREFILL:
             y, cache = attn_prefill(self.attn, h, self.attn.spec, cache, chunk, seq)
         else:
@@ -169,7 +186,7 @@ class Layer(nn.Module):
         elif self.kind == "moe":
             y, aux = self.moe(h)
         else:
-            y = self.mlp(h)
+            y = self.mlp(h, None if split is None else split.mlp)
         return x + shard_act(y.to(x.dtype), "batch", "seq", None), aux, cache
 
 
@@ -185,8 +202,9 @@ class SSMLayer(nn.Module):
         self.mamba = Mamba2(cfg.ssm, generator=generator, dtype=dtype, device=device)
 
     def forward(self, x: torch.Tensor, mode: str = TRAIN, cache: MambaCache | None = None,
-                chunk: int | None = None, seq=None):
-        """``(x, None, new cache)`` as :meth:`Layer.forward`; ``chunk`` is
+                chunk: int | None = None, seq=None, split=None):
+        """``(x, None, new cache)`` as :meth:`Layer.forward` (``split`` is
+        always None: the mamba block computes whole); ``chunk`` is
         the SSD chunk (default ``cfg.ssm.chunk``).  ``seq`` is always None:
         the SSD's scan runs over whole sequences, and
         :meth:`LM._mesh_train_loss` refuses a sequence split."""
@@ -252,36 +270,76 @@ class LM(nn.Module):
         self.blocks = {name: blocks[name] for name, _ in self.named_parameters()}
         return self.blocks
 
-    def _gathered(self, module: nn.Module, prefix: str) -> dict:
-        return {n: gather_param(p, self.blocks[prefix + n], self.mesh) for n, p in module.named_parameters()}
+    _plan: "SplitPlan | None" = None  # what this forward computes in blocks (split_plan)
+    _plans: list | None = None  # [(policy, avoided axes, plan)] computed on this mesh
 
-    def _call(self, module: nn.Module, prefix: str, *args):
+    def _placement(self, name: str, plan: "SplitPlan | None") -> tuple:
+        """``(keep, whole)`` of :func:`~repro_torch.distributed.layout.gather_param` for ``name``."""
+        return ((), ()) if plan is None else (plan.keep.get(name, ()), plan.whole(name))
+
+    def _gathered(self, module: nn.Module, prefix: str, plan: "SplitPlan | None" = None) -> dict:
+        return {n: gather_param(p, self.blocks[prefix + n], self.mesh, *self._placement(prefix + n, plan))
+                for n, p in module.named_parameters()}
+
+    def _call(self, module: nn.Module, prefix: str, *args, plan: "SplitPlan | None" = None):
         """``module(*args)``; on a mesh with ``module``'s parameters
-        (state dict prefix ``prefix``) gathered whole for the call."""
+        (state dict prefix ``prefix``) gathered for the call: whole, or the
+        blocks ``plan`` keeps."""
         if self.blocks is None:
             return module(*args)
-        return functional_call(module, self._gathered(module, prefix), args)
+        return functional_call(module, self._gathered(module, prefix, plan), args)
 
     def _param(self, name: str):
         """The parameter (or a norm's parameter dict) ``name``, gathered
-        whole on a mesh."""
+        on a mesh (whole, or the block the forward's plan keeps)."""
         p = getattr(self, name) if "." not in name else self.get_parameter(name)
         if self.blocks is None:
             return p
         if isinstance(p, nn.ParameterDict):
-            return {k: gather_param(v, self.blocks[f"{name}.{k}"], self.mesh) for k, v in p.items()}
-        return gather_param(p, self.blocks[name], self.mesh)
+            return {k: gather_param(v, self.blocks[f"{name}.{k}"], self.mesh,
+                                    *self._placement(f"{name}.{k}", self._plan)) for k, v in p.items()}
+        return gather_param(p, self.blocks[name], self.mesh, *self._placement(name, self._plan))
 
     def _lookup(self, tokens: torch.Tensor) -> torch.Tensor:
         """The embedding table's rows of ``tokens``.  On a mesh outside
         autograd (serving) a split 2-D table is read in place
         (:func:`~repro_torch.distributed.layout.embed_lookup`: the rows of
-        the tokens move, not the table); under autograd it is gathered
-        whole, as every module's weights."""
+        the tokens move, not the table); under autograd a table the
+        forward's plan splits by vocabulary is looked up in its block
+        (:func:`~repro_torch.distributed.layout.vocab_lookup`), any other
+        gathered whole, as every module's weights."""
         block = None if self.blocks is None else self.blocks["embed.table"]
+        plan = self._plan
+        if block is not None and torch.is_grad_enabled() and plan is not None and plan.embed:
+            return layout.vocab_lookup(self._param("embed.table"), tokens, plan.vocab_start, plan.tp)
         if block is None or block.whole or torch.is_grad_enabled() or self.embed.table.ndim != 2:
-            return self._call(self.embed, "embed.", tokens)
+            return self._call(self.embed, "embed.", tokens, plan=plan)
         return embed_lookup(tokens, self.embed.table, block, self.mesh)
+
+    def split_plan(self, seq_axes=()) -> "SplitPlan | None":
+        """What this rank computes in blocks under the current rules
+        (:func:`~repro_torch.distributed.sharding.use_rules` on the
+        model's mesh; None elsewhere or unsharded): :func:`split_plan` of
+        the rules' policy, avoiding the policy's batch axes and
+        ``seq_axes`` (the positions' split)."""
+        rules = sharding._current()
+        if self.blocks is None or rules is None or rules.mesh is not self.mesh:
+            return None
+        avoid = tuple(batch_axes(rules.policy, self.mesh)) + tuple(seq_axes)
+        for policy, av, plan in self._plans or ():
+            if policy is rules.policy and av == avoid:
+                return plan
+        plan = split_plan(self.cfg, self.blocks, self.mesh, rules.policy, avoid)
+        self._plans = (self._plans or []) + [(rules.policy, avoid, plan)]
+        return plan
+
+    @contextlib.contextmanager
+    def _splitting(self, plan: "SplitPlan | None"):
+        prev, self._plan = self._plan, plan
+        try:
+            yield
+        finally:
+            self._plan = prev
 
     # -- forward -------------------------------------------------------------------
     def _embed_tokens(self, tokens: torch.Tensor, pos0=0) -> torch.Tensor:
@@ -319,12 +377,18 @@ class LM(nn.Module):
         return torch.cat([vision_embeds[:, pos0:pos0 + here].to(x.dtype), x[:, here:]], dim=1)
 
     def _logits(self, x: torch.Tensor) -> torch.Tensor:
+        """f32 logits of the final hidden states; where the forward's plan
+        splits the vocabulary, this rank's block of them."""
+        plan = self._plan
+        split = plan.tp if plan is not None and plan.head else None
         if self.cfg.n_codebooks > 1:  # (B, S, K, V): one head per codebook
-            return torch.stack([self._call(self.unembed, "unembed.", x, k) for k in range(self.cfg.n_codebooks)],
-                               dim=-2).float()
+            return torch.stack([self._call(self.unembed, "unembed.", x, k, plan=plan)
+                                for k in range(self.cfg.n_codebooks)], dim=-2).float()
         if self.cfg.tie_embeddings:
-            return unembed_apply(None, x, self._param("embed.table")).float()
-        return self._call(self.unembed, "unembed.", x).float()
+            return unembed_apply(None, x if split is None else split.enter(x), self._param("embed.table")).float()
+        if split is None:
+            return self._call(self.unembed, "unembed.", x, plan=plan).float()
+        return self._call(self.unembed, "unembed.", x, None, split, plan=plan).float()
 
     def forward_train(self, tokens: torch.Tensor, chunk: int | None = None,
                       vision_embeds: torch.Tensor | None = None) -> torch.Tensor:
@@ -347,11 +411,13 @@ class LM(nn.Module):
         this rank's chunk of positions ``seq`` under a sequence split)."""
         x = shard_act(self._front(tokens, vision_embeds, seq), "batch", "seq", None)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        plan = self._plan
         for i, layer in enumerate(self.layers):
             module, prefix = self._layer(i, layer)
+            split = None if plan is None else plan.layers.get(prefix)
 
-            def run(x, module=module, prefix=prefix):  # gathers inside: a remat recompute gathers again
-                return self._call(module, prefix, x, TRAIN, None, chunk, seq)
+            def run(x, module=module, prefix=prefix, split=split):  # gathers inside: a remat recompute gathers again
+                return self._call(module, prefix, x, TRAIN, None, chunk, seq, split, plan=plan)
 
             if self.cfg.remat and torch.is_grad_enabled():
                 x, layer_aux, _ = checkpoint(run, x, use_reentrant=False)
@@ -363,10 +429,12 @@ class LM(nn.Module):
         return self._logits(x), aux
 
     def _run(self, x: torch.Tensor, mode: str, caches: list[Cache], kv=None):
-        new = []
+        new, plan = [], self._plan
         for i, (layer, cache) in enumerate(zip(self.layers, caches, strict=True)):
-            split = kv if layer.kind in SPLIT_KV_KINDS else None
-            x, _, cache = self._call(*self._layer(i, layer), x, mode, cache, None, split)
+            seq = kv if layer.kind in SPLIT_KV_KINDS else None
+            module, prefix = self._layer(i, layer)
+            split = None if plan is None else plan.layers.get(prefix)
+            x, _, cache = self._call(module, prefix, x, mode, cache, None, seq, split, plan=plan)
             new.append(cache)
         return apply_norm(self.cfg.norm, self._param("final_norm"), x), new
 
@@ -379,18 +447,23 @@ class LM(nn.Module):
         chunked path takes whole (:func:`prefill_length`), or the SSD or
         attention raises.  ``kv`` (a :class:`~repro_torch.distributed.
         layout.SeqSplit`): the caches of :data:`SPLIT_KV_KINDS` hold this
-        rank's block of the positions (:func:`make_caches` with ``kv``)."""
-        x, new = self._run(self._front(tokens, vision_embeds), PREFILL, caches, kv)
-        return self._logits(x[:, -1:]), new
+        rank's block of the positions (:func:`make_caches` with ``kv``).
+        On a mesh whose decode policy splits the vocabulary (or the MLP),
+        the logits are this rank's block of them (:meth:`split_plan`)."""
+        with self._splitting(self.split_plan()):
+            x, new = self._run(self._front(tokens, vision_embeds), PREFILL, caches, kv)
+            return self._logits(x[:, -1:]), new
 
     def decode_step(self, tokens: torch.Tensor, caches: list[Cache], kv=None):
         """One token per row, ``tokens (B, 1)`` (audio: ``(B, K, 1)``), each
         row at its cache's position (the first layer's ``pos``, which the
         audio sinusoid reads): f32 logits ``(B, 1, vocab)`` (audio: ``(B,
         1, K, vocab)``) and the new caches.  ``kv`` as in :meth:`prefill`:
-        each split cache's attention is merged over its group."""
-        x, new = self._run(self._embed_tokens(tokens, caches[0].pos), DECODE, caches, kv)
-        return self._logits(x), new
+        each split cache's attention is merged over its group; the logits
+        as :meth:`prefill`'s."""
+        with self._splitting(self.split_plan()):
+            x, new = self._run(self._embed_tokens(tokens, caches[0].pos), DECODE, caches, kv)
+            return self._logits(x), new
 
     def train_loss(self, batch: dict) -> tuple[torch.Tensor, dict]:
         """Mean next-token cross entropy (over every codebook's) plus the
@@ -429,7 +502,16 @@ class LM(nn.Module):
         plus the aux loss of its rows (the reference's mean over rows)
         weighted by its rows' share; each divided by the number of ranks
         that compute the same rows and positions, so the sum over the mesh
-        is the loss and the sum of the gradients its gradient."""
+        is the loss and the sum of the gradients its gradient.
+
+        Where the policy computes modules in blocks (:meth:`split_plan`),
+        the ranks of the split cooperate on their rows rather than repeat
+        them: a split vocabulary's cross entropy is the vocab-parallel one
+        (:func:`~repro_torch.distributed.layout.vocab_cross_entropy`),
+        each share's gradient is its own (every rank backpropagates into
+        its own blocks) and its value is divided over the split
+        (:func:`~repro_torch.distributed.layout.share_value`), so the sum
+        over the mesh is still the loss."""
         rules = sharding._current()
         if rules is None or rules.mesh is not self.mesh:
             raise RuntimeError("a sharded model trains inside use_rules(mesh, policy) of its own mesh")
@@ -448,25 +530,181 @@ class LM(nn.Module):
             raise NotImplementedError(f"{cfg.name}: the SSD runs whole sequences; a policy that splits "
                                       f"the sequence over {seq_axes} is not supported")
         n_seq = 1 if seq is None else seq.n
+        plan = self.split_plan(seq_axes)
+        tp = None if plan is None else plan.tp
+        n_tp = 1 if tp is None else tp.n
         bl = b // n_rows
         r0 = mesh.index(rows) * bl
         tok = tokens[r0:r0 + bl]
         s0, sl = (0, s) if seq is None else (seq.start, seq.local)
-        logits, aux = self._forward_train(tok[..., s0:s0 + sl], vision_embeds=None if ve is None else ve[r0:r0 + bl],
-                                          seq=seq)
+        with self._splitting(plan):
+            logits, aux = self._forward_train(tok[..., s0:s0 + sl],
+                                              vision_embeds=None if ve is None else ve[r0:r0 + bl], seq=seq)
         labels = tok[..., s0 + 1:s0 + sl + 1].long()  # the last global position has none
         n_lab = labels.shape[-1]
         lg = logits[:, :n_lab]
         if cfg.n_codebooks > 1:
             lg = lg.transpose(1, 2)  # (B, K, n, V)
         lg = shard_act(lg, *(("batch",) + (None,) * (lg.ndim - 2) + ("vocab_act",)))
-        lse = torch.logsumexp(lg, dim=-1)
-        gold = torch.gather(lg, -1, labels[..., None])[..., 0]
+        if plan is not None and plan.head:
+            nll = layout.vocab_cross_entropy(lg, labels, plan.vocab_start, tp)
+        else:
+            nll = torch.logsumexp(lg, dim=-1) - torch.gather(lg, -1, labels[..., None])[..., 0]
         count = b * (s - 1) * cfg.n_codebooks
-        ce = torch.sum(lse - gold) / count / (mesh.size // (n_rows * n_seq))
-        aux = aux * (bl / b) / (mesh.size // n_rows)
+        ce = torch.sum(nll) / count / (mesh.size // (n_rows * n_seq * n_tp))
+        aux = aux * (bl / b) / (mesh.size // (n_rows * n_tp))
+        if tp is not None:
+            ce, aux = layout.share_value(ce, n_tp), layout.share_value(aux, n_tp)
         loss = ce + aux
         return loss, {"loss": loss, "ce": ce, "aux": aux}
+
+
+@dataclasses.dataclass(frozen=True)
+class LayerSplit:
+    """What a layer computes in blocks: its attention's heads (a
+    :class:`~repro_torch.layers.attention.HeadSplit`) and its MLP's hidden
+    columns (a :class:`~repro_torch.distributed.layout.TPSplit`), each
+    None where whole."""
+
+    heads: HeadSplit | None = None
+    mlp: object = None
+
+
+@dataclasses.dataclass(frozen=True)
+class SplitPlan:
+    """What a rank computes in blocks under one policy (:func:`split_plan`):
+    the split ``tp`` over the axes ``T`` of every split module; ``keep``,
+    each kept parameter's axes (its block of columns or rows, never
+    gathered over them); ``partial``, the parameters whole on the rank
+    that a split module reads in part (the query and key norms, the KV
+    projections gathered for GQA's group map, a FAµST head's λ: their
+    gradient is summed over ``T``); ``layers``, each layer's
+    :class:`LayerSplit` by state dict prefix; whether the head computes its
+    vocabulary block (``head``, from ``vocab_start``) and the embedding
+    lookup under autograd is vocab-parallel (``embed``).  Every other
+    parameter is computed with whole on every rank of ``T``, which then
+    holds its whole gradient: it is not summed over ``T``."""
+
+    tp: object
+    keep: dict
+    partial: frozenset
+    layers: dict
+    head: bool
+    embed: bool
+    vocab_start: int
+
+    def whole(self, name: str) -> tuple:
+        """The axes over which ``name``'s gradient is whole on every rank."""
+        return () if name in self.partial or name in self.keep else self.tp.axes
+
+
+def split_plan(cfg: ArchConfig, blocks: dict, mesh, policy, avoid) -> SplitPlan | None:
+    """What a rank of ``mesh`` computes in blocks under ``policy``, the
+    parameters stored as ``blocks`` (:meth:`LM.shard_`): a module whose
+    weight's spec splits an output dimension over axes ``A`` that the
+    policy's matching activation name gives too, sharing none with
+    ``avoid`` (:func:`~repro_torch.distributed.sharding.compute_axes`):
+
+    * attention (``wq``'s ``heads_flat``, fitted to the query heads): the
+      rank's query heads, ``wo``'s rows; ``wk``/``wv`` keep their block
+      where ``kv_flat`` splits over ``A`` too (``A`` divides the KV heads),
+      else are gathered whole and the rank computes the KV head its query
+      heads share (``A``'s ranks must not straddle a GQA group);
+    * a dense MLP (``w_up``'s ``mlp``): ``w_up``/``w_gate``'s columns,
+      ``w_down``'s rows; a FAµST MLP and a MoE layer stay whole;
+    * the head (``unembed.w``'s ``vocab``, a FAµST head's ``blocks``, a
+      tied table's ``vocab``) and a 2-D embedding table (``vocab``): the
+      rank's vocabulary block.
+
+    Every split must be over the same axes, and a FAµST head's vocabulary
+    must split into whole blocks, or it raises.  None where nothing splits."""
+    axes = param_axes(cfg)
+    v = cfg.vocab
+
+    def ax(name, dim, size):
+        if name not in blocks:
+            return ()
+        return sharding.compute_axes(axes[name][dim], blocks[name].spec[dim], size, policy, mesh, avoid)
+
+    def entry(name, dim):
+        return sharding.axes_tuple(blocks[name].spec[dim])
+
+    keep, partial, found, per_layer = {}, set(), [], {}
+    kinds = cfg.layer_kinds()
+    prefixes = [(f"layers.{i}.", kind) for i, kind in enumerate(kinds) if kind in ("attn", "local", "moe")]
+    if "shared" in kinds:
+        prefixes.append(("shared.", "attn"))
+    h, kh, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    for p, kind in prefixes:
+        heads = mlp = None
+        a = ax(p + "attn.wq", 1, h)
+        if a:
+            n = math.prod(mesh.shape[x] for x in a)
+            hl, g = h // n, h // kh
+            if entry(p + "attn.wo", 0) != a:
+                raise ValueError(f"{cfg.name}: {p}attn.wo's rows lie on {entry(p + 'attn.wo', 0)}, its heads on {a}")
+            kept = ax(p + "attn.wk", 1, kh) == a and ax(p + "attn.wv", 1, kh) == a
+            if not kept and g % hl:
+                raise ValueError(f"{cfg.name}: {hl} query heads a rank straddle GQA groups of {g} over {a}")
+            keep.update({p + "attn.wq": a, p + "attn.wo": a})
+            if kept:
+                keep.update({p + "attn.wk": a, p + "attn.wv": a})
+            else:
+                partial.update({p + "attn.wk", p + "attn.wv"})
+            partial.update(k for k in (p + "attn.q_norm", p + "attn.k_norm") if k in blocks)
+            heads = (a, hl, kh // n if kept else 1, kept)
+            found.append(a)
+        if kind != "moe" and p + "mlp.w_up" in blocks:
+            a = ax(p + "mlp.w_up", 1, cfg.d_ff)
+            if a:
+                names = [p + "mlp.w_up"] + ([p + "mlp.w_gate"] if p + "mlp.w_gate" in blocks else [])
+                if any(entry(n_, 1) != a for n_ in names) or entry(p + "mlp.w_down", 0) != a:
+                    raise ValueError(f"{cfg.name}: {p}mlp's projections do not all split their width over {a}")
+                keep.update(dict.fromkeys(names + [p + "mlp.w_down"], a))
+                mlp = a
+                found.append(a)
+        if heads is not None or mlp is not None:
+            per_layer[p] = (heads, mlp)
+    head = ()
+    if cfg.n_codebooks == 1 and not cfg.tie_embeddings:
+        if "unembed.w" in blocks:
+            head = ax("unembed.w", 1, v)
+            keep.update(dict.fromkeys(["unembed.w"] if head else [], head))
+        else:
+            names = sorted(k for k in blocks if k.startswith("unembed.faust.factors.") and k.endswith(".values"))
+            each = {ax(k, 0, v) for k in names}
+            head = next(iter(each)) if len(each) == 1 else ()
+            if head:
+                if len(head) != 1:
+                    raise ValueError(f"{cfg.name}: a FAµST head splits its out-blocks over one mesh axis, not {head}")
+                blk, n = blocks[names[-1]].global_shape[-1], mesh.shape[head[0]]
+                if v % (blk * n):  # a rank's out-blocks must be the dense head's vocabulary block
+                    raise ValueError(f"{cfg.name}: a FAµST head's vocabulary of {v} in blocks of {blk} does not "
+                                     f"split into {n} whole-block ranges")
+                keep.update(dict.fromkeys(names, head))
+                partial.add("unembed.faust.lam")
+    embed = ()
+    if blocks["embed.table"].spec and len(blocks["embed.table"].global_shape) == 2:
+        embed = ax("embed.table", 0, v)
+        if embed:
+            keep["embed.table"] = embed
+    if cfg.tie_embeddings and cfg.n_codebooks == 1:
+        head = embed
+    found += [x for x in (head, embed) if x]
+    if not found:
+        return None
+    if len(set(found)) != 1:
+        raise ValueError(f"{cfg.name}: the modules split over different axes {sorted(set(found))}")
+    tp = layout.tp_split(mesh, found[0])
+    layers = {}
+    for p, (heads, mlp) in per_layer.items():
+        hs = None
+        if heads is not None:
+            _, hl, kvl, kept = heads
+            lo = tp.index * kvl if kept else tp.index * hl // (h // kh)
+            hs = HeadSplit(tp, hl, lo, kvl, kept)
+        layers[p] = LayerSplit(hs, tp if mlp is not None else None)
+    return SplitPlan(tp, keep, frozenset(partial), layers, bool(head), bool(embed), tp.index * (v // tp.n))
 
 
 def batch_axes(policy, mesh) -> tuple[str, ...]:
@@ -555,5 +793,10 @@ def scatter_cache_slots(pool: list[Cache], caches: list[Cache], slot_idx: torch.
     return pool
 
 
-def greedy_token(logits: torch.Tensor) -> torch.Tensor:
+def greedy_token(logits: torch.Tensor, plan: SplitPlan | None = None) -> torch.Tensor:
+    """The argmax over the vocabulary, int32; where ``plan`` splits the
+    head, ``logits`` are this rank's block and the pick is the whole
+    row's (:func:`~repro_torch.distributed.layout.vocab_argmax`)."""
+    if plan is not None and plan.head:
+        return layout.vocab_argmax(logits, plan.vocab_start, plan.tp).to(torch.int32)
     return torch.argmax(logits, dim=-1).to(torch.int32)

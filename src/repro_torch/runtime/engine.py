@@ -360,15 +360,20 @@ def swap_unembed(model, bf) -> None:
 
 class RowLogits:
     """One decode step's logits on a mesh whose decode policy splits the
-    slot pool's rows: this rank's rows ``local`` ``(b, 1, V)`` / ``(b, 1,
-    K, V)``, at the positions ``rows`` (a ``(b,)`` tensor) of the step's
-    ``n`` live rows.  :meth:`picks` gathers every row's greedy token and
-    finite flag over ``group`` (the rows' axes) once, never the logits: one
-    all-reduce of ``n·(K + 1)`` int32 (:func:`repro_torch.distributed.
-    layout.reduce_over`, purpose ``"row_gather"``)."""
+    slot pool's rows or the vocabulary: this rank's rows ``local`` ``(b, 1,
+    V)`` / ``(b, 1, K, V)``, at the positions ``rows`` (a ``(b,)`` tensor)
+    of the step's ``n`` live rows; where ``plan`` (a
+    :class:`~repro_torch.models.lm.SplitPlan`) splits the head, ``V`` is
+    this rank's vocabulary block.  :meth:`picks` picks each row's greedy
+    token over the split vocabulary (``lm.greedy_token``: the max and the
+    lowest index holding it, over the split) and its finite flag, then
+    gathers them over ``group`` (the rows' axes, None where whole) once,
+    never the logits: one all-reduce of ``n·(K + 1)`` int32
+    (:func:`repro_torch.distributed.layout.reduce_over`, purpose
+    ``"row_gather"``)."""
 
-    def __init__(self, local, rows, n: int, group):
-        self.local, self.rows, self.n, self.group = local, rows, n, group
+    def __init__(self, local, rows, n: int, group, plan=None):
+        self.local, self.rows, self.n, self.group, self.plan = local, rows, n, group, plan
         self._picks = None
 
     def picks(self) -> tuple[np.ndarray, np.ndarray]:
@@ -390,12 +395,17 @@ class RowLogits:
         from repro_torch.models.lm import greedy_token
 
         step = self.local[:, -1]
-        tok = greedy_token(step)  # (b,) or (b, K)
+        # the ranks that split this rank's vocabulary hold its rows, so they idle with it: no pick to make
+        split = self.plan if step.shape[0] else None
+        tok = greedy_token(step, split)  # (b,) or (b, K)
         k = 1 if tok.ndim == 1 else tok.shape[1]
+        finite = torch.isfinite(step.float()).flatten(1).all(dim=-1).to(torch.int32)
+        if split is not None and split.head:  # every block of the row finite: the least flag
+            finite = -reduce_over(-finite, self.plan.tp.group, "max", "vocab_pick")
         buf = torch.zeros((self.n, k + 1), dtype=torch.int32, device=step.device)
         buf[self.rows, :k] = tok.reshape(-1, k)
-        buf[self.rows, k] = torch.isfinite(step.float()).flatten(1).all(dim=-1).to(torch.int32)
-        return reduce_over(buf, self.group, "sum", "row_gather")
+        buf[self.rows, k] = finite
+        return buf if self.group is None else reduce_over(buf, self.group, "sum", "row_gather")
 
 
 def _split_axes(ax, n: int, mesh) -> tuple[str, ...]:
@@ -459,6 +469,11 @@ class LMExecutor:
       cache of its own), so it joins every collective of the step, and
       drops its result.  A sharded head then splits out-blocks over its
       model axis only, its batch being the rank's rows already;
+    * where the decode policy computes modules in blocks
+      (:meth:`LM.split_plan`: the MLP's hidden columns and the vocabulary
+      under ``DECODE_POLICY``), each rank keeps those blocks; the logits of
+      a split vocabulary stay split, and every step's logits come back as
+      :class:`RowLogits`, which picks the greedy token over the split;
     * every global-attention cache (:data:`lm.SPLIT_KV_KINDS`) keeps only
       the rank's block of the ``max_len`` positions over the policy's
       ``kv_seq`` axes (:data:`kv`), and decode attention merges the blocks
@@ -476,6 +491,7 @@ class LMExecutor:
         import torch
 
         from repro_torch.distributed.layout import seq_split
+        from repro_torch.distributed.sharding import use_rules
         from repro_torch.models import lm
 
         self.cfg, self.model, self.mesh = model.cfg, model, mesh
@@ -506,6 +522,10 @@ class LMExecutor:
                 self._lo = mesh.index(self.rows) * self.n_local
                 if shard is not None and shard.data_axis in self.rows:
                     self._head_shard = dataclasses.replace(shard, data_axis=None)
+        self.plan = None  # what the decode policy computes in blocks (LM.split_plan)
+        if self.policy is not None:
+            with use_rules(mesh, self.policy):
+                self.plan = model.split_plan()
         caches = dict(dtype=self._act_dtype, device=self.device, kv=self.kv)
         self.pool = lm.make_caches(self.cfg, self.n_local, max_len, **caches)
         self._idle = lm.make_caches(self.cfg, 1, max_len, **caches) if self.rows else None
@@ -602,6 +622,9 @@ class LMExecutor:
                 for p, c in zip(self.pool, caches):
                     for dst, src in zip(p, c):
                         dst[row:row + 1] = src
+            if self._split_head():
+                logits = RowLogits(logits, torch.zeros((1,), dtype=torch.int64, device=self.device), 1, None,
+                                   self.plan)
             for i in range(tail.shape[-1]):
                 logits = self._decode([slot], tail[None, ..., i:i + 1])
         self._sync()
@@ -621,15 +644,18 @@ class LMExecutor:
         else:  # no live row here: an idle row joins the step's collectives
             self.idle_steps += 1
             logits = self.model.decode_step(self._tokens(np.zeros_like(tokens[:1])), self._idle, kv=self.kv)[0][:0]
-        if not self.rows:
+        if not self.rows and not self._split_head():
             return logits
         rows = torch.as_tensor(mine, dtype=torch.int64, device=self.device)
-        return RowLogits(logits, rows, len(slots), self.mesh.group(self.rows))
+        return RowLogits(logits, rows, len(slots), self.mesh.group(self.rows) if self.rows else None, self.plan)
+
+    def _split_head(self) -> bool:
+        return self.plan is not None and self.plan.head
 
     def decode_forward(self, slots: Sequence[int], tokens: np.ndarray):
         """One decode step of the live ``slots``: the logits ``(B, 1, V)`` /
         ``(B, 1, K, V)``, or this rank's rows of them (:class:`RowLogits`)
-        where the pool's rows are split; :meth:`sample` and
+        where the pool's rows or the vocabulary are split; :meth:`sample` and
         :meth:`row_finite` take either."""
         from repro_torch.api import dispatch as _dispatch
 

@@ -164,19 +164,22 @@ def test_tokens_match_reference(serve_run, mesh):
 
 @pytest.mark.parametrize("mesh", list(worker.MESHES))
 def test_decode_logits_match_reference(serve_run, mesh):
-    """Every decode step's logits (the replays' too), their rows assembled
-    from the ranks, within ``LOGITS_TOL`` of the reference's; ranks that
-    hold the same rows hold the same bits."""
+    """Every decode step's logits (the replays' too), their rows and
+    vocabulary blocks assembled from the ranks, within ``LOGITS_TOL`` of
+    the reference's; ranks that hold the same rows and block hold the
+    same bits."""
     _, results, ref = serve_run
     assert len({len(r["meshes"][mesh]["logits"]) for r in results}) == 1
     assert len(results[0]["meshes"][mesh]["logits"]) == len(ref["logits"])
     for i, want in enumerate(ref["logits"]):
         got = np.full(want.shape, np.nan, np.float32)
         for res in results:
-            local, rows = res["meshes"][mesh]["logits"][i]
+            local, rows, start = res["meshes"][mesh]["logits"][i]
+            cols = slice(start, start + local.shape[-1])
             for row, value in zip(rows, local):
-                assert np.isnan(got[row]).all() or np.array_equal(got[row], value), "replicas differ"
-                got[row] = value
+                seen = got[row][..., cols]
+                assert np.isnan(seen).all() or np.array_equal(seen, value), "replicas differ"
+                got[row][..., cols] = value
         assert not np.isnan(got).any(), f"step {i}: a row no rank holds"
         np.testing.assert_allclose(got, want, rtol=0, atol=LOGITS_TOL * np.abs(want).max())
 

@@ -92,7 +92,8 @@ def _pool(ex) -> list:
 
 def _serve(inp, mesh, case="gemma", policy=None, head_shard=False) -> dict:
     """The trace through ``Engine(LMExecutor(mesh=))``; every decode
-    step's logits kept as this rank's rows of them and their positions."""
+    step's logits kept as this rank's rows of them, their positions and
+    the first column of its vocabulary block."""
     from repro_torch.runtime.engine import Engine, LMExecutor, RowLogits
 
     model = _model(inp, mesh, case, policy, head_shard)
@@ -101,10 +102,11 @@ def _serve(inp, mesh, case="gemma", policy=None, head_shard=False) -> dict:
 
     def logged(slots, tokens):
         logits = decode(slots, tokens)
-        if isinstance(logits, RowLogits):
-            steps.append((_np(logits.local), logits.rows.tolist()))
+        if isinstance(logits, RowLogits):  # this rank's rows, and its vocabulary block where split
+            start = logits.plan.vocab_start if logits.plan is not None and logits.plan.head else 0
+            steps.append((_np(logits.local), logits.rows.tolist(), start))
         else:
-            steps.append((_np(logits), list(range(len(slots)))))
+            steps.append((_np(logits), list(range(len(slots))), 0))
         return logits
 
     ex.decode_forward = logged
