@@ -65,9 +65,9 @@ Phases, each fatal on failure (non-zero exit):
    ``torch.profiler``: device busy time and idle share, device time by
    kernel family (K1/K4, K2, K3 and its three launches, dense matmul,
    elementwise, other);
-8. the batched factorizer at workload scale: ``BATCHED_STACK``, 9 of
+8. the batched factorizer at workload scale: ``BATCHED_STACK``, 6 of
    gemma-2b's 18 MLP up-projections (the script's time limit), as one stack
-   ``(9, 2048, 16384)`` f32 through ``factorize`` (slice 1's spec, one
+   ``(6, 2048, 16384)`` f32 through ``factorize`` (slice 1's spec, one
    solve per step for the stack): seconds, each matrix's RE, peak memory;
    the first and last matrix again through the sequential route (RE
    within 1e-3); each operator through ``apply("fused")`` against ``x @
@@ -177,7 +177,7 @@ Phases, each fatal on failure (non-zero exit):
    2112 tokens; prompts 64, 200, 512, 1024, 1536, 2048, budgets 16-48:
    banded prefills, ring caches that wrap); (b) granite-moe-3b,
    ``launch.train --faust --steps 3 --batch 8 --seq 128`` cut to
-   ``GRANITE_TRAIN_LAYERS`` = 8 of its 32 layers at the
+   ``GRANITE_TRAIN_LAYERS`` = 4 of its 32 layers at the
    published capacity factor 1.25 (cross entropy and aux loss of the
    trained model; the MoE layers' share of the step's device time,
    estimated from one layer's timed forward and backward), then served
@@ -197,13 +197,13 @@ Phases, each fatal on failure (non-zero exit):
    at their published widths, bf16, the same FAµST unembedding untied, on
    a fresh read-only autotune table, with the same counts, parameter and
    kernel checks as phase 15: (a) mamba2-2.7b cut to
-   ``MAMBA2_TRAIN_LAYERS`` = 16 of its 64 layers,
+   ``MAMBA2_TRAIN_LAYERS`` = 4 of its 64 layers,
    ``launch.train --faust --steps 3 --batch 4 --seq 1024`` (four SSD chunks
-   a sequence: the inter-chunk loop runs); (b) zamba2-7b cut to two whole
-   units of five ssm layers and the shared block (12 layers: the full
+   a sequence: the inter-chunk loop runs); (b) zamba2-7b cut to one whole
+   unit of five ssm layers and the shared block (6 layers: the full
    5.74 G's AdamW state does not fit), same flags;
-   (c) both served, cut to ``MAMBA2_SERVE_LAYERS`` = 16 of mamba2's 64
-   layers and ``ZAMBA2_SERVE_LAYERS`` = 18 of zamba2's 81 (three units;
+   (c) both served, cut to ``MAMBA2_SERVE_LAYERS`` = 4 of mamba2's 64
+   layers and ``ZAMBA2_SERVE_LAYERS`` = 12 of zamba2's 81 (two units;
    ``ssm_serve_probe.py`` runs them at both depths), 8 slots of
    1160 tokens, 10 requests: prompts 300, 200, 256, 480, 512, 700, 1024 and
    three uniform over 32-256, budgets 16-48, one eviction at step 6 (of
@@ -235,7 +235,7 @@ Phases, each fatal on failure (non-zero exit):
    4 --seq 1024`` (two attention chunks and 256 image positions a row,
    ``vision_embeds`` from the data pipeline), K1, K2 and K3 each launched
    exactly once a step; (b) musicgen-medium cut to
-   ``MUSICGEN_TRAIN_LAYERS`` = 12 of its 48 layers (full depth until PR
+   ``MUSICGEN_TRAIN_LAYERS`` = 6 of its 48 layers (full depth until PR
    27), ``--batch 8 --seq 1024`` (tokens ``(8, 4, 1024)``), each launched four times a step, once
    per codebook's head, every head's K2 and K3 against their plain
    versions at the trainer's 8192 rows; (c) both served, 8 slots of 1088
@@ -359,7 +359,24 @@ Phases, each fatal on failure (non-zero exit):
    (``host_staged_wire``); a planted fault at the smoke width (the
    column-parallel input's backward all-reduce dropped, f32) that must
    fail the loss check; step seconds logged (four ranks share the card:
-   no multi-GPU time).
+   no multi-GPU time);
+22. the SSM on the rank's heads (slice 19): zamba2-7b at full width (d
+   3584; 112 SSM heads of 64, state 64, d_inner 7168; the shared block's
+   32 heads of 112 and ff 14336; vocabulary 32,000; ``launch.train``'s
+   ``--faust`` head), cut to one unit of two mamba layers and the shared
+   position (``TP_SSM_UNIT``), ``--batch 4 --seq 512`` (two SSD chunks),
+   bf16: (a)-(c) as phase 21's, with each mamba block on the rank's 56
+   heads (its ``in_proj`` columns, conv channels, SSD and ``out_proj``
+   rows; the gated norm's sum of squares summed over ``model``) beside the
+   shared block's split attention and MLP and the split FAµST head: a
+   rank's mamba flops half the gathered path's and a little more
+   (``TP_SSM_FLOP_SHARE``: each rank computes its group's ``B`` and ``C``);
+   (d) the planted fault, the norm's backward sum over the split dropped
+   (smoke width, f32), must fail the loss check; (e) the model served in
+   f32 under ``DECODE_POLICY`` on the same four ranks (each ``MambaCache`` at
+   56 heads, half the whole's bytes a row), two requests of 256 and 512
+   tokens, 12 new tokens each, every token equal to the unsharded
+   engine's, run in this process beside them.
 
 Prints one JSON object per line; the last three lines are the kernels
 summary, the card's ``name, power.limit`` and ``{"ok": true, ...}``.
@@ -1833,7 +1850,8 @@ def measure_unembed(card_line: str, dev, b: int = 1024, dims=(2048, 2048, 256000
 # ---------------------------------------------------------------------------
 
 GEMMA_UP = (18, 2048, 16384)  # gemma-2b: n_layers, d_model, d_ff (src/repro/configs/gemma_2b.py)
-BATCHED_STACK = (9,) + GEMMA_UP[1:]  # phase 8's stack: 9 of the 18 up-projections (all 18 take ≈ 67 s on the H100)
+# phase 8's stack: 6 of the 18 up-projections (all 18 took ≈ 67 s on the H100, 9 33.6 s)
+BATCHED_STACK = (6,) + GEMMA_UP[1:]
 BATCHED_RE_GAP = 1e-3  # batched against sequential RE on the card: bmm and mm sum in other orders
 
 
@@ -3360,8 +3378,9 @@ GEMMA3_TRAIN_ARGV = ("--arch", "gemma3_27b", "--faust", "--steps", "3", "--batch
 GRANITE_TRAIN_ARGV = ("--arch", "granite_moe_3b", "--faust", "--steps", "3", "--batch", "8", "--seq", "128")
 # the trainers' depths, cut (granite's from its full 32, mamba2's from 64,
 # zamba2's from 36, musicgen's from 48) to make room for phase 18 (c)'s
-# sharded serving; the served models stay at full depth
-GRANITE_TRAIN_LAYERS = 8
+# sharded serving, and again (granite 8 -> 4, musicgen 12 -> 6) for phase 22;
+# the served models stay at full depth
+GRANITE_TRAIN_LAYERS = 4
 GEMMA3_PROMPTS = (64, 200, 512, 1024, 1536, 2048)  # above attn_chunk 512 only multiples of it: no replay
 ARCH_MAX_LEN = 2112  # gemma3's longest prompt and 48 new tokens, with room
 LLAMA4_PROMPT = 256  # prefill and decode at B = 1 and 8
@@ -3796,13 +3815,16 @@ def archs(card_line: str, dev) -> dict:
 MAMBA2_TRAIN_ARGV = ("--arch", "mamba2_2p7b", "--faust", "--steps", "3", "--batch", "4", "--seq", "1024")
 ZAMBA2_TRAIN_ARGV = ("--arch", "zamba2_7b", "--faust", "--steps", "3", "--batch", "4", "--seq", "1024")
 ZAMBA2_UNIT = ("ssm",) * 5 + ("shared",)  # zamba2's stage unit (src/repro/configs/zamba2_7b.py)
-ZAMBA2_TRAIN_LAYERS = 12  # two whole units (the full 81's AdamW state does not fit the card)
-MAMBA2_TRAIN_LAYERS = 16  # of 64
+# the trained depths: one whole unit (the full 81's AdamW state does not fit the card) and 4 of 64 (two
+# units and 16 of 64 until phase 22 came: 6.4 -> 4.1 s and 10.3 -> 4.3 s at 8 on the H100)
+ZAMBA2_TRAIN_LAYERS = 6
+MAMBA2_TRAIN_LAYERS = 4
 # (c)-(e)'s served depths: at full depth (64 and 81 layers) the replay-bound serving took 131-158 s a
-# model, most of the script's time limit (PERF.md); three of zamba2's units keep its shared block at three
-# positions, each with its own KVCache
-MAMBA2_SERVE_LAYERS = 16
-ZAMBA2_SERVE_LAYERS = 18
+# model, most of the script's time limit (PERF.md), at 16 and 18 layers 49.7 s, at 8 and 12 31.9 s; two of
+# zamba2's units keep its shared block at two positions, each with its own KVCache (the planted fault that
+# reads the next occurrence's cache needs two)
+MAMBA2_SERVE_LAYERS = 4
+ZAMBA2_SERVE_LAYERS = 12
 # 300 and 480 lie in the band the reference's SSD rejects (above ssm.chunk 256, below attn_chunk 512);
 # 300 first: the eviction takes the lowest slot's request, so its re-prefill lands in the band too
 SSM_PROMPTS = (300, 200, 256, 480, 512, 700, 1024)
@@ -4110,7 +4132,7 @@ def ssm_serving(card_line: str, dev, mamba_layers: int | None, zamba_layers: int
 
 INTERNVL2_TRAIN_ARGV = ("--arch", "internvl2_2b", "--faust", "--steps", "3", "--batch", "4", "--seq", "1024")
 MUSICGEN_TRAIN_ARGV = ("--arch", "musicgen_medium", "--faust", "--steps", "3", "--batch", "8", "--seq", "1024")
-MUSICGEN_TRAIN_LAYERS = 12  # of 48
+MUSICGEN_TRAIN_LAYERS = 6  # of 48
 # served prompts: above attn_chunk 512 only the 600s are ragged (512 prefilled, 88 replayed); internvl2's
 # hold its 256 image positions, its three random ones stay within 256-512 so that they prefill whole
 INTERNVL2_PROMPTS = (256, 300, 512, 600, 1024)
@@ -5558,20 +5580,27 @@ TP_FLOP_SHARE = (0.49, 0.51)
 _TP_MODULES = {"attention": "Layer.attn", "mlp": "Layer.mlp", "head": "Unembed"}
 
 
-def _tp_config(dtype=None, gathered: bool = False, small: bool = False):
+def _tp_case(ssm: bool = False) -> tuple:
+    """``(argv, unit, small vocabulary)`` of phase 21 or, with ``ssm``, phase 22."""
+    return (TP_SSM_ARGV, TP_SSM_UNIT, TP_SSM_SMALL_VOCAB) if ssm else (TP_ARGV, TP_UNIT, TP_SMALL_VOCAB)
+
+
+def _tp_config(dtype=None, gathered: bool = False, small: bool = False, ssm: bool = False):
     """``launch.train``'s run of ``TP_ARGV`` and its config cut to
-    ``TP_UNIT``, cast to ``dtype`` where given; ``gathered``: under a
-    policy whose activations name no axis (every module gathered whole,
-    the path before slice 18); ``small``: at the smoke width, with a
-    vocabulary of ``TP_SMALL_VOCAB``."""
+    ``TP_UNIT`` (``ssm``: phase 22's ``TP_SSM_ARGV`` and ``TP_SSM_UNIT``),
+    cast to ``dtype`` where given; ``gathered``: under a policy whose
+    activations name no axis (every module gathered whole, the path
+    before slice 18); ``small``: at the smoke width, with a vocabulary of
+    ``TP_SMALL_VOCAB`` (``TP_SSM_SMALL_VOCAB``)."""
     import dataclasses
 
     from repro_torch.launch import train
 
-    base = train.build(train.parse_args(list(TP_ARGV) + (["--smoke"] if small else [])))
-    cfg = dataclasses.replace(base.cfg, n_layers=len(TP_UNIT), stages=((1, TP_UNIT),))
+    argv, unit, vocab = _tp_case(ssm)
+    base = train.build(train.parse_args(list(argv) + (["--smoke"] if small else [])))
+    cfg = dataclasses.replace(base.cfg, n_layers=len(unit), stages=((1, unit),))
     if small:
-        cfg = dataclasses.replace(cfg, vocab=TP_SMALL_VOCAB)
+        cfg = dataclasses.replace(cfg, vocab=vocab)
     if dtype is not None:
         cfg = dataclasses.replace(cfg, dtype=dtype)
     if gathered:
@@ -5580,16 +5609,16 @@ def _tp_config(dtype=None, gathered: bool = False, small: bool = False):
     return base, cfg
 
 
-def _tp_trainer(dev, mesh=None, dtype=None, small: bool = False, **tc):
+def _tp_trainer(dev, mesh=None, dtype=None, small: bool = False, ssm: bool = False, **tc):
     """``launch.train``'s trainer for ``TP_ARGV`` cut to ``TP_UNIT`` (at the
-    smoke width with ``small``) on ``mesh`` and a model from seed 0 (an
-    unsplit head forced onto ``fused``)."""
+    smoke width with ``small``; ``ssm``: phase 22's) on ``mesh`` and a
+    model from seed 0 (an unsplit head forced onto ``fused``)."""
     import dataclasses
 
     from repro_torch.models.lm import LM
     from repro_torch.runtime.trainer import Trainer
 
-    base, cfg = _tp_config(dtype, small=small)
+    base, cfg = _tp_config(dtype, small=small, ssm=ssm)
     data_cfg = dataclasses.replace(base.data_cfg, vocab=cfg.vocab)
     t = Trainer(cfg, data_cfg, base.opt_cfg, dataclasses.replace(base.tcfg, **{"checkpoint_every": 1000, **tc}),
                 mesh=mesh, device=dev)
@@ -5678,19 +5707,19 @@ def host_staged_wire():
         _mesh.all_gather, _mesh.all_reduce, _mesh.reduce_scatter = real
 
 
-def tp_prediction(path: str) -> None:
-    """Phase 21's predictions, written to ``path`` as JSON (a process of
-    its own on the CPU, beside the card work): the dry run of the bf16
-    configuration on each rank of a fake 2 × 2 mesh, its collectives host
-    staged as the ranks' are (:func:`host_staged_wire`: collectives by
-    purpose, peak, flops), rank 0's with them on the card, and rank 0's
-    of the gathered path."""
+def tp_prediction(path: str, ssm: bool = False) -> None:
+    """Phase 21's predictions (``ssm``: phase 22's), written to ``path`` as
+    JSON (a process of its own on the CPU, beside the card work): the dry
+    run of the bf16 configuration on each rank of a fake 2 × 2 mesh, its
+    collectives host staged as the ranks' are (:func:`host_staged_wire`:
+    collectives by purpose, peak, flops), rank 0's with them on the card,
+    and rank 0's of the gathered path."""
     from repro_torch.launch.dryrun import dry_run
     from repro_torch.launch.mesh import abstract_rank, release
 
-    cell = _tp_cell()
+    cell = _tp_cell(ssm)
     out = {"ranks": []}
-    _, cfg = _tp_config()
+    _, cfg = _tp_config(ssm=ssm)
     with host_staged_wire():
         for r in range(math.prod(TP_MESH)):
             rec = dry_run(cfg, cell, abstract_rank(TP_MESH, ("data", "model"), r))
@@ -5701,7 +5730,7 @@ def tp_prediction(path: str) -> None:
     rec = dry_run(cfg, cell, abstract_rank(TP_MESH, ("data", "model"), 0))
     release()
     out["peak_bytes_on_card_wire"] = rec["memory"]["peak_bytes"]
-    _, cfg = _tp_config(gathered=True)
+    _, cfg = _tp_config(gathered=True, ssm=ssm)
     with host_staged_wire():
         rec = dry_run(cfg, cell, abstract_rank(TP_MESH, ("data", "model"), 0), prepare=_fused_head)
     release()
@@ -5710,11 +5739,12 @@ def tp_prediction(path: str) -> None:
     Path(path).write_text(json.dumps(out))
 
 
-def _tp_cell():
+def _tp_cell(ssm: bool = False):
     from repro_torch.configs.base import ShapeCell
 
-    return ShapeCell("phase21", "train", int(TP_ARGV[TP_ARGV.index("--seq") + 1]),
-                     int(TP_ARGV[TP_ARGV.index("--batch") + 1]))
+    argv = _tp_case(ssm)[0]
+    return ShapeCell("phase22" if ssm else "phase21", "train", int(argv[argv.index("--seq") + 1]),
+                     int(argv[argv.index("--batch") + 1]))
 
 
 def tp_rank(rank: int, rendezvous: str, out_dir: str, card_line: str, device: str) -> None:
@@ -5778,28 +5808,30 @@ def tp_rank(rank: int, rendezvous: str, out_dir: str, card_line: str, device: st
         dist.destroy_process_group()
 
 
-def tp_nccl(card_line: str, dev, plain: dict) -> dict:
-    """Phase 21 (b): the bf16 trainer on a 1 × 1 NCCL mesh in this
-    process (nothing splits on one rank), held to the unsharded run."""
+def tp_nccl(card_line: str, dev, plain: dict, ssm: bool = False) -> dict:
+    """Phase 21 (b) (``ssm``: phase 22 (b)): the bf16 trainer on a 1 × 1
+    NCCL mesh in this process (nothing splits on one rank), held to the
+    unsharded run."""
     import torch.distributed as dist
 
     from repro_torch.distributed import make_debug_mesh
 
-    folder = TP_FOLDER / "nccl"
+    folder = (TP_SSM_FOLDER if ssm else TP_FOLDER) / "nccl"
     folder.mkdir(parents=True, exist_ok=True)
     rdv = folder / "rendezvous"
     rdv.unlink(missing_ok=True)
     dist.init_process_group("nccl", init_method=f"file://{rdv}", rank=0, world_size=1)
     try:
         t, model = _tp_trainer(dev, mesh=make_debug_mesh(1, 1, device=dev), steps=TP_STEPS,
-                               checkpoint_dir=str(folder / "ckpt"))
+                               checkpoint_dir=str(folder / "ckpt"), ssm=ssm)
         run = _tp_run(t, model)
         del t, model
         _free()
     finally:
         dist.destroy_process_group()
-    row = {"phase": "tp_train_1x1", "card": card_line, "argv": list(TP_ARGV), "unit": list(TP_UNIT), "mesh": run,
-           "loss_rel_diff": _check_diff(run, plain)}
+    argv, unit, _ = _tp_case(ssm)
+    row = {"phase": "tp_ssm_train_1x1" if ssm else "tp_train_1x1", "card": card_line, "argv": list(argv),
+           "unit": list(unit), "mesh": run, "loss_rel_diff": _check_diff(run, plain)}
     log(row)
     require(row["loss_rel_diff"] <= MT_TOL["bfloat16"],
             f"the 1 x 1 mesh's losses differ from the unsharded trainer's: {row['loss_rel_diff']}")
@@ -5913,6 +5945,295 @@ def tensor_parallel(card_line: str, dev) -> dict:
                                                    if not k.startswith("coll_")}}
 
 
+# ---------------------------------------------------------------------------
+# Slice 19: the SSM on the rank's heads (phase 22)
+# ---------------------------------------------------------------------------
+
+TP_SSM_ARGV = ("--arch", "zamba2_7b", "--faust", "--steps", "1", "--batch", "4", "--seq", "512")
+# the depth: one unit, two mamba layers and the shared block's position, at full width; 512 positions are
+# two SSD chunks of 256, so the inter-chunk state crosses a chunk
+TP_SSM_UNIT = ("ssm", "ssm", "shared")
+TP_SSM_SMALL_VOCAB = 256  # the f32 and planted runs' vocabulary: 8 whole FAµST blocks of 16 a rank
+TP_SSM_FOLDER = ROOT / "build" / "chip_smoke_tp_ssm"
+# a rank's mamba flops against the gathered path's: a half, and a little more, since every rank computes
+# its heads' group's B and C columns of in_proj and C·Bᵀ whole (0.5032 at zamba2's widths on the H100).
+# Counted on one layer's forward and backward alone (layer_flops), not on the step: FlopCounterMode's
+# module tracker, confused by the remat recompute, gave a mamba block's out_proj products to no module,
+# and it keeps tensors to the backward (+14 % on the step's dry-run peak)
+TP_SSM_FLOP_SHARE = (0.50, 0.51)
+# (e): two requests whose prompts are multiples of every chunk (ssm.chunk 256, attn_chunk 512), so
+# nothing replays, served by the cut model in f32 under DECODE_POLICY on 2 x 2 and by the unsharded engine.
+# In bf16 a rank's in_proj columns and its heads' SSD batches round apart from the whole model's, and a
+# near-tie flipped the 512-token request's 7th token on the H100 (with cuBLAS's reduced-precision bf16
+# reductions on or off)
+TP_SSM_PROMPTS = (256, 512)
+TP_SSM_NEW_TOKENS = 12
+TP_SSM_MAX_LEN = 528  # the longer prompt and its new tokens, a multiple of the model axis (kv positions)
+# a rank's MambaCache bytes a row against the whole's: the state's heads halve exactly; the conv history
+# keeps every rank's copy of its group's B and C channels (0.5002 at zamba2's widths)
+TP_SSM_CACHE_SHARE = (0.50, 0.51)
+
+
+def layer_flops(model, rows: int, plan=None) -> dict:
+    """FlopCounterMode's flops of one forward and backward (no remat) of
+    the model's first mamba layer (``"ssm"``) and of its shared block
+    (``"shared"``) on ``rows`` random rows of phase 22's sequence, split as
+    ``plan`` gives them (a sharded model gathers its parameters, so every
+    rank of the mesh calls it together)."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    seq = int(TP_SSM_ARGV[TP_SSM_ARGV.index("--seq") + 1])
+    out = {}
+    for kind in ("ssm", "shared"):
+        i = next(i for i, layer in enumerate(model.layers) if layer.kind == kind)
+        module, prefix = model._layer(i, model.layers[i])
+        x = torch.randn((rows, seq, model.cfg.d_model), dtype=model.embed.table.dtype,
+                        device=model.embed.table.device, requires_grad=True)
+        split = None if plan is None else plan.layers.get(prefix)
+        with FlopCounterMode(display=False) as fc:
+            y = model._call(module, prefix, x, "train", None, None, None, split, plan=plan)[0]
+            y.float().sum().backward()
+        out[kind] = fc.get_total_flops()
+    return out
+
+
+def tp_ssm_serve(dev, mesh=None) -> dict:
+    """Phase 22 (e): the model of ``TP_SSM_ARGV`` cut to ``TP_SSM_UNIT``
+    in f32 (seed 0, head forced fused) served the two requests of
+    ``TP_SSM_PROMPTS``, ``TP_SSM_NEW_TOKENS`` tokens each, split on
+    ``mesh`` (``LM.shard_``, ``LMExecutor(mesh=)`` under its decode
+    policy) or unsharded: the tokens, the pool's mamba bytes a row, the
+    SSM split, the launches and seconds."""
+    import numpy as np
+    import torch
+
+    from repro_torch.layers.mamba2 import MambaCache
+    from repro_torch.models.lm import LM
+    from repro_torch.runtime.engine import Engine, LMExecutor
+
+    _, cfg = _tp_config("float32", ssm=True)
+    model = LM(cfg, seed=0, device=dev)
+    _fused_head(model)
+    if mesh is not None:
+        model.shard_(mesh)
+    rng = np.random.default_rng(22)
+    prompts = [rng.integers(0, cfg.vocab, n).astype(np.int32) for n in TP_SSM_PROMPTS]
+    ex = LMExecutor(model, TP_SSM_MAX_LEN, len(prompts), mesh=mesh)
+    engine = Engine(ex)
+    _zero_mt_counts()
+    t0 = time.perf_counter()
+    rids = [engine.submit(p, TP_SSM_NEW_TOKENS) for p in prompts]
+    engine.run()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    pool = [c for c in ex.pool if isinstance(c, MambaCache)]
+    ssm = None if ex.plan is None else ex.plan.ssm
+    out = {"tokens": [engine.result(r).tolist() for r in rids], "seconds": seconds, "launches": _mt_counts(),
+           "mamba_bytes_per_row": sum(t.numel() * t.element_size() for c in pool for t in c) / ex.n_local,
+           "ssm_state_bytes_per_row": sum(c.ssm.numel() * c.ssm.element_size() for c in pool) / ex.n_local,
+           "ssm_heads": None if ssm is None else [ssm.heads, ssm.head_lo], "n_local": ex.n_local}
+    del engine, ex, model
+    _free()
+    return out
+
+
+def tp_ssm_rank(rank: int, rendezvous: str, out_dir: str, card_line: str, device: str) -> None:
+    """One of phase 22's four ranks (a spawned process) on the parent's
+    ``device``: the bf16 run (its first step's collectives and flops), at
+    the smoke width the f32 run and the planted fault's (f32), then (e)'s
+    serving; saved to ``out_dir/rank{rank}.json``."""
+    global _ROWS
+    import datetime
+    import traceback
+
+    import torch
+    import torch.distributed as dist
+
+    _ROWS = []
+    os.environ["REPRO_AUTOTUNE"] = "off"
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    dev = torch.device(device)
+    torch.cuda.set_device(dev)
+    torch.set_num_threads(max(1, (os.cpu_count() or 4) // math.prod(TP_MESH)))
+    result: dict = {"rank": rank}
+    dist.init_process_group("gloo", init_method=f"file://{rendezvous}", rank=rank, world_size=math.prod(TP_MESH),
+                            timeout=datetime.timedelta(seconds=TP_TIMEOUT_S))
+    try:
+        from repro_torch.distributed import layout, make_debug_mesh
+        from repro_torch.distributed.mesh import TRANSPORT
+        from repro_torch.distributed.sharding import use_rules
+        from repro_torch.kernels.chain_sharded import split_plan
+
+        t0 = time.perf_counter()
+        mesh = make_debug_mesh(*TP_MESH, device=dev)
+        result["coord"] = dict(mesh.coord)
+        t, model = _tp_trainer(dev, mesh=mesh, steps=TP_STEPS, ssm=True,
+                               checkpoint_dir=str(Path(out_dir) / f"bf16_{rank}"))
+        result["bf16"] = _tp_run(t, model)
+        with use_rules(mesh, model.cfg.policy):
+            plan = model.split_plan()
+        result["layer_flops"] = layer_flops(model, _tp_cell(True).global_batch // TP_MESH[0], plan)
+        result["segments"] = len(split_plan(model.unembed.faust.blockfaust(), mesh, "model").segments)
+        result["state_bytes"] = t.state_bytes
+        del t, model
+        _free()
+        t, model = _tp_trainer(dev, mesh=mesh, dtype="float32", small=True, steps=1, ssm=True,
+                               checkpoint_dir=str(Path(out_dir) / f"f32_{rank}"))
+        result["f32"] = _mt_run(t, model)
+        del t, model
+        real = layout._SplitTotal.backward
+        layout._SplitTotal.backward = staticmethod(lambda ctx, g: (g, None))  # the norm's cotangent not summed
+        try:
+            t, model = _tp_trainer(dev, mesh=mesh, dtype="float32", small=True, steps=1, ssm=True,
+                                   checkpoint_dir=str(Path(out_dir) / f"planted_{rank}"))
+            result["planted"] = _mt_run(t, model)
+        finally:
+            layout._SplitTotal.backward = real
+        del t, model
+        _free()
+        result["train_seconds"] = time.perf_counter() - t0
+        result["serve"] = tp_ssm_serve(dev, mesh)
+        result["seconds"] = time.perf_counter() - t0
+        result["transport"] = dict(TRANSPORT)
+    except Exception:  # noqa: BLE001 — reported by the parent
+        result["error"] = traceback.format_exc()
+    finally:
+        result["rows"] = _ROWS
+        Path(out_dir, f"rank{rank}.json").write_text(json.dumps(result, default=str))
+        dist.destroy_process_group()
+
+
+def tensor_parallel_ssm(card_line: str, dev) -> dict:
+    """Phase 22, slice 19 (module docstring): the prediction in a CPU
+    process of its own; (c)-(e) on four ranks spawned on 2 × 2 and, beside
+    them in this process, (a) the unsharded trainers, (b) the 1 × 1 NCCL
+    run and (e)'s unsharded engine."""
+    import multiprocessing
+    import shutil
+
+    from repro_torch.kernels import build
+
+    t0 = time.perf_counter()
+    shutil.rmtree(TP_SSM_FOLDER, ignore_errors=True)
+    TP_SSM_FOLDER.mkdir(parents=True)
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src"), "CUDA_VISIBLE_DEVICES": ""}
+    code = (f"import sys; sys.path[:0] = [{str(ROOT)!r}]; import chip_smoke as cs; "
+            f"cs.TP_SSM_ARGV = {tuple(TP_SSM_ARGV) + ('--device', 'cpu')!r}; "
+            f"cs.TP_SSM_UNIT, cs.TP_MESH = {TP_SSM_UNIT!r}, {TP_MESH!r}; "
+            f"cs.tp_prediction({str(TP_SSM_FOLDER / 'prediction')!r}, ssm=True)")
+    pred_proc = subprocess.Popen([sys.executable, "-c", code], cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                                 stderr=subprocess.STDOUT, text=True)
+    procs = []
+    try:
+        build.build()  # already built: ranks must only load, never build at once
+        ctx = multiprocessing.get_context("spawn")
+        procs.extend(ctx.Process(target=tp_ssm_rank, args=(r, str(TP_SSM_FOLDER / "rendezvous"), str(TP_SSM_FOLDER),
+                                                            card_line, str(dev)))
+                     for r in range(math.prod(TP_MESH)))
+        for p in procs:
+            p.start()
+        t, model = _tp_trainer(dev, steps=TP_STEPS, checkpoint_dir=str(TP_SSM_FOLDER / "plain"), ssm=True)
+        plain = _tp_run(t, model)
+        # the gathered path's: the whole layers on a rank's rows (the unsharded step's over the data axis)
+        plain["layer_flops"] = layer_flops(model, _tp_cell(True).global_batch // TP_MESH[0])
+        del t, model
+        _free()
+        t, model = _tp_trainer(dev, dtype="float32", small=True, steps=1, ssm=True,
+                               checkpoint_dir=str(TP_SSM_FOLDER / "plain32"))
+        plain32 = _mt_run(t, model)
+        del t, model
+        nccl = tp_nccl(card_line, dev, plain, ssm=True)
+        served = tp_ssm_serve(dev)
+        out, _ = pred_proc.communicate(timeout=TP_JOIN_S)
+        require(pred_proc.returncode == 0, f"phase 22's prediction failed:\n{out[-3000:]}")
+        pred = json.loads((TP_SSM_FOLDER / "prediction").read_text())
+        deadline = time.monotonic() + TP_JOIN_S
+        for p in procs:
+            p.join(max(deadline - time.monotonic(), 1))
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join(10)
+        if pred_proc.poll() is None:
+            pred_proc.kill()
+            pred_proc.wait(10)
+    results = []
+    for r, p in enumerate(procs):
+        path = TP_SSM_FOLDER / f"rank{r}.json"
+        require(path.exists(), f"SSM-split rank {r} saved nothing (exit code {p.exitcode})")
+        res = json.loads(path.read_text())
+        require("error" not in res, f"SSM-split rank {r} failed:\n{res.get('error')}")
+        results.append(res)
+    first = results[0]
+    row = {"phase": "tp_ssm_train", "card": card_line, "argv": list(TP_SSM_ARGV), "unit": list(TP_SSM_UNIT),
+           "mesh": list(TP_MESH), "seconds": time.perf_counter() - t0,
+           "rank_seconds": [r["seconds"] for r in results], "rank_train_seconds": [r["train_seconds"] for r in results],
+           "coords": [r["coord"] for r in results], "unsharded": plain, "unsharded_f32": plain32,
+           "bf16": [r["bf16"] for r in results], "f32": [r["f32"] for r in results], "planted": first["planted"],
+           "segments": [r["segments"] for r in results], "transport": [r["transport"] for r in results],
+           "state_share": [r["state_bytes"]["rank"] / r["state_bytes"]["whole"] for r in results],
+           "layer_flops_gathered_path": plain["layer_flops"],
+           "flop_share": [{k: r["layer_flops"][k] / plain["layer_flops"][k] for k in ("ssm", "shared")}
+                          for r in results],
+           "prediction": pred,
+           "peak_gb": [r["bf16"]["peak_gb"] for r in results],
+           "predicted_peak_gb": [p["peak_bytes"] / 1e9 for p in pred["ranks"]],
+           "predicted_peak_gb_on_card_wire": pred["peak_bytes_on_card_wire"] / 1e9,
+           "timing": "four ranks share one card over host-staged gloo: no time here is a multi-GPU number"}
+    row["bf16_rel_diff"] = _check_diff(first["bf16"], plain)
+    row["f32_rel_diff"] = _check_diff(first["f32"], plain32)
+    row["planted_rel_diff"] = _check_diff(first["planted"], plain32)
+    row["peak_rel_err"] = [abs(g - p) / p for g, p in zip(row["peak_gb"], row["predicted_peak_gb"])]
+    log(row)
+    serve_row = {"phase": "tp_ssm_serve", "card": card_line, "prompts": list(TP_SSM_PROMPTS),
+                 "new_tokens": TP_SSM_NEW_TOKENS, "unsharded": served, "ranks": [r["serve"] for r in results],
+                 "mamba_share_per_row": [r["serve"]["mamba_bytes_per_row"] / served["mamba_bytes_per_row"]
+                                         for r in results],
+                 "state_share_per_row": [r["serve"]["ssm_state_bytes_per_row"] / served["ssm_state_bytes_per_row"]
+                                         for r in results]}
+    log(serve_row)
+    shutil.rmtree(TP_SSM_FOLDER, ignore_errors=True)
+    require(all(r["bf16"]["losses"] == first["bf16"]["losses"] for r in results)
+            and all(r["f32"]["losses"] == first["f32"]["losses"] for r in results), "the ranks' losses differ")
+    require(row["bf16_rel_diff"] <= MT_TOL["bfloat16"], f"the SSM split's losses differ from unsharded: "
+                                                         f"{row['bf16_rel_diff']}")
+    require(row["f32_rel_diff"] <= MT_TOL["float32"], f"the f32 SSM split step differs: {row['f32_rel_diff']}")
+    require(row["planted_rel_diff"] > MT_TOL["float32"],
+            f"the planted norm fault passed the loss check: {row['planted_rel_diff']}")
+    require(max(row["peak_rel_err"]) <= REPORT_MEM_TOL, f"a rank's peak is off the host-staged dry run's: "
+                                                         f"{row['peak_gb']} GB read, {row['predicted_peak_gb']} "
+                                                         f"predicted")
+    for r in results:
+        want = r["segments"] * TP_STEPS
+        got = {k: r["bf16"]["launches"][k] for k in ("chain_matmul", "chain_dgrad", "chain_wgrad")}
+        require(all(v == want for v in got.values()), f"rank {r['rank']}: K1/K2/K3 {got}, the plan's {want}")
+    predicted = [p["by_purpose"] for p in pred["ranks"]]
+    counted = [r["bf16"]["step_collectives"] for r in results]
+    require(predicted == counted, f"the ranks' collectives by purpose differ from the dry run's: {predicted} vs "
+                                  f"{counted}")
+    require(all(TP_SSM_FLOP_SHARE[0] <= share["ssm"] <= TP_SSM_FLOP_SHARE[1]
+                and TP_FLOP_SHARE[0] <= share["shared"] <= TP_FLOP_SHARE[1] for share in row["flop_share"]),
+            f"a rank's mamba or shared-block flops are not 1/{TP_MESH[1]} of the gathered path's: {row['flop_share']}")
+    heads = _tp_config(ssm=True)[1].ssm.n_heads // TP_MESH[1]
+    for r in results:
+        s = r["serve"]
+        require(s["tokens"] == served["tokens"], f"rank {r['rank']} served {s['tokens']}, the unsharded engine "
+                                                 f"{served['tokens']}")
+        require(s["ssm_heads"] == [heads, r["coord"]["model"] * heads],
+                f"rank {r['rank']}'s mamba blocks computed heads {s['ssm_heads']}, not its {heads}")
+        require(s["launches"]["chain_matmul"] > 0, f"rank {r['rank']}'s served head never ran K1")
+    require(all(TP_SSM_CACHE_SHARE[0] <= x <= TP_SSM_CACHE_SHARE[1] for x in serve_row["mamba_share_per_row"])
+            and all(x == 0.5 for x in serve_row["state_share_per_row"]),
+            f"a rank's MambaCache is not half the whole a row: {serve_row['mamba_share_per_row']}")
+    return {"row": row, "serve": serve_row, "nccl": nccl,
+            "launches": {k: v for k, v in first["bf16"]["launches"].items() if not k.startswith("coll_")},
+            "serve_launches": {k: v for k, v in first["serve"]["launches"].items() if not k.startswith("coll_")}}
+
+
 def _kernel_entry(name, source, replaces, launches, cases, checks, card_line, head) -> dict:
     first = next(r for r in cases if all(r.get(k) == v for k, v in head.items()))
     keys = ("chain", "quant", "dtype", "batch", "bt", "launches_per_apply", "max_abs_err", "ms", "cold_ms",
@@ -5972,6 +6293,7 @@ def main() -> int:
     mtr = mesh_train(info["card"], dev)
     rep = report(info["card"], dev, mtr)
     tp = tensor_parallel(info["card"], dev)
+    tps = tensor_parallel_ssm(info["card"], dev)
 
     src = "src/repro_torch/kernels/csrc/"
     f32_b128 = {"dtype": "float32", "batch": 128}
@@ -6029,6 +6351,9 @@ def main() -> int:
             k["report_launches"] = rep["launches"][report_names[k["name"]]]
         # slice 18: phase 21 (c), rank 0's bf16 run (K1/K2/K3 one a segment of the split head a step)
         k["tp_launches"] = tp["launches"][k["name"]]
+        # slice 19: phase 22 (c), rank 0's bf16 run beside the split SSM, and (e)'s serving on rank 0
+        k["tp_ssm_launches"] = tps["launches"][k["name"]]
+        k["tp_ssm_serve_launches"] = tps["serve_launches"][k["name"]]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(info["card"], flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -23,7 +23,10 @@ collectives that move it, as autograd Functions.
   input enters through :meth:`TPSplit.enter` (identity forward; the
   gradient's blocks summed over ``A`` backward), a row-parallel
   projection's partial output leaves through :meth:`TPSplit.reduce`
-  (summed over ``A`` forward, identity backward); the logits stay split:
+  (summed over ``A`` forward, identity backward); a value each rank
+  computes a part of from its own columns (a mamba block's gated norm's
+  sum of squares) through :meth:`TPSplit.total` (summed over ``A`` both
+  ways: each rank's cotangent differs); the logits stay split:
   :func:`vocab_cross_entropy`, :func:`vocab_argmax` and
   :func:`vocab_lookup` work on the blocks.
 * :func:`sum_over` is an all-reduce of a value every rank computed a part
@@ -57,12 +60,13 @@ from repro_torch.kernels import library
 # norms, EF's selection, the preemption flag); serving's merges and
 # gathers; a tensor-parallel split's (TPSplit): the column-parallel input's
 # backward all-reduce, the row-parallel output's all-reduce, the
-# vocab-parallel cross entropy's and greedy pick's all-reduces, and a split
-# FAµST head's boundary all-gathers and their backward reduce-scatters
+# vocab-parallel cross entropy's and greedy pick's all-reduces, a split
+# mamba block's norm sums (forward and backward), and a split FAµST head's
+# boundary all-gathers and their backward reduce-scatters
 COLLECTIVES = dict.fromkeys(
     ("param_gather", "grad_reduce_scatter", "grad_all_reduce", "seq_gather", "seq_reduce_scatter", "sum",
      "kv_merge", "row_gather", "embed_lookup", "tp_input_grad", "tp_output", "vocab_ce", "vocab_pick",
-     "head_boundary_gather", "head_boundary_reduce_scatter"), 0)
+     "tp_norm", "tp_norm_grad", "head_boundary_gather", "head_boundary_reduce_scatter"), 0)
 BYTES = dict.fromkeys(COLLECTIVES, 0)
 _OPS = {"sum": torch.distributed.ReduceOp.SUM, "max": torch.distributed.ReduceOp.MAX}
 
@@ -265,6 +269,52 @@ class _LeaveSplit(torch.autograd.Function):
         return g, None
 
 
+class _ProjectF32(torch.autograd.Function):
+    """A row-parallel projection ``x @ w`` whose partial products are
+    summed in f32 under autograd too (:meth:`TPSplit.project` with
+    ``f32_sum``), rounded once to ``x``'s dtype; the backward is the
+    product's own (``dx = g·wᵀ``, ``dw = xᵀ·g``).  ``x`` and ``w`` are held
+    on ``ctx``, not saved for backward: a remat recompute stops after the
+    last saved tensor, so it stops before this product as before a plain
+    one (saving them would rerun the product there), and ``x`` outlives
+    the forward instead."""
+
+    @staticmethod
+    def forward(ctx, x, w, group):
+        ctx.x, ctx.w = x, w
+        y = _mesh.all_reduce(_partial_f32(x, w).contiguous(), group)
+        _count("tp_output", y)
+        return y.to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.x, ctx.w
+        g = g.to(x.dtype)
+        dw = x.reshape(-1, x.shape[-1]).t() @ g.reshape(-1, g.shape[-1])
+        return g @ w.t(), dw, None
+
+
+class _SplitTotal(torch.autograd.Function):
+    """A value every rank of the split computes a part of from its own
+    columns: the parts summed over the split's group forward; the
+    cotangents summed over it backward, since each rank's columns use the
+    total in their own way (unlike :class:`_LeaveSplit`'s output, whose
+    cotangent every rank holds whole)."""
+
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.group = group
+        t = _mesh.all_reduce(t.contiguous(), group)
+        _count("tp_norm", t)
+        return t
+
+    @staticmethod
+    def backward(ctx, g):
+        g = _mesh.all_reduce(g.contiguous(), ctx.group)
+        _count("tp_norm_grad", g)
+        return g, None
+
+
 def _partial_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``x @ w`` of narrow floats, its result in f32: one f32-accumulating
     matmul on the card (``mm`` with ``out_dtype``, which has no
@@ -295,7 +345,13 @@ class TPSplit:
         """A row-parallel projection's partial output, summed."""
         return _LeaveSplit.apply(y, self.group)
 
-    def project(self, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    def total(self, t: torch.Tensor) -> torch.Tensor:
+        """``t``, this rank's part of a sum over the split's columns (a
+        norm's sum of squares), summed over the split both ways
+        (:class:`_SplitTotal`)."""
+        return _SplitTotal.apply(t, self.group)
+
+    def project(self, x: torch.Tensor, w: torch.Tensor, f32_sum: bool = False) -> torch.Tensor:
         """The row-parallel projection ``x @ w`` (this rank's columns of
         ``x``, rows of ``w``) summed over the split.  Outside autograd
         (serving) a narrower float's partial products stay in f32
@@ -303,8 +359,15 @@ class TPSplit:
         the whole product rounds: a bf16 model split over the hidden width
         serves the whole model's greedy tokens.  Under autograd each
         partial rounds to the activations' dtype before the sum (``mm``
-        with ``out_dtype`` has no derivative)."""
-        if not torch.is_grad_enabled() and x.is_floating_point() and x.element_size() < 4:
+        with ``out_dtype`` has no derivative), unless ``f32_sum``
+        (:class:`_ProjectF32`, which keeps ``x`` alive to the backward: a
+        mamba block's ``out_proj``, whose bf16 partials moved a split
+        zamba2's loss 3.3e-5 from the whole model's, 1.3e-5 summed in
+        f32, on the H100)."""
+        narrow = x.is_floating_point() and x.element_size() < 4
+        if narrow and f32_sum and torch.is_grad_enabled():
+            return _ProjectF32.apply(x, w, self.group)
+        if narrow and not torch.is_grad_enabled():
             return self.reduce(_partial_f32(x, w))
         return self.reduce(x @ w)
 
@@ -338,23 +401,29 @@ def share_value(t: torch.Tensor, n: int) -> torch.Tensor:
 
 
 class _VocabCE(torch.autograd.Function):
-    """Cross entropy over logits split by vocabulary: ``lse - gold`` of
-    every position, the same on every rank of the split.  Forward: the
-    block's max, all-reduced (max); the block's sum of exponentials and
-    the gold logit (where the label falls in the block, else 0), one
-    all-reduce (sum).  Backward: ``g · (softmax − one-hot)`` on the
-    block, its exponentials recomputed against the saved log-sum-exp."""
+    """Cross entropy over logits split by vocabulary (whole with no
+    group): ``lse - gold`` of every position, the same on every rank of
+    the split.  Forward: the block's max, all-reduced (max); the block's
+    sum of exponentials and the gold logit (where the label falls in the
+    block, else 0), one all-reduce (sum).  Backward: ``g · (softmax −
+    one-hot)`` on the block, its exponentials recomputed against the saved
+    log-sum-exp.  Each way one buffer the size of the logits (autograd of
+    ``logsumexp − gather`` holds four in the backward)."""
 
     @staticmethod
     def forward(ctx, lg, labels, start, group):
-        m = reduce_over(lg.amax(dim=-1), group, "max", "vocab_ce")
+        m = lg.amax(dim=-1)
+        if group is not None:
+            m = reduce_over(m, group, "max", "vocab_ce")
         local = labels - start
         inside = (local >= 0) & (local < lg.shape[-1])
         idx = local.clamp(0, lg.shape[-1] - 1)
         gold = torch.where(inside, torch.gather(lg, -1, idx[..., None])[..., 0], torch.zeros((), dtype=lg.dtype,
                                                                                             device=lg.device))
-        se = torch.exp(lg - m[..., None]).sum(dim=-1)
-        both = reduce_over(torch.stack([se, gold]), group, "sum", "vocab_ce")
+        se = torch.sub(lg, m[..., None]).exp_().sum(dim=-1)
+        both = torch.stack([se, gold])
+        if group is not None:
+            both = reduce_over(both, group, "sum", "vocab_ce")
         lse = m + torch.log(both[0])
         ctx.save_for_backward(lg, lse, idx, inside)
         return lse - both[1]
@@ -362,17 +431,19 @@ class _VocabCE(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         lg, lse, idx, inside = ctx.saved_tensors
-        d = torch.exp(lg - lse[..., None])
-        d = d - torch.zeros_like(d).scatter_(-1, idx[..., None], inside[..., None].to(d.dtype))
-        return d * g[..., None], None, None, None
+        d = torch.sub(lg, lse[..., None]).exp_()
+        d.scatter_add_(-1, idx[..., None], -inside[..., None].to(d.dtype))
+        return d.mul_(g[..., None]), None, None, None
 
 
-def vocab_cross_entropy(lg: torch.Tensor, labels: torch.Tensor, start: int, split: TPSplit) -> torch.Tensor:
+def vocab_cross_entropy(lg: torch.Tensor, labels: torch.Tensor, start: int = 0,
+                        split: TPSplit | None = None) -> torch.Tensor:
     """``logsumexp − gold`` of every position of logits ``lg (..., V/n)``,
-    this rank's vocabulary block ``[start, start + V/n)`` of ``split``,
-    against ``labels (...)``: the whole row's cross entropy on every rank
-    of the split, and the block's gradient."""
-    return _VocabCE.apply(lg, labels, start, split.group)
+    this rank's vocabulary block ``[start, start + V/n)`` of ``split``
+    (None: the whole vocabulary, no collective), against ``labels
+    (...)``: the whole row's cross entropy on every rank of the split, and
+    the block's gradient."""
+    return _VocabCE.apply(lg, labels, start, None if split is None else split.group)
 
 
 def vocab_argmax(logits: torch.Tensor, start: int, split: TPSplit) -> torch.Tensor:

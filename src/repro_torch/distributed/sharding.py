@@ -22,8 +22,10 @@ The policy's activation names decide, on a mesh, which rows
 (``batch``) and which positions (``seq``) a rank computes, and which
 output dimensions a module computes in blocks (:func:`compute_axes`: the
 reference's GSPMD computes each projection on the block its ``heads_act``,
-``mlp_act`` or ``vocab_act`` names); the model gathers the rest of what a
-layer needs whole (``repro_torch.models.lm``).
+``mlp_act`` or ``vocab_act`` names, a mamba block on the heads its
+``heads_act`` names in training and its cache's heads lie on in
+serving); the model gathers the rest of what a layer needs whole
+(``repro_torch.models.lm``).
 Outside a :func:`use_rules` context :func:`shard_act` is the identity, so
 the model runs unchanged on one device.
 """
@@ -118,13 +120,18 @@ def _fit_axes(ax: MeshAxes, dim_size: int, mesh) -> MeshAxes:
 
 # the activation name each parameter's output dimension answers to: the
 # query and KV heads, the FFN's hidden width, the vocabulary (a FAµST
-# head's out-blocks are its vocabulary's)
+# head's out-blocks are its vocabulary's), a mamba block's inner width
+# (its heads: fitted to the SSM's head count)
 TP_ACTS = {"heads_flat": "heads_act", "kv_flat": "heads_act", "mlp": "mlp_act", "vocab": "vocab_act",
-           "blocks": "vocab_act"}
+           "blocks": "vocab_act", "inner_flat": "heads_act"}
+# in prefill and decode a mamba block's heads lie on these axes, whatever
+# the decode policy's heads_act: the reference's cache_shardings places a
+# MambaCache's heads on _fit_axes("model", n_heads, mesh)
+SSM_SERVE_AXES = "model"
 
 
 def compute_axes(logical: str, spec_entry: MeshAxes, act_size: int, policy: ShardingPolicy, mesh,
-                 avoid=()) -> tuple[str, ...]:
+                 avoid=(), serving: bool = False) -> tuple[str, ...]:
     """The mesh axes a parameter computes over: those its spec places its
     output dimension on (logical name ``logical``, spec entry
     ``spec_entry``), when the policy's activation name for that dimension
@@ -132,13 +139,16 @@ def compute_axes(logical: str, spec_entry: MeshAxes, act_size: int, policy: Shar
     (the heads' count, the hidden width, the vocabulary), names the same
     axes and they share none with ``avoid`` (the fitted ``seq`` and
     ``batch`` axes: ranks that compute other rows or positions do not
-    cooperate on one).  ``()`` otherwise, and where those axes hold one
-    rank: the parameter is then gathered whole."""
+    cooperate on one).  ``serving`` (prefill and decode): a mamba block's
+    ``inner_flat`` answers to :data:`SSM_SERVE_AXES` instead.  ``()``
+    otherwise, and where those axes hold one rank: the parameter is then
+    gathered whole."""
     act = TP_ACTS.get(logical)
     have = axes_tuple(spec_entry)
     if act is None or not have:
         return ()
-    if have != axes_tuple(_fit_axes(policy.act_axes(act), act_size, mesh)) or set(have) & set(avoid):
+    want = SSM_SERVE_AXES if serving and logical == "inner_flat" else policy.act_axes(act)
+    if have != axes_tuple(_fit_axes(want, act_size, mesh)) or set(have) & set(avoid):
         return ()
     if all(mesh.shape[a] == 1 for a in have):
         return ()

@@ -28,10 +28,11 @@ blocks), :func:`batch_shardings` (the trainer takes the whole batch on
 every rank and each computes its rows; a decode step's tokens are the
 rank's rows) and :func:`cache_shardings` (the executor's pool: rows over
 the decode policy's ``batch`` axes, each global-attention cache's
-positions over its ``kv_seq`` axes; a sliding-window ring and a
-``MambaCache`` whole on every rank of their rows, ROADMAP caveat R11,
-where the reference splits the ring's positions and the SSM state's heads
-too).
+positions over its ``kv_seq`` axes, a ``MambaCache``'s heads over the
+serving plan's SSM axes, as the reference's; a sliding-window ring whole
+on every rank of its rows, ROADMAP caveat R11, where the reference
+splits its positions too, and a ``MambaCache``'s conv history the rank's
+channels, where the reference keeps it whole).
 """
 from __future__ import annotations
 
@@ -76,16 +77,23 @@ def cache_shardings(cfg: ArchConfig, mesh, policy: ShardingPolicy, cell: ShapeCe
     """One cache of :class:`~repro_torch.distributed.sharding.Block`\\ s per
     layer (:func:`~repro_torch.models.lm.make_caches`' order): the pool of
     ``cell.global_batch`` slots for ``cell.seq_len`` positions as
-    ``LMExecutor(mesh=)`` keeps it (module docstring)."""
+    ``LMExecutor(mesh=)`` keeps it (module docstring).  A split
+    ``MambaCache``'s conv history is described as every rank's channels
+    side by side (each rank's ``x`` and its groups' ``B`` and ``C``), cut
+    over the SSM's axes."""
     b, s = cell.global_batch, cell.seq_len
     rows = _split_axes(policy.batch, b, mesh) or None
     kv = _split_axes(policy.kv_seq, s, mesh) or None
+    plan = lm.split_plan(cfg, param_shardings(cfg, mesh), mesh, policy, rows or (), serving=True)
+    ssm = None if plan is None else plan.ssm
     out = []
     for kind in cfg.layer_kinds():
         if kind == "ssm":
             m = cfg.ssm
-            shapes = {"conv": (b, m.d_conv - 1, m.conv_dim), "ssm": (b, m.n_heads, m.headdim, m.d_state), "pos": (b,)}
-            specs = {"conv": (rows, None, None), "ssm": (rows, None, None, None), "pos": (rows,)}
+            heads = None if ssm is None else ssm.tp.axes
+            conv = m.conv_dim if ssm is None else ssm.conv_dim(m) * ssm.tp.n
+            shapes = {"conv": (b, m.d_conv - 1, conv), "ssm": (b, m.n_heads, m.headdim, m.d_state), "pos": (b,)}
+            specs = {"conv": (rows, None, heads), "ssm": (rows, heads, None, None), "pos": (rows,)}
             blk = sharding.tree_named_sharding(specs, shapes, mesh)
             out.append(MambaCache(blk["conv"], blk["ssm"], blk["pos"]))
             continue
@@ -141,7 +149,9 @@ def make_sharded_prefill(model: lm.LM, mesh, cell: ShapeCell):
     def prefill(batch: dict):
         with torch.no_grad(), sharding.use_rules(mesh, policy):
             dev = batch["tokens"].device
-            caches = lm.make_caches(cfg, 1, cell.seq_len, dtype=lm.DTYPES[cfg.dtype], device=dev, kv=kv)
+            plan = model.split_plan(serving=True)
+            caches = lm.make_caches(cfg, 1, cell.seq_len, dtype=lm.DTYPES[cfg.dtype], device=dev, kv=kv,
+                                    ssm=None if plan is None else plan.ssm)
             return model.prefill(batch["tokens"], caches, kv=kv, vision_embeds=batch.get("vision_embeds"))
 
     return prefill
@@ -150,9 +160,12 @@ def make_sharded_prefill(model: lm.LM, mesh, cell: ShapeCell):
 def decode_pool(model: lm.LM, mesh, cell: ShapeCell, device="cpu") -> list:
     """The rank's slot pool for the cell (its rows, its blocks of the
     global-attention caches), as ``LMExecutor`` makes it."""
-    _, rows, kv = _decode_placement(model, mesh, cell)
+    policy, rows, kv = _decode_placement(model, mesh, cell)
     n_local = cell.global_batch // math.prod(mesh.shape[a] for a in rows)
-    return lm.make_caches(model.cfg, n_local, cell.seq_len, dtype=lm.DTYPES[model.cfg.dtype], device=device, kv=kv)
+    with sharding.use_rules(mesh, policy):
+        plan = model.split_plan(serving=True)
+    return lm.make_caches(model.cfg, n_local, cell.seq_len, dtype=lm.DTYPES[model.cfg.dtype], device=device, kv=kv,
+                          ssm=None if plan is None else plan.ssm)
 
 
 def make_sharded_decode(model: lm.LM, mesh, cell: ShapeCell):
@@ -167,7 +180,7 @@ def make_sharded_decode(model: lm.LM, mesh, cell: ShapeCell):
 
     def decode(tokens: torch.Tensor, pool: list):
         with torch.no_grad(), sharding.use_rules(mesh, policy):
-            plan = model.split_plan()
+            plan = model.split_plan(serving=True)
             idx = torch.arange(tokens.shape[0], device=tokens.device)
             caches = lm.gather_cache_slots(pool, idx)
             logits, caches = model.decode_step(tokens.long(), caches, kv=kv)

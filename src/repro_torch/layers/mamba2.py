@@ -18,6 +18,19 @@ its recurrence in f32, and ``a_log``, ``d_skip`` and ``dt_bias`` stay f32.
 The reference repeats ``C·Bᵀ`` and ``B``/``C`` over each group's heads;
 here the heads are viewed as ``(G, H/G)`` and broadcast instead, which
 multiplies the same values without the copies.
+
+Split over the heads (:class:`SSMSplit`: under a policy whose
+``heads_act`` names the axes ``inner_flat`` lies on in training, and on
+the axes a ``MambaCache``'s heads lie on in serving): a rank computes its
+``H/n`` heads.  It reads its columns of ``z``, ``x`` and ``dt`` and its
+heads' groups' ``B`` and ``C`` from the whole ``in_proj`` (whose columns
+``[z | x | B | C | dt]`` its blocks cut elsewhere), the same channels of
+the conv, its heads' ``a_log``/``d_skip``/``dt_bias``; it runs the conv
+and the SSD on them, normalizes its block of ``y·silu(z)`` by the mean of
+squares over the whole ``d_inner`` (``norms.rmsnorm(split=)``), and
+projects through its rows of ``out_proj``, the partial outputs summed in
+f32 over the split (``TPSplit.project(f32_sum=True)``).  Its
+``MambaCache`` holds those heads' state and those conv channels.
 """
 from __future__ import annotations
 
@@ -58,6 +71,33 @@ class Mamba2Spec:
         return self.d_inner + 2 * self.n_groups * self.d_state
 
 
+@dataclasses.dataclass(frozen=True)
+class SSMSplit:
+    """A rank's heads (module docstring): the split ``tp`` (a
+    :class:`~repro_torch.distributed.layout.TPSplit`), its ``heads``
+    heads from ``head_lo``, and the ``groups`` state groups from
+    ``group_lo`` that they read."""
+
+    tp: object
+    heads: int
+    head_lo: int
+    groups: int
+    group_lo: int
+
+    def in_columns(self, spec: Mamba2Spec) -> list[tuple[int, int]]:
+        """``(start, width)`` in ``in_proj`` of the rank's ``z``, ``x``,
+        ``B``, ``C`` and ``dt`` columns."""
+        di, gn, p, n = spec.d_inner, spec.n_groups * spec.d_state, spec.headdim, spec.d_state
+        h0, hw = self.head_lo * p, self.heads * p
+        g0, gw = self.group_lo * n, self.groups * n
+        return [(h0, hw), (di + h0, hw), (2 * di + g0, gw), (2 * di + gn + g0, gw),
+                (2 * di + 2 * gn + self.head_lo, self.heads)]
+
+    def conv_dim(self, spec: Mamba2Spec) -> int:
+        """The rank's conv channels: its heads' ``x`` and its groups' ``B`` and ``C``."""
+        return self.heads * spec.headdim + 2 * self.groups * spec.d_state
+
+
 class Mamba2(nn.Module):
     """The block's parameters: ``in_proj (d, 2·d_inner + 2·G·N + H)``,
     ``conv_w (d_conv, conv_dim)``, ``conv_b``, ``a_log``/``d_skip``/
@@ -88,17 +128,20 @@ class MambaCache(NamedTuple):
     """A mamba layer's serving state: ``conv (B, d_conv − 1, conv_dim)``,
     the last inputs of the causal conv in the activations' dtype; ``ssm
     (B, H, P, N)``, the f32 recurrent state; ``pos (B,)`` int32, the tokens
-    each row has seen."""
+    each row has seen.  On a split (:class:`SSMSplit`) the rank's: its
+    ``H/n`` heads' state and its :meth:`SSMSplit.conv_dim` channels."""
 
     conv: torch.Tensor
     ssm: torch.Tensor
     pos: torch.Tensor
 
 
-def mamba_cache_init(b: int, spec: Mamba2Spec, dtype=torch.bfloat16, device=None) -> MambaCache:
+def mamba_cache_init(b: int, spec: Mamba2Spec, dtype=torch.bfloat16, device=None,
+                     split: SSMSplit | None = None) -> MambaCache:
+    conv, heads = (spec.conv_dim, spec.n_heads) if split is None else (split.conv_dim(spec), split.heads)
     return MambaCache(
-        torch.zeros((b, spec.d_conv - 1, spec.conv_dim), dtype=dtype, device=device),
-        torch.zeros((b, spec.n_heads, spec.headdim, spec.d_state), dtype=torch.float32, device=device),
+        torch.zeros((b, spec.d_conv - 1, conv), dtype=dtype, device=device),
+        torch.zeros((b, heads, spec.headdim, spec.d_state), dtype=torch.float32, device=device),
         torch.zeros((b,), dtype=torch.int32, device=device),
     )
 
@@ -187,24 +230,45 @@ def _ssd_interchunk(y_intra, xdt, bc, cc, cum, total, init_state):
     return (y_intra + y_inter).reshape(bsz, nc * chunk, h, p), state
 
 
+def _rank_params(m: Mamba2, spec: Mamba2Spec, split: SSMSplit | None):
+    """``(in_proj, conv_w, conv_b, a_log, d_skip, dt_bias)`` as the rank
+    reads them: whole, or its columns, channels and heads of ``split``."""
+    if split is None:
+        return m.in_proj, m.conv_w, m.conv_b, m.a_log, m.d_skip, m.dt_bias
+    cols = split.in_columns(spec)
+    conv = [(o - spec.d_inner, w) for o, w in cols[1:4]]  # x, B, C of the conv's [x | B | C]
+    heads = slice(split.head_lo, split.head_lo + split.heads)
+    return (torch.cat([m.in_proj.narrow(1, o, w) for o, w in cols], dim=1),
+            torch.cat([m.conv_w.narrow(1, o, w) for o, w in conv], dim=1),
+            torch.cat([m.conv_b.narrow(0, o, w) for o, w in conv]),
+            m.a_log[heads], m.d_skip[heads], m.dt_bias[heads])
+
+
 def mamba2_apply(m: Mamba2, x: torch.Tensor, spec: Mamba2Spec, cache: MambaCache | None = None,
-                 decode: bool = False, chunk: int | None = None):
+                 decode: bool = False, chunk: int | None = None, split: SSMSplit | None = None):
     """The block on ``x (B,S,d)``: ``(out, new cache)``.  Train: no cache
     (None back).  Prefill: ``cache`` given, returned with the conv history
     and the final state.  Decode (``decode``, ``S == 1``): the recurrent
     update of ``cache``.  ``chunk`` is the SSD chunk (default
-    ``spec.chunk``)."""
+    ``spec.chunk``).  ``split``: this rank's heads (module docstring);
+    ``m.norm_w`` and ``m.out_proj`` are its block, ``cache`` its state."""
     bsz, s, _ = x.shape
-    h, pd, g, n = spec.n_heads, spec.headdim, spec.n_groups, spec.d_state
-    z, xbc, dt_raw = torch.split(x @ m.in_proj, [spec.d_inner, spec.conv_dim, h], dim=-1)
+    pd, n = spec.headdim, spec.d_state
+    h, g = (spec.n_heads, spec.n_groups) if split is None else (split.heads, split.groups)
+    di = h * pd
+    if split is not None:
+        x = split.tp.enter(x)
+    in_proj, conv_w, conv_b, a_log, d_skip, dt_bias = _rank_params(m, spec, split)
+    conv_dim = di + 2 * g * n
+    z, xbc, dt_raw = torch.split(x @ in_proj, [di, conv_dim, h], dim=-1)
     prev = cache.conv if (cache is not None and decode) else None
-    xbc_conv = F.silu(causal_conv(xbc, m.conv_w, m.conv_b, prev))
-    xs, b_, c = torch.split(xbc_conv, [spec.d_inner, g * n, g * n], dim=-1)
+    xbc_conv = F.silu(causal_conv(xbc, conv_w, conv_b, prev))
+    xs, b_, c = torch.split(xbc_conv, [di, g * n, g * n], dim=-1)
     xs = xs.reshape(bsz, s, h, pd)
     b_ = b_.reshape(bsz, s, g, n)
     c = c.reshape(bsz, s, g, n)
-    dt = F.softplus(dt_raw.float() + m.dt_bias)  # (B,S,H) f32
-    a = -torch.exp(m.a_log)  # (H,)
+    dt = F.softplus(dt_raw.float() + dt_bias)  # (B,S,H) f32
+    a = -torch.exp(a_log)  # (H,)
 
     new_cache = None
     if decode:
@@ -218,23 +282,25 @@ def mamba2_apply(m: Mamba2, x: torch.Tensor, spec: Mamba2Spec, cache: MambaCache
         bx = b_h[:, :, None, :] * (xs[:, 0] * dt1[..., None]).float()[..., None]  # (B,H,P,N)
         ssm = cache.ssm * da[..., None, None] + bx
         y = torch.einsum("bhpn,bhn->bhp", ssm, c_h)
-        y = y + m.d_skip[None, :, None] * xs[:, 0].float()
-        y = y.reshape(bsz, 1, spec.d_inner).to(x.dtype)
+        y = y + d_skip[None, :, None] * xs[:, 0].float()
+        y = y.reshape(bsz, 1, di).to(x.dtype)
         conv_hist = torch.cat([cache.conv[:, 1:], xbc.to(cache.conv.dtype)], dim=1)
         new_cache = MambaCache(conv_hist, ssm, cache.pos + 1)
     else:
         y, final_state = ssd_chunked(xs, dt, a, b_, c, spec.chunk if chunk is None else chunk)
-        y = y + m.d_skip[None, None, :, None] * xs
-        y = y.reshape(bsz, s, spec.d_inner).to(x.dtype)
+        y = y + d_skip[None, None, :, None] * xs
+        y = y.reshape(bsz, s, di).to(x.dtype)
         if cache is not None:  # prefill: the conv history and the final state
             k = spec.d_conv - 1
             if s >= k:
                 conv_hist = xbc[:, s - k:]
             else:
-                conv_hist = torch.cat([torch.zeros((bsz, k - s, spec.conv_dim), dtype=xbc.dtype, device=x.device),
+                conv_hist = torch.cat([torch.zeros((bsz, k - s, conv_dim), dtype=xbc.dtype, device=x.device),
                                        xbc], dim=1)
             new_cache = MambaCache(conv_hist.to(cache.conv.dtype), final_state,
                                    torch.full(cache.pos.shape, s, dtype=torch.int32, device=cache.pos.device))
 
-    y = rmsnorm(m.norm_w, y * F.silu(z))
-    return y @ m.out_proj, new_cache
+    if split is None:
+        return rmsnorm(m.norm_w, y * F.silu(z)) @ m.out_proj, new_cache
+    y = rmsnorm(m.norm_w, y * F.silu(z), split=split.tp)
+    return split.tp.project(y, m.out_proj, f32_sum=True), new_cache

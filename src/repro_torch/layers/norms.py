@@ -6,9 +6,16 @@ import torch
 from torch import nn
 
 
-def rmsnorm(w: torch.Tensor, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+def rmsnorm(w: torch.Tensor, x: torch.Tensor, eps: float = 1e-6, split=None) -> torch.Tensor:
+    """``split`` (a :class:`~repro_torch.distributed.layout.TPSplit`):
+    ``x`` and ``w`` are this rank's block of the features, and the mean
+    of squares is over all of them (each rank's f32 partial sum summed
+    over the split, :meth:`TPSplit.total`)."""
     x32 = x.float()
-    var = torch.mean(x32 * x32, dim=-1, keepdim=True)
+    if split is None:
+        var = torch.mean(x32 * x32, dim=-1, keepdim=True)
+    else:
+        var = split.total(torch.sum(x32 * x32, dim=-1, keepdim=True)) / (x.shape[-1] * split.n)
     y = x32 * torch.rsqrt(var + eps)
     return (y * (1.0 + w.float())).to(x.dtype)
 

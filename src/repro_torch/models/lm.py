@@ -52,7 +52,8 @@ Where the policy's ``heads_act``, ``mlp_act`` or ``vocab_act`` names the
 axes a module's output lies on (:func:`split_plan`), the ranks on those
 axes compute the module in blocks instead (tensor parallelism): each
 keeps its block of the projections' columns (and the partner's rows),
-attention its heads, the MLP its hidden columns, the head and a
+attention its heads, the MLP its hidden columns, a mamba block its
+heads (``heads_act`` fitted to the SSM's heads), the head and a
 vocab-parallel embedding lookup its vocabulary block; the logits stay
 split, and the loss is a vocab-parallel cross entropy
 (``distributed/layout.py``).
@@ -69,8 +70,10 @@ be a length every chunked path accepts (:func:`prefill_length`).
 :meth:`LM.decode_step` feeds one token per row, each row at its own cache
 position.  Served on a mesh (``runtime/engine.py`` ``LMExecutor``), the
 caches of :data:`SPLIT_KV_KINDS` hold a rank's block of the positions
-(``kv``, ``layers/attention.py``), and outside autograd a split embedding
-table is read in place (:meth:`LM._lookup`).
+(``kv``, ``layers/attention.py``), a mamba block whose heads the plan
+splits computes them and its :class:`MambaCache` holds them
+(:func:`make_caches` with ``ssm``), and outside autograd a split
+embedding table is read in place (:meth:`LM._lookup`).
 """
 from __future__ import annotations
 
@@ -92,7 +95,7 @@ from repro_torch.layers.param import param_axes, param_shapes  # param_axes: the
 from repro_torch.layers.attention import (Attention, AttnSpec, HeadSplit, KVCache, attn_decode, attn_prefill,
                                           kv_cache_init)
 from repro_torch.layers.embedding import Embedding, Unembed, unembed_apply
-from repro_torch.layers.mamba2 import Mamba2, MambaCache, mamba2_apply, mamba_cache_init
+from repro_torch.layers.mamba2 import Mamba2, MambaCache, SSMSplit, mamba2_apply, mamba_cache_init
 from repro_torch.layers.mlp import MLP
 from repro_torch.layers.moe import MoE
 from repro_torch.layers.norms import apply_norm, norm_params
@@ -101,8 +104,9 @@ DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 TRAIN, PREFILL, DECODE = "train", "prefill", "decode"
 Cache = KVCache | MambaCache
 # the layer kinds whose cache (a global-attention KVCache) a decode policy's
-# kv_seq splits by position; a "local" ring and a MambaCache stay whole
-# (ROADMAP caveat R11)
+# kv_seq splits by position; a "local" ring stays whole (ROADMAP caveat
+# R11), and a MambaCache splits by heads over the axes the serving plan's
+# SSM split names (SplitPlan.ssm), not by position
 SPLIT_KV_KINDS = ("attn", "moe", "shared")
 
 
@@ -202,16 +206,19 @@ class SSMLayer(nn.Module):
         self.mamba = Mamba2(cfg.ssm, generator=generator, dtype=dtype, device=device)
 
     def forward(self, x: torch.Tensor, mode: str = TRAIN, cache: MambaCache | None = None,
-                chunk: int | None = None, seq=None, split=None):
-        """``(x, None, new cache)`` as :meth:`Layer.forward` (``split`` is
-        always None: the mamba block computes whole); ``chunk`` is
-        the SSD chunk (default ``cfg.ssm.chunk``).  ``seq`` is always None:
-        the SSD's scan runs over whole sequences, and
-        :meth:`LM._mesh_train_loss` refuses a sequence split."""
+                chunk: int | None = None, seq=None, split: LayerSplit | None = None):
+        """``(x, None, new cache)`` as :meth:`Layer.forward`; ``chunk`` is
+        the SSD chunk (default ``cfg.ssm.chunk``).  ``split``: the heads
+        this rank computes (``split.ssm``, an :class:`~repro_torch.layers.
+        mamba2.SSMSplit` of :func:`split_plan`); its ``out_proj`` and
+        ``norm_w`` are their block, and in prefill and decode ``cache``
+        holds their state.  ``seq`` is always None: the SSD's scan runs
+        over whole sequences, and :meth:`LM._mesh_train_loss` refuses a
+        sequence split."""
         _check_mode(mode)
         h = apply_norm(self.cfg.norm, self.norm, x)
         y, cache = mamba2_apply(self.mamba, h, self.cfg.ssm, None if mode == TRAIN else cache, mode == DECODE,
-                                chunk)
+                                chunk, None if split is None else split.ssm)
         return x + y.to(x.dtype), None, cache
 
 
@@ -271,7 +278,7 @@ class LM(nn.Module):
         return self.blocks
 
     _plan: "SplitPlan | None" = None  # what this forward computes in blocks (split_plan)
-    _plans: list | None = None  # [(policy, avoided axes, plan)] computed on this mesh
+    _plans: list | None = None  # [(policy, avoided axes, serving, plan)] computed on this mesh
 
     def _placement(self, name: str, plan: "SplitPlan | None") -> tuple:
         """``(keep, whole)`` of :func:`~repro_torch.distributed.layout.gather_param` for ``name``."""
@@ -316,21 +323,22 @@ class LM(nn.Module):
             return self._call(self.embed, "embed.", tokens, plan=plan)
         return embed_lookup(tokens, self.embed.table, block, self.mesh)
 
-    def split_plan(self, seq_axes=()) -> "SplitPlan | None":
+    def split_plan(self, seq_axes=(), serving: bool = False) -> "SplitPlan | None":
         """What this rank computes in blocks under the current rules
         (:func:`~repro_torch.distributed.sharding.use_rules` on the
         model's mesh; None elsewhere or unsharded): :func:`split_plan` of
         the rules' policy, avoiding the policy's batch axes and
-        ``seq_axes`` (the positions' split)."""
+        ``seq_axes`` (the positions' split); ``serving``: prefill's and
+        decode's (the SSM on its cache's heads)."""
         rules = sharding._current()
         if self.blocks is None or rules is None or rules.mesh is not self.mesh:
             return None
         avoid = tuple(batch_axes(rules.policy, self.mesh)) + tuple(seq_axes)
-        for policy, av, plan in self._plans or ():
-            if policy is rules.policy and av == avoid:
+        for policy, av, sv, plan in self._plans or ():
+            if policy is rules.policy and av == avoid and sv == serving:
                 return plan
-        plan = split_plan(self.cfg, self.blocks, self.mesh, rules.policy, avoid)
-        self._plans = (self._plans or []) + [(rules.policy, avoid, plan)]
+        plan = split_plan(self.cfg, self.blocks, self.mesh, rules.policy, avoid, serving)
+        self._plans = (self._plans or []) + [(rules.policy, avoid, serving, plan)]
         return plan
 
     @contextlib.contextmanager
@@ -449,8 +457,10 @@ class LM(nn.Module):
         layout.SeqSplit`): the caches of :data:`SPLIT_KV_KINDS` hold this
         rank's block of the positions (:func:`make_caches` with ``kv``).
         On a mesh whose decode policy splits the vocabulary (or the MLP),
-        the logits are this rank's block of them (:meth:`split_plan`)."""
-        with self._splitting(self.split_plan()):
+        the logits are this rank's block of them (:meth:`split_plan`); a
+        split mamba block's caches hold the rank's heads
+        (:func:`make_caches` with the plan's ``ssm``)."""
+        with self._splitting(self.split_plan(serving=True)):
             x, new = self._run(self._front(tokens, vision_embeds), PREFILL, caches, kv)
             return self._logits(x[:, -1:]), new
 
@@ -460,8 +470,8 @@ class LM(nn.Module):
         audio sinusoid reads): f32 logits ``(B, 1, vocab)`` (audio: ``(B,
         1, K, vocab)``) and the new caches.  ``kv`` as in :meth:`prefill`:
         each split cache's attention is merged over its group; the logits
-        as :meth:`prefill`'s."""
-        with self._splitting(self.split_plan()):
+        and the mamba caches as :meth:`prefill`'s."""
+        with self._splitting(self.split_plan(serving=True)):
             x, new = self._run(self._embed_tokens(tokens, caches[0].pos), DECODE, caches, kv)
             return self._logits(x), new
 
@@ -548,8 +558,8 @@ class LM(nn.Module):
         lg = shard_act(lg, *(("batch",) + (None,) * (lg.ndim - 2) + ("vocab_act",)))
         if plan is not None and plan.head:
             nll = layout.vocab_cross_entropy(lg, labels, plan.vocab_start, tp)
-        else:
-            nll = torch.logsumexp(lg, dim=-1) - torch.gather(lg, -1, labels[..., None])[..., 0]
+        else:  # the whole vocabulary: the same Function, its backward in one logits-sized buffer
+            nll = layout.vocab_cross_entropy(lg, labels)
         count = b * (s - 1) * cfg.n_codebooks
         ce = torch.sum(nll) / count / (mesh.size // (n_rows * n_seq * n_tp))
         aux = aux * (bl / b) / (mesh.size // (n_rows * n_tp))
@@ -562,12 +572,14 @@ class LM(nn.Module):
 @dataclasses.dataclass(frozen=True)
 class LayerSplit:
     """What a layer computes in blocks: its attention's heads (a
-    :class:`~repro_torch.layers.attention.HeadSplit`) and its MLP's hidden
-    columns (a :class:`~repro_torch.distributed.layout.TPSplit`), each
-    None where whole."""
+    :class:`~repro_torch.layers.attention.HeadSplit`), its MLP's hidden
+    columns (a :class:`~repro_torch.distributed.layout.TPSplit`) and its
+    mamba block's heads (an :class:`~repro_torch.layers.mamba2.SSMSplit`),
+    each None where whole."""
 
     heads: HeadSplit | None = None
     mlp: object = None
+    ssm: SSMSplit | None = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -597,8 +609,14 @@ class SplitPlan:
         """The axes over which ``name``'s gradient is whole on every rank."""
         return () if name in self.partial or name in self.keep else self.tp.axes
 
+    @property
+    def ssm(self) -> SSMSplit | None:
+        """The heads every split mamba block of the plan computes (its
+        :class:`MambaCache`'s), None where they compute whole."""
+        return next((s.ssm for s in self.layers.values() if s.ssm is not None), None)
 
-def split_plan(cfg: ArchConfig, blocks: dict, mesh, policy, avoid) -> SplitPlan | None:
+
+def split_plan(cfg: ArchConfig, blocks: dict, mesh, policy, avoid, serving: bool = False) -> SplitPlan | None:
     """What a rank of ``mesh`` computes in blocks under ``policy``, the
     parameters stored as ``blocks`` (:meth:`LM.shard_`): a module whose
     weight's spec splits an output dimension over axes ``A`` that the
@@ -612,6 +630,13 @@ def split_plan(cfg: ArchConfig, blocks: dict, mesh, policy, avoid) -> SplitPlan 
       heads share (``A``'s ranks must not straddle a GQA group);
     * a dense MLP (``w_up``'s ``mlp``): ``w_up``/``w_gate``'s columns,
       ``w_down``'s rows; a FAµST MLP and a MoE layer stay whole;
+    * a mamba block (``out_proj``'s rows, ``inner_flat``, fitted to the
+      SSM's heads; ``serving``: to the axes a ``MambaCache``'s heads lie
+      on, :data:`~repro_torch.distributed.sharding.SSM_SERVE_AXES`): the
+      rank's heads, ``out_proj``'s rows and ``norm_w``'s block kept;
+      ``in_proj``, the conv and the per-head vectors gathered whole and
+      read in part (their gradient summed over ``A``); the rank's heads
+      must lie in one state group or cover whole groups;
     * the head (``unembed.w``'s ``vocab``, a FAµST head's ``blocks``, a
       tied table's ``vocab``) and a 2-D embedding table (``vocab``): the
       rank's vocabulary block.
@@ -624,7 +649,7 @@ def split_plan(cfg: ArchConfig, blocks: dict, mesh, policy, avoid) -> SplitPlan 
     def ax(name, dim, size):
         if name not in blocks:
             return ()
-        return sharding.compute_axes(axes[name][dim], blocks[name].spec[dim], size, policy, mesh, avoid)
+        return sharding.compute_axes(axes[name][dim], blocks[name].spec[dim], size, policy, mesh, avoid, serving)
 
     def entry(name, dim):
         return sharding.axes_tuple(blocks[name].spec[dim])
@@ -664,7 +689,22 @@ def split_plan(cfg: ArchConfig, blocks: dict, mesh, policy, avoid) -> SplitPlan 
                 mlp = a
                 found.append(a)
         if heads is not None or mlp is not None:
-            per_layer[p] = (heads, mlp)
+            per_layer[p] = (heads, mlp, None)
+    for p in (f"layers.{i}." for i, kind in enumerate(kinds) if kind == "ssm"):
+        m = cfg.ssm
+        a = ax(p + "mamba.out_proj", 0, m.n_heads)
+        if not a:
+            continue
+        n = math.prod(mesh.shape[x] for x in a)
+        hl, rep = m.n_heads // n, m.n_heads // m.n_groups
+        if hl % rep and rep % hl:
+            raise ValueError(f"{cfg.name}: {hl} SSM heads a rank straddle state groups of {rep} heads over {a}")
+        if entry(p + "mamba.norm_w", 0) != a:
+            raise ValueError(f"{cfg.name}: {p}mamba.norm_w lies on {entry(p + 'mamba.norm_w', 0)}, its heads on {a}")
+        keep.update(dict.fromkeys((p + "mamba.out_proj", p + "mamba.norm_w"), a))
+        partial.update(p + "mamba." + k for k in ("in_proj", "conv_w", "conv_b", "a_log", "d_skip", "dt_bias"))
+        per_layer[p] = (None, None, (hl, rep))
+        found.append(a)
     head = ()
     if cfg.n_codebooks == 1 and not cfg.tie_embeddings:
         if "unembed.w" in blocks:
@@ -697,13 +737,16 @@ def split_plan(cfg: ArchConfig, blocks: dict, mesh, policy, avoid) -> SplitPlan 
         raise ValueError(f"{cfg.name}: the modules split over different axes {sorted(set(found))}")
     tp = layout.tp_split(mesh, found[0])
     layers = {}
-    for p, (heads, mlp) in per_layer.items():
-        hs = None
+    for p, (heads, mlp, ssm) in per_layer.items():
+        hs = ss = None
         if heads is not None:
             _, hl, kvl, kept = heads
             lo = tp.index * kvl if kept else tp.index * hl // (h // kh)
             hs = HeadSplit(tp, hl, lo, kvl, kept)
-        layers[p] = LayerSplit(hs, tp if mlp is not None else None)
+        if ssm is not None:
+            hl, rep = ssm
+            ss = SSMSplit(tp, hl, tp.index * hl, max(hl // rep, 1), tp.index * hl // rep)
+        layers[p] = LayerSplit(hs, tp if mlp is not None else None, ss)
     return SplitPlan(tp, keep, frozenset(partial), layers, bool(head), bool(embed), tp.index * (v // tp.n))
 
 
@@ -727,13 +770,15 @@ def cache_capacity(cfg: ArchConfig, kind: str, cache_len: int) -> int:
 
 
 def make_caches(cfg: ArchConfig, batch: int, cache_len: int, dtype=torch.bfloat16, device=None,
-                kv=None) -> list[Cache]:
+                kv=None, ssm: SSMSplit | None = None) -> list[Cache]:
     """One empty cache of ``batch`` rows per layer on ``device`` (default:
     the CUDA card): a :class:`MambaCache` (conv history in ``dtype``, f32
     state) for an ``"ssm"`` layer, else a :class:`KVCache` of capacity
     :func:`cache_capacity`.  ``kv`` (a :class:`~repro_torch.distributed.
     layout.SeqSplit` of ``cache_len`` positions): a layer of
-    :data:`SPLIT_KV_KINDS` holds only this rank's block of them."""
+    :data:`SPLIT_KV_KINDS` holds only this rank's block of them.  ``ssm``
+    (the serving plan's :attr:`SplitPlan.ssm`): a :class:`MambaCache`
+    holds only this rank's heads and conv channels."""
     check_supported(cfg)
     dev = resolve_device(device)
     if kv is not None and kv.length != cache_len:
@@ -742,7 +787,7 @@ def make_caches(cfg: ArchConfig, batch: int, cache_len: int, dtype=torch.bfloat1
     def capacity(kind):
         return kv.local if kv is not None and kind in SPLIT_KV_KINDS else cache_capacity(cfg, kind, cache_len)
 
-    return [mamba_cache_init(batch, cfg.ssm, dtype, dev) if kind == "ssm" else
+    return [mamba_cache_init(batch, cfg.ssm, dtype, dev, ssm) if kind == "ssm" else
             kv_cache_init(batch, capacity(kind), cfg.n_kv_heads, cfg.head_dim, dtype, dev)
             for kind in cfg.layer_kinds()]
 

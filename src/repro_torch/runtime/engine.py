@@ -470,16 +470,19 @@ class LMExecutor:
       drops its result.  A sharded head then splits out-blocks over its
       model axis only, its batch being the rank's rows already;
     * where the decode policy computes modules in blocks
-      (:meth:`LM.split_plan`: the MLP's hidden columns and the vocabulary
-      under ``DECODE_POLICY``), each rank keeps those blocks; the logits of
-      a split vocabulary stay split, and every step's logits come back as
-      :class:`RowLogits`, which picks the greedy token over the split;
+      (:meth:`LM.split_plan` with ``serving``: the MLP's hidden columns and
+      the vocabulary under ``DECODE_POLICY``, and a mamba block's heads over
+      the axes the reference places a ``MambaCache``'s heads on), each rank
+      keeps those blocks; the logits of a split vocabulary stay split, and
+      every step's logits come back as :class:`RowLogits`, which picks the
+      greedy token over the split;
     * every global-attention cache (:data:`lm.SPLIT_KV_KINDS`) keeps only
       the rank's block of the ``max_len`` positions over the policy's
       ``kv_seq`` axes (:data:`kv`), and decode attention merges the blocks
-      over them (``layers/attention.py``).  A sliding-window ring and a
-      :class:`MambaCache` stay whole on every rank of their rows (ROADMAP
-      caveat R11).
+      over them (``layers/attention.py``); a split mamba block's
+      :class:`MambaCache` keeps the rank's heads' state and conv channels
+      (the plan's ``ssm``).  A sliding-window ring stays whole on every
+      rank of its rows (ROADMAP caveat R11).
 
     An unsharded model on a mesh runs every layer whole on every rank
     with the whole pool; only a sharded head splits.
@@ -525,10 +528,12 @@ class LMExecutor:
         self.plan = None  # what the decode policy computes in blocks (LM.split_plan)
         if self.policy is not None:
             with use_rules(mesh, self.policy):
-                self.plan = model.split_plan()
-        caches = dict(dtype=self._act_dtype, device=self.device, kv=self.kv)
-        self.pool = lm.make_caches(self.cfg, self.n_local, max_len, **caches)
-        self._idle = lm.make_caches(self.cfg, 1, max_len, **caches) if self.rows else None
+                self.plan = model.split_plan(serving=True)
+        # the caches' placement: global-attention positions over kv, mamba heads as the plan splits them
+        self._caches = dict(dtype=self._act_dtype, device=self.device, kv=self.kv,
+                            ssm=None if self.plan is None else self.plan.ssm)
+        self.pool = lm.make_caches(self.cfg, self.n_local, max_len, **self._caches)
+        self._idle = lm.make_caches(self.cfg, 1, max_len, **self._caches) if self.rows else None
         self.idle_steps = 0  # decode steps in which this rank had no live row
         self.faust_dispatch = None  # last decision a forward recorded
         self._faust_op = self._build_faust_op()
@@ -615,7 +620,7 @@ class LMExecutor:
         side = {k: torch.as_tensor(np.asarray(v), device=self.device)[None] for k, v in extras.items()}
         mark = _dispatch.last_report()
         with self._forward():
-            caches = lm.make_caches(self.cfg, 1, self.max_len, dtype=self._act_dtype, device=self.device, kv=self.kv)
+            caches = lm.make_caches(self.cfg, 1, self.max_len, **self._caches)
             logits, caches = self.model.prefill(self._tokens(head)[None], caches, kv=self.kv, **side)
             row = slot - self._lo
             if 0 <= row < self.n_local:  # the rank that holds the slot's row keeps it

@@ -216,11 +216,12 @@ def _norm(ax, sizes) -> tuple:
 @pytest.mark.parametrize("mesh", list(MESHES))
 @pytest.mark.parametrize("arch", ARCH_IDS)
 def test_cache_layout_against_reference(arch, mesh):
-    """Rows over the decode policy's batch axes and a global-attention
-    cache's positions over its ``kv_seq`` axes, as the reference's
-    ``cache_shardings``; a sliding-window ring's positions and a mamba
-    state's heads stay whole in the port where the reference splits them
-    (ROADMAP caveat R11)."""
+    """Rows over the decode policy's batch axes, a global-attention
+    cache's positions over its ``kv_seq`` axes and a mamba state's heads
+    over ``model``, as the reference's ``cache_shardings``; a
+    sliding-window ring's positions stay whole in the port where the
+    reference splits them, and a mamba block's conv history holds the
+    rank's channels where the reference's is whole (ROADMAP caveat R11)."""
     shape, names = MESHES[mesh]
     sizes = dict(zip(names, shape))
     cfg, jcfg = get_config(arch), jget_config(arch)
@@ -234,14 +235,16 @@ def test_cache_layout_against_reference(arch, mesh):
                 for u, kind in enumerate(unit):
                     c, jc = got[layer + r * len(unit) + u], stage[u]
                     assert kinds[layer + r * len(unit) + u] == kind
-                    for blk, js in zip(c, jc, strict=True):
+                    for field, blk, js in zip(c._fields, c, jc, strict=True):
                         jspec = tuple(js.spec)[1:] + (None,) * (len(blk.spec) + 1 - len(js.spec))
                         mine = [_norm(ax, sizes) for ax in blk.spec]
                         ref = [_norm(ax, sizes) for ax in jspec]
                         assert mine[0] == ref[0]  # rows
-                        if kind in SPLIT_KV_KINDS:
+                        if kind in SPLIT_KV_KINDS or (kind, field) in (("ssm", "ssm"), ("ssm", "pos")):
                             assert mine == ref
-                        else:  # R11: whole where the reference splits positions (a ring) or heads (SSM)
+                        elif kind == "ssm":  # R11: the conv history the rank's channels over the heads' axes
+                            assert mine[1:] == [(), _norm(tuple(jc.ssm.spec)[2], sizes)]
+                        else:  # R11: whole where the reference splits positions (a ring)
                             assert all(m == () for m in mine[1:])
             layer += repeat * len(unit)
 

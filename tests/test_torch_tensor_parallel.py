@@ -75,15 +75,18 @@ _COLUMNS = (("attn.wq", 1, "heads_act", "n_heads"), ("mlp.w_up", 1, "mlp_act", "
 _ROWS = {"attn.wo": "attn.wq", "mlp.w_down": "mlp.w_up"}
 
 
-def _want_keep(cfg, jcfg, specs: dict, jmesh, policy, avoid) -> dict:
+def _want_keep(cfg, jcfg, specs: dict, jmesh, policy, avoid, serving: bool = False) -> dict:
     """The parameters computed in blocks, from the reference's specs and
     ``_fit_axes``: each named output dimension whose spec entry is the
     activation's fitted axes (none of ``avoid``), its row partner with it;
-    ``wk``/``wv`` where their entry is the query heads' too; the head's
-    and a 2-D table's vocabulary."""
+    ``wk``/``wv`` where their entry is the query heads' too; a mamba
+    block's ``out_proj`` rows and ``norm_w`` where their entry is its
+    heads' (``heads_act`` in training, ``"model"`` in serving: the
+    reference's ``cache_shardings``); the head's and a 2-D table's
+    vocabulary."""
 
     def fit(act, size):
-        return shd.axes_tuple(jshd._fit_axes(getattr(policy, act), size, jmesh))
+        return shd.axes_tuple(jshd._fit_axes(getattr(policy, act) if act else "model", size, jmesh))
 
     def axes_of(name, dim, act, size):
         have = shd.axes_tuple(specs[name][dim] if dim < len(specs[name]) else None)
@@ -109,6 +112,11 @@ def _want_keep(cfg, jcfg, specs: dict, jmesh, policy, avoid) -> dict:
             for name in (p + "attn.wk", p + "attn.wv"):
                 if axes_of(name, 1, "heads_act", cfg.n_kv_heads) == keep[p + "attn.wq"]:
                     keep[name] = keep[p + "attn.wq"]
+    for i, kind in enumerate(kinds):
+        if kind == "ssm":
+            a = axes_of(f"layers.{i}.mamba.out_proj", 0, None if serving else "heads_act", cfg.ssm.n_heads)
+            if a and any(jmesh.shape[x] > 1 for x in a):
+                keep.update(dict.fromkeys((f"layers.{i}.mamba.out_proj", f"layers.{i}.mamba.norm_w"), a))
     if cfg.n_codebooks == 1:
         a = axes_of("embed.table", 0, "vocab_act", cfg.vocab)
         if a:
@@ -127,7 +135,8 @@ def test_split_decision_matches_reference_specs(arch, which, mesh):
     """``split_plan`` at full width under the config's training or decode
     policy: the kept parameters and their axes as the reference's specs
     give them; under ``CP_POLICY`` and the granite and llama4 policies
-    nothing splits in training, and the decode policies split no heads."""
+    nothing splits in training, and the decode policies split no
+    attention heads (a mamba block's heads split in serving too)."""
     shape, names = MESHES[mesh]
     jcfg, axes, abstract = _ref_tree(arch)
     jmesh = JAbstractMesh(shape, names)
@@ -139,8 +148,8 @@ def test_split_decision_matches_reference_specs(arch, which, mesh):
     seq = shd.axes_tuple(shd._fit_axes(policy.seq, SEQ, amesh)) if which == "train" else ()
     blocks = shd.tree_named_sharding(shd.resolve_param_pspecs(param_axes(cfg), param_shapes(cfg), amesh, cfg.policy),
                                      param_shapes(cfg), amesh)
-    plan = lm.split_plan(cfg, blocks, amesh, policy, batch + seq)
-    want = _want_keep(cfg, jcfg, specs, jmesh, policy, batch + seq)
+    plan = lm.split_plan(cfg, blocks, amesh, policy, batch + seq, serving=which == "decode")
+    want = _want_keep(cfg, jcfg, specs, jmesh, policy, batch + seq, serving=which == "decode")
     assert (plan.keep if plan is not None else {}) == want
     if which == "train" and policy.seq is not None:
         assert plan is None
