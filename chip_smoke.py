@@ -65,9 +65,9 @@ Phases, each fatal on failure (non-zero exit):
    ``torch.profiler``: device busy time and idle share, device time by
    kernel family (K1/K4, K2, K3 and its three launches, dense matmul,
    elementwise, other);
-8. the batched factorizer at workload scale: ``BATCHED_STACK``, 6 of
+8. the batched factorizer at workload scale: ``BATCHED_STACK``, 4 of
    gemma-2b's 18 MLP up-projections (the script's time limit), as one stack
-   ``(6, 2048, 16384)`` f32 through ``factorize`` (slice 1's spec, one
+   ``(4, 2048, 16384)`` f32 through ``factorize`` (slice 1's spec, one
    solve per step for the stack): seconds, each matrix's RE, peak memory;
    the first and last matrix again through the sequential route (RE
    within 1e-3); each operator through ``apply("fused")`` against ``x @
@@ -95,7 +95,7 @@ Phases, each fatal on failure (non-zero exit):
    and K3 in f32 and bf16; K1, K2 and K3 also at the trainer's shapes (the
    FAµST unembedding, bf16, B = 1024);
 13. serving and streaming refresh (slice 8) at gemma-2b's full width, its
-   depth cut to ``SERVE_LAYERS`` = 4 of 18 layers (the engine's ragged
+   depth cut to ``SERVE_LAYERS`` = 2 of 18 layers (the engine's ragged
    replays are most of this phase's time), with the trainer's FAµST
    unembedding: (a) ``Engine`` +
    ``LMExecutor`` (8 slots of 1088 tokens, bf16) on 24 requests (prompts
@@ -228,10 +228,11 @@ Phases, each fatal on failure (non-zero exit):
    seconds, launches, busy time and idle share beside the bound of the
    weights read once and the state read and written;
 17. the modality front ends (slice 12) at their published widths and full
-   depth (musicgen's trainer cut), bf16, the same FAµST unembedding
+   depth (the trainers cut), bf16, the same FAµST unembedding
    untied, on a fresh read-only autotune table, with phase 15's counts,
    parameter and kernel checks:
-   (a) internvl2-2b (24 layers), ``launch.train --faust --steps 3 --batch
+   (a) internvl2-2b cut to ``INTERNVL2_TRAIN_LAYERS`` = 8 of its 24 layers
+   (24 before phase 23), ``launch.train --faust --steps 3 --batch
    4 --seq 1024`` (two attention chunks and 256 image positions a row,
    ``vision_embeds`` from the data pipeline), K1, K2 and K3 each launched
    exactly once a step; (b) musicgen-medium cut to
@@ -376,7 +377,23 @@ Phases, each fatal on failure (non-zero exit):
    f32 under ``DECODE_POLICY`` on the same four ranks (each ``MambaCache`` at
    56 heads, half the whole's bytes a row), two requests of 256 and 512
    tokens, 12 new tokens each, every token equal to the unsharded
-   engine's, run in this process beside them.
+   engine's, run in this process beside them;
+23. the MoE experts on the rank's block (slice 20): granite-moe-3b at
+   full width (d 1536, 24 query and 8 KV heads of 64, 40 experts of ff
+   512, top-8, capacity factor 1.25, vocabulary 49,155, ``launch.train``'s
+   ``--faust`` head), cut to two MoE layers (``MOE_UNIT``), ``--batch 8
+   --seq 512``, bf16, under ``GRANITE_POLICY``: (a)-(c) as phase 21's,
+   each MoE layer on 2 × 2 routing whole rows and computing the rank's 20
+   experts (the positions' group), its partial output reduce-scattered to
+   the rank's positions; a rank's expert products and the expert weights
+   it computes with half the gathered path's, counted on one layer alone
+   (``moe_layer_flops``); the FAµST head whole (K1/K2/K3 one each a step);
+   (d) the planted fault, the aux loss's gradient counted on every rank of
+   the split (smoke width, where 5 experts split each expert's width
+   instead; f32), must fail the loss check; (e) the model served in f32
+   under ``DECODE_POLICY`` on the same four ranks (20 experts a rank),
+   two requests of 256 and 512 tokens, 12 new tokens each, every token
+   equal to the unsharded engine's, run in this process beside them.
 
 Prints one JSON object per line; the last three lines are the kernels
 summary, the card's ``name, power.limit`` and ``{"ok": true, ...}``.
@@ -1850,8 +1867,8 @@ def measure_unembed(card_line: str, dev, b: int = 1024, dims=(2048, 2048, 256000
 # ---------------------------------------------------------------------------
 
 GEMMA_UP = (18, 2048, 16384)  # gemma-2b: n_layers, d_model, d_ff (src/repro/configs/gemma_2b.py)
-# phase 8's stack: 6 of the 18 up-projections (all 18 took ≈ 67 s on the H100, 9 33.6 s)
-BATCHED_STACK = (6,) + GEMMA_UP[1:]
+# phase 8's stack: 4 of the 18 up-projections (all 18 took ≈ 67 s on the H100, 9 33.6 s, 6 31.4 s)
+BATCHED_STACK = (4,) + GEMMA_UP[1:]
 BATCHED_RE_GAP = 1e-3  # batched against sequential RE on the card: bmm and mm sum in other orders
 
 
@@ -2187,7 +2204,7 @@ def grad_dispatch(ops: dict, card_line: str, batches=(128, 4096)) -> list[dict]:
 
 SERVE_TOL = {"bfloat16": 3e-2, "float32": 1e-4}  # teacher-forced: chosen logit within tol·max|logits| of the max
 SERVE_SLOTS, SERVE_MAX_LEN = 8, 1088  # prompts ≤ 1000 plus ≤ 64 new tokens
-SERVE_LAYERS = 4  # phase 13's depth, of gemma-2b's 18: keeps the whole script well inside its time limit
+SERVE_LAYERS = 2  # phase 13's depth, of gemma-2b's 18 (4 before phase 23): keeps the script inside its time limit
 STREAM_SWEEPS = 10  # n_iter_two = n_iter_global: the reference's defaults are 40/40
 STREAM_DRIFT = 1e-2  # ‖εG‖ / ‖W0‖
 
@@ -4131,6 +4148,7 @@ def ssm_serving(card_line: str, dev, mamba_layers: int | None, zamba_layers: int
 # ---------------------------------------------------------------------------
 
 INTERNVL2_TRAIN_ARGV = ("--arch", "internvl2_2b", "--faust", "--steps", "3", "--batch", "4", "--seq", "1024")
+INTERNVL2_TRAIN_LAYERS = 8  # of 24
 MUSICGEN_TRAIN_ARGV = ("--arch", "musicgen_medium", "--faust", "--steps", "3", "--batch", "8", "--seq", "1024")
 MUSICGEN_TRAIN_LAYERS = 6  # of 48
 # served prompts: above attn_chunk 512 only the 600s are ragged (512 prefilled, 88 replayed); internvl2's
@@ -4193,7 +4211,8 @@ def modality(card_line: str, dev) -> dict:
     before the next."""
     out = {}
     with _fresh_tables("chip_smoke_modality_autotune"):
-        out["internvl2_train"] = arch_train(card_line, "internvl2", INTERNVL2_TRAIN_ARGV, per_step=1)
+        out["internvl2_train"] = arch_train(card_line, "internvl2", INTERNVL2_TRAIN_ARGV, INTERNVL2_TRAIN_LAYERS,
+                                            ("attn",), per_step=1)
         out["musicgen_train"] = arch_train(card_line, "musicgen", MUSICGEN_TRAIN_ARGV, MUSICGEN_TRAIN_LAYERS, ("attn",),
                                            per_step=4)
         serving = (("internvl2_2b", "internvl2", INTERNVL2_PROMPTS, INTERNVL2_LENGTHS, 31, "vision_ignored",
@@ -5580,23 +5599,24 @@ TP_FLOP_SHARE = (0.49, 0.51)
 _TP_MODULES = {"attention": "Layer.attn", "mlp": "Layer.mlp", "head": "Unembed"}
 
 
-def _tp_case(ssm: bool = False) -> tuple:
-    """``(argv, unit, small vocabulary)`` of phase 21 or, with ``ssm``, phase 22."""
-    return (TP_SSM_ARGV, TP_SSM_UNIT, TP_SSM_SMALL_VOCAB) if ssm else (TP_ARGV, TP_UNIT, TP_SMALL_VOCAB)
+def _tp_case(case: str = "tp") -> tuple:
+    """``(argv, unit, small vocabulary)`` of phase 21 (``case`` ``"tp"``),
+    22 (``"ssm"``) or 23 (``"moe"``)."""
+    return {"tp": (TP_ARGV, TP_UNIT, TP_SMALL_VOCAB), "ssm": (TP_SSM_ARGV, TP_SSM_UNIT, TP_SSM_SMALL_VOCAB),
+            "moe": (MOE_ARGV, MOE_UNIT, MOE_SMALL_VOCAB)}[case]
 
 
-def _tp_config(dtype=None, gathered: bool = False, small: bool = False, ssm: bool = False):
+def _tp_config(dtype=None, gathered: bool = False, small: bool = False, case: str = "tp"):
     """``launch.train``'s run of ``TP_ARGV`` and its config cut to
-    ``TP_UNIT`` (``ssm``: phase 22's ``TP_SSM_ARGV`` and ``TP_SSM_UNIT``),
-    cast to ``dtype`` where given; ``gathered``: under a policy whose
-    activations name no axis (every module gathered whole, the path
-    before slice 18); ``small``: at the smoke width, with a vocabulary of
-    ``TP_SMALL_VOCAB`` (``TP_SSM_SMALL_VOCAB``)."""
+    ``TP_UNIT`` (``case``: phase 22's or 23's, :func:`_tp_case`), cast to
+    ``dtype`` where given; ``gathered``: under a policy whose activations
+    name no axis (every module gathered whole, the path before slice 18);
+    ``small``: at the smoke width, with the case's small vocabulary."""
     import dataclasses
 
     from repro_torch.launch import train
 
-    argv, unit, vocab = _tp_case(ssm)
+    argv, unit, vocab = _tp_case(case)
     base = train.build(train.parse_args(list(argv) + (["--smoke"] if small else [])))
     cfg = dataclasses.replace(base.cfg, n_layers=len(unit), stages=((1, unit),))
     if small:
@@ -5605,20 +5625,20 @@ def _tp_config(dtype=None, gathered: bool = False, small: bool = False, ssm: boo
         cfg = dataclasses.replace(cfg, dtype=dtype)
     if gathered:
         cfg = dataclasses.replace(cfg, policy=dataclasses.replace(cfg.policy, heads_act=None, mlp_act=None,
-                                                                  vocab_act=None))
+                                                                  vocab_act=None, experts_act=None))
     return base, cfg
 
 
-def _tp_trainer(dev, mesh=None, dtype=None, small: bool = False, ssm: bool = False, **tc):
+def _tp_trainer(dev, mesh=None, dtype=None, small: bool = False, case: str = "tp", **tc):
     """``launch.train``'s trainer for ``TP_ARGV`` cut to ``TP_UNIT`` (at the
-    smoke width with ``small``; ``ssm``: phase 22's) on ``mesh`` and a
+    smoke width with ``small``; ``case``: phase 22's or 23's) on ``mesh`` and a
     model from seed 0 (an unsplit head forced onto ``fused``)."""
     import dataclasses
 
     from repro_torch.models.lm import LM
     from repro_torch.runtime.trainer import Trainer
 
-    base, cfg = _tp_config(dtype, small=small, ssm=ssm)
+    base, cfg = _tp_config(dtype, small=small, case=case)
     data_cfg = dataclasses.replace(base.data_cfg, vocab=cfg.vocab)
     t = Trainer(cfg, data_cfg, base.opt_cfg, dataclasses.replace(base.tcfg, **{"checkpoint_every": 1000, **tc}),
                 mesh=mesh, device=dev)
@@ -5707,8 +5727,8 @@ def host_staged_wire():
         _mesh.all_gather, _mesh.all_reduce, _mesh.reduce_scatter = real
 
 
-def tp_prediction(path: str, ssm: bool = False) -> None:
-    """Phase 21's predictions (``ssm``: phase 22's), written to ``path`` as
+def tp_prediction(path: str, case: str = "tp") -> None:
+    """Phase 21's predictions (``case``: phase 22's or 23's), written to ``path`` as
     JSON (a process of its own on the CPU, beside the card work): the dry
     run of the bf16 configuration on each rank of a fake 2 × 2 mesh, its
     collectives host staged as the ranks' are (:func:`host_staged_wire`:
@@ -5717,9 +5737,9 @@ def tp_prediction(path: str, ssm: bool = False) -> None:
     from repro_torch.launch.dryrun import dry_run
     from repro_torch.launch.mesh import abstract_rank, release
 
-    cell = _tp_cell(ssm)
+    cell = _tp_cell(case)
     out = {"ranks": []}
-    _, cfg = _tp_config(ssm=ssm)
+    _, cfg = _tp_config(case=case)
     with host_staged_wire():
         for r in range(math.prod(TP_MESH)):
             rec = dry_run(cfg, cell, abstract_rank(TP_MESH, ("data", "model"), r))
@@ -5730,7 +5750,7 @@ def tp_prediction(path: str, ssm: bool = False) -> None:
     rec = dry_run(cfg, cell, abstract_rank(TP_MESH, ("data", "model"), 0))
     release()
     out["peak_bytes_on_card_wire"] = rec["memory"]["peak_bytes"]
-    _, cfg = _tp_config(gathered=True, ssm=ssm)
+    _, cfg = _tp_config(gathered=True, case=case)
     with host_staged_wire():
         rec = dry_run(cfg, cell, abstract_rank(TP_MESH, ("data", "model"), 0), prepare=_fused_head)
     release()
@@ -5739,12 +5759,12 @@ def tp_prediction(path: str, ssm: bool = False) -> None:
     Path(path).write_text(json.dumps(out))
 
 
-def _tp_cell(ssm: bool = False):
+def _tp_cell(case: str = "tp"):
     from repro_torch.configs.base import ShapeCell
 
-    argv = _tp_case(ssm)[0]
-    return ShapeCell("phase22" if ssm else "phase21", "train", int(argv[argv.index("--seq") + 1]),
-                     int(argv[argv.index("--batch") + 1]))
+    argv = _tp_case(case)[0]
+    return ShapeCell({"tp": "phase21", "ssm": "phase22", "moe": "phase23"}[case], "train",
+                     int(argv[argv.index("--seq") + 1]), int(argv[argv.index("--batch") + 1]))
 
 
 def tp_rank(rank: int, rendezvous: str, out_dir: str, card_line: str, device: str) -> None:
@@ -5789,7 +5809,7 @@ def tp_rank(rank: int, rendezvous: str, out_dir: str, card_line: str, device: st
         result["f32"] = _mt_run(t, model)
         del t, model
         real = layout._EnterSplit.backward
-        layout._EnterSplit.backward = staticmethod(lambda ctx, g: (g, None))  # the input's gradient blocks not summed
+        layout._EnterSplit.backward = staticmethod(lambda ctx, g: (g, None, None))  # the input's gradient blocks not summed
         try:
             t, model = _tp_trainer(dev, mesh=mesh, dtype="float32", small=True, steps=1,
                                    checkpoint_dir=str(Path(out_dir) / f"planted_{rank}"))
@@ -5808,29 +5828,30 @@ def tp_rank(rank: int, rendezvous: str, out_dir: str, card_line: str, device: st
         dist.destroy_process_group()
 
 
-def tp_nccl(card_line: str, dev, plain: dict, ssm: bool = False) -> dict:
-    """Phase 21 (b) (``ssm``: phase 22 (b)): the bf16 trainer on a 1 × 1
-    NCCL mesh in this process (nothing splits on one rank), held to the
-    unsharded run."""
+def tp_nccl(card_line: str, dev, plain: dict, case: str = "tp") -> dict:
+    """Phase 21 (b) (``case``: phase 22's or 23's (b)): the bf16 trainer
+    on a 1 × 1 NCCL mesh in this process (nothing splits on one rank),
+    held to the unsharded run."""
     import torch.distributed as dist
 
     from repro_torch.distributed import make_debug_mesh
 
-    folder = (TP_SSM_FOLDER if ssm else TP_FOLDER) / "nccl"
+    folder = {"tp": TP_FOLDER, "ssm": TP_SSM_FOLDER, "moe": MOE_FOLDER}[case] / "nccl"
     folder.mkdir(parents=True, exist_ok=True)
     rdv = folder / "rendezvous"
     rdv.unlink(missing_ok=True)
     dist.init_process_group("nccl", init_method=f"file://{rdv}", rank=0, world_size=1)
     try:
         t, model = _tp_trainer(dev, mesh=make_debug_mesh(1, 1, device=dev), steps=TP_STEPS,
-                               checkpoint_dir=str(folder / "ckpt"), ssm=ssm)
+                               checkpoint_dir=str(folder / "ckpt"), case=case)
         run = _tp_run(t, model)
         del t, model
         _free()
     finally:
         dist.destroy_process_group()
-    argv, unit, _ = _tp_case(ssm)
-    row = {"phase": "tp_ssm_train_1x1" if ssm else "tp_train_1x1", "card": card_line, "argv": list(argv),
+    argv, unit, _ = _tp_case(case)
+    row = {"phase": {"tp": "tp_train_1x1", "ssm": "tp_ssm_train_1x1", "moe": "moe_train_1x1"}[case],
+           "card": card_line, "argv": list(argv),
            "unit": list(unit), "mesh": run, "loss_rel_diff": _check_diff(run, plain)}
     log(row)
     require(row["loss_rel_diff"] <= MT_TOL["bfloat16"],
@@ -6012,7 +6033,7 @@ def tp_ssm_serve(dev, mesh=None) -> dict:
     from repro_torch.models.lm import LM
     from repro_torch.runtime.engine import Engine, LMExecutor
 
-    _, cfg = _tp_config("float32", ssm=True)
+    _, cfg = _tp_config("float32", case="ssm")
     model = LM(cfg, seed=0, device=dev)
     _fused_head(model)
     if mesh is not None:
@@ -6070,24 +6091,24 @@ def tp_ssm_rank(rank: int, rendezvous: str, out_dir: str, card_line: str, device
         t0 = time.perf_counter()
         mesh = make_debug_mesh(*TP_MESH, device=dev)
         result["coord"] = dict(mesh.coord)
-        t, model = _tp_trainer(dev, mesh=mesh, steps=TP_STEPS, ssm=True,
+        t, model = _tp_trainer(dev, mesh=mesh, steps=TP_STEPS, case="ssm",
                                checkpoint_dir=str(Path(out_dir) / f"bf16_{rank}"))
         result["bf16"] = _tp_run(t, model)
         with use_rules(mesh, model.cfg.policy):
             plan = model.split_plan()
-        result["layer_flops"] = layer_flops(model, _tp_cell(True).global_batch // TP_MESH[0], plan)
+        result["layer_flops"] = layer_flops(model, _tp_cell("ssm").global_batch // TP_MESH[0], plan)
         result["segments"] = len(split_plan(model.unembed.faust.blockfaust(), mesh, "model").segments)
         result["state_bytes"] = t.state_bytes
         del t, model
         _free()
-        t, model = _tp_trainer(dev, mesh=mesh, dtype="float32", small=True, steps=1, ssm=True,
+        t, model = _tp_trainer(dev, mesh=mesh, dtype="float32", small=True, steps=1, case="ssm",
                                checkpoint_dir=str(Path(out_dir) / f"f32_{rank}"))
         result["f32"] = _mt_run(t, model)
         del t, model
         real = layout._SplitTotal.backward
         layout._SplitTotal.backward = staticmethod(lambda ctx, g: (g, None))  # the norm's cotangent not summed
         try:
-            t, model = _tp_trainer(dev, mesh=mesh, dtype="float32", small=True, steps=1, ssm=True,
+            t, model = _tp_trainer(dev, mesh=mesh, dtype="float32", small=True, steps=1, case="ssm",
                                    checkpoint_dir=str(Path(out_dir) / f"planted_{rank}"))
             result["planted"] = _mt_run(t, model)
         finally:
@@ -6123,7 +6144,7 @@ def tensor_parallel_ssm(card_line: str, dev) -> dict:
     code = (f"import sys; sys.path[:0] = [{str(ROOT)!r}]; import chip_smoke as cs; "
             f"cs.TP_SSM_ARGV = {tuple(TP_SSM_ARGV) + ('--device', 'cpu')!r}; "
             f"cs.TP_SSM_UNIT, cs.TP_MESH = {TP_SSM_UNIT!r}, {TP_MESH!r}; "
-            f"cs.tp_prediction({str(TP_SSM_FOLDER / 'prediction')!r}, ssm=True)")
+            f"cs.tp_prediction({str(TP_SSM_FOLDER / 'prediction')!r}, case='ssm')")
     pred_proc = subprocess.Popen([sys.executable, "-c", code], cwd=ROOT, env=env, stdout=subprocess.PIPE,
                                  stderr=subprocess.STDOUT, text=True)
     procs = []
@@ -6135,17 +6156,17 @@ def tensor_parallel_ssm(card_line: str, dev) -> dict:
                      for r in range(math.prod(TP_MESH)))
         for p in procs:
             p.start()
-        t, model = _tp_trainer(dev, steps=TP_STEPS, checkpoint_dir=str(TP_SSM_FOLDER / "plain"), ssm=True)
+        t, model = _tp_trainer(dev, steps=TP_STEPS, checkpoint_dir=str(TP_SSM_FOLDER / "plain"), case="ssm")
         plain = _tp_run(t, model)
         # the gathered path's: the whole layers on a rank's rows (the unsharded step's over the data axis)
-        plain["layer_flops"] = layer_flops(model, _tp_cell(True).global_batch // TP_MESH[0])
+        plain["layer_flops"] = layer_flops(model, _tp_cell("ssm").global_batch // TP_MESH[0])
         del t, model
         _free()
-        t, model = _tp_trainer(dev, dtype="float32", small=True, steps=1, ssm=True,
+        t, model = _tp_trainer(dev, dtype="float32", small=True, steps=1, case="ssm",
                                checkpoint_dir=str(TP_SSM_FOLDER / "plain32"))
         plain32 = _mt_run(t, model)
         del t, model
-        nccl = tp_nccl(card_line, dev, plain, ssm=True)
+        nccl = tp_nccl(card_line, dev, plain, case="ssm")
         served = tp_ssm_serve(dev)
         out, _ = pred_proc.communicate(timeout=TP_JOIN_S)
         require(pred_proc.returncode == 0, f"phase 22's prediction failed:\n{out[-3000:]}")
@@ -6218,7 +6239,7 @@ def tensor_parallel_ssm(card_line: str, dev) -> dict:
     require(all(TP_SSM_FLOP_SHARE[0] <= share["ssm"] <= TP_SSM_FLOP_SHARE[1]
                 and TP_FLOP_SHARE[0] <= share["shared"] <= TP_FLOP_SHARE[1] for share in row["flop_share"]),
             f"a rank's mamba or shared-block flops are not 1/{TP_MESH[1]} of the gathered path's: {row['flop_share']}")
-    heads = _tp_config(ssm=True)[1].ssm.n_heads // TP_MESH[1]
+    heads = _tp_config(case="ssm")[1].ssm.n_heads // TP_MESH[1]
     for r in results:
         s = r["serve"]
         require(s["tokens"] == served["tokens"], f"rank {r['rank']} served {s['tokens']}, the unsharded engine "
@@ -6229,6 +6250,298 @@ def tensor_parallel_ssm(card_line: str, dev) -> dict:
     require(all(TP_SSM_CACHE_SHARE[0] <= x <= TP_SSM_CACHE_SHARE[1] for x in serve_row["mamba_share_per_row"])
             and all(x == 0.5 for x in serve_row["state_share_per_row"]),
             f"a rank's MambaCache is not half the whole a row: {serve_row['mamba_share_per_row']}")
+    return {"row": row, "serve": serve_row, "nccl": nccl,
+            "launches": {k: v for k, v in first["bf16"]["launches"].items() if not k.startswith("coll_")},
+            "serve_launches": {k: v for k, v in first["serve"]["launches"].items() if not k.startswith("coll_")}}
+
+
+# ---------------------------------------------------------------------------
+# Slice 20: the MoE experts on the rank's block (phase 23)
+# ---------------------------------------------------------------------------
+
+MOE_ARGV = ("--arch", "granite_moe_3b", "--faust", "--steps", "1", "--batch", "8", "--seq", "512")
+# the depth: two MoE layers at full width (d 1536, 24 query and 8 KV heads of 64, 40 experts of ff 512, top-8,
+# capacity factor 1.25, vocabulary 49155); under GRANITE_POLICY on 2 x 2 the positions and 20 experts a rank
+# lie on model (expert parallel on the sequence group)
+MOE_UNIT = ("moe", "moe")
+# the f32 and planted runs' vocabulary, at the smoke width, where granite's 5 experts do not divide the
+# model axis: each expert's width splits instead
+MOE_SMALL_VOCAB = 256
+MOE_FOLDER = ROOT / "build" / "chip_smoke_moe"
+# a rank's expert products (the MoE's batched matmuls; the router's product left out) and the expert
+# weights it computes with, against the gathered path's: 20 of 40 experts, exactly half
+MOE_SHARE = (0.49, 0.51)
+# (e): two requests whose prompts are multiples of every chunk (attn_chunk 512), served in f32 under
+# DECODE_POLICY on 2 x 2 (rows over data, 20 experts a rank and the cache's positions over model)
+MOE_PROMPTS = (256, 512)
+MOE_NEW_TOKENS = 12
+MOE_MAX_LEN = 528  # the longer prompt and its new tokens, a multiple of the model axis (kv positions)
+
+
+def moe_layer_flops(model, rows: int, plan=None) -> dict:
+    """One forward and backward (no remat) of the model's first MoE layer
+    on ``rows`` random whole rows of phase 23's sequence, split as
+    ``plan`` gives it (a sharded model gathers its parameters, so every
+    rank of the mesh calls it together): ``FlopCounterMode``'s flops of
+    the MoE's batched products (``experts``: its expert einsums, the
+    router's product left out) and of the layer (``total``), and the
+    bytes of the expert weights the layer computed with
+    (``expert_bytes``)."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.models.lm import LM
+
+    seq = int(MOE_ARGV[MOE_ARGV.index("--seq") + 1])
+    module, prefix = model._layer(0, model.layers[0])
+    x = torch.randn((rows, seq, model.cfg.d_model), dtype=model.embed.table.dtype, device=model.embed.table.device,
+                    requires_grad=True)
+    split = None if plan is None else plan.layers.get(prefix)
+    weights = {n: p.numel() * p.element_size() for n, p in module.moe.named_parameters() if n.startswith("w_")}
+    real = LM._gathered
+
+    def gathered(self, mod, pfx, pl=None):
+        out = real(self, mod, pfx, pl)
+        weights.update({n[len("moe."):]: t.numel() * t.element_size() for n, t in out.items()
+                        if n.startswith("moe.w_")})
+        return out
+
+    LM._gathered = gathered
+    try:
+        with FlopCounterMode(display=False) as fc:
+            y = model._call(module, prefix, x, "train", None, None, None, split, plan=plan)[0]
+            y.float().sum().backward()
+    finally:
+        LM._gathered = real
+    moe = fc.get_flop_counts().get("Layer.moe", {})
+    return {"experts": sum(v for op, v in moe.items() if "bmm" in str(op)), "total": fc.get_total_flops(),
+            "expert_bytes": sum(weights.values())}
+
+
+def moe_serve(dev, mesh=None) -> dict:
+    """Phase 23 (e): the model of ``MOE_ARGV`` cut to ``MOE_UNIT`` in f32
+    (seed 0, head forced fused) served the two requests of
+    ``MOE_PROMPTS``, ``MOE_NEW_TOKENS`` tokens each, split on ``mesh``
+    (``LM.shard_``, ``LMExecutor(mesh=)`` under its decode policy) or
+    unsharded: the tokens, a layer's MoE split, the launches and seconds."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models.lm import LM
+    from repro_torch.runtime.engine import Engine, LMExecutor
+
+    _, cfg = _tp_config("float32", case="moe")
+    model = LM(cfg, seed=0, device=dev)
+    _fused_head(model)
+    if mesh is not None:
+        model.shard_(mesh)
+    rng = np.random.default_rng(23)
+    prompts = [rng.integers(0, cfg.vocab, n).astype(np.int32) for n in MOE_PROMPTS]
+    ex = LMExecutor(model, MOE_MAX_LEN, len(prompts), mesh=mesh)
+    engine = Engine(ex)
+    _zero_mt_counts()
+    t0 = time.perf_counter()
+    rids = [engine.submit(p, MOE_NEW_TOKENS) for p in prompts]
+    engine.run()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    split = None if ex.plan is None else ex.plan.layers["layers.0."].moe
+    out = {"tokens": [engine.result(r).tolist() for r in rids], "seconds": seconds, "launches": _mt_counts(),
+           "moe": None if split is None else [split.experts, split.expert_lo, split.ff, split.ff_lo]}
+    del engine, ex, model
+    _free()
+    return out
+
+
+def moe_rank(rank: int, rendezvous: str, out_dir: str, card_line: str, device: str) -> None:
+    """One of phase 23's four ranks (a spawned process) on the parent's
+    ``device``: the bf16 run (its first step's collectives), one MoE
+    layer's flops and expert bytes, at the smoke width the f32 run and the
+    planted fault's (f32), then (e)'s serving; saved to
+    ``out_dir/rank{rank}.json``."""
+    global _ROWS
+    import datetime
+    import traceback
+
+    import torch
+    import torch.distributed as dist
+
+    _ROWS = []
+    os.environ["REPRO_AUTOTUNE"] = "off"
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    dev = torch.device(device)
+    torch.cuda.set_device(dev)
+    torch.set_num_threads(max(1, (os.cpu_count() or 4) // math.prod(TP_MESH)))
+    result: dict = {"rank": rank}
+    dist.init_process_group("gloo", init_method=f"file://{rendezvous}", rank=rank, world_size=math.prod(TP_MESH),
+                            timeout=datetime.timedelta(seconds=TP_TIMEOUT_S))
+    try:
+        from repro_torch.distributed import layout, make_debug_mesh
+        from repro_torch.distributed.mesh import TRANSPORT
+        from repro_torch.distributed.sharding import use_rules
+
+        t0 = time.perf_counter()
+        mesh = make_debug_mesh(*TP_MESH, device=dev)
+        result["coord"] = dict(mesh.coord)
+        t, model = _tp_trainer(dev, mesh=mesh, steps=TP_STEPS, case="moe",
+                               checkpoint_dir=str(Path(out_dir) / f"bf16_{rank}"))
+        result["bf16"] = _tp_run(t, model)
+        with use_rules(mesh, model.cfg.policy):
+            plan = model.split_plan()
+        split = plan.layers["layers.0."].moe
+        result["moe"] = [split.experts, split.expert_lo, split.ff, split.ff_lo]
+        result["layer_flops"] = moe_layer_flops(model, _tp_cell("moe").global_batch // TP_MESH[0], plan)
+        result["state_bytes"] = t.state_bytes
+        del t, model
+        _free()
+        t, model = _tp_trainer(dev, mesh=mesh, dtype="float32", small=True, steps=1, case="moe",
+                               checkpoint_dir=str(Path(out_dir) / f"f32_{rank}"))
+        result["f32"] = _mt_run(t, model)
+        del t, model
+        real = layout.part_value
+        layout.part_value = layout.share_value  # the aux loss's gradient counted on every rank of the split
+        try:
+            t, model = _tp_trainer(dev, mesh=mesh, dtype="float32", small=True, steps=1, case="moe",
+                                   checkpoint_dir=str(Path(out_dir) / f"planted_{rank}"))
+            result["planted"] = _mt_run(t, model)
+        finally:
+            layout.part_value = real
+        del t, model
+        _free()
+        result["train_seconds"] = time.perf_counter() - t0
+        result["serve"] = moe_serve(dev, mesh)
+        result["seconds"] = time.perf_counter() - t0
+        result["transport"] = dict(TRANSPORT)
+    except Exception:  # noqa: BLE001 — reported by the parent
+        result["error"] = traceback.format_exc()
+    finally:
+        result["rows"] = _ROWS
+        Path(out_dir, f"rank{rank}.json").write_text(json.dumps(result, default=str))
+        dist.destroy_process_group()
+
+
+def moe_split(card_line: str, dev) -> dict:
+    """Phase 23, slice 20 (module docstring): the prediction in a CPU
+    process of its own; (c)-(e) on four ranks spawned on 2 × 2 and, beside
+    them in this process, (a) the unsharded trainers, (b) the 1 × 1 NCCL
+    run and (e)'s unsharded engine."""
+    import multiprocessing
+    import shutil
+
+    from repro_torch.kernels import build
+
+    t0 = time.perf_counter()
+    shutil.rmtree(MOE_FOLDER, ignore_errors=True)
+    MOE_FOLDER.mkdir(parents=True)
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src"), "CUDA_VISIBLE_DEVICES": ""}
+    code = (f"import sys; sys.path[:0] = [{str(ROOT)!r}]; import chip_smoke as cs; "
+            f"cs.MOE_ARGV = {tuple(MOE_ARGV) + ('--device', 'cpu')!r}; "
+            f"cs.MOE_UNIT, cs.TP_MESH = {MOE_UNIT!r}, {TP_MESH!r}; "
+            f"cs.tp_prediction({str(MOE_FOLDER / 'prediction')!r}, case='moe')")
+    pred_proc = subprocess.Popen([sys.executable, "-c", code], cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                                 stderr=subprocess.STDOUT, text=True)
+    procs = []
+    try:
+        build.build()  # already built: ranks must only load, never build at once
+        ctx = multiprocessing.get_context("spawn")
+        procs.extend(ctx.Process(target=moe_rank, args=(r, str(MOE_FOLDER / "rendezvous"), str(MOE_FOLDER),
+                                                         card_line, str(dev)))
+                     for r in range(math.prod(TP_MESH)))
+        for p in procs:
+            p.start()
+        t, model = _tp_trainer(dev, steps=TP_STEPS, checkpoint_dir=str(MOE_FOLDER / "plain"), case="moe")
+        plain = _tp_run(t, model)
+        # the gathered path's: the whole layer on a rank's rows (the unsharded step's over the data axis)
+        plain["layer_flops"] = moe_layer_flops(model, _tp_cell("moe").global_batch // TP_MESH[0])
+        del t, model
+        _free()
+        t, model = _tp_trainer(dev, dtype="float32", small=True, steps=1, case="moe",
+                               checkpoint_dir=str(MOE_FOLDER / "plain32"))
+        plain32 = _mt_run(t, model)
+        del t, model
+        nccl = tp_nccl(card_line, dev, plain, case="moe")
+        served = moe_serve(dev)
+        out, _ = pred_proc.communicate(timeout=TP_JOIN_S)
+        require(pred_proc.returncode == 0, f"phase 23's prediction failed:\n{out[-3000:]}")
+        pred = json.loads((MOE_FOLDER / "prediction").read_text())
+        deadline = time.monotonic() + TP_JOIN_S
+        for p in procs:
+            p.join(max(deadline - time.monotonic(), 1))
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join(10)
+        if pred_proc.poll() is None:
+            pred_proc.kill()
+            pred_proc.wait(10)
+    results = []
+    for r, p in enumerate(procs):
+        path = MOE_FOLDER / f"rank{r}.json"
+        require(path.exists(), f"MoE-split rank {r} saved nothing (exit code {p.exitcode})")
+        res = json.loads(path.read_text())
+        require("error" not in res, f"MoE-split rank {r} failed:\n{res.get('error')}")
+        results.append(res)
+    first = results[0]
+    gathered = plain["layer_flops"]
+    row = {"phase": "moe_train", "card": card_line, "argv": list(MOE_ARGV), "unit": list(MOE_UNIT),
+           "mesh": list(TP_MESH), "seconds": time.perf_counter() - t0,
+           "rank_seconds": [r["seconds"] for r in results], "rank_train_seconds": [r["train_seconds"] for r in results],
+           "coords": [r["coord"] for r in results], "moe_split": [r["moe"] for r in results],
+           "unsharded": plain, "unsharded_f32": plain32, "bf16": [r["bf16"] for r in results],
+           "f32": [r["f32"] for r in results], "planted": first["planted"], "transport": [r["transport"] for r in results],
+           "state_share": [r["state_bytes"]["rank"] / r["state_bytes"]["whole"] for r in results],
+           "layer_flops_gathered_path": gathered, "layer_flops": [r["layer_flops"] for r in results],
+           "expert_flop_share": [r["layer_flops"]["experts"] / gathered["experts"] for r in results],
+           "expert_bytes_share": [r["layer_flops"]["expert_bytes"] / gathered["expert_bytes"] for r in results],
+           "prediction": pred,
+           "param_gather_bytes": [r["bf16"]["step_collectives"].get("param_gather", {}).get("bytes") for r in results],
+           "param_gather_bytes_gathered_path": pred["gathered"]["by_purpose"]["param_gather"]["bytes"],
+           "peak_gb": [r["bf16"]["peak_gb"] for r in results],
+           "predicted_peak_gb": [p["peak_bytes"] / 1e9 for p in pred["ranks"]],
+           "predicted_peak_gb_on_card_wire": pred["peak_bytes_on_card_wire"] / 1e9,
+           "timing": "four ranks share one card over host-staged gloo: no time here is a multi-GPU number"}
+    row["bf16_rel_diff"] = _check_diff(first["bf16"], plain)
+    row["f32_rel_diff"] = _check_diff(first["f32"], plain32)
+    row["planted_rel_diff"] = _check_diff(first["planted"], plain32)
+    row["peak_rel_err"] = [abs(g - p) / p for g, p in zip(row["peak_gb"], row["predicted_peak_gb"])]
+    log(row)
+    serve_row = {"phase": "moe_serve", "card": card_line, "prompts": list(MOE_PROMPTS),
+                 "new_tokens": MOE_NEW_TOKENS, "unsharded": served, "ranks": [r["serve"] for r in results]}
+    log(serve_row)
+    shutil.rmtree(MOE_FOLDER, ignore_errors=True)
+    require(all(r["bf16"]["losses"] == first["bf16"]["losses"] for r in results)
+            and all(r["f32"]["losses"] == first["f32"]["losses"] for r in results), "the ranks' losses differ")
+    require(row["bf16_rel_diff"] <= MT_TOL["bfloat16"], f"the MoE split's losses differ from unsharded: "
+                                                         f"{row['bf16_rel_diff']}")
+    require(row["f32_rel_diff"] <= MT_TOL["float32"], f"the f32 MoE split step differs: {row['f32_rel_diff']}")
+    require(row["planted_rel_diff"] > MT_TOL["float32"],
+            f"the planted aux fault passed the loss check: {row['planted_rel_diff']}")
+    require(max(row["peak_rel_err"]) <= REPORT_MEM_TOL, f"a rank's peak is off the host-staged dry run's: "
+                                                         f"{row['peak_gb']} GB read, {row['predicted_peak_gb']} "
+                                                         f"predicted")
+    for r in results:
+        got = {k: r["bf16"]["launches"][k] for k in ("chain_matmul", "chain_dgrad", "chain_wgrad")}
+        require(all(v == TP_STEPS for v in got.values()), f"rank {r['rank']}: K1/K2/K3 {got}, one each a step")
+    predicted = [p["by_purpose"] for p in pred["ranks"]]
+    counted = [r["bf16"]["step_collectives"] for r in results]
+    require(predicted == counted, f"the ranks' collectives by purpose differ from the dry run's: {predicted} vs "
+                                  f"{counted}")
+    require(all(MOE_SHARE[0] <= x <= MOE_SHARE[1] for x in row["expert_flop_share"] + row["expert_bytes_share"]),
+            f"a rank's expert flops or weight bytes are not 1/{TP_MESH[1]} of the gathered path's: "
+            f"{row['expert_flop_share']}, {row['expert_bytes_share']}")
+    cfg = _tp_config(case="moe")[1]
+    experts = cfg.moe.n_experts // TP_MESH[1]
+    for r in results:
+        want = [experts, r["coord"]["model"] * experts, cfg.moe.d_ff, 0]
+        require(r["moe"] == want and r["serve"]["moe"] == want,
+                f"rank {r['rank']}'s MoE layers computed {r['moe']} / {r['serve']['moe']}, not its {want}")
+        s = r["serve"]
+        require(s["tokens"] == served["tokens"], f"rank {r['rank']} served {s['tokens']}, the unsharded engine "
+                                                 f"{served['tokens']}")
+        require(s["launches"]["chain_matmul"] > 0, f"rank {r['rank']}'s served head never ran K1")
     return {"row": row, "serve": serve_row, "nccl": nccl,
             "launches": {k: v for k, v in first["bf16"]["launches"].items() if not k.startswith("coll_")},
             "serve_launches": {k: v for k, v in first["serve"]["launches"].items() if not k.startswith("coll_")}}
@@ -6294,6 +6607,7 @@ def main() -> int:
     rep = report(info["card"], dev, mtr)
     tp = tensor_parallel(info["card"], dev)
     tps = tensor_parallel_ssm(info["card"], dev)
+    moe = moe_split(info["card"], dev)
 
     src = "src/repro_torch/kernels/csrc/"
     f32_b128 = {"dtype": "float32", "batch": 128}
@@ -6354,6 +6668,9 @@ def main() -> int:
         # slice 19: phase 22 (c), rank 0's bf16 run beside the split SSM, and (e)'s serving on rank 0
         k["tp_ssm_launches"] = tps["launches"][k["name"]]
         k["tp_ssm_serve_launches"] = tps["serve_launches"][k["name"]]
+        # slice 20: phase 23 (c), rank 0's bf16 run beside the split MoE layers, and (e)'s serving on rank 0
+        k["moe_launches"] = moe["launches"][k["name"]]
+        k["moe_serve_launches"] = moe["serve_launches"][k["name"]]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(info["card"], flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

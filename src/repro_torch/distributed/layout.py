@@ -15,6 +15,9 @@ collectives that move it, as autograd Functions.
   contiguous chunk of every row's positions.  :meth:`SeqSplit.gather`
   rebuilds the whole sequence (attention's keys and values, a MoE layer's
   input); its backward is a reduce-scatter (sum) over the sequence group.
+  :meth:`SeqSplit.scatter` is its mirror: a whole sequence of partial sums
+  (a MoE layer's output from the rank's experts or columns) summed over
+  the group to the rank's chunk, an all-gather backward.
 * **Tensor parallelism** (:class:`TPSplit`): where the policy computes a
   module in blocks over axes ``A`` (:func:`~repro_torch.distributed.
   sharding.compute_axes`), the ranks on ``A`` hold the same rows and each
@@ -26,7 +29,9 @@ collectives that move it, as autograd Functions.
   (summed over ``A`` forward, identity backward); a value each rank
   computes a part of from its own columns (a mamba block's gated norm's
   sum of squares) through :meth:`TPSplit.total` (summed over ``A`` both
-  ways: each rank's cotangent differs); the logits stay split:
+  ways: each rank's cotangent differs); a MoE layer split over its
+  experts or their width enters and leaves the same way, counted under
+  purposes of its own; the logits stay split:
   :func:`vocab_cross_entropy`, :func:`vocab_argmax` and
   :func:`vocab_lookup` work on the blocks.
 * :func:`sum_over` is an all-reduce of a value every rank computed a part
@@ -61,12 +66,16 @@ from repro_torch.kernels import library
 # gathers; a tensor-parallel split's (TPSplit): the column-parallel input's
 # backward all-reduce, the row-parallel output's all-reduce, the
 # vocab-parallel cross entropy's and greedy pick's all-reduces, a split
-# mamba block's norm sums (forward and backward), and a split FAµST head's
-# boundary all-gathers and their backward reduce-scatters
+# mamba block's norm sums (forward and backward), a split FAµST head's
+# boundary all-gathers and their backward reduce-scatters, and a split MoE
+# layer's: its partial output summed (an all-reduce on whole rows, a
+# reduce-scatter to the rank's positions under a sequence split), that
+# sum's backward all-gather, and its input's backward all-reduce
 COLLECTIVES = dict.fromkeys(
     ("param_gather", "grad_reduce_scatter", "grad_all_reduce", "seq_gather", "seq_reduce_scatter", "sum",
      "kv_merge", "row_gather", "embed_lookup", "tp_input_grad", "tp_output", "vocab_ce", "vocab_pick",
-     "tp_norm", "tp_norm_grad", "head_boundary_gather", "head_boundary_reduce_scatter"), 0)
+     "tp_norm", "tp_norm_grad", "head_boundary_gather", "head_boundary_reduce_scatter", "moe_combine",
+     "moe_combine_grad", "moe_input_grad"), 0)
 BYTES = dict.fromkeys(COLLECTIVES, 0)
 _OPS = {"sum": torch.distributed.ReduceOp.SUM, "max": torch.distributed.ReduceOp.MAX}
 
@@ -211,6 +220,34 @@ class SeqSplit:
         """This rank's chunk of a whole sequence along ``dim``."""
         return t.narrow(dim, self.start, self.local)
 
+    def scatter(self, t: torch.Tensor, dim: int = 1, dtype=None) -> torch.Tensor:
+        """This rank's chunk along ``dim`` of the group's sum of ``t``, a
+        whole sequence of partial sums, rounded to ``dtype`` (default:
+        ``t``'s) once summed; the backward gathers the chunks' cotangents
+        whole on every rank, in ``dtype`` (:class:`_SeqScatter`)."""
+        return _SeqScatter.apply(t, self.group, dim, dtype or t.dtype)
+
+
+class _SeqScatter(torch.autograd.Function):
+    """A MoE layer's output from the rank's experts or columns, whole
+    positions: one reduce-scatter (sum, in ``t``'s dtype) to the rank's
+    chunk forward, rounded to ``dtype``; the chunks' cotangents
+    all-gathered backward in ``dtype`` (each rank's partial output enters
+    the sum with weight one, so it takes the whole cotangent)."""
+
+    @staticmethod
+    def forward(ctx, t, group, dim, dtype):
+        ctx.group, ctx.dim, ctx.dtype = group, dim, t.dtype
+        out = _mesh.reduce_scatter(t.contiguous(), group, dim)
+        _count("moe_combine", out)
+        return out.to(dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = _mesh.all_gather(g.contiguous(), ctx.group, ctx.dim)
+        _count("moe_combine_grad", g)
+        return g.to(ctx.dtype), None, None, None
+
 
 def seq_split(mesh, axes, length: int) -> SeqSplit | None:
     """The split of ``length`` positions over ``axes`` of ``mesh`` (None
@@ -239,34 +276,36 @@ def reduce_over(t: torch.Tensor, group, op: str = "sum", purpose: str = "sum") -
 
 class _EnterSplit(torch.autograd.Function):
     """The column-parallel input: identity forward; every rank's block of
-    the input's gradient summed over the split's group backward."""
+    the input's gradient summed over the split's group backward (counted
+    under ``purpose``)."""
 
     @staticmethod
-    def forward(ctx, x, group):
-        ctx.group = group
+    def forward(ctx, x, group, purpose):
+        ctx.group, ctx.purpose = group, purpose
         return x.view_as(x)
 
     @staticmethod
     def backward(ctx, g):
         g = _mesh.all_reduce(g.contiguous(), ctx.group)
-        _count("tp_input_grad", g)
-        return g, None
+        _count(ctx.purpose, g)
+        return g, None, None
 
 
 class _LeaveSplit(torch.autograd.Function):
     """The row-parallel output: the partial products summed over the
-    split's group forward (in f32 for a narrower float); identity
-    backward (every rank holds the whole cotangent)."""
+    split's group forward (in f32 for a narrower float; counted under
+    ``purpose``); identity backward (every rank holds the whole
+    cotangent)."""
 
     @staticmethod
-    def forward(ctx, y, group):
+    def forward(ctx, y, group, purpose):
         y = _mesh.all_reduce(y.contiguous(), group)
-        _count("tp_output", y)
+        _count(purpose, y)
         return y
 
     @staticmethod
     def backward(ctx, g):
-        return g, None
+        return g, None, None
 
 
 class _ProjectF32(torch.autograd.Function):
@@ -337,13 +376,13 @@ class TPSplit:
     n: int
     index: int
 
-    def enter(self, x: torch.Tensor) -> torch.Tensor:
+    def enter(self, x: torch.Tensor, purpose: str = "tp_input_grad") -> torch.Tensor:
         """``x`` as the input of column-parallel projections."""
-        return _EnterSplit.apply(x, self.group)
+        return _EnterSplit.apply(x, self.group, purpose)
 
-    def reduce(self, y: torch.Tensor) -> torch.Tensor:
+    def reduce(self, y: torch.Tensor, purpose: str = "tp_output") -> torch.Tensor:
         """A row-parallel projection's partial output, summed."""
-        return _LeaveSplit.apply(y, self.group)
+        return _LeaveSplit.apply(y, self.group, purpose)
 
     def total(self, t: torch.Tensor) -> torch.Tensor:
         """``t``, this rank's part of a sum over the split's columns (a
@@ -398,6 +437,16 @@ def share_value(t: torch.Tensor, n: int) -> torch.Tensor:
     once), its gradient the share's own (each rank backpropagates into its
     own blocks)."""
     return _ShareValue.apply(t, n)
+
+
+def part_value(t: torch.Tensor, n: int) -> torch.Tensor:
+    """A loss share that every rank of a split computes whole and whose
+    gradient flows into tensors summed over the split (a MoE layer's aux
+    loss: into the router, whose gradient is summed over its experts'
+    ranks, and into the layer's input, whose cotangent is too): value and
+    gradient divided by the split's ``n`` ranks, so the sums count it
+    once."""
+    return t / n
 
 
 class _VocabCE(torch.autograd.Function):

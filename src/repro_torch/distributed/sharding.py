@@ -24,7 +24,9 @@ output dimensions a module computes in blocks (:func:`compute_axes`: the
 reference's GSPMD computes each projection on the block its ``heads_act``,
 ``mlp_act`` or ``vocab_act`` names, a mamba block on the heads its
 ``heads_act`` names in training and its cache's heads lie on in
-serving); the model gathers the rest of what a layer needs whole
+serving, a MoE layer on the experts its ``experts_act`` names or, where
+they stay replicated, on each expert's width over ``mlp_act``); the model
+gathers the rest of what a layer needs whole
 (``repro_torch.models.lm``).
 Outside a :func:`use_rules` context :func:`shard_act` is the identity, so
 the model runs unchanged on one device.
@@ -119,11 +121,12 @@ def _fit_axes(ax: MeshAxes, dim_size: int, mesh) -> MeshAxes:
 
 
 # the activation name each parameter's output dimension answers to: the
-# query and KV heads, the FFN's hidden width, the vocabulary (a FAµST
-# head's out-blocks are its vocabulary's), a mamba block's inner width
-# (its heads: fitted to the SSM's head count)
+# query and KV heads, the FFN's hidden width (a MoE expert's: fitted to
+# moe.d_ff), the vocabulary (a FAµST head's out-blocks are its
+# vocabulary's), a mamba block's inner width (its heads: fitted to the
+# SSM's head count), a MoE layer's experts (fitted to their count)
 TP_ACTS = {"heads_flat": "heads_act", "kv_flat": "heads_act", "mlp": "mlp_act", "vocab": "vocab_act",
-           "blocks": "vocab_act", "inner_flat": "heads_act"}
+           "blocks": "vocab_act", "inner_flat": "heads_act", "experts": "experts_act"}
 # in prefill and decode a mamba block's heads lie on these axes, whatever
 # the decode policy's heads_act: the reference's cache_shardings places a
 # MambaCache's heads on _fit_axes("model", n_heads, mesh)
@@ -136,13 +139,14 @@ def compute_axes(logical: str, spec_entry: MeshAxes, act_size: int, policy: Shar
     output dimension on (logical name ``logical``, spec entry
     ``spec_entry``), when the policy's activation name for that dimension
     (:data:`TP_ACTS`), fitted to ``act_size`` as :func:`_fit_axes` fits it
-    (the heads' count, the hidden width, the vocabulary), names the same
-    axes and they share none with ``avoid`` (the fitted ``seq`` and
-    ``batch`` axes: ranks that compute other rows or positions do not
-    cooperate on one).  ``serving`` (prefill and decode): a mamba block's
-    ``inner_flat`` answers to :data:`SSM_SERVE_AXES` instead.  ``()``
-    otherwise, and where those axes hold one rank: the parameter is then
-    gathered whole."""
+    (the heads' count, the hidden width, the vocabulary, the experts'
+    count), names the same axes and they share none with ``avoid`` (the
+    fitted ``seq`` and ``batch`` axes: ranks that compute other rows or
+    positions do not cooperate on one; a MoE layer, which routes whole
+    rows, avoids the ``batch`` axes alone).  ``serving`` (prefill and
+    decode): a mamba block's ``inner_flat`` answers to
+    :data:`SSM_SERVE_AXES` instead.  ``()`` otherwise, and where those
+    axes hold one rank: the parameter is then gathered whole."""
     act = TP_ACTS.get(logical)
     have = axes_tuple(spec_entry)
     if act is None or not have:

@@ -17,7 +17,10 @@ split, on whatever tensors the model holds (real, or fake in a dry run):
   the rows); the port's executor prefills one request at a time, the same
   on every rank, into a fresh one-row cache whose global-attention blocks
   are split by position (:func:`make_sharded_prefill` runs one; a cell of
-  B prompts is B of them).  A decode step gathers the rank's live rows
+  B prompts is B of them).  Both compute in blocks what the decode
+  policy's plan splits (``LM.split_plan(serving=True)``: the MLP's
+  columns, the vocabulary, a mamba block's heads, a MoE layer's experts or
+  their columns).  A decode step gathers the rank's live rows
   from its pool, steps them, scatters them back, and gathers every row's
   token and finite flag over the rows' axes.
 

@@ -18,6 +18,17 @@ cast to ``x``'s dtype before the sum over k.
 
 Supports top-1 (llama4-maverick) and top-k (granite top-8), an optional
 shared expert (llama4) and the Switch load-balancing loss.
+
+On a mesh a rank may compute its block of the layer (a :class:`MoESplit`
+of ``models/lm.py`` ``split_plan``): its experts whole (expert
+parallelism, the reference's ``experts`` on ``experts_act``), or every
+expert's block of hidden columns (where the experts stay replicated and
+their ``mlp`` lies on ``mlp_act``).  Routing stays whole on every rank:
+the router is read whole, so the slots, the weights and every dropped
+token are the unsplit layer's, and no token crosses ranks.  The rank
+returns its partial output (:func:`moe_apply` with ``split``); the caller
+sums it over the split and adds the shared expert once
+(``models/lm.py`` ``Layer``).
 """
 from __future__ import annotations
 
@@ -91,6 +102,22 @@ def route(logits: torch.Tensor, spec: MoESpec) -> Routing:
     return Routing(slot_src[:, :e * c], dest, top_w, aux)
 
 
+@dataclasses.dataclass(frozen=True)
+class MoESplit:
+    """What a rank computes of a MoE layer split over the axes of ``tp``
+    (a :class:`~repro_torch.distributed.layout.TPSplit`): the ``experts``
+    experts from ``expert_lo`` (fewer than all: expert parallel) and, of
+    each, the ``ff`` hidden columns from ``ff_lo`` (fewer than the
+    expert's width: the width split; ``w_up``/``w_gate``'s columns,
+    ``w_down``'s rows)."""
+
+    tp: object
+    experts: int
+    expert_lo: int
+    ff: int
+    ff_lo: int
+
+
 class MoE(nn.Module):
     """``router (d, E)`` in f32; ``w_up``/``w_gate (E, d, ff)`` and
     ``w_down (E, ff, d)`` in the model's dtype; ``shared``, a dense
@@ -118,19 +145,30 @@ class MoE(nn.Module):
             self.shared = MLP(d_model, spec.shared_expert_ff, spec.act, generator=generator, dtype=dtype,
                               device=device)
 
-    def forward(self, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-        """``x (B, S, d)``, B the group dim: ``(y, aux · router_aux_coef)``."""
-        return moe_apply(self, x, self.spec)
+    def forward(self, x: torch.Tensor, split: MoESplit | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+        """``x (B, S, d)``, B the group dim: ``(y, aux · router_aux_coef)``
+        (:func:`moe_apply`)."""
+        return moe_apply(self, x, self.spec, split)
 
 
-def moe_apply(p: MoE, x: torch.Tensor, spec: MoESpec) -> tuple[torch.Tensor, torch.Tensor]:
+def moe_apply(p: MoE, x: torch.Tensor, spec: MoESpec, split: MoESplit | None = None):
+    """``(y, aux · router_aux_coef)`` of ``x (B, S, d)``.  With ``split``
+    the rank's part: the same routing, the rank's experts' slots
+    ``slot_src[:, lo·C:(lo+n)·C]`` through its experts (a ``(token, k)``
+    pair whose slot lies outside them reads the zero pad row), or every
+    slot through its hidden columns (each product with ``w_down`` a
+    partial sum); ``y`` is the rank's partial output without the shared
+    expert, summed over ``k`` in f32 (each term rounded as the unsplit
+    layer rounds it; the caller rounds the sum over the split once)."""
     b, s, d = x.shape
     e, k = spec.n_experts, spec.top_k
     c = capacity_per_group(s, spec)
     r = route(x.float() @ p.router, spec)
+    lo, el = (0, e) if split is None else (split.expert_lo, split.experts)
+    src = r.slot_src if el == e else r.slot_src[:, lo * c:(lo + el) * c]
 
     x_pad = torch.cat([x, x.new_zeros((b, 1, d))], dim=1)  # the pad row
-    xe = torch.take_along_dim(x_pad, r.slot_src[..., None], dim=1).reshape(b, e, c, d)
+    xe = torch.take_along_dim(x_pad, src[..., None], dim=1).reshape(b, el, c, d)
     up = torch.einsum("becd,edf->becf", xe, p.w_up)
     if spec.act in GLU_KINDS:
         h = _act(spec.act, torch.einsum("becd,edf->becf", xe, p.w_gate)) * up
@@ -138,11 +176,19 @@ def moe_apply(p: MoE, x: torch.Tensor, spec: MoESpec) -> tuple[torch.Tensor, tor
         h = _act(spec.act, up)
     ye = torch.einsum("becf,efd->becd", h, p.w_down)  # (B, E, C, d)
 
-    # combine: each (token, k) pair reads its slot (a dropped one the zero pad row)
-    ye_pad = torch.cat([ye.reshape(b, e * c, d), ye.new_zeros((b, 1, d))], dim=1)
-    contrib = torch.take_along_dim(ye_pad, r.dest[..., None], dim=1)  # (B, S·k, d)
+    # combine: each (token, k) pair reads its slot (a dropped one, or one of
+    # another rank's experts, the zero pad row)
+    dest = r.dest
+    if el != e:
+        local = dest - lo * c
+        dest = torch.where((local >= 0) & (local < el * c), local, el * c)
+    ye_pad = torch.cat([ye.reshape(b, el * c, d), ye.new_zeros((b, 1, d))], dim=1)
+    contrib = torch.take_along_dim(ye_pad, dest[..., None], dim=1)  # (B, S·k, d)
     contrib = contrib.reshape(b, s, k, d) * r.weights[..., None].to(x.dtype)
+    aux = r.aux_loss * spec.router_aux_coef
+    if split is not None:
+        return contrib.sum(dim=2, dtype=torch.float32), aux
     y = contrib.sum(dim=2)
     if spec.shared_expert_ff:
         y = y + p.shared(x)
-    return y, r.aux_loss * spec.router_aux_coef
+    return y, aux

@@ -56,7 +56,12 @@ attention its heads, the MLP its hidden columns, a mamba block its
 heads (``heads_act`` fitted to the SSM's heads), the head and a
 vocab-parallel embedding lookup its vocabulary block; the logits stay
 split, and the loss is a vocab-parallel cross entropy
-(``distributed/layout.py``).
+(``distributed/layout.py``).  A MoE layer computes its experts where the
+policy's ``experts_act`` names their axes (else, where the experts stay
+replicated, every expert's block of hidden columns over ``mlp_act``),
+routing whole rows on every rank; its partial output is summed over
+those axes, to the rank's chunk of the positions where they are the
+sequence's (:class:`Layer`).
 
 Serving: :func:`make_caches` gives one cache per layer in a list (the
 layers are unrolled, so there is no repeat axis): a :class:`MambaCache`
@@ -97,7 +102,7 @@ from repro_torch.layers.attention import (Attention, AttnSpec, HeadSplit, KVCach
 from repro_torch.layers.embedding import Embedding, Unembed, unembed_apply
 from repro_torch.layers.mamba2 import Mamba2, MambaCache, SSMSplit, mamba2_apply, mamba_cache_init
 from repro_torch.layers.mlp import MLP
-from repro_torch.layers.moe import MoE
+from repro_torch.layers.moe import MoE, MoESplit
 from repro_torch.layers.norms import apply_norm, norm_params
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
@@ -160,8 +165,9 @@ class Layer(nn.Module):
         SeqSplit`): in train ``x`` is this rank's chunk of the positions;
         in prefill and decode ``cache`` is this rank's block of the
         cache's positions (``layers/attention.py``).  ``split``: the
-        attention's heads and the MLP's hidden columns this rank computes
-        (:func:`split_plan`); its parameters are those blocks."""
+        attention's heads, the MLP's hidden columns and the MoE's experts
+        or columns this rank computes (:func:`split_plan`); its
+        parameters are those blocks."""
         cfg = self.cfg
         chunk = cfg.attn_chunk if chunk is None else chunk
         heads = None if split is None else split.heads
@@ -179,19 +185,42 @@ class Layer(nn.Module):
         x = x + shard_act(y.to(x.dtype), "batch", "seq", None)
         h = apply_norm(cfg.norm, self.norm2, x)
         aux = None
-        if self.kind == "moe" and seq is not None and mode == TRAIN:
-            # routing and its capacity ceil(T·k/E·cf) count the whole row's
-            # T, so the MoE runs on whole rows under any sequence split,
-            # whatever the policy's moe_gather_seq says (llama4's policy
-            # splits the sequence without setting it).  In prefill and
-            # decode ``seq`` splits the cache, not ``h``: its rows are whole
-            y, aux = self.moe(seq.gather(h, 1))
-            y = seq.take(y, 1)
-        elif self.kind == "moe":
-            y, aux = self.moe(h)
+        if self.kind == "moe":
+            # in prefill and decode ``seq`` splits the cache, not ``h``: its rows are whole
+            y, aux = self._moe(h, seq if mode == TRAIN else None, None if split is None else split.moe)
         else:
             y = self.mlp(h, None if split is None else split.mlp)
         return x + shard_act(y.to(x.dtype), "batch", "seq", None), aux, cache
+
+    def _moe(self, h: torch.Tensor, seq, split: MoESplit | None):
+        """The MoE of ``h`` and its aux loss.  Routing and its capacity
+        ``ceil(T·k/E·cf)`` count the whole row's T, so under a sequence
+        split (``seq``: ``h`` is the rank's chunk of the positions) the
+        rows are gathered whole, whatever the policy's ``moe_gather_seq``
+        says (llama4's policy splits the sequence without setting it).
+        ``split``: the rank computes its experts or columns, and the
+        partial output is summed over the split's axes: under a sequence
+        split they are the sequence's (:func:`split_plan`), so by one
+        reduce-scatter to the rank's chunk (the shared expert then runs on
+        the rank's own positions), else over whole rows, the input
+        entering the split as a column-parallel projection's; the shared
+        expert is added once, after the sum."""
+        if seq is not None and split is None:
+            y, aux = self.moe(seq.gather(h, 1))
+            return seq.take(y, 1), aux
+        if split is None:
+            return self.moe(h)
+        if seq is not None:
+            y, aux = self.moe(seq.gather(h, 1), split)
+            return self._shared(seq.scatter(y, 1, h.dtype), h), aux
+        y, aux = self.moe(split.tp.enter(h, "moe_input_grad"), split)
+        return self._shared(split.tp.reduce(y, "moe_combine"), h), aux
+
+    def _shared(self, y: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
+        """A split MoE's summed output ``y`` (f32 for a narrower float),
+        rounded once, plus the shared expert of ``h``."""
+        y = y.to(h.dtype)
+        return y + self.moe.shared(h) if self.cfg.moe.shared_expert_ff else y
 
 
 class SSMLayer(nn.Module):
@@ -521,7 +550,12 @@ class LM(nn.Module):
         each share's gradient is its own (every rank backpropagates into
         its own blocks) and its value is divided over the split
         (:func:`~repro_torch.distributed.layout.share_value`), so the sum
-        over the mesh is still the loss."""
+        over the mesh is still the loss.  Where a MoE layer splits over
+        axes ``A`` (:attr:`SplitPlan.moe`), every rank of ``A`` computes
+        the aux loss whole from the same logits, and its gradient flows
+        into the router and the layer's input, both summed over ``A``:
+        value and gradient are divided over ``A``
+        (:func:`~repro_torch.distributed.layout.part_value`)."""
         rules = sharding._current()
         if rules is None or rules.mesh is not self.mesh:
             raise RuntimeError("a sharded model trains inside use_rules(mesh, policy) of its own mesh")
@@ -562,9 +596,15 @@ class LM(nn.Module):
             nll = layout.vocab_cross_entropy(lg, labels)
         count = b * (s - 1) * cfg.n_codebooks
         ce = torch.sum(nll) / count / (mesh.size // (n_rows * n_seq * n_tp))
-        aux = aux * (bl / b) / (mesh.size // (n_rows * n_tp))
+        moe = None if plan is None else plan.moe
+        if moe is not None:
+            aux = layout.part_value(aux * (bl / b) / (mesh.size // (n_rows * moe.n)), moe.n)
+        else:
+            aux = aux * (bl / b) / (mesh.size // (n_rows * n_tp))
         if tp is not None:
-            ce, aux = layout.share_value(ce, n_tp), layout.share_value(aux, n_tp)
+            ce = layout.share_value(ce, n_tp)
+            if moe is None:
+                aux = layout.share_value(aux, n_tp)
         loss = ce + aux
         return loss, {"loss": loss, "ce": ce, "aux": aux}
 
@@ -573,24 +613,29 @@ class LM(nn.Module):
 class LayerSplit:
     """What a layer computes in blocks: its attention's heads (a
     :class:`~repro_torch.layers.attention.HeadSplit`), its MLP's hidden
-    columns (a :class:`~repro_torch.distributed.layout.TPSplit`) and its
-    mamba block's heads (an :class:`~repro_torch.layers.mamba2.SSMSplit`),
-    each None where whole."""
+    columns (a :class:`~repro_torch.distributed.layout.TPSplit`), its
+    mamba block's heads (an :class:`~repro_torch.layers.mamba2.SSMSplit`)
+    and its MoE's experts or columns (a :class:`~repro_torch.layers.moe.
+    MoESplit`), each None where whole."""
 
     heads: HeadSplit | None = None
     mlp: object = None
     ssm: SSMSplit | None = None
+    moe: MoESplit | None = None
 
 
 @dataclasses.dataclass(frozen=True)
 class SplitPlan:
     """What a rank computes in blocks under one policy (:func:`split_plan`):
-    the split ``tp`` over the axes ``T`` of every split module; ``keep``,
+    the split ``tp`` over the axes ``T`` of every split module (None where
+    only MoE layers split, over the sequence's axes: their own
+    :class:`~repro_torch.layers.moe.MoESplit` holds that split); ``keep``,
     each kept parameter's axes (its block of columns or rows, never
     gathered over them); ``partial``, the parameters whole on the rank
     that a split module reads in part (the query and key norms, the KV
-    projections gathered for GQA's group map, a FAµST head's λ: their
-    gradient is summed over ``T``); ``layers``, each layer's
+    projections gathered for GQA's group map, a FAµST head's λ, a split
+    MoE's router: their gradient is summed over ``T``); ``layers``, each
+    layer's
     :class:`LayerSplit` by state dict prefix; whether the head computes its
     vocabulary block (``head``, from ``vocab_start``) and the embedding
     lookup under autograd is vocab-parallel (``embed``).  Every other
@@ -607,13 +652,20 @@ class SplitPlan:
 
     def whole(self, name: str) -> tuple:
         """The axes over which ``name``'s gradient is whole on every rank."""
-        return () if name in self.partial or name in self.keep else self.tp.axes
+        return () if self.tp is None or name in self.partial or name in self.keep else self.tp.axes
 
     @property
     def ssm(self) -> SSMSplit | None:
         """The heads every split mamba block of the plan computes (its
         :class:`MambaCache`'s), None where they compute whole."""
         return next((s.ssm for s in self.layers.values() if s.ssm is not None), None)
+
+    @property
+    def moe(self):
+        """The split (a :class:`~repro_torch.distributed.layout.TPSplit`)
+        every split MoE layer of the plan computes over, None where they
+        compute whole."""
+        return next((s.moe.tp for s in self.layers.values() if s.moe is not None), None)
 
 
 def split_plan(cfg: ArchConfig, blocks: dict, mesh, policy, avoid, serving: bool = False) -> SplitPlan | None:
@@ -629,7 +681,18 @@ def split_plan(cfg: ArchConfig, blocks: dict, mesh, policy, avoid, serving: bool
       else are gathered whole and the rank computes the KV head its query
       heads share (``A``'s ranks must not straddle a GQA group);
     * a dense MLP (``w_up``'s ``mlp``): ``w_up``/``w_gate``'s columns,
-      ``w_down``'s rows; a FAµST MLP and a MoE layer stay whole;
+      ``w_down``'s rows; a FAµST MLP stays whole;
+    * a MoE layer (``w_up``'s ``experts``, fitted to their count, avoiding
+      only the batch axes: it routes whole rows): the rank's experts,
+      ``w_up``/``w_gate``/``w_down`` kept; else, where the experts stay
+      replicated, ``w_up``'s ``mlp`` (fitted to ``moe.d_ff``): every
+      expert's columns of ``w_up``/``w_gate``, rows of ``w_down``; the
+      router read whole and in part either way (its gradient summed over
+      ``A``).  Under a sequence split (``avoid`` less the batch axes)
+      ``A`` must be the sequence's axes; the MoE's split is then its own
+      (:attr:`SplitPlan.moe`), and no other module may split: ``tp`` stays
+      None, since every other parameter's gradient is the rank's
+      positions' and is summed over ``A``;
     * a mamba block (``out_proj``'s rows, ``inner_flat``, fitted to the
       SSM's heads; ``serving``: to the axes a ``MambaCache``'s heads lie
       on, :data:`~repro_torch.distributed.sharding.SSM_SERVE_AXES`): the
@@ -645,6 +708,8 @@ def split_plan(cfg: ArchConfig, blocks: dict, mesh, policy, avoid, serving: bool
     must split into whole blocks, or it raises.  None where nothing splits."""
     axes = param_axes(cfg)
     v = cfg.vocab
+    rows = batch_axes(policy, mesh)
+    seq_axes = tuple(a for a in avoid if a not in rows)
 
     def ax(name, dim, size):
         if name not in blocks:
@@ -705,6 +770,32 @@ def split_plan(cfg: ArchConfig, blocks: dict, mesh, policy, avoid, serving: bool
         partial.update(p + "mamba." + k for k in ("in_proj", "conv_w", "conv_b", "a_log", "d_skip", "dt_bias"))
         per_layer[p] = (None, None, (hl, rep))
         found.append(a)
+    moe = {}
+    for p in (f"layers.{i}." for i, kind in enumerate(kinds) if kind == "moe"):
+        m = cfg.moe
+        names = [p + "moe.w_up"] + ([p + "moe.w_gate"] if p + "moe.w_gate" in blocks else [])
+        a = sharding.compute_axes("experts", blocks[p + "moe.w_up"].spec[0], m.n_experts, policy, mesh,
+                                  tuple(x for x in avoid if x in rows), serving)
+        ep = bool(a)
+        if ep:
+            if any(entry(n_, 0) != a for n_ in names + [p + "moe.w_down"]):
+                raise ValueError(f"{cfg.name}: {p}moe's weights do not all split their experts over {a}")
+        else:
+            a = sharding.compute_axes("mlp", blocks[p + "moe.w_up"].spec[2], m.d_ff, policy, mesh,
+                                      tuple(x for x in avoid if x in rows), serving)
+            if not a:
+                continue
+            if any(entry(n_, 2) != a for n_ in names) or entry(p + "moe.w_down", 1) != a:
+                raise ValueError(f"{cfg.name}: {p}moe's experts do not all split their width over {a}")
+        keep.update(dict.fromkeys(names + [p + "moe.w_down"], a))
+        partial.add(p + "moe.router")
+        moe[p] = (a, ep)
+    on_seq = bool(moe and seq_axes)
+    if on_seq and {a for a, _ in moe.values()} != {seq_axes}:
+        raise ValueError(f"{cfg.name}: MoE layers split over {sorted({a for a, _ in moe.values()})}, the sequence "
+                         f"over {seq_axes}")
+    if not on_seq:
+        found += [a for a, _ in moe.values()]
     head = ()
     if cfg.n_codebooks == 1 and not cfg.tie_embeddings:
         if "unembed.w" in blocks:
@@ -731,11 +822,14 @@ def split_plan(cfg: ArchConfig, blocks: dict, mesh, policy, avoid, serving: bool
     if cfg.tie_embeddings and cfg.n_codebooks == 1:
         head = embed
     found += [x for x in (head, embed) if x]
-    if not found:
+    if on_seq and found:
+        raise ValueError(f"{cfg.name}: MoE layers split over the sequence's axes {seq_axes}, other modules over "
+                         f"{sorted(set(found))}")
+    if not found and not moe:
         return None
-    if len(set(found)) != 1:
+    if len(set(found)) > 1:
         raise ValueError(f"{cfg.name}: the modules split over different axes {sorted(set(found))}")
-    tp = layout.tp_split(mesh, found[0])
+    tp = layout.tp_split(mesh, found[0]) if found else None
     layers = {}
     for p, (heads, mlp, ssm) in per_layer.items():
         hs = ss = None
@@ -747,7 +841,14 @@ def split_plan(cfg: ArchConfig, blocks: dict, mesh, policy, avoid, serving: bool
             hl, rep = ssm
             ss = SSMSplit(tp, hl, tp.index * hl, max(hl // rep, 1), tp.index * hl // rep)
         layers[p] = LayerSplit(hs, tp if mlp is not None else None, ss)
-    return SplitPlan(tp, keep, frozenset(partial), layers, bool(head), bool(embed), tp.index * (v // tp.n))
+    for p, (a, ep) in moe.items():
+        mt = tp if tp is not None else layout.tp_split(mesh, a)
+        e, ff = cfg.moe.n_experts, cfg.moe.d_ff
+        split = (MoESplit(mt, e // mt.n, mt.index * (e // mt.n), ff, 0) if ep else
+                 MoESplit(mt, e, 0, ff // mt.n, mt.index * (ff // mt.n)))
+        layers[p] = dataclasses.replace(layers.get(p, LayerSplit()), moe=split)
+    return SplitPlan(tp, keep, frozenset(partial), layers, bool(head), bool(embed),
+                     0 if tp is None else tp.index * (v // tp.n))
 
 
 def batch_axes(policy, mesh) -> tuple[str, ...]:

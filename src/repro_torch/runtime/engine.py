@@ -471,9 +471,11 @@ class LMExecutor:
       model axis only, its batch being the rank's rows already;
     * where the decode policy computes modules in blocks
       (:meth:`LM.split_plan` with ``serving``: the MLP's hidden columns and
-      the vocabulary under ``DECODE_POLICY``, and a mamba block's heads over
-      the axes the reference places a ``MambaCache``'s heads on), each rank
-      keeps those blocks; the logits of a split vocabulary stay split, and
+      the vocabulary under ``DECODE_POLICY``, a mamba block's heads over
+      the axes the reference places a ``MambaCache``'s heads on, and a MoE
+      layer's experts or each expert's columns over ``experts_act`` or
+      ``mlp_act``, its rows routed whole on every rank), each rank keeps
+      those blocks; the logits of a split vocabulary stay split, and
       every step's logits come back as :class:`RowLogits`, which picks the
       greedy token over the split;
     * every global-attention cache (:data:`lm.SPLIT_KV_KINDS`) keeps only

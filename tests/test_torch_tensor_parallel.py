@@ -75,20 +75,23 @@ _COLUMNS = (("attn.wq", 1, "heads_act", "n_heads"), ("mlp.w_up", 1, "mlp_act", "
 _ROWS = {"attn.wo": "attn.wq", "mlp.w_down": "mlp.w_up"}
 
 
-def _want_keep(cfg, jcfg, specs: dict, jmesh, policy, avoid, serving: bool = False) -> dict:
+def _want_keep(cfg, jcfg, specs: dict, jmesh, policy, avoid, serving: bool = False, rows=()) -> dict:
     """The parameters computed in blocks, from the reference's specs and
     ``_fit_axes``: each named output dimension whose spec entry is the
     activation's fitted axes (none of ``avoid``), its row partner with it;
     ``wk``/``wv`` where their entry is the query heads' too; a mamba
     block's ``out_proj`` rows and ``norm_w`` where their entry is its
     heads' (``heads_act`` in training, ``"model"`` in serving: the
-    reference's ``cache_shardings``); the head's and a 2-D table's
-    vocabulary."""
+    reference's ``cache_shardings``); a MoE layer's three expert weights
+    where ``w_up``'s ``experts`` entry is ``experts_act``'s axes fitted to
+    the experts' count, else where its ``mlp`` entry is ``mlp_act``'s
+    fitted to ``moe.d_ff`` (avoiding only ``rows``, the batch axes: it
+    routes whole rows); the head's and a 2-D table's vocabulary."""
 
     def fit(act, size):
         return shd.axes_tuple(jshd._fit_axes(getattr(policy, act) if act else "model", size, jmesh))
 
-    def axes_of(name, dim, act, size):
+    def axes_of(name, dim, act, size, avoid=avoid):
         have = shd.axes_tuple(specs[name][dim] if dim < len(specs[name]) else None)
         if not have or have != fit(act, size) or set(have) & set(avoid):
             return ()
@@ -113,6 +116,18 @@ def _want_keep(cfg, jcfg, specs: dict, jmesh, policy, avoid, serving: bool = Fal
                 if axes_of(name, 1, "heads_act", cfg.n_kv_heads) == keep[p + "attn.wq"]:
                     keep[name] = keep[p + "attn.wq"]
     for i, kind in enumerate(kinds):
+        p = f"layers.{i}."
+        if kind == "moe":
+            names = [p + "moe.w_up"] + ([p + "moe.w_gate"] if p + "moe.w_gate" in specs else [])
+            a = axes_of(p + "moe.w_up", 0, "experts_act", cfg.moe.n_experts, rows)
+            if a:
+                assert all(shd.axes_tuple(specs[n][0]) == a for n in names + [p + "moe.w_down"])
+            else:
+                a = axes_of(p + "moe.w_up", 2, "mlp_act", cfg.moe.d_ff, rows)
+                assert not a or all(shd.axes_tuple(specs[n][2]) == a for n in names)
+                assert not a or shd.axes_tuple(specs[p + "moe.w_down"][1]) == a
+            if a and any(jmesh.shape[x] > 1 for x in a):
+                keep.update(dict.fromkeys(names + [p + "moe.w_down"], a))
         if kind == "ssm":
             a = axes_of(f"layers.{i}.mamba.out_proj", 0, None if serving else "heads_act", cfg.ssm.n_heads)
             if a and any(jmesh.shape[x] > 1 for x in a):
@@ -135,8 +150,10 @@ def test_split_decision_matches_reference_specs(arch, which, mesh):
     """``split_plan`` at full width under the config's training or decode
     policy: the kept parameters and their axes as the reference's specs
     give them; under ``CP_POLICY`` and the granite and llama4 policies
-    nothing splits in training, and the decode policies split no
-    attention heads (a mamba block's heads split in serving too)."""
+    only the MoE layers split in training (over the sequence's axes, a
+    split of their own), and the decode policies split no attention heads
+    (a mamba block's heads and a MoE layer's experts or columns split in
+    serving too)."""
     shape, names = MESHES[mesh]
     jcfg, axes, abstract = _ref_tree(arch)
     jmesh = JAbstractMesh(shape, names)
@@ -149,10 +166,11 @@ def test_split_decision_matches_reference_specs(arch, which, mesh):
     blocks = shd.tree_named_sharding(shd.resolve_param_pspecs(param_axes(cfg), param_shapes(cfg), amesh, cfg.policy),
                                      param_shapes(cfg), amesh)
     plan = lm.split_plan(cfg, blocks, amesh, policy, batch + seq, serving=which == "decode")
-    want = _want_keep(cfg, jcfg, specs, jmesh, policy, batch + seq, serving=which == "decode")
+    want = _want_keep(cfg, jcfg, specs, jmesh, policy, batch + seq, serving=which == "decode", rows=batch)
     assert (plan.keep if plan is not None else {}) == want
     if which == "train" and policy.seq is not None:
-        assert plan is None
+        assert plan is None or (plan.tp is None and all(".moe." in k for k in plan.keep)
+                                and all(s == lm.LayerSplit(moe=s.moe) for s in plan.layers.values()))
     if which == "decode":
         assert plan is None or all(s.heads is None for s in plan.layers.values())
 
